@@ -1,0 +1,36 @@
+"""
+Likelihood functions on tensors (port of ``beat_tpu/distributions.py``).
+
+The noise hyperparameter ``h`` scales a dataset covariance by exp(2h):
+
+    logp = -0.5 * ( slog_pdet + M*(2h + log 2π) + exp(-2h) * ||W r||² )
+
+with ``W`` the inverse lower Cholesky factor of the covariance.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+LOG_2PI = math.log(2.0 * math.pi)
+
+
+def multivariate_normal_chol_batched(residuals, chol_inverses, slog_pdets,
+                                     hyperparams, nsamples) -> torch.Tensor:
+    """Per-dataset Gaussian log-likelihoods.
+
+    residuals (..., D, M); chol_inverses (D, M, M); slog_pdets (D,);
+    hyperparams (..., D); nsamples (D,).  Returns (..., D)."""
+    tmp = torch.einsum("dij,...dj->...di", chol_inverses, residuals)
+    quad = torch.sum(tmp * tmp, dim=-1)
+    norm = nsamples * (2.0 * hyperparams + LOG_2PI)
+    return -0.5 * (slog_pdets + norm + torch.exp(-2.0 * hyperparams) * quad)
+
+
+def uniform_prior_logp(q, lower, upper) -> torch.Tensor:
+    """Flat-box prior: 0 inside the bounds, -inf outside (only finiteness
+    matters for the Metropolis accept)."""
+    inside = torch.all((q >= lower) & (q <= upper), dim=-1)
+    return torch.where(inside, 0.0, -math.inf)

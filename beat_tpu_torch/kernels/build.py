@@ -1,0 +1,103 @@
+"""
+Build the port's CUDA kernels with ``nvcc`` at first use and load them
+with ``ctypes``.
+
+Each kernel source under ``beat_tpu_torch/csrc/`` exposes a plain C
+entry point.  :func:`load` compiles it for ``sm_90a`` into
+``beat_tpu_torch/_build/`` (ignored by git), named by a hash of the
+source and the flags, so an unchanged source is compiled once per
+checkout; then it opens the shared library and declares the argument
+types.  No PyTorch headers are involved (a plain C interface builds in
+seconds).  Nothing here runs at import: the CPU tests import every
+module of the package on machines without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+
+#: C signatures of the entry points, by kernel source name
+SIGNATURES = {
+    "bilgather": {
+        "beat_bilinear_rows_f32": (_I, [_P, _P, _P, _P, _P, _I64, _I, _I, _P]),
+    },
+}
+
+
+@dataclass
+class BuildInfo:
+    """What :func:`load` did for one kernel library."""
+
+    path: Path
+    seconds: float      # nvcc wall-clock; 0.0 when the library was cached
+    cached: bool
+    log: str            # nvcc's output, including ``-Xptxas -v``
+
+
+_loaded: dict = {}  # name -> (ctypes.CDLL, BuildInfo), per process
+
+
+def nvcc_path() -> str:
+    """``nvcc`` from ``CUDA_HOME``, ``/usr/local/cuda`` or ``PATH``."""
+    candidates = [os.path.join(os.environ[k], "bin", "nvcc")
+                  for k in ("CUDA_HOME", "CUDA_PATH") if os.environ.get(k)]
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c):
+            return c
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH): "
+                           "the CUDA kernels are built from source at first use")
+    return found
+
+
+def build(name: str) -> BuildInfo:
+    """Compile ``csrc/<name>.cu`` into ``_build/lib<name>-<hash>.so``
+    unless that file exists already."""
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return BuildInfo(out, 0.0, True, "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {src} (rc {proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+    return BuildInfo(out, seconds, False, log)
+
+
+def load(name: str):
+    """The loaded ``ctypes`` library of kernel ``name`` (built on first
+    use) and its :class:`BuildInfo`."""
+    if name not in _loaded:
+        info = build(name)
+        lib = ctypes.CDLL(str(info.path))
+        for fn, (restype, argtypes) in SIGNATURES[name].items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+        _loaded[name] = (lib, info)
+    return _loaded[name]

@@ -1,0 +1,236 @@
+"""
+Sequential Monte Carlo / transitional MCMC (port of
+``beat_tpu/samplers/smc.py``; Ching & Chen 2007).
+
+The stage transitions — β bisection, importance-weighted proposal
+covariance, systematic resampling, the log-evidence sum — are host
+float64 numpy, copied from the JAX package, with its numpy
+``default_rng(seed)`` for the initial population and the resampling.
+Each stage's lockstep Metropolis run keeps its state on the device and
+is fetched to the host once per stage.  Stage checkpoints go through
+``beat_tpu.backend.SampleStage``, so the JAX package's tools read them.
+"""
+
+from __future__ import annotations
+
+import logging
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import Callable
+
+import numpy as np
+import torch
+
+from beat_tpu.backend import SampleStage
+from beat_tpu.covariance import init_proposal_covariance
+from beat_tpu.utility import ensure_cov_psd
+from beat_tpu_torch.device import DTYPE, resolve
+from beat_tpu_torch.samplers.metropolis import (MetropolisState, init_metropolis_state,
+                                                run_metropolis_stage)
+
+logger = logging.getLogger("beat_tpu_torch.smc")
+
+
+def calc_beta(beta: float, likelihoods: np.ndarray, coef_variation: float = 1.0):
+    """
+    Bisect the next tempering β so that the coefficient of variation of the
+    importance weights equals ``coef_variation``.
+
+    Returns (new_beta, old_beta, normalised weights).
+    """
+    llks = np.asarray(likelihoods, dtype=np.float64)
+    low_beta = beta
+    up_beta = 2.0
+    current_beta = up_beta
+    temp = np.exp((current_beta - beta) * (llks - llks.max()))
+    while up_beta - low_beta > 1e-6:
+        current_beta = (low_beta + up_beta) / 2.0
+        temp = np.exp((current_beta - beta) * (llks - llks.max()))
+        cov_temp = np.std(temp) / np.mean(temp)
+        if cov_temp > coef_variation:
+            up_beta = current_beta
+        else:
+            low_beta = current_beta
+    weights = temp / np.sum(temp)
+    return current_beta, beta, weights
+
+
+def calc_covariance(population: np.ndarray, weights: np.ndarray) -> np.ndarray:
+    """Importance-weighted proposal covariance with PSD repair."""
+    cov = np.cov(population, aweights=weights.ravel(), bias=False, rowvar=False)
+    cov = ensure_cov_psd(np.atleast_2d(cov))
+    if np.isnan(cov).any() or np.isinf(cov).any():
+        raise ValueError("Sample covariance contains NaN/Inf — check hyper bounds")
+    return cov
+
+
+def systematic_resample(weights: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    """
+    Kitagawa deterministic/systematic resampling: one shared uniform
+    offset, children counts via the inverse CDF.  Returns parent indexes
+    sorted ascending.
+    """
+    n = weights.size
+    u = (np.arange(n) + rng.random()) / n
+    cum = np.cumsum(weights)
+    cum[-1] = 1.0  # guard fp round-off
+    return np.searchsorted(cum, u).astype(np.int64)
+
+
+@dataclass
+class SMCParams:
+    """Sampler configuration (the JAX package's ``SMCParams``)."""
+
+    n_chains: int = 1000
+    n_steps: int = 100
+    coef_variation: float = 1.0
+    tune_interval: int = 25
+    proposal_name: str = "MultivariateNormal"
+    stage: int = 0                  # resume stage ('0' fresh, N continue)
+    buffer_thinning: int = 1
+    rm_flag: bool = False
+    max_stages: int = 100
+    sample_factor_final_stage: int = 1
+    seed: int = 0
+
+
+def smc_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: SMCParams,
+               *, device, homepath: str | None = None, ordering=None,
+               logp_args: tuple = ()):
+    """
+    Run the full SMC sampler.
+
+    logp_fn : batched ``(q (C, dim), *logp_args) -> (C,)`` data
+        log-likelihood on ``device``.
+    lower, upper : flat prior bounds.
+    homepath : stage checkpoint directory (resume supported); None = no IO.
+
+    Returns the final-stage (β = 1) trace ``(q_trace, llk_trace)`` as numpy.
+    """
+    dev = resolve(device)
+    lower64 = np.asarray(lower, dtype=np.float64)
+    upper64 = np.asarray(upper, dtype=np.float64)
+    dim = lower64.size
+    lo = torch.as_tensor(lower64, dtype=DTYPE, device=dev)
+    hi = torch.as_tensor(upper64, dtype=DTYPE, device=dev)
+    rng = np.random.default_rng(params.seed)
+    gen = torch.Generator(device=dev).manual_seed(params.seed)
+    handler = SampleStage(homepath, ordering=ordering) if homepath else None
+
+    # ---- resume ----
+    stage = params.stage
+    beta = 0.0
+    cov = init_proposal_covariance(lower64, upper64)
+    population = likelihoods = None
+    log_evidence = 0.0
+    if handler is not None and stage == 0 and params.rm_flag:
+        handler.rm_all()
+    if handler is not None and stage != 0:
+        top = handler.highest_sampled_stage()
+        if top == -1:
+            logger.info("Found complete final stage — nothing to do")
+            tr = handler.load_trace(-1)
+            return tr.q_trace, tr.llk_trace
+        if top >= 0:
+            st = handler.load_state(top)
+            beta = float(st["beta"])
+            cov = np.asarray(st["cov"])
+            population = np.asarray(st["population"])
+            likelihoods = np.asarray(st["likelihoods"])
+            log_evidence = float(st.get("log_evidence", 0.0))
+            stage = top + 1
+            logger.info("Resuming from stage %i at beta=%.5f", top, beta)
+        else:
+            stage = 0
+
+    if params.n_chains < 2:
+        raise ValueError("SMC needs n_chains >= 2 (population-based sampler); "
+                         f"got {params.n_chains}")
+
+    if population is None:
+        population = rng.uniform(lower64, upper64, size=(params.n_chains, dim))
+        state0 = init_metropolis_state(
+            logp_fn, torch.as_tensor(population, dtype=DTYPE, device=dev),
+            logp_args=logp_args)
+        likelihoods = state0.llk.double().cpu().numpy()
+        if not np.isfinite(likelihoods).all():
+            raise ValueError("NaN/Inf in initial likelihood evaluation — "
+                             "invalid model or start outside prior bounds")
+        if handler is not None:
+            handler.save_stage(0, {"q": population[None], "llk": likelihoods[None]},
+                               {"beta": 0.0, "cov": cov, "population": population,
+                                "likelihoods": likelihoods, "stage": 0})
+        stage = max(stage, 1)
+
+    # stage checkpoints are written by one background thread, in order,
+    # overlapping the compressed npz writes with the next stage's device
+    # work (as the JAX package does); every write is joined before return
+    saver = ThreadPoolExecutor(max_workers=1, thread_name_prefix="smc_stage_saver")
+    saves = []
+    acceptance = []
+    try:
+        while beta < 1.0 and stage < params.max_stages:
+            new_beta, old_beta, weights = calc_beta(beta, likelihoods, params.coef_variation)
+            final_stage = new_beta >= 1.0
+            if final_stage:
+                new_beta = 1.0
+                weights_final = np.exp((1.0 - old_beta) * (likelihoods - likelihoods.max()))
+                weights = weights_final / weights_final.sum()
+            # evidence increment log S_j from the PRE-resampling population
+            d_beta = new_beta - old_beta
+            log_evidence += d_beta * likelihoods.max() + float(np.log(np.mean(
+                np.exp(d_beta * (likelihoods - likelihoods.max())))))
+
+            cov = calc_covariance(population, weights)
+            resampling_idx = systematic_resample(weights, rng)
+            population = population[resampling_idx]
+            likelihoods = likelihoods[resampling_idx]
+
+            n_steps = params.n_steps * (params.sample_factor_final_stage if final_stage else 1)
+            logger.info("Stage %i: beta %.6f -> %.6f, %i steps x %i chains",
+                        stage, old_beta, new_beta, n_steps, params.n_chains)
+
+            n = params.n_chains
+            state = MetropolisState(
+                q=torch.as_tensor(population, dtype=DTYPE, device=dev),
+                llk=torch.as_tensor(likelihoods, dtype=DTYPE, device=dev),
+                scaling=torch.ones(n, dtype=DTYPE, device=dev),
+                accepted=torch.zeros(n, dtype=DTYPE, device=dev),
+                acc_total=torch.zeros(n, dtype=DTYPE, device=dev))
+            cov_chol = torch.as_tensor(np.linalg.cholesky(cov), dtype=DTYPE, device=dev)
+            final, (q_tr, llk_tr) = run_metropolis_stage(
+                logp_fn, state, new_beta, cov_chol, lo, hi, n_steps=n_steps, generator=gen,
+                proposal_name=params.proposal_name, tune_interval=params.tune_interval,
+                record_every=params.buffer_thinning, logp_args=logp_args)
+            # one device->host fetch per stage
+            population = final.q.double().cpu().numpy()
+            likelihoods = final.llk.double().cpu().numpy()
+            acc_rate = float(final.acc_total.mean().item() / n_steps)
+            q_host, llk_host = q_tr.cpu().numpy(), llk_tr.cpu().numpy()
+            acceptance.append(acc_rate)
+            beta = new_beta
+            logger.info("Stage %i done: acceptance %.3f, max llk %.2f, "
+                        "log evidence so far %.3f",
+                        stage, acc_rate, likelihoods.max(), log_evidence)
+
+            if handler is not None:
+                saves.append(saver.submit(
+                    handler.save_stage, -1 if final_stage else stage,
+                    {"q": q_host, "llk": llk_host},
+                    {"beta": beta, "cov": cov, "population": population,
+                     "likelihoods": likelihoods, "stage": stage,
+                     "resampling_indexes": resampling_idx,
+                     "acceptance": np.asarray(acceptance),
+                     "log_evidence": np.float64(log_evidence)}))
+
+            if final_stage:
+                for f in saves:
+                    f.result()
+                return q_host, llk_host
+            stage += 1
+        for f in saves:
+            f.result()
+    finally:
+        saver.shutdown(wait=True)
+    raise RuntimeError(f"SMC did not reach beta=1 within {params.max_stages} stages")
+
