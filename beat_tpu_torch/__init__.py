@@ -4,20 +4,22 @@ beat_tpu_torch — the PyTorch/CUDA port of ``beat_tpu`` for NVIDIA Hopper.
 The JAX package ``beat_tpu`` stays the reference; this package mirrors
 its module layout (``ops/``, ``heart/``, ``models/``, ``samplers/``) so
 each port module's counterpart is easy to find.  It imports ``torch``
-and never ``jax``.  Host-only helpers that import numpy and scipy alone
-are shared with the JAX package (``beat_tpu.parameter``,
-``beat_tpu.utility``, ``beat_tpu.defaults``, ``beat_tpu.covariance``,
-``beat_tpu.backend``), which keeps the flat parameter ordering and the
-stage files identical by construction.
+and never ``jax``, nor anything of ``beat_tpu``: the numpy/scipy host
+modules it needs are copies of the JAX package's, trimmed to what the
+port calls (``parameter``, ``utility``, ``defaults``, ``covariance``,
+``backend``), and the stage files they write are the JAX package's
+format, so either package reads the other's runs.
 
 Device policy: every entry point takes an explicit ``device``; nothing
 picks a device on its own and nothing falls back from CUDA to the CPU
 (:mod:`beat_tpu_torch.device`).
 
-Covered today (slice 1): the geometry-mode FullMT point moment-tensor
-inversion with SMC — GF table gather (kernel K1,
-``csrc/bilgather.cu``), synthesis, whitened Gaussian likelihood, the
-lockstep Metropolis stage and the SMC host loop.
+Covered today: the geometry-mode FullMT point moment-tensor inversion —
+GF table gather (kernel K1, ``csrc/bilgather.cu``) and its gradient
+(kernel K2, the same source), synthesis, whitened Gaussian likelihood,
+the lockstep random-walk Metropolis, MALA and HMC stages, the SMC host
+loop, the single-stage Metropolis sampler, and MAP + Laplace
+(:mod:`beat_tpu_torch.optimize`).
 """
 
 from beat_tpu_torch import device  # noqa: F401  (TF32 off at import)

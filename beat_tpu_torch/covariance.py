@@ -1,0 +1,138 @@
+"""
+Dataset noise covariances and the seed proposal covariance (copied from
+``beat_tpu/covariance.py``, trimmed to what the port calls).
+
+Host numpy, float64: the products the likelihood consumes on the device
+are each dataset's inverse-Cholesky weight matrix and log-determinant.
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass
+
+import numpy as np
+import scipy.linalg
+
+from beat_tpu_torch.utility import ensure_cov_psd, running_window_rms
+
+logger = logging.getLogger("beat_tpu_torch.covariance")
+
+
+def log_determinant(A: np.ndarray) -> float:
+    """Log determinant via Cholesky."""
+    chol = scipy.linalg.cholesky(A, lower=True)
+    return 2.0 * np.sum(np.log(np.diag(chol)))
+
+
+def chol_inverse(C: np.ndarray) -> np.ndarray:
+    """Inverse of the lower Cholesky factor of ``C`` — the weight matrix
+    ``W`` with ``W C Wᵀ = I`` — with a PSD repair when ``C`` is not
+    positive definite."""
+    C = np.asarray(C, dtype=np.float64)
+    try:
+        L = scipy.linalg.cholesky(C, lower=True)
+    except scipy.linalg.LinAlgError:
+        logger.warning("Covariance not positive definite — QR/PSD-repair fallback")
+        C = ensure_cov_psd(C)
+        L = scipy.linalg.cholesky(C, lower=True)
+    W = scipy.linalg.solve_triangular(L, np.eye(C.shape[0]), lower=True)
+    if np.isnan(W).any() or np.isinf(W).any():
+        raise ValueError("chol_inverse contains NaN/Inf")
+    return W
+
+
+@dataclass
+class Covariance:
+    """Dataset noise covariance split into data / prediction parts;
+    ``total = data + pred_g + pred_v``."""
+
+    data: np.ndarray | None = None
+    pred_g: np.ndarray | None = None
+    pred_v: np.ndarray | None = None
+
+    @property
+    def p_total(self) -> np.ndarray:
+        parts = [p for p in (self.data, self.pred_g, self.pred_v) if p is not None]
+        if not parts:
+            raise ValueError("Covariance has no parts set")
+        total = np.zeros_like(parts[0])
+        for p in parts:
+            total = total + p
+        return total
+
+    @property
+    def chol_inverse(self) -> np.ndarray:
+        return chol_inverse(self.p_total)
+
+    @property
+    def log_pdet(self) -> float:
+        return log_determinant(ensure_cov_psd(self.p_total))
+
+
+def exponential_data_covariance(n: int, dt: float, tzero: float) -> np.ndarray:
+    """C_ij = exp(-|i-j|·dt/tzero)."""
+    idx = np.arange(n)
+    return np.exp(-np.abs(idx[:, None] - idx[None, :]) * dt / tzero)
+
+
+def autocovariance(data: np.ndarray) -> np.ndarray:
+    """Biased sample autocovariance of a 1-d series."""
+    n = data.size
+    centered = data - data.mean()
+    return np.correlate(centered, centered, mode="full")[n - 1:] / n
+
+
+def non_toeplitz_covariance(data: np.ndarray, window_size: int) -> np.ndarray:
+    """Non-stationary covariance (Dettmer et al. 2007): the Toeplitz
+    autocovariance of the RMS-normalised series, scaled by the outer
+    product of the running-window RMS."""
+    data = np.asarray(data, dtype=np.float64)
+    stds = running_window_rms(data, window_size=window_size, mode="same")
+    toep = scipy.linalg.toeplitz(autocovariance(data / stds))
+    return toep * np.outer(stds, stds)
+
+
+@dataclass
+class SeismicNoiseAnalyser:
+    """Data covariance of waveform datasets.
+
+    structure: 'variance' (pre-arrival window variance × identity),
+    'exponential', 'import', 'non-toeplitz'."""
+
+    structure: str = "variance"
+    pre_arrival_time: float = 5.0
+
+    def get_data_covariance(self, ydata: np.ndarray, dt: float,
+                            arrival_index: int | None = None,
+                            residual: np.ndarray | None = None,
+                            noise: np.ndarray | None = None) -> np.ndarray:
+        """Covariance over the samples of ``ydata`` (the fit window).
+        ``noise``: the pre-arrival segment setting the variance level;
+        without it the first ``arrival_index``/``pre_arrival_time``
+        samples of ``ydata`` are used."""
+        n = ydata.size
+        if noise is None:
+            cut = (arrival_index if arrival_index is not None
+                   else max(2, int(self.pre_arrival_time / dt)))
+            noise = ydata[:cut]
+        var = float(np.var(noise)) if noise.size > 1 else float(np.var(ydata))
+        var = max(var, 1e-30)
+        if self.structure == "variance":
+            return np.eye(n) * var
+        elif self.structure == "exponential":
+            return exponential_data_covariance(n, dt, tzero=max(dt * 4, 0.5)) * var
+        elif self.structure == "non-toeplitz":
+            res = residual if residual is not None else ydata
+            return non_toeplitz_covariance(res, window_size=max(4, res.size // 5))
+        elif self.structure == "import":
+            return np.eye(n)
+        raise ValueError(f"Unknown noise structure {self.structure}")
+
+
+def init_proposal_covariance(priors_lower: np.ndarray, priors_upper: np.ndarray,
+                             scale: float = 1.0) -> np.ndarray:
+    """Diagonal seed proposal covariance from prior widths."""
+    widths = (priors_upper - priors_lower) / scale
+    widths = np.where(widths <= 0, 1e-12, widths)
+    return np.diag((widths / 6.0) ** 2)

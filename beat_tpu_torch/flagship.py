@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from beat_tpu.parameter import Parameter, PriorSet
+from beat_tpu_torch.parameter import Parameter, PriorSet
 from beat_tpu_torch.device import resolve
 from beat_tpu_torch.heart.gftable import build_homogeneous_table
 from beat_tpu_torch.heart.seismic import SeismicDataset, WaveformMapping

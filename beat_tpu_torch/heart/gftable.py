@@ -72,7 +72,10 @@ class GreensTable(nn.Module):
     Buffers: ``spectra``, the K1 gather layout ``packed`` (built once,
     here), the inverse-rFFT basis ``ic``/``is_`` and ``freqs``.
     ``rows_fn`` is the row gather the forward calls — K1's wrapper
-    :func:`~beat_tpu_torch.ops.bilgather.bilinear_rows`.
+    :func:`~beat_tpu_torch.ops.bilgather.bilinear_rows`, differentiable
+    in the bilinear weights through K2 (and K1 again for second
+    derivatives).  It may be swapped for the plain version, as the
+    parity checks do.
     """
 
     def __init__(self, spectra, distances, depths, dt: float, nt: int, t0: float = 0.0,
@@ -142,7 +145,8 @@ class GreensTable(nn.Module):
                        comp_idx: torch.Tensor) -> torch.Tensor:
         """
         Bilinear (distance, depth) interpolation of each target's own
-        channel block, through K1.
+        channel block, through K1; differentiable in ``distance`` and
+        ``depth`` through the weights.
 
         distance (..., T); depth (...) — one depth per chain, broadcast
         over its targets; comp_idx (T,) channel (0 Z / 1 R / 2 T).

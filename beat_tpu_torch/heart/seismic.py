@@ -20,7 +20,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from beat_tpu.covariance import Covariance, SeismicNoiseAnalyser
+from beat_tpu_torch.covariance import Covariance, SeismicNoiseAnalyser
 from beat_tpu_torch.heart.gftable import GreensTable, component_index
 from beat_tpu_torch.heart.taper import ArrivalTaper, Filter
 

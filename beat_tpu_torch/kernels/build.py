@@ -36,6 +36,7 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SIGNATURES = {
     "bilgather": {
         "beat_bilinear_rows_f32": (_I, [_P, _P, _P, _P, _P, _I64, _I, _I, _P]),
+        "beat_corner_dot_f32": (_I, [_P, _P, _P, _P, _P, _I64, _I, _I, _P]),
     },
 }
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 from torch import nn
 
-from beat_tpu.parameter import Parameter
+from beat_tpu_torch.parameter import Parameter
 
 
 class Composite(nn.Module):

@@ -1,6 +1,7 @@
 """
 Problem: priors and composites assembled into one batched
-log-likelihood, and the SMC run over it (port of
+log-likelihood, and the sampler run over it — SMC or single-stage
+Metropolis, each with the random walk, MALA or HMC (port of
 ``beat_tpu/models/problem.py``).
 """
 
@@ -9,8 +10,10 @@ from __future__ import annotations
 import logging
 import os
 
-from beat_tpu.parameter import PriorSet
+from beat_tpu_torch.parameter import PriorSet
+from beat_tpu_torch.backend import SampleStage
 from beat_tpu_torch.device import resolve
+from beat_tpu_torch.samplers.metropolis import MetropolisParams, metropolis_sample
 from beat_tpu_torch.samplers.smc import SMCParams, smc_sample
 
 logger = logging.getLogger("beat_tpu_torch.models.problem")
@@ -64,16 +67,24 @@ class Problem:
         return logp, self.logp_data()
 
     def sample(self, params=None):
-        """Run the configured sampler (SMC); returns the final-stage
-        ``(q_trace, llk_trace)``."""
+        """Run the configured sampler: ``SMCParams`` → SMC,
+        ``MetropolisParams`` → single-stage Metropolis saved as the final
+        stage.  Returns the final-stage ``(q_trace, llk_trace)``."""
         params = params or self.sampler_params
-        if not isinstance(params, SMCParams):
+        if not isinstance(params, (SMCParams, MetropolisParams)):
             raise NotImplementedError(
-                f"{type(params).__name__} waits for a later port slice (ROADMAP: "
-                "PT, MALA/HMC/MAP); the port samples with SMCParams")
+                f"{type(params).__name__} waits for a later port slice (ROADMAP: PT); "
+                "the port samples with SMCParams or MetropolisParams")
         lower, upper = self.priors.bounds_arrays()
         logp_fn, data = self.make_logp_fn()
         os.makedirs(self.outfolder, exist_ok=True)
-        return smc_sample(logp_fn, lower, upper, params, device=self.device,
-                          homepath=self.outfolder, ordering=self.ordering,
-                          logp_args=(data,))
+        if isinstance(params, SMCParams):
+            return smc_sample(logp_fn, lower, upper, params, device=self.device,
+                              homepath=self.outfolder, ordering=self.ordering,
+                              logp_args=(data,))
+        return metropolis_sample(
+            logp_fn, lower, upper, device=self.device, n_chains=params.n_chains,
+            n_steps=params.n_steps, burn=params.burn, thin=params.thin,
+            proposal_name=params.proposal_name, tune_interval=params.tune_interval,
+            seed=params.seed, stage_handler=SampleStage(self.outfolder, ordering=self.ordering),
+            logp_args=(data,), n_leapfrog=params.n_leapfrog)

@@ -1,17 +1,32 @@
 """
-Blended bilinear row gather of the GF table — kernel K1 (port of
-``beat_tpu/ops/bilgather.py``).
+Blended bilinear row gather of the GF table and its transpose — kernels
+K1 and K2 (port of ``beat_tpu/ops/bilgather.py``).
 
-``out[i] = Σ_{a,b∈{0,1}} w[i,ab] · tbl[cd[i]+a, z0[i]+b]`` over a table
-laid out ``(3·nd, nz, M)`` with ``M = 6·nf·2``, so the four bilinear
-corners of a query are the 2×2 block ``[cd:cd+2, z0:z0+2]``.
+K1: ``out[i] = Σ_c w4[i,c] · corner_c(i)`` over a table laid out
+``(3·nd, nz, M)`` with ``M = 6·nf·2``, so the four bilinear corners of a
+query, in (00, 01, 10, 11) order, are the 2×2 block
+``[cd:cd+2, z0:z0+2]``.
 
-* :func:`bilinear_rows` is the kernel wrapper: on a CUDA tensor it
-  launches ``csrc/bilgather.cu`` (or raises); on a CPU tensor it runs
-  :func:`bilinear_rows_reference`.  ``bilinear_rows.launches`` counts
-  kernel launches.
-* :func:`bilinear_rows_reference` is the plain PyTorch version, in the
-  same layout and the same arithmetic order.
+K2: ``dw4[i,c] = Σ_j g[i,j] · corner_c(i)[j]``, the vector-Jacobian
+product of K1 with respect to its weights.  The map ``w4 → out`` is
+linear and K2 is its transpose, so K1 and K2 are each other's backward:
+
+* :class:`BilinearRows` runs K1 forward and returns ``CornerDot.apply``
+  (K2) as the weights' gradient;
+* :class:`CornerDot` runs K2 forward and returns ``BilinearRows.apply``
+  (K1, with the cotangent as the weights) as ``g``'s gradient.
+
+Every order of derivative therefore runs through the two kernels (a
+Hessian of the likelihood is K1 and K2 again).  The table is data, never
+differentiated; both functions save only ``tbl``, ``cd`` and ``z0``.
+
+* :func:`bilinear_rows` and :func:`corner_dot` are the kernel wrappers:
+  on CUDA tensors they launch ``csrc/bilgather.cu`` (or raise), on CPU
+  tensors they run the plain versions.  ``.launches`` on each counts its
+  kernel's launches.
+* :func:`bilinear_rows_reference` and :func:`corner_dot_reference` are
+  the plain PyTorch versions; they also take float64 (for
+  ``torch.autograd.gradcheck`` on the CPU), the kernels float32 only.
 * :func:`pack_table` builds the layout once from the
   (6, 3, nd, nz, nf, 2) spectra.  Unlike the TPU layout there is no
   (8, L) tile padding: ``M = 12·nf`` is a multiple of 4, so every row is
@@ -39,22 +54,46 @@ def pack_table(spectra: torch.Tensor) -> torch.Tensor:
     return t.reshape(3 * t.shape[1], t.shape[2], six * nf * two).contiguous()
 
 
+def _corner_row_index(tbl: torch.Tensor, cd: torch.Tensor, z0: torch.Tensor):
+    """Flat row of each query's (00) corner, and the row count per
+    distance node: the corners are ``row, row+1, row+NZ, row+NZ+1``."""
+    CD, NZ, M = tbl.shape
+    return tbl.reshape(CD * NZ, M), cd.long() * NZ + z0.long(), NZ
+
+
 def bilinear_rows_reference(tbl: torch.Tensor, cd: torch.Tensor,
                             z0: torch.Tensor, w4: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch K1: (n, M) blended rows.  Weight order (00, 01, 10,
     11) over (distance, depth) corner offsets (``gftable.py:422-424``)."""
-    CD, NZ, M = tbl.shape
-    flat = tbl.reshape(CD * NZ, M)
-    row = cd.long() * NZ + z0.long()
+    flat, row, NZ = _corner_row_index(tbl, cd, z0)
     return (w4[:, 0, None] * flat[row]
             + w4[:, 1, None] * flat[row + 1]
             + w4[:, 2, None] * flat[row + NZ]
             + w4[:, 3, None] * flat[row + NZ + 1])
 
 
-def _check(tbl, cd, z0, w4) -> None:
-    if tbl.dtype != torch.float32 or tbl.dim() != 3 or not tbl.is_contiguous():
-        raise ValueError(f"table must be a contiguous (CD, NZ, M) float32 tensor, got "
+def corner_rows_reference(tbl: torch.Tensor, cd: torch.Tensor,
+                          z0: torch.Tensor) -> torch.Tensor:
+    """(n, 4, M) unblended corner rows, order (00, 01, 10, 11): what the
+    TPU kernel K2 (``_corner_rows_call``) writes."""
+    flat, row, NZ = _corner_row_index(tbl, cd, z0)
+    return torch.stack([flat[row], flat[row + 1], flat[row + NZ], flat[row + NZ + 1]],
+                       dim=1)
+
+
+def corner_dot_reference(tbl: torch.Tensor, cd: torch.Tensor,
+                         z0: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K2: (n, 4) ``dw4``, in the JAX package's structure —
+    the corner rows, then ``einsum('nj,ncj->nc')`` (``bilgather.py:298-299``)."""
+    return torch.einsum("nj,ncj->nc", g, corner_rows_reference(tbl, cd, z0))
+
+
+def _check(tbl, cd, z0, x, x_name: str, x_cols) -> None:
+    """Shapes, dtypes and devices of a K1 (``x = w4``, 4 columns) or K2
+    (``x = g``, M columns) call."""
+    if tbl.dim() != 3 or not tbl.is_contiguous() or tbl.dtype not in (torch.float32,
+                                                                      torch.float64):
+        raise ValueError(f"table must be a contiguous (CD, NZ, M) float tensor, got "
                          f"{tuple(tbl.shape)} {tbl.dtype}")
     CD, NZ, M = tbl.shape
     if CD < 2 or NZ < 2:
@@ -63,57 +102,137 @@ def _check(tbl, cd, z0, w4) -> None:
     if M % 4:
         raise ValueError(f"row length {M} must be a multiple of 4 (float4 rows)")
     n = cd.shape[0] if cd.dim() == 1 else -1
-    if (cd.dim() != 1 or z0.shape != cd.shape or w4.shape != (n, 4)
-            or cd.dtype.is_floating_point or z0.dtype.is_floating_point
-            or not w4.dtype.is_floating_point):
-        raise ValueError(f"need integer cd, z0 of shape (n,) and float w4 (n, 4); got "
+    if (cd.dim() != 1 or z0.shape != cd.shape or x.shape != (n, x_cols)
+            or cd.dtype.is_floating_point or z0.dtype.is_floating_point):
+        raise ValueError(f"need integer cd, z0 of shape (n,) and {x_name} (n, {x_cols}); got "
                          f"{tuple(cd.shape)} {cd.dtype}, {tuple(z0.shape)} {z0.dtype}, "
-                         f"{tuple(w4.shape)} {w4.dtype}")
-    devs = {t.device for t in (tbl, cd, z0, w4)}
+                         f"{tuple(x.shape)}")
+    if x.dtype != tbl.dtype:
+        raise ValueError(f"{x_name} must share the table's dtype {tbl.dtype}, got {x.dtype}")
+    devs = {t.device for t in (tbl, cd, z0, x)}
     if len(devs) != 1:
         raise ValueError(f"all operands must be on one device, got {devs}")
-
-
-def bilinear_rows(tbl: torch.Tensor, cd: torch.Tensor, z0: torch.Tensor,
-                  w4: torch.Tensor) -> torch.Tensor:
-    """K1: blended bilinear gather on a :func:`pack_table` layout.
-
-    tbl : (CD, NZ, M) float32, contiguous.
-    cd, z0 : (n,) integer lower-corner indices, clamped here to
-        ``cd <= CD-2`` and ``z0 <= NZ-2`` (``bilgather.py:144-147``).
-    w4 : (n, 4) corner weights, order (00, 01, 10, 11).
-
-    Returns (n, M) float32.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel, and any failure raises."""
-    _check(tbl, cd, z0, w4)
-    CD, NZ, M = tbl.shape
-    n = cd.shape[0]
-    cd = cd.clamp(0, CD - 2).to(torch.int32).contiguous()
-    z0 = z0.clamp(0, NZ - 2).to(torch.int32).contiguous()
-    w4 = w4.to(torch.float32).contiguous()
     if tbl.device.type == "cpu":
-        return bilinear_rows_reference(tbl, cd, z0, w4)
+        return
     if tbl.device.type != "cuda":
-        raise ValueError(f"K1 runs on CUDA (or its plain version on the CPU), "
+        raise ValueError(f"K1 and K2 run on CUDA (or their plain versions on the CPU), "
                          f"not on {tbl.device}")
+    if tbl.dtype != torch.float32:
+        raise ValueError(f"the CUDA kernels take float32 tables, got {tbl.dtype}")
     if tbl.data_ptr() % 16:
         raise ValueError("table storage must be 16-byte aligned for float4 rows")
     if n > 2**31 - 1:
         raise ValueError(f"{n} queries exceed one launch grid")
-    out = torch.empty((n, M), dtype=torch.float32, device=tbl.device)
-    if n == 0:
-        return out
+
+
+def _clamped(tbl, cd, z0):
+    """int32 corner indices clamped to ``cd <= CD-2``, ``z0 <= NZ-2``
+    (``bilgather.py:144-147``)."""
+    CD, NZ, _ = tbl.shape
+    return (cd.clamp(0, CD - 2).to(torch.int32).contiguous(),
+            z0.clamp(0, NZ - 2).to(torch.int32).contiguous())
+
+
+def _launch(entry: str, tbl, cd, z0, x, out) -> None:
+    """One launch of a ``csrc/bilgather.cu`` entry on the current stream."""
     from beat_tpu_torch.kernels.build import load
 
     lib, _ = load("bilgather")
+    CD, NZ, M = tbl.shape
     with torch.cuda.device(tbl.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.beat_bilinear_rows_f32(tbl.data_ptr(), cd.data_ptr(), z0.data_ptr(),
-                                        w4.data_ptr(), out.data_ptr(), n, NZ, M, stream)
+        rc = getattr(lib, entry)(tbl.data_ptr(), cd.data_ptr(), z0.data_ptr(),
+                                 x.data_ptr(), out.data_ptr(), cd.shape[0], NZ, M, stream)
     if rc != 0:
-        raise RuntimeError(f"bilinear_rows kernel launch failed: cudaError {rc}")
-    bilinear_rows.launches += 1
+        raise RuntimeError(f"{entry} kernel launch failed: cudaError {rc}")
+
+
+def _k1(tbl, cd, z0, w4) -> torch.Tensor:
+    """K1 on already checked, clamped, contiguous operands."""
+    if tbl.device.type == "cpu":
+        return bilinear_rows_reference(tbl, cd, z0, w4)
+    out = torch.empty((cd.shape[0], tbl.shape[2]), dtype=tbl.dtype, device=tbl.device)
+    if cd.shape[0]:
+        _launch("beat_bilinear_rows_f32", tbl, cd, z0, w4, out)
+        bilinear_rows.launches += 1
     return out
 
 
+def _k2(tbl, cd, z0, g) -> torch.Tensor:
+    """K2 on already checked, clamped, contiguous operands."""
+    if tbl.device.type == "cpu":
+        return corner_dot_reference(tbl, cd, z0, g)
+    out = torch.empty((cd.shape[0], 4), dtype=tbl.dtype, device=tbl.device)
+    if g.data_ptr() % 16:        # a view at an odd offset: float4 rows need alignment
+        g = g.clone()
+    if cd.shape[0]:
+        _launch("beat_corner_dot_f32", tbl, cd, z0, g, out)
+        corner_dot.launches += 1
+    return out
+
+
+class BilinearRows(torch.autograd.Function):
+    """K1 with K2 as the weights' gradient."""
+
+    @staticmethod
+    def forward(ctx, tbl, cd, z0, w4):
+        ctx.save_for_backward(tbl, cd, z0)
+        return _k1(tbl, cd, z0, w4.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.needs_input_grad[0]:
+            raise RuntimeError("bilinear_rows does not differentiate the GF table: "
+                               "the table is data (pass it without requires_grad)")
+        tbl, cd, z0 = ctx.saved_tensors
+        dw4 = CornerDot.apply(tbl, cd, z0, g.contiguous()) if ctx.needs_input_grad[3] else None
+        return None, None, None, dw4
+
+
+class CornerDot(torch.autograd.Function):
+    """K2 with K1 as the cotangent's gradient (K2 is linear in ``g``)."""
+
+    @staticmethod
+    def forward(ctx, tbl, cd, z0, g):
+        ctx.save_for_backward(tbl, cd, z0)
+        return _k2(tbl, cd, z0, g.contiguous())
+
+    @staticmethod
+    def backward(ctx, u):
+        if ctx.needs_input_grad[0]:
+            raise RuntimeError("corner_dot does not differentiate the GF table")
+        tbl, cd, z0 = ctx.saved_tensors
+        dg = BilinearRows.apply(tbl, cd, z0, u.contiguous()) if ctx.needs_input_grad[3] else None
+        return None, None, None, dg
+
+
+def bilinear_rows(tbl: torch.Tensor, cd: torch.Tensor, z0: torch.Tensor,
+                  w4: torch.Tensor) -> torch.Tensor:
+    """K1: blended bilinear gather on a :func:`pack_table` layout,
+    differentiable in ``w4`` to every order (through K2 and K1).
+
+    tbl : (CD, NZ, M) float32 (float64 on the CPU), contiguous.
+    cd, z0 : (n,) integer lower-corner indices, clamped here to
+        ``cd <= CD-2`` and ``z0 <= NZ-2``.
+    w4 : (n, 4) corner weights of the table's dtype, order (00, 01, 10, 11).
+
+    Returns (n, M).  CPU tensors take the plain version; CUDA tensors
+    launch the kernel, and any failure raises."""
+    _check(tbl, cd, z0, w4, "w4", 4)
+    cd, z0 = _clamped(tbl, cd, z0)
+    return BilinearRows.apply(tbl, cd, z0, w4)
+
+
+def corner_dot(tbl: torch.Tensor, cd: torch.Tensor, z0: torch.Tensor,
+               g: torch.Tensor) -> torch.Tensor:
+    """K2: ``dw4[i, c] = Σ_j g[i, j] · corner_c(i)[j]``, (n, 4) — the
+    weights' cotangent of :func:`bilinear_rows` for the output cotangent
+    ``g`` (n, M).  Same operands, clamping and device rule as K1;
+    differentiable in ``g`` (through K1)."""
+    _check(tbl, cd, z0, g, "g", tbl.shape[2] if tbl.dim() == 3 else -1)
+    cd, z0 = _clamped(tbl, cd, z0)
+    return CornerDot.apply(tbl, cd, z0, g)
+
+
 bilinear_rows.launches = 0
+corner_dot.launches = 0

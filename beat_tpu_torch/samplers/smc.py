@@ -8,7 +8,8 @@ float64 numpy, copied from the JAX package, with its numpy
 ``default_rng(seed)`` for the initial population and the resampling.
 Each stage's lockstep Metropolis run keeps its state on the device and
 is fetched to the host once per stage.  Stage checkpoints go through
-``beat_tpu.backend.SampleStage``, so the JAX package's tools read them.
+the port's copy of the JAX package's ``SampleStage``, in the same file
+format, so the JAX package's tools read them.
 """
 
 from __future__ import annotations
@@ -21,12 +22,12 @@ from typing import Callable
 import numpy as np
 import torch
 
-from beat_tpu.backend import SampleStage
-from beat_tpu.covariance import init_proposal_covariance
-from beat_tpu.utility import ensure_cov_psd
+from beat_tpu_torch.backend import SampleStage
+from beat_tpu_torch.covariance import init_proposal_covariance
 from beat_tpu_torch.device import DTYPE, resolve
 from beat_tpu_torch.samplers.metropolis import (MetropolisState, init_metropolis_state,
                                                 run_metropolis_stage)
+from beat_tpu_torch.utility import ensure_cov_psd
 
 logger = logging.getLogger("beat_tpu_torch.smc")
 
@@ -86,6 +87,8 @@ class SMCParams:
     coef_variation: float = 1.0
     tune_interval: int = 25
     proposal_name: str = "MultivariateNormal"
+    #: leapfrog steps per transition when proposal_name == "HMC"
+    n_leapfrog: int = 10
     stage: int = 0                  # resume stage ('0' fresh, N continue)
     buffer_thinning: int = 1
     rm_flag: bool = False
@@ -149,9 +152,10 @@ def smc_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: 
 
     if population is None:
         population = rng.uniform(lower64, upper64, size=(params.n_chains, dim))
-        state0 = init_metropolis_state(
-            logp_fn, torch.as_tensor(population, dtype=DTYPE, device=dev),
-            logp_args=logp_args)
+        with torch.no_grad():
+            state0 = init_metropolis_state(
+                logp_fn, torch.as_tensor(population, dtype=DTYPE, device=dev),
+                logp_args=logp_args)
         likelihoods = state0.llk.double().cpu().numpy()
         if not np.isfinite(likelihoods).all():
             raise ValueError("NaN/Inf in initial likelihood evaluation — "
@@ -201,7 +205,8 @@ def smc_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: 
             final, (q_tr, llk_tr) = run_metropolis_stage(
                 logp_fn, state, new_beta, cov_chol, lo, hi, n_steps=n_steps, generator=gen,
                 proposal_name=params.proposal_name, tune_interval=params.tune_interval,
-                record_every=params.buffer_thinning, logp_args=logp_args)
+                record_every=params.buffer_thinning, logp_args=logp_args,
+                n_leapfrog=params.n_leapfrog)
             # one device->host fetch per stage
             population = final.q.double().cpu().numpy()
             likelihoods = final.llk.double().cpu().numpy()

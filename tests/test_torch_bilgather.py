@@ -1,24 +1,34 @@
 """
-Kernel K1 of the port (``beat_tpu_torch/ops/bilgather.py``) on the CPU:
-the wrapper's plain version against the JAX package's Pallas kernel in
-interpret mode and its numpy reference, on the same numpy inputs.  The
-CUDA kernel itself is held against the plain version on the card
+Kernels K1 and K2 of the port (``beat_tpu_torch/ops/bilgather.py``) on
+the CPU: the wrappers' plain versions against the JAX package's Pallas
+kernels in interpret mode, its numpy reference and its custom VJP, on
+the same numpy inputs; and the autograd pair (K1 and K2 as each other's
+backward) under ``gradcheck`` and ``gradgradcheck``.  The CUDA kernels
+themselves are held against the plain versions on the card
 (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
 """
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
-from beat_tpu.ops.bilgather import bilinear_rows_pallas
+from beat_tpu.ops.bilgather import bilinear_rows as jax_bilinear_rows
+from beat_tpu.ops.bilgather import bilinear_rows_pallas, corner_rows_pallas
 from beat_tpu.ops.bilgather import bilinear_rows_reference as jax_reference
 from beat_tpu.ops.bilgather import pack_table as jax_pack_table
-from beat_tpu_torch.ops.bilgather import bilinear_rows, bilinear_rows_reference, pack_table
+from beat_tpu_torch.ops.bilgather import (BilinearRows, CornerDot, bilinear_rows,
+                                          bilinear_rows_reference, corner_dot,
+                                          corner_dot_reference, pack_table)
+import test_torch_common  # noqa: F401  (the tests' thread policy)
 
 # the JAX package's bar for gathered spectra (tests/test_seismic.py:349-350)
 ATOL_REL = 2e-6
+# K2: M products summed in another order than JAX's einsum; per query the
+# bar is rtol plus K2_ATOL · Σ_j |g_ij| · max_c |row_cj|
+K2_RTOL, K2_ATOL = 1e-5, 1e-6
 
 CASES = {
     # n not a multiple of the Pallas kernel's 256-row block
@@ -124,3 +134,86 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
             "float_index": (tbl, cd.float(), cd, w4)}[bad]
     with pytest.raises(ValueError):
         bilinear_rows(*args)
+
+
+def _case_inputs(case, seed=2):
+    """Port table, JAX padded table, queries and a cotangent (n, M) of one
+    K1 case, all from numpy."""
+    c = dict(CASES[case])
+    nd, nz, nf, n = c.pop("nd"), c.pop("nz"), c.pop("nf"), c.pop("n")
+    packed = pack_table(torch.as_tensor(_spectra(nd, nz, nf)))
+    CD, NZ, M = packed.shape
+    comp, d0, z0, w4 = _queries(nd, nz, n, **c)
+    cd = comp * (CD // 3) + d0
+    g = np.random.default_rng(seed).normal(size=(n, M)).astype(np.float32)
+    t4 = jax_pack_table(jnp.asarray(packed.reshape(CD * NZ, M).numpy()), CD, NZ)
+    return packed, t4, cd, z0, w4, g
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_k2_matches_pallas_corner_rows_and_jax_vjp(case):
+    packed, t4, cd, z0, w4, g = _case_inputs(case)
+    n, M = g.shape
+    got = corner_dot(packed, torch.as_tensor(cd), torch.as_tensor(z0),
+                     torch.as_tensor(g)).numpy()
+    rows = np.asarray(corner_rows_pallas(t4, jnp.asarray(cd), jnp.asarray(z0),
+                                         interpret=True))[..., :M]
+    bar = K2_ATOL * np.abs(g).sum(-1) * np.abs(rows).max(axis=(1, 2))
+    # the TPU kernel's corner rows (interpret mode), reduced as _bil_bwd does
+    want = np.einsum("nj,ncj->nc", g, rows)
+    np.testing.assert_array_less(np.abs(got - want), K2_RTOL * np.abs(want) + bar[:, None])
+    # the w4 cotangent of the JAX package's differentiable gather
+    _, vjp = jax.vjp(lambda w: jax_bilinear_rows(t4, jnp.asarray(cd), jnp.asarray(z0), w),
+                     jnp.asarray(w4))
+    g_pad = np.zeros((n, t4.shape[2] * t4.shape[3]), np.float32)
+    g_pad[:, :M] = g
+    (dw4,) = vjp(jnp.asarray(g_pad))
+    np.testing.assert_array_less(np.abs(got - np.asarray(dw4)),
+                                 K2_RTOL * np.abs(np.asarray(dw4)) + bar[:, None])
+
+
+def _f64_case(n=6):
+    """The first ``n`` top-edge queries in float64 (the plain versions
+    take it; the kernels do not)."""
+    packed, _, cd, z0, w4, g = _case_inputs("top_edge")
+    return (packed.double(), torch.as_tensor(cd[:n], dtype=torch.int32),
+            torch.as_tensor(z0[:n], dtype=torch.int32),
+            torch.as_tensor(w4[:n], dtype=torch.float64).requires_grad_(),
+            torch.as_tensor(g[:n], dtype=torch.float64).requires_grad_())
+
+
+@pytest.mark.parametrize("check", [torch.autograd.gradcheck, torch.autograd.gradgradcheck])
+@pytest.mark.parametrize("fn", ["BilinearRows", "CornerDot"])
+def test_autograd_pair_gradcheck(fn, check):
+    """float64 finite differences of each function's backward and double
+    backward, which run through the other function (the plain versions
+    inside on the CPU)."""
+    tbl, cd, z0, w4, g = _f64_case()
+    if fn == "BilinearRows":
+        assert check(lambda w: BilinearRows.apply(tbl, cd, z0, w), (w4,))
+    else:
+        assert check(lambda x: CornerDot.apply(tbl, cd, z0, x), (g,))
+
+
+def test_hessian_runs_through_the_pair_and_table_is_data():
+    tbl, cd, z0, w4, _ = _f64_case()
+    w = w4.detach().reshape(-1)
+
+    def f(rows_fn):
+        return lambda x: torch.sum(torch.tanh(rows_fn(tbl, cd, z0, x.reshape(-1, 4))))
+
+    torch.testing.assert_close(torch.autograd.functional.hessian(f(bilinear_rows), w),
+                               torch.autograd.functional.hessian(f(bilinear_rows_reference), w))
+    out = bilinear_rows(tbl.clone().requires_grad_(), cd, z0, w4)
+    with pytest.raises(RuntimeError, match="table is data"):
+        out.sum().backward()
+
+
+def test_k2_launch_counter_stays_zero_on_cpu():
+    packed, _, cd, z0, _, g = _case_inputs("ragged")
+    out = corner_dot(packed, torch.as_tensor(cd), torch.as_tensor(z0), torch.as_tensor(g))
+    assert out.shape == (g.shape[0], 4)
+    assert corner_dot.launches == 0
+    torch.testing.assert_close(out, corner_dot_reference(
+        packed, torch.as_tensor(cd).int(), torch.as_tensor(z0).int(), torch.as_tensor(g)),
+        rtol=0, atol=0)

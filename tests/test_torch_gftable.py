@@ -18,6 +18,7 @@ from beat_tpu.ops import cplx as jcplx
 from beat_tpu_torch.heart.gftable import GreensTable, build_homogeneous_table, rotate_m6_to_ray_frame
 from beat_tpu_torch.heart.taper import stf_spectrum_pair
 from beat_tpu_torch.ops import cplx
+import test_torch_common  # noqa: F401  (the tests' thread policy)
 
 GRID = dict(distances=np.linspace(10e3, 215e3, 11), depths=np.linspace(1e3, 29e3, 5),
             nt=128, dt=0.5)

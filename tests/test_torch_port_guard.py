@@ -1,6 +1,8 @@
 """
-Guards of the port's boundaries: ``beat_tpu_torch`` never imports JAX,
-and ``chip_smoke.py`` fails without a GPU instead of running on the CPU.
+Guards of the port's boundaries: ``beat_tpu_torch`` imports neither JAX
+nor anything of the JAX package ``beat_tpu``, its stage files and the
+JAX package's read each other, and ``chip_smoke.py`` fails without a GPU
+instead of running on the CPU.
 """
 
 import os
@@ -11,7 +13,15 @@ import sys
 from pathlib import Path
 
 import jax  # noqa: F401  (the suite's JAX side; the guards run in subprocesses)
+import numpy as np
+import pytest
 import torch  # noqa: F401
+
+import beat_tpu.backend
+import beat_tpu.utility
+import beat_tpu_torch.backend
+import beat_tpu_torch.utility
+from test_torch_common import THREADS
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -23,6 +33,8 @@ problem = build_flagship(**TEST_SIZE, seed=1, device="cpu", outfolder=sys.argv[1
 q_tr, llk_tr = problem.sample(SMCParams(n_chains=16, n_steps=2, seed=0))
 assert q_tr.shape[1:] == (16, len(problem.ordering.names)), q_tr.shape
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+jax_package = sorted(m for m in sys.modules if m == "beat_tpu" or m.startswith("beat_tpu."))
+assert not jax_package, jax_package
 print("OK")
 """
 
@@ -31,6 +43,7 @@ def _env(**extra):
     env = {k: v for k, v in os.environ.items() if k != "BEAT_TPU_PLATFORM"}
     env["PYTHONPATH"] = str(REPO)
     env["CUDA_VISIBLE_DEVICES"] = ""      # no card, even on a machine that has one
+    env["OMP_NUM_THREADS"] = str(THREADS)  # the tests' thread policy
     env.update(extra)
     return env
 
@@ -43,12 +56,55 @@ def test_tiny_slice_runs_without_importing_jax(tmp_path):
     assert proc.stdout.strip().endswith("OK")
 
 
+PORT_FILES = sorted((REPO / "beat_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _importers(pattern: str) -> list:
+    regex = re.compile(pattern, re.MULTILINE)
+    assert len(PORT_FILES) > 10
+    return [str(f.relative_to(REPO)) for f in PORT_FILES if regex.search(f.read_text())]
+
+
 def test_no_port_file_imports_jax():
-    pattern = re.compile(r"^\s*(import jax|from jax)\b", re.MULTILINE)
-    files = sorted((REPO / "beat_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 10
-    offenders = [str(f.relative_to(REPO)) for f in files if pattern.search(f.read_text())]
-    assert offenders == []
+    assert _importers(r"^\s*(import jax|from jax)\b") == []
+
+
+def test_no_port_file_imports_the_jax_package():
+    # "beat_tpu" must end there: beat_tpu_torch itself is allowed
+    pattern = r"^\s*(import beat_tpu|from beat_tpu)(\.|\s|,|$)"
+    assert _importers(pattern) == []
+    assert re.search(pattern, "from beat_tpu_torch.ops import x\nimport beat_tpu_torch",
+                     re.MULTILINE) is None
+    assert re.search(pattern, "x = 1\n    from beat_tpu.backend import SampleStage",
+                     re.MULTILINE) is not None
+
+
+@pytest.mark.parametrize("writer,reader", [(beat_tpu_torch.backend, beat_tpu.backend),
+                                           (beat_tpu.backend, beat_tpu_torch.backend)],
+                         ids=["port_writes", "jax_writes"])
+def test_stage_files_cross_read(tmp_path, writer, reader):
+    rng = np.random.default_rng(0)
+    names = [("x", (3,)), ("depth", ())]
+    q = rng.normal(size=(5, 7, 4)).astype(np.float32)
+    llk = rng.normal(size=(5, 7)).astype(np.float32)
+    state = {"beta": 0.25, "stage": 3, "cov": rng.normal(size=(4, 4)),
+             "population": rng.normal(size=(7, 4)), "log_evidence": np.float64(-12.5)}
+    w_order = (beat_tpu_torch.utility if writer is beat_tpu_torch.backend
+               else beat_tpu.utility).Ordering(names)
+    r_order = (beat_tpu_torch.utility if reader is beat_tpu_torch.backend
+               else beat_tpu.utility).Ordering(names)
+    writer.SampleStage(str(tmp_path), ordering=w_order).save_stage(3, {"q": q, "llk": llk},
+                                                                    state)
+    handler = reader.SampleStage(str(tmp_path), ordering=r_order)
+    assert handler.highest_sampled_stage() == 3
+    trace = handler.load_trace(3)
+    np.testing.assert_array_equal(trace.q_trace, q)
+    np.testing.assert_array_equal(trace.llk_trace, llk)
+    assert trace.varnames == ["x", "depth"]
+    got = handler.load_state(3)
+    assert got["beta"] == 0.25 and got["stage"] == 3 and got["log_evidence"] == -12.5
+    np.testing.assert_array_equal(got["cov"], state["cov"])
+    np.testing.assert_array_equal(got["population"], state["population"])
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):
@@ -68,3 +124,33 @@ def test_chip_smoke_alone_fails(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+@pytest.mark.parametrize("structure", ["variance", "exponential", "non-toeplitz", "import"])
+def test_host_module_copies_compute_what_the_originals_do(structure):
+    """The port's copies of the numpy host modules give the JAX package's
+    numbers exactly: noise covariances, weights, log-determinants, the
+    seed proposal covariance, PSD repair and the prior layout."""
+    import beat_tpu.covariance as jcov
+    import beat_tpu.parameter as jpar
+    import beat_tpu_torch.covariance as pcov
+    import beat_tpu_torch.parameter as ppar
+
+    rng = np.random.default_rng(4)
+    y, noise = rng.normal(size=40), rng.normal(size=12)
+    want = jcov.SeismicNoiseAnalyser(structure).get_data_covariance(y, 0.5, noise=noise)
+    got = pcov.SeismicNoiseAnalyser(structure).get_data_covariance(y, 0.5, noise=noise)
+    np.testing.assert_array_equal(got, want)
+    jc, pc = jcov.Covariance(data=want), pcov.Covariance(data=got)
+    np.testing.assert_array_equal(pc.chol_inverse, jc.chol_inverse)
+    assert pc.log_pdet == jc.log_pdet
+    lo, hi = np.array([0.0, -1.0, 2.0]), np.array([1.0, 1.0, 2.0])
+    np.testing.assert_array_equal(pcov.init_proposal_covariance(lo, hi),
+                                  jcov.init_proposal_covariance(lo, hi))
+    bad = rng.normal(size=(5, 5))
+    np.testing.assert_array_equal(beat_tpu_torch.utility.ensure_cov_psd(bad),
+                                  beat_tpu.utility.ensure_cov_psd(bad))
+    for name in ("mnn", "depth", "h_any_P_0"):
+        p, j = ppar.Parameter.from_defaults(name, 2), jpar.Parameter.from_defaults(name, 2)
+        np.testing.assert_array_equal(p.lower, j.lower)
+        np.testing.assert_array_equal(p.upper, j.upper)

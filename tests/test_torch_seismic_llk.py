@@ -23,6 +23,7 @@ from beat_tpu.sources import MTSource as JaxMTSource
 from beat_tpu_torch import flagship
 from beat_tpu_torch.convert import greens_table_from_numpy, wavemap_data_from_numpy
 from beat_tpu_torch.sources import sdr_to_m6
+import test_torch_common  # noqa: F401  (the tests' thread policy)
 
 N_CHAINS = 16
 # per-chain llk bar of the JAX package's own float32 checks
