@@ -10,7 +10,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from beat_tpu_torch.ffi.fault import FaultGeometry, SubfaultGrid
+from beat_tpu_torch.ffi.gflibrary import SeismicGFLibrary
 from beat_tpu_torch.heart.gftable import GreensTable
+from beat_tpu_torch.sources import RectangularSource
 
 
 def greens_table_from_numpy(spectra, distances, depths, dt, nt, t0=0.0, vp=6000.0,
@@ -48,3 +51,26 @@ def wavemap_data_from_numpy(dev: dict, *, device, table: GreensTable | None = No
                                       device=device)
     out["table"] = table if table is not None else _table_from(dev["table"], device)
     return out
+
+
+def seismic_gflibrary_from_numpy(data, duration_min, duration_sampling, starttime_min,
+                                 starttime_sampling, component="uparr",
+                                 reference_times=None, *, device) -> SeismicGFLibrary:
+    """A port :class:`SeismicGFLibrary` from the JAX library's 5-D array
+    and grid metadata."""
+    return SeismicGFLibrary(np.array(data, dtype=np.float32), duration_min,
+                            duration_sampling, starttime_min, starttime_sampling,
+                            component=component, reference_times=reference_times,
+                            device=device)
+
+
+def fault_geometry_from_numpy(subfaults, components=("uparr",)) -> FaultGeometry:
+    """A port :class:`FaultGeometry` from ``(plane, n_strike, n_dip)``
+    per subfault, ``plane`` being the ``to_dict()`` of the JAX package's
+    ``RectangularSource`` (its ``type`` entry is ignored)."""
+    grids = []
+    for plane, n_strike, n_dip in subfaults:
+        src = RectangularSource(**{k: v for k, v in plane.items() if k != "type"})
+        grids.append(SubfaultGrid(plane=src, n_strike=int(n_strike), n_dip=int(n_dip),
+                                  patches=src.patches(int(n_strike), int(n_dip))))
+    return FaultGeometry(subfaults=grids, components=list(components))

@@ -1,5 +1,7 @@
 """
-The hermetic FullMT problem (port of ``__graft_entry__._build_flagship``):
+The port's two hermetic problems.
+
+**The FullMT problem** (port of ``__graft_entry__._build_flagship``):
 a homogeneous GF table, stations on a ring, synthetic waveforms from a
 known double couple (strike 40°, dip 55°, rake 20°, Mw 5.8) at 9 km
 depth plus 2 % noise, and a full moment-tensor + magnitude + depth +
@@ -14,6 +16,19 @@ of the real FullMT table (206 distance × 15 depth nodes over 10–215 km
 and 1–29 km, nt = 1024 at dt = 0.5 s; spectra 228 MB) with the FullMT
 project's 10 stations; the test size keeps every width and shrinks the
 grid and the trace length.
+
+**The kinematic FFI problem** (:func:`build_ffi_flagship`, port of
+``examples/laquila_scale_ffi.py``): a 2 km patch grid on a normal fault
+(strike 135°, dip 50°, rake −90°), stations on a ring, the 5-D GF
+library built from a homogeneous table, observed windows stacked from a
+known heterogeneous slip with on-grid durations and eikonal onsets plus
+2 % noise, and an inversion for slip, duration and rupture velocity per
+patch and the nucleation point, with a Laplacian smoothness prior.
+:data:`FFI_REAL_SIZE` is the example's production scale (12 targets ×
+500 patches × 10 durations × 32 starttimes × 512 samples: a 3.9 GiB
+float32 library, 1504 sampled dimensions); :data:`FFI_TEST_SIZE` keeps
+the grids of durations and starttimes and shrinks the fault, the
+station count and the traces.
 """
 
 from __future__ import annotations
@@ -21,14 +36,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from beat_tpu_torch.parameter import Parameter, PriorSet
-from beat_tpu_torch.device import resolve
+from beat_tpu_torch.covariance import Covariance
+from beat_tpu_torch.device import DTYPE, resolve
+from beat_tpu_torch.ffi import discretize_sources, seis_construct_gf_linear
 from beat_tpu_torch.heart.gftable import build_homogeneous_table
 from beat_tpu_torch.heart.seismic import SeismicDataset, WaveformMapping
 from beat_tpu_torch.heart.taper import ArrivalTaper, Filter
+from beat_tpu_torch.models.distributer import SeismicDistributerComposite
+from beat_tpu_torch.models.laplacian import LaplacianDistributerComposite
 from beat_tpu_torch.models.problem import Problem
 from beat_tpu_torch.models.seismic import SeismicGeometryComposite
-from beat_tpu_torch.sources import MTSource, magnitude_to_moment, sdr_to_m6
+from beat_tpu_torch.parameter import Parameter, PriorSet
+from beat_tpu_torch.sources import MTSource, RectangularSource, magnitude_to_moment, sdr_to_m6
 
 REAL_SIZE = dict(n_stations=10, n_distances=206, n_depths=15, nt=1024)
 TEST_SIZE = dict(n_stations=4, n_distances=11, n_depths=5, nt=128)
@@ -114,3 +133,107 @@ def build_flagship(n_stations: int, n_distances: int, n_depths: int, nt: int,
     comp = SeismicGeometryComposite(
         wavemaps, [MTSource(depth=TRUE_DEPTH, magnitude=TRUE_MAGNITUDE)], device=dev)
     return Problem(flagship_priors(), {"seismic": comp}, device=dev, outfolder=outfolder)
+
+
+# ---------------------------------------------------------------------------
+# The kinematic FFI problem
+# ---------------------------------------------------------------------------
+
+FFI_REAL_SIZE = dict(n_targets=12, n_strike=50, n_dip=10, nt=1024, nwin=512)
+FFI_TEST_SIZE = dict(n_targets=3, n_strike=4, n_dip=2, nt=256, nwin=64)
+
+FFI_DT = 0.25
+FFI_PATCH = 2e3                                  # patch edge [m]
+FFI_PLANE = dict(depth=2e3, strike=135.0, dip=50.0, rake=-90.0)
+FFI_DISTANCES = (20e3, 150e3, 12)                # table grid: start, stop, nodes
+FFI_DEPTHS = (1e3, 25e3, 8)
+FFI_STATION_RANGE = (50e3, 130e3)
+FFI_FILTER = dict(lower_corner=0.02, upper_corner=0.5, order=3)
+FFI_DURATIONS = dict(duration_bounds=(0.5, 5.0), duration_sampling=0.5)
+FFI_STARTTIMES = dict(starttime_bounds=(0.0, 7.75), starttime_sampling=0.25)
+FFI_TRUE_VELOCITY = 3000.0
+FFI_NOISE_LEVEL = 0.02
+
+
+def ffi_taper(nwin: int) -> ArrivalTaper:
+    """The arrival taper spanning exactly ``nwin`` samples at FFI_DT."""
+    return ArrivalTaper(a=-4.0, b=-2.0, c=nwin * FFI_DT - 10.0, d=nwin * FFI_DT - 4.0)
+
+
+def ffi_priors(n_strike: int, n_dip: int) -> PriorSet:
+    """Slip, duration and rupture velocity per patch and the nucleation
+    point (the hyperparameters are added by the Problem)."""
+    n = n_strike * n_dip
+    return (PriorSet()
+            .add(Parameter("uparr", [0.0] * n, [4.0] * n))
+            .add(Parameter("durations", [0.5] * n, [4.0] * n))
+            .add(Parameter("velocities", [2000.0] * n, [4000.0] * n))
+            .add(Parameter("nucleation_strike", [0.0], [n_strike * FFI_PATCH]))
+            .add(Parameter("nucleation_dip", [0.0], [n_dip * FFI_PATCH])))
+
+
+def ffi_true_point(fault, n_strike: int, rng: np.random.Generator) -> dict:
+    """The known rupture (host numpy): slip tapering off along strike,
+    on-grid durations, a uniform rupture velocity, nucleation at 0.3 of
+    the length and 1 km down dip."""
+    n = fault.npatches
+    slips = rng.uniform(0.3, 2.5, n) * np.exp(
+        -((np.arange(n) % n_strike - n_strike / 2) ** 2) / (n_strike / 3) ** 2)
+    return {"uparr": slips,
+            "durations": np.round(rng.uniform(0.5, 3.0, n) * 2) / 2,
+            "velocities": np.full(n, FFI_TRUE_VELOCITY),
+            "nucleation_strike": 0.3 * n_strike * FFI_PATCH,
+            "nucleation_dip": 1e3}
+
+
+def build_ffi_flagship(n_targets: int, n_strike: int, n_dip: int, nt: int, nwin: int,
+                       seed: int = 0, *, device, outfolder: str = "ffi_run",
+                       interpolation: str = "multilinear") -> Problem:
+    """The kinematic FFI Problem at the given size, all tensors on
+    ``device``.  ``problem.true_point`` holds the rupture behind the
+    data (on-grid onsets: the eikonal times rounded to the starttime
+    sampling)."""
+    dev = resolve(device)
+    rng = np.random.default_rng(seed)
+    ref = RectangularSource(length=n_strike * FFI_PATCH, width=n_dip * FFI_PATCH, **FFI_PLANE)
+    fault = discretize_sources([ref], patch_length=FFI_PATCH, patch_width=FFI_PATCH)
+
+    d0, d1, nd = FFI_DISTANCES
+    z0, z1, nz = FFI_DEPTHS
+    table = build_homogeneous_table(np.linspace(d0, d1, nd), np.linspace(z0, z1, nz), nt=nt,
+                                    dt=FFI_DT, device=dev)
+    az = np.linspace(0, 2 * np.pi, n_targets, endpoint=False) + 0.3
+    dist = rng.uniform(*FFI_STATION_RANGE, n_targets)
+    st_e, st_n = dist * np.sin(az), dist * np.cos(az)
+    datasets = [SeismicDataset(station=f"ST{i:02d}", channel="Z", east=st_e[i], north=st_n[i],
+                               ydata=np.zeros(nt)) for i in range(n_targets)]
+    wavemap = WaveformMapping(name="any_P", datasets=datasets, table=table,
+                              taper=ffi_taper(nwin), filterer=Filter(**FFI_FILTER))
+    lib = seis_construct_gf_linear(table, wavemap, fault, component="uparr",
+                                   **FFI_DURATIONS, **FFI_STARTTIMES)
+
+    # observed data from the known rupture, stacked at the nearest cells
+    true = ffi_true_point(fault, n_strike, rng)
+
+    def row(x):
+        return torch.as_tensor(np.atleast_1d(x), dtype=DTYPE, device=dev)[None]
+
+    onsets = fault.point2starttimes(0, row(true["velocities"]), row(true["nucleation_strike"])[0],
+                                    row(true["nucleation_dip"])[0])
+    sampling = FFI_STARTTIMES["starttime_sampling"]
+    onsets = torch.round(onsets / sampling) * sampling
+    synth = lib.stack_all(row(true["durations"]), onsets[:, None, :], row(true["uparr"]),
+                          "nearest_neighbor")[0].cpu().numpy()
+    sd = FFI_NOISE_LEVEL * np.abs(synth).max()
+    wavemap.data_windows = (synth + rng.normal(0, sd, synth.shape)).astype(np.float32)
+    for ds in wavemap.datasets:
+        ds.covariance = Covariance(data=np.eye(wavemap.nsamples_win) * sd**2)
+
+    comp = SeismicDistributerComposite([(wavemap, {"uparr": lib})], fault,
+                                       slip_varnames=("uparr",), interpolation=interpolation,
+                                       device=dev)
+    lap = LaplacianDistributerComposite(fault, slip_varnames=("uparr",), device=dev)
+    problem = Problem(ffi_priors(n_strike, n_dip), {"seismic": comp, "laplacian": lap},
+                      device=dev, outfolder=outfolder)
+    problem.true_point = true
+    return problem

@@ -38,6 +38,13 @@ SIGNATURES = {
         "beat_bilinear_rows_f32": (_I, [_P, _P, _P, _P, _P, _I64, _I, _I, _P]),
         "beat_corner_dot_f32": (_I, [_P, _P, _P, _P, _P, _I64, _I, _I, _P]),
     },
+    "gfstack": {
+        "beat_gf_stack_multilinear_f32": (_I, [_P] * 7 + [_I] * 6 + [_P]),
+        "beat_gf_stack_nearest_f32": (_I, [_P] * 5 + [_I] * 6 + [_P]),
+    },
+    "rowgather": {
+        "beat_gather_rows_f32": (_I, [_P, _P, _P, _I64, _I64, _I, _P]),
+    },
 }
 
 
@@ -89,6 +96,16 @@ def build(name: str) -> BuildInfo:
         raise RuntimeError(f"nvcc failed for {src} (rc {proc.returncode}):\n{log}")
     os.replace(tmp, out)
     return BuildInfo(out, seconds, False, log)
+
+
+def build_all(names) -> dict:
+    """Compile several kernel sources at once, one ``nvcc`` process each,
+    all started together: ``{name: BuildInfo}``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name: str):

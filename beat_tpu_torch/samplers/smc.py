@@ -7,7 +7,9 @@ covariance, systematic resampling, the log-evidence sum — are host
 float64 numpy, copied from the JAX package, with its numpy
 ``default_rng(seed)`` for the initial population and the resampling.
 Each stage's lockstep Metropolis run keeps its state on the device and
-is fetched to the host once per stage.  Stage checkpoints go through
+is fetched to the host once per stage; the resampled population of the
+next stage is gathered on the device from that state (the row gather,
+kernel K5), not uploaded again.  Stage checkpoints go through
 the port's copy of the JAX package's ``SampleStage``, in the same file
 format, so the JAX package's tools read them.
 """
@@ -25,6 +27,7 @@ import torch
 from beat_tpu_torch.backend import SampleStage
 from beat_tpu_torch.covariance import init_proposal_covariance
 from beat_tpu_torch.device import DTYPE, resolve
+from beat_tpu_torch.ops.rowgather import gather_rows
 from beat_tpu_torch.samplers.metropolis import (MetropolisState, init_metropolis_state,
                                                 run_metropolis_stage)
 from beat_tpu_torch.utility import ensure_cov_psd
@@ -150,12 +153,14 @@ def smc_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: 
         raise ValueError("SMC needs n_chains >= 2 (population-based sampler); "
                          f"got {params.n_chains}")
 
+    # the current population on the device, beside its float64 host copy
     if population is None:
         population = rng.uniform(lower64, upper64, size=(params.n_chains, dim))
         with torch.no_grad():
             state0 = init_metropolis_state(
                 logp_fn, torch.as_tensor(population, dtype=DTYPE, device=dev),
                 logp_args=logp_args)
+        q_dev, llk_dev = state0.q, state0.llk
         likelihoods = state0.llk.double().cpu().numpy()
         if not np.isfinite(likelihoods).all():
             raise ValueError("NaN/Inf in initial likelihood evaluation — "
@@ -165,6 +170,9 @@ def smc_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: 
                                {"beta": 0.0, "cov": cov, "population": population,
                                 "likelihoods": likelihoods, "stage": 0})
         stage = max(stage, 1)
+    else:
+        q_dev = torch.as_tensor(population, dtype=DTYPE, device=dev)
+        llk_dev = torch.as_tensor(likelihoods, dtype=DTYPE, device=dev)
 
     # stage checkpoints are written by one background thread, in order,
     # overlapping the compressed npz writes with the next stage's device
@@ -195,9 +203,9 @@ def smc_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: 
                         stage, old_beta, new_beta, n_steps, params.n_chains)
 
             n = params.n_chains
+            idx_dev = torch.as_tensor(resampling_idx, device=dev)
             state = MetropolisState(
-                q=torch.as_tensor(population, dtype=DTYPE, device=dev),
-                llk=torch.as_tensor(likelihoods, dtype=DTYPE, device=dev),
+                q=gather_rows(q_dev, idx_dev), llk=llk_dev[idx_dev],
                 scaling=torch.ones(n, dtype=DTYPE, device=dev),
                 accepted=torch.zeros(n, dtype=DTYPE, device=dev),
                 acc_total=torch.zeros(n, dtype=DTYPE, device=dev))
@@ -208,6 +216,7 @@ def smc_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: 
                 record_every=params.buffer_thinning, logp_args=logp_args,
                 n_leapfrog=params.n_leapfrog)
             # one device->host fetch per stage
+            q_dev, llk_dev = final.q, final.llk
             population = final.q.double().cpu().numpy()
             likelihoods = final.llk.double().cpu().numpy()
             acc_rate = float(final.acc_total.mean().item() / n_steps)

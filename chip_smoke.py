@@ -4,15 +4,19 @@ Smoke run of the PyTorch port (``beat_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Runs the port's main paths — the geometry-mode FullMT moment-tensor
-inversion at real size (206 × 15 × nt 1024 GF table, 10 stations / 30
-targets, 2000 chains) with random-walk SMC, with MALA-SMC, with HMC and
-with MAP + Laplace — in phases that each print one line; any failure
-ends the run non-zero:
+Runs the port's main paths in phases that each print one line; any
+failure ends the run non-zero.  The paths: the geometry-mode FullMT
+moment-tensor inversion at real size (206 × 15 × nt 1024 GF table, 10
+stations / 30 targets, 2000 chains) with random-walk SMC, with MALA-SMC,
+with HMC and with MAP + Laplace; and the kinematic finite-fault
+inversion (FFI) at the scale of ``examples/laquila_scale_ffi.py`` (12
+targets × 500 patches × 10 durations × 32 starttimes × 512 samples: a
+3.9 GiB library on the card, 2000 chains, 1504 dimensions).
 
 1. device: name, count, ``nvidia-smi`` name and power limit;
-2. build: kernels K1 and K2 (``beat_tpu_torch/csrc/bilgather.cu``) from
-   source;
+2. build: every kernel source under ``beat_tpu_torch/csrc/`` (K1 and K2
+   ``bilgather.cu``, K3 and K4 ``gfstack.cu``, K5 ``rowgather.cu``), one
+   ``nvcc`` each, all started together;
 3. [k1] K1 against its plain PyTorch version at the main path's shapes
    (60,000 queries), max |err| <= 1e-6 · max|ref|; its time, the plain
    time, the one-call library time (``embedding_bag``) and its bound;
@@ -37,7 +41,36 @@ ends the run non-zero:
     within 600 m of the depth and 0.15 of Mw, then
     ``laplace_approximation`` with a finite evidence and K1 launched in
     the Hessian;
-11. a JSON line of the kernels, then ``{"ok": true, "device": ...}`` last.
+11. [k5] K5 against its plain version (a copy: equal exactly) at the
+    shape the SMC's resampling gives it (2000 × 1504), on the FullMT
+    table's rows and at a ragged row length; its time, the plain time,
+    ``index_select``'s time and its bound;
+12. [k3], [k4] K3 and K4 against their plain version at the GF-stack
+    bench shape (C=2000, T=8, P=12, D=6, S=16, N=256, the inputs of
+    ``tools/bench_gfstack.py``) and, after [ffi_build], on the real
+    library with durations and starttimes on and beyond the grid; per
+    (chain, target) |err| <= 1e-5 · Σ_p |slip_p| · Σ_corners |w| ·
+    max|data|; time, plain time and bound (no single PyTorch call
+    computes the stack; at the bench shape a dense ``bmm`` over the
+    scattered corner weights is timed as a second yardstick);
+13. [ffi_build] the real-size FFI problem, its library built on the card
+    through K1;
+14. [ffi_llk] the 2000-chain FFI log-likelihood through K3 against the
+    plain stack on 128 chains spread over the batch: |err| <= 2e-5 ·
+    (|llk| + |llk0|), llk0 being the likelihood's residual-free part (the
+    llk is the difference of llk0 and the whitened misfit and passes
+    through 0, so a bar on |llk| alone is ill-posed); its time, the
+    eikonal solve's time and kernel launches within it;
+15. [ffi_smc] ``Problem.sample(SMCParams(n_chains=2000, n_steps=20,
+    max_stages=4, seed=1))`` as the example runs it: the stage cap ends
+    it (the one expected exception); β strictly increasing, finite llks,
+    K3 launched; the cost of the stage files;
+16. [ffi_recover] a small FFI problem (12 targets, 6 × 3 patches) sampled
+    to β = 1 with each interpolation (multilinear: K3; nearest
+    neighbour: K4): the magnitude of the rupture behind the data within
+    0.05, the best sample's variance reduction >= 0.9, and the posterior
+    above a rupture with 2.5 times the slip;
+17. a JSON line of the kernels, then ``{"ok": true, "device": ...}`` last.
 
 Every launch count is read from counters set to 0 just before the path
 it counts.  It needs CUDA and exits non-zero without it; it never falls
@@ -47,6 +80,7 @@ back to the CPU.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -63,6 +97,13 @@ LLK_RTOL = 2e-5         # the JAX package's per-chain llk bar
 GRAD_RTOL = 5e-3        # the JAX package's bar between its gather paths' gradients
 DEPTH_TOL, MAG_TOL = 500.0, 0.05
 MAP_DEPTH_TOL, MAP_MAG_TOL = 600.0, 0.15        # tests/test_optimize.py:115-116
+STACK_RTOL = 1e-5        # K3/K4 vs plain, per (chain, target): see phase 12 above
+K3_BENCH_SHAPE = dict(C=2000, T=8, P=12, D=6, S=16, N=256)     # tools/bench_gfstack.py
+FFI_STEPS, FFI_MAX_STAGES = 20, 4                 # examples/laquila_scale_ffi.py
+FFI_PLAIN_CHAINS = 128           # chains of the [ffi_llk] comparison with the plain stack
+FFI_RECOVER_SIZE = dict(n_targets=12, n_strike=6, n_dip=3, nt=256, nwin=96)
+FFI_RECOVER_STEPS = 20
+FFI_MAG_TOL, FFI_VR_MIN = 0.05, 0.9
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, HBM3
 FP32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
 
@@ -114,6 +155,162 @@ def k1_queries(table, n: int, gen):
     return comp * (table.packed.shape[0] // 3) + d0, z0, w4
 
 
+def device_kernels(fn) -> tuple:
+    """``(launches, ms, {kernel name: ms})`` of the device operations one
+    call of ``fn`` runs, from ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    by_name = {e.key: e.self_device_time_total / 1e3 for e in kernels}
+    return sum(e.count for e in kernels), sum(by_name.values()), by_name
+
+
+def stack_inputs(lib, n_chains: int, duration_range, starttime_range, gen) -> tuple:
+    """Random (durations, starttimes, slips) of a GF-stack call on
+    ``lib``'s device: uniform over the given ranges [s], slips in [0, 3)."""
+    import torch
+
+    dev = lib.data.device
+    T, P = lib.ntargets, lib.npatches
+
+    def uniform(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+
+    return (uniform((n_chains, P), *duration_range), uniform((n_chains, T, P), *starttime_range),
+            uniform((n_chains, P), 0.0, 3.0))
+
+
+def check_stack(lib, durations, starttimes, slips, interpolation: str, iters: int) -> dict:
+    """One GF-stack kernel (K3 for multilinear, K4 for nearest neighbour)
+    against its plain version on the same inputs, its times and its
+    bound.  Raises SystemExit when they disagree."""
+    import torch
+
+    from beat_tpu_torch.ops.gfstack import stack_batched, stack_batched_reference
+
+    data = lib.data
+    T, P, D, S, N = data.shape
+    C = durations.shape[0]
+    didx, rtf = lib.durations2idxs(durations, interpolation)
+    sidx, stf = lib.starttimes2idxs(starttimes, interpolation)
+    multilinear = rtf is not None
+    got = stack_batched(data, didx, sidx, slips, rtf, stf)
+    ref = stack_batched_reference(data, didx, sidx, slips, rtf, stf)
+    torch.cuda.synchronize()
+    # per (chain, target): the float32 sums of P · corners products differ in order
+    wabs = 1.0
+    if multilinear:
+        wabs = (rtf.abs() + (1 - rtf).abs())[:, None, :] * (stf.abs() + (1 - stf).abs())
+    bar = STACK_RTOL * (slips.abs()[:, None, :] * wabs).sum(-1) * data.abs().max()
+    err = (got - ref).abs().amax(-1)
+    out = {"max_abs_err": float(err.max()), "worst_err_over_bar": float((err / bar).max()),
+           "max_ref": float(ref.abs().max())}
+    del got, ref, err, bar, wabs
+    torch.cuda.empty_cache()
+    out["ms"] = cuda_ms(lambda: stack_batched(data, didx, sidx, slips, rtf, stf), iters=iters)
+    out["plain_ms"] = cuda_ms(
+        lambda: stack_batched_reference(data, didx, sidx, slips, rtf, stf), iters=2, warmup=1)
+    # bytes: the library cells these indices touch, the indices and weights, the output
+    touched = torch.zeros(T * P * D * S, dtype=torch.bool, device=data.device)
+    tp = (torch.arange(T, device=data.device)[:, None] * P
+          + torch.arange(P, device=data.device)[None, :])
+    for dd, ss in ((0, 0), (0, 1), (1, 0), (1, 1)) if multilinear else ((0, 0),):
+        touched[((tp * D + (didx.long()[:, None, :] - dd)) * S + (sidx.long() - ss))] = True
+    out["cells_read"] = int(touched.sum())
+    corners = 4 if multilinear else 1
+    per_entry = 8 if multilinear else 4          # sidx (+ stf); didx, slips (+ rtf)
+    n_bytes = (out["cells_read"] * N * 4 + C * T * P * per_entry + C * P * (per_entry + 4)
+               + C * T * N * 4)
+    out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, 2.0 * corners * C * T * P * N)
+    if not out["worst_err_over_bar"] <= 1.0:
+        raise SystemExit(f"the {interpolation} GF stack disagrees with its plain version: "
+                         f"worst err/bar {out['worst_err_over_bar']}")
+    return out
+
+
+def dense_bmm_ms(lib, durations, starttimes, slips) -> tuple:
+    """The multilinear stack as one dense ``torch.bmm`` over the scattered
+    corner weights, (T, C, P·D·S) @ (T, P·D·S, N): a yardstick, not a path
+    of the port.  Returns (ms of the bmm alone, ms with the scatter that
+    builds the weights, max |err| against the plain version)."""
+    import torch
+
+    from beat_tpu_torch.ops.gfstack import stack_batched_reference
+
+    data = lib.data
+    T, P, D, S, N = data.shape
+    C = durations.shape[0]
+    didx, rtf = lib.durations2idxs(durations, "multilinear")
+    sidx, stf = lib.starttimes2idxs(starttimes, "multilinear")
+    d, s, rf = didx.long()[:, None, :], sidx.long(), rtf[:, None, :]
+    p = torch.arange(P, device=data.device)
+    flat = data.reshape(T, P * D * S, N)
+
+    def weights():
+        w = torch.zeros((C, T, P * D * S), dtype=data.dtype, device=data.device)
+        for dd, ss, wc in ((1, 1, rf * stf), (1, 0, rf * (1 - stf)), (0, 1, (1 - rf) * stf),
+                           (0, 0, (1 - rf) * (1 - stf))):
+            w.scatter_add_(2, (p * D + (d - dd)) * S + (s - ss), wc * slips[:, None, :])
+        return w.transpose(0, 1).contiguous()
+
+    w = weights()
+    got = torch.bmm(w, flat).transpose(0, 1)
+    err = float((got - stack_batched_reference(data, didx, sidx, slips, rtf, stf)).abs().max())
+    return (cuda_ms(lambda: torch.bmm(w, flat), iters=20),
+            cuda_ms(lambda: torch.bmm(weights(), flat), iters=20), err)
+
+
+def ffi_recover(interpolation: str, dev, workdir: str, n_chains: int) -> dict:
+    """Sample the small FFI problem to β = 1 and hold the posterior
+    against the rupture behind its data.  Raises SystemExit on a miss."""
+    import numpy as np
+    import torch
+
+    from beat_tpu_torch.backend import SampleStage
+    from beat_tpu_torch.flagship import build_ffi_flagship
+    from beat_tpu_torch.samplers import SMCParams
+
+    problem = build_ffi_flagship(**FFI_RECOVER_SIZE, seed=0, device=dev,
+                                 interpolation=interpolation,
+                                 outfolder=os.path.join(workdir, f"ffi_recover_{interpolation}"))
+    comp = problem.composites["seismic"]
+    t0 = time.perf_counter()
+    q_tr, llk_tr = problem.sample(SMCParams(n_chains=n_chains, n_steps=FFI_RECOVER_STEPS,
+                                            seed=0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    state = SampleStage(problem.outfolder, ordering=problem.ordering).load_state(-1)
+    true = problem.true_point
+    mean = problem.ordering.to_point(q_tr[-1].mean(axis=0))
+    best = problem.ordering.to_point(q_tr[-1][np.argmax(llk_tr[-1])])
+    mag, true_mag = comp.fault.magnitude(mean["uparr"]), comp.fault.magnitude(true["uparr"])
+    vr = comp.get_variance_reductions(best)[comp.wavemaps[0].mapid]
+    logp, data = problem.make_logp_fn()
+    big = dict(true, uparr=np.asarray(true["uparr"]) * 2.5, h_any_P_0=0.0, h_laplacian=0.0)
+    llk_big = float(logp(torch.as_tensor(problem.ordering.to_array(big), dtype=torch.float32,
+                                         device=dev)[None], data))
+    out = dict(interpolation=interpolation, dims=problem.ordering.size, chains=n_chains,
+               steps=FFI_RECOVER_STEPS, wall_s=f"{wall:.2f}", stages=len(state["acceptance"]),
+               beta=float(state["beta"]), magnitude=f"{mag:.4f}", true_magnitude=f"{true_mag:.4f}",
+               variance_reduction_best=f"{vr:.4f}",
+               llk_median=f"{float(np.median(llk_tr[-1])):.1f}", llk_slip_x2_5=f"{llk_big:.1f}")
+    say("ffi_recover", **out)
+    if not (float(state["beta"]) == 1.0 and np.isfinite(llk_tr).all()):
+        raise SystemExit(f"FFI SMC ({interpolation}) did not reach beta = 1 with finite llks")
+    if abs(mag - true_mag) >= FFI_MAG_TOL or vr < FFI_VR_MIN:
+        raise SystemExit(f"FFI posterior ({interpolation}) misses the rupture: Mw {mag} against "
+                         f"{true_mag}, variance reduction {vr}")
+    if not np.median(llk_tr[-1]) > llk_big:
+        raise SystemExit(f"FFI posterior ({interpolation}) no better than 2.5 times the slip")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -127,11 +324,15 @@ def main() -> int:
 
     from beat_tpu_torch.backend import SampleStage
     from beat_tpu_torch.device import DTYPE, require_cuda
-    from beat_tpu_torch.flagship import REAL_SIZE, TRUE_DEPTH, TRUE_MAGNITUDE, build_flagship
-    from beat_tpu_torch.kernels.build import load
+    from beat_tpu_torch.ffi import SeismicGFLibrary
+    from beat_tpu_torch.flagship import (FFI_REAL_SIZE, REAL_SIZE, TRUE_DEPTH, TRUE_MAGNITUDE,
+                                         build_ffi_flagship, build_flagship)
+    from beat_tpu_torch.kernels.build import SIGNATURES, build_all, load
     from beat_tpu_torch.ops.bilgather import (bilinear_rows, bilinear_rows_reference,
                                               corner_dot, corner_dot_reference,
                                               corner_rows_reference)
+    from beat_tpu_torch.ops.gfstack import stack_batched, stack_batched_reference
+    from beat_tpu_torch.ops.rowgather import gather_rows, gather_rows_reference
     from beat_tpu_torch.optimize import laplace_approximation, map_estimate
     from beat_tpu_torch.samplers import (MetropolisState, SMCParams, run_metropolis_stage,
                                          value_and_grad)
@@ -146,13 +347,17 @@ def main() -> int:
         cuda=torch.version.cuda)
     print(smi, flush=True)
 
-    # 2. build K1 and K2 (one source) from the checkout's sources
-    _, info = load("bilgather")
-    say("build", kernel="bilgather", cached=info.cached, seconds=f"{info.seconds:.2f}",
-        path=os.path.relpath(info.path))
-    for line in info.log.splitlines():
-        if "ptxas" in line:
-            print("  " + line.strip(), flush=True)
+    # 2. build every kernel from the checkout's sources, one nvcc each, together
+    t0 = time.perf_counter()
+    infos = build_all(SIGNATURES)
+    build_s = time.perf_counter() - t0
+    for kernel, info in infos.items():
+        load(kernel)
+        say("build", kernel=kernel, cached=info.cached, seconds=f"{info.seconds:.2f}",
+            all_seconds=f"{build_s:.2f}", path=os.path.relpath(info.path))
+        for line in info.log.splitlines():
+            if "ptxas" in line and ("registers" in line or "warning" in line):
+                print("  " + line.strip(), flush=True)
 
     # the real-size problem (its data synthesis already runs K1)
     t0 = time.perf_counter()
@@ -311,31 +516,33 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 7. the slice-1 main path: random-walk SMC at 2000 chains
-    bilinear_rows.launches = corner_dot.launches = 0
+    bilinear_rows.launches = corner_dot.launches = gather_rows.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     q_tr, llk_tr = problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=N_STEPS, seed=0))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = bilinear_rows.launches
+    k5_launches = {"smc": gather_rows.launches}
     state = SampleStage(problem.outfolder, ordering=problem.ordering).load_state(-1)
     est = problem.ordering.to_point(q_tr[-1].mean(axis=0))
     depth, mag = float(np.asarray(est["depth"])), float(np.asarray(est["magnitude"]))
     say("smc", chains=N_CHAINS, steps=N_STEPS, wall_s=f"{wall:.2f}",
         stages=len(state["acceptance"]), beta=float(state["beta"]), k1_launches=launches,
+        k5_launches=k5_launches["smc"],
         peak_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
         depth_m=f"{depth:.1f}", magnitude=f"{mag:.4f}",
         acceptance_final=f"{state['acceptance'][-1]:.3f}")
     if not (float(state["beta"]) == 1.0 and np.isfinite(llk_tr).all()):
         raise SystemExit("SMC did not reach beta = 1 with finite llks")
-    if launches == 0:
-        raise SystemExit("the SMC run never launched K1")
+    if launches == 0 or k5_launches["smc"] == 0:
+        raise SystemExit("the SMC run never launched K1 (or K5, its resampling gather)")
     if abs(depth - TRUE_DEPTH) >= DEPTH_TOL or abs(mag - TRUE_MAGNITUDE) >= MAG_TOL:
         raise SystemExit(f"posterior misses the truth: depth {depth}, Mw {mag}")
 
     # 8. the slice-2 main path: MALA-SMC at 2000 chains
     problem.outfolder = os.path.join(workdir.name, "mala_smc")
-    bilinear_rows.launches = corner_dot.launches = 0
+    bilinear_rows.launches = corner_dot.launches = gather_rows.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     q_tr, llk_tr = problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=N_STEPS, seed=0,
@@ -343,6 +550,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     mala_launches = (bilinear_rows.launches, corner_dot.launches)
+    k5_launches["mala_smc"] = gather_rows.launches
     state = SampleStage(problem.outfolder, ordering=problem.ordering).load_state(-1)
     est = problem.ordering.to_point(q_tr[-1].mean(axis=0))
     depth, mag = float(np.asarray(est["depth"])), float(np.asarray(est["magnitude"]))
@@ -414,7 +622,6 @@ def main() -> int:
         laplace_minus_smc=f"{lap['log_evidence'] - smc_log_z:.3f}",
         k1_launches=map_launches[0], k2_launches=map_launches[1],
         hessian_k1_launches=lap_launches[0], hessian_k2_launches=lap_launches[1])
-    workdir.cleanup()
     if abs(depth - TRUE_DEPTH) >= MAP_DEPTH_TOL or abs(mag - TRUE_MAGNITUDE) >= MAP_MAG_TOL:
         raise SystemExit(f"MAP misses the truth: depth {depth}, Mw {mag}")
     if not np.isfinite(lap["log_evidence"]):
@@ -422,8 +629,225 @@ def main() -> int:
     if lap_launches[0] == 0:
         raise SystemExit("the Laplace Hessian never launched K1")
 
-    # 11. results: launches from each kernel's main path (SMC for K1,
-    # MALA-SMC for K2), with every path's count beside them
+
+    # 11. K5 against its plain version (a copy: equal exactly) at the shape
+    # the SMC gives it (the FFI population, resampling indices ascending), on
+    # the FullMT table's rows (float4 path) and at a ragged row length
+    # (scalar path); index_select is the library call
+    def check_k5(tbl2, idx, iters):
+        got, ref = gather_rows(tbl2, idx), gather_rows_reference(tbl2, idx)
+        clipped = idx.clamp(0, tbl2.shape[0] - 1)
+        r = {"equal": torch.equal(got, ref),
+             "library_equal": torch.equal(torch.index_select(tbl2, 0, clipped), ref),
+             "ms": cuda_ms(lambda: gather_rows(tbl2, idx), iters=iters),
+             "plain_ms": cuda_ms(lambda: gather_rows_reference(tbl2, idx), iters=iters),
+             "library_ms": cuda_ms(lambda: torch.index_select(tbl2, 0, clipped), iters=iters),
+             "rows_read": int(torch.unique(clipped).numel())}
+        n, m = idx.shape[0], tbl2.shape[1]
+        r["bound_ms"], r["bound_by"] = bound_ms(r["rows_read"] * m * 4 + n * 4 + n * m * 4, 0.0)
+        return r
+
+    ffi_dims = 3 * FFI_REAL_SIZE["n_strike"] * FFI_REAL_SIZE["n_dip"] + 4
+    population = torch.randn((N_CHAINS, ffi_dims), generator=gen, device=dev)
+    parents = torch.sort(torch.randint(0, N_CHAINS, (N_CHAINS,), generator=gen,
+                                       device=dev)).values
+    flat = tbl.reshape(CD * NZ, M)
+    idx = torch.randint(-2, CD * NZ + 2, (n_queries,), generator=gen, device=dev)
+    ragged = flat[:97, :333].contiguous()
+    k5 = {"smc": check_k5(population, parents, 50), "table": check_k5(flat, idx, 20),
+          "ragged": check_k5(ragged, idx[:41], 50)}
+    for shape, r in k5.items():
+        say("k5", shape=shape, equal=r["equal"], ms=f"{r['ms']:.4f}",
+            plain_ms=f"{r['plain_ms']:.4f}", library_ms=f"{r['library_ms']:.4f}",
+            library_equal=r["library_equal"], table_rows_read=r["rows_read"],
+            bound_ms=f"{r['bound_ms']:.5f}", bound_by=r["bound_by"],
+            share_of_bound=f"{r['bound_ms'] / r['ms']:.3f}")
+    if not all(r["equal"] and r["library_equal"] for r in k5.values()):
+        raise SystemExit("K5 (or its library yardstick) is not the plain row gather")
+    del flat, idx, ragged, population, parents
+
+    # the FullMT problem is done: free its table before the FFI library
+    del problem, comp, table, tbl, logp, data, lap, q_map, state, cov_chol, lo, hi
+    torch.cuda.empty_cache()
+
+    # 12a. K3 and K4 at the GF-stack bench shape, the bench's inputs
+    b = K3_BENCH_SHAPE
+    bench_lib = SeismicGFLibrary(
+        torch.randn((b["T"], b["P"], b["D"], b["S"], b["N"]), generator=gen, device=dev),
+        duration_min=0.5, duration_sampling=0.5, starttime_min=0.0, starttime_sampling=0.25,
+        device=dev)
+    bench_in = stack_inputs(bench_lib, b["C"], (0.5, 2.0), (0.0, 2.0), gen)
+    bench = {}
+    for key, interpolation in (("k3", "multilinear"), ("k4", "nearest_neighbor")):
+        bench[key] = r = check_stack(bench_lib, *bench_in, interpolation, iters=50)
+        extra = {}
+        if key == "k3":
+            bmm_ms, bmm_scatter_ms, bmm_err = dense_bmm_ms(bench_lib, *bench_in)
+            extra = dict(dense_bmm_ms=f"{bmm_ms:.4f}",
+                         dense_bmm_with_scatter_ms=f"{bmm_scatter_ms:.4f}",
+                         dense_bmm_max_abs_err=f"{bmm_err:.3e}")
+        say(key, shape="bench", **b, max_abs_err=f"{r['max_abs_err']:.3e}",
+            max_ref=f"{r['max_ref']:.3e}", worst_err_over_bar=f"{r['worst_err_over_bar']:.3e}",
+            ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}", library_ms="none",
+            cells_read=r["cells_read"], bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"],
+            share_of_bound=f"{r['bound_ms'] / r['ms']:.3f}", **extra)
+    del bench_lib, bench_in
+    torch.cuda.empty_cache()
+
+    # 13. the real-size FFI problem: its library is built on the card, through K1
+    bilinear_rows.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    problem = build_ffi_flagship(**FFI_REAL_SIZE, seed=0, device=dev,
+                                 outfolder=os.path.join(workdir.name, "ffi_smc"))
+    torch.cuda.synchronize()
+    ffi_build_s = time.perf_counter() - t0
+    comp = problem.composites["seismic"]
+    lib = comp.libs[0]["uparr"]
+    fsub = comp.fault.get_subfault(0)
+    say("ffi_build", library=tuple(lib.data.shape),
+        library_GiB=f"{lib.data.numel() * 4 / 2**30:.2f}", seconds=f"{ffi_build_s:.2f}",
+        k1_launches=bilinear_rows.launches, patches=f"{fsub.n_strike}x{fsub.n_dip}",
+        dims=problem.ordering.size, finite=bool(torch.isfinite(lib.data).all()),
+        max_abs=f"{float(lib.data.abs().max()):.3e}",
+        peak_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    if not (torch.isfinite(lib.data).all() and bilinear_rows.launches > 0
+            and float(lib.data.abs().max()) > 0):
+        raise SystemExit("the FFI library is not finite and non-zero (or K1 was not launched)")
+
+    # 12b. K3 and K4 on the real library: durations and starttimes on and
+    # beyond the grids (0.5–5.0 s, 0–7.75 s), so the weights leave [0, 1]
+    real_in = stack_inputs(lib, N_CHAINS, (0.2, 5.5), (-0.5, 9.0), gen)
+    real = {}
+    for key, interpolation in (("k3", "multilinear"), ("k4", "nearest_neighbor")):
+        real[key] = r = check_stack(lib, *real_in, interpolation, iters=10)
+        say(key, shape="real", C=N_CHAINS, T=lib.ntargets, P=lib.npatches, D=lib.ndurations,
+            S=lib.nstarttimes, N=lib.nsamples, max_abs_err=f"{r['max_abs_err']:.3e}",
+            max_ref=f"{r['max_ref']:.3e}", worst_err_over_bar=f"{r['worst_err_over_bar']:.3e}",
+            ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}", library_ms="none",
+            cells_read=r["cells_read"], bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"],
+            share_of_bound=f"{r['bound_ms'] / r['ms']:.3f}")
+    del real_in
+    torch.cuda.empty_cache()
+
+    # 14. the 2000-chain FFI log-likelihood through K3, against the plain
+    # stack on chains spread over the batch
+    logp, data = problem.make_logp_fn()
+    lower, upper = problem.priors.bounds_arrays()
+    q = torch.as_tensor(np.random.default_rng(4).uniform(
+        lower, upper, size=(N_CHAINS, lower.size)), dtype=torch.float32, device=dev)
+    stack_batched.launches_multilinear = stack_batched.launches_nearest = 0
+    llk = logp(q, data)
+    launched = stack_batched.launches_multilinear
+    sub = torch.arange(0, N_CHAINS, max(1, N_CHAINS // FFI_PLAIN_CHAINS),
+                       device=dev)[:FFI_PLAIN_CHAINS]
+    lib.stack_fn = stack_batched_reference
+    try:
+        llk_plain = logp(q[sub], data)
+    finally:
+        lib.stack_fn = stack_batched
+    torch.cuda.synchronize()
+    h = problem.ordering.to_point(q[sub])[comp.wavemaps[0].hypername]
+    llk0 = -0.5 * (data[0][0]["slog_pdets"].sum()
+                   + data[0][0]["nsamples"].sum() * (2.0 * h + math.log(2.0 * math.pi)))
+    diff = (llk[sub] - llk_plain).abs()
+    rel = float((diff / llk_plain.abs()).max())
+    worst = float((diff / (LLK_RTOL * (llk_plain.abs() + llk0.abs()))).max())
+    ffi_logp_ms = cuda_ms(lambda: logp(q, data), iters=5)
+    point = problem.ordering.to_point(q)
+    eik_ms = cuda_ms(lambda: comp.point2starttimes(point), iters=5)
+    eik_launches, eik_kernel_ms, _ = device_kernels(lambda: comp.point2starttimes(point))
+    n_launches, kernel_ms, by_name = device_kernels(lambda: logp(q, data))
+    beyond = float((comp.point2starttimes(point) > 7.75).float().mean())
+    say("ffi_llk", chains=N_CHAINS, dims=lower.size, plain_chains=len(sub),
+        max_rel_err=f"{rel:.3e}", worst_err_over_bar=f"{worst:.3e}", k3_launches=launched,
+        logp_ms=f"{ffi_logp_ms:.3f}",
+        eikonal_ms=f"{eik_ms:.3f}", eikonal_launches=eik_launches,
+        eikonal_kernel_ms=f"{eik_kernel_ms:.3f}", launches=n_launches,
+        kernel_ms=f"{kernel_ms:.3f}",
+        k3_ms=f"{sum(v for k, v in by_name.items() if 'gf_stack_kernel' in k):.4f}",
+        onsets_beyond_grid=f"{beyond:.3f}", finite=bool(torch.isfinite(llk).all()),
+        top=json.dumps([[k[:60], round(v, 4)] for k, v in list(by_name.items())[:6]]))
+    if not (worst <= 1.0 and launched > 0 and torch.isfinite(llk).all()):
+        raise SystemExit("FFI llk parity failed (or K3 was not launched)")
+    del llk, llk_plain, q, point, diff
+    torch.cuda.empty_cache()
+
+    # 15. the slice-3 main path: random-walk SMC at 2000 chains and 1504
+    # dimensions, ended by the stage cap as the example runs it; the stage
+    # files are timed where they are written
+    writes = []
+    save_stage = SampleStage.save_stage
+
+    def timed_save_stage(self, stage, trace, state):
+        t_w = time.perf_counter()
+        save_stage(self, stage, trace, state)
+        writes.append((stage, time.perf_counter() - t_w,
+                       os.path.getsize(self._trace_file(stage)) / 1e6,
+                       np.asarray(trace["q"]).nbytes / 1e6))
+
+    stack_batched.launches_multilinear = stack_batched.launches_nearest = 0
+    bilinear_rows.launches = gather_rows.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    SampleStage.save_stage = timed_save_stage
+    t0 = time.perf_counter()
+    try:
+        problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=FFI_STEPS,
+                                 max_stages=FFI_MAX_STAGES, seed=1))
+        capped = False
+    except RuntimeError as e:
+        if "did not reach beta=1" not in str(e):
+            raise
+        capped = True
+    finally:
+        SampleStage.save_stage = save_stage
+    torch.cuda.synchronize()
+    ffi_wall = time.perf_counter() - t0
+    ffi_launches = stack_batched.launches_multilinear
+    k5_launches["ffi_smc"] = gather_rows.launches
+    handler = SampleStage(problem.outfolder, ordering=problem.ordering)
+    stages = list(range(1, FFI_MAX_STAGES)) if capped else [-1]
+    states = [handler.load_state(st) for st in stages]
+    betas = [0.0] + [float(st["beta"]) for st in states]
+    ffi_finite = all(np.isfinite(st["likelihoods"]).all() for st in states)
+    big = [w for w in writes if w[0] != 0]
+    say("ffi_smc", chains=N_CHAINS, steps=FFI_STEPS, dims=problem.ordering.size,
+        wall_s=f"{ffi_wall:.2f}", stages_run=len(states), capped=capped,
+        betas=json.dumps([round(x, 6) for x in betas]), finite=ffi_finite,
+        k3_launches=ffi_launches, k4_launches=stack_batched.launches_nearest,
+        k5_launches=k5_launches["ffi_smc"],
+        acceptance=json.dumps([round(float(a), 3) for a in states[-1]["acceptance"]]),
+        stage_write_s=json.dumps([round(w[1], 2) for w in writes]),
+        stage_file_MB=json.dumps([round(w[2], 1) for w in writes]),
+        stage_trace_MB=json.dumps([round(w[3], 1) for w in writes]),
+        write_s_total=f"{sum(w[1] for w in writes):.2f}",
+        write_MB_per_s=f"{sum(w[3] for w in big) / max(sum(w[1] for w in big), 1e-9):.1f}",
+        peak_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    if not (all(b1 > b0 for b0, b1 in zip(betas, betas[1:])) and ffi_finite):
+        raise SystemExit("FFI SMC: beta not strictly increasing, or non-finite llks")
+    if ffi_launches == 0 or k5_launches["ffi_smc"] == 0:
+        raise SystemExit("the FFI SMC run never launched K3 (or K5, its resampling gather)")
+    del problem, comp, lib, logp, data
+    torch.cuda.empty_cache()
+
+    # 16. a small FFI problem sampled to beta = 1, with each interpolation
+    recover = {}
+    for interpolation in ("multilinear", "nearest_neighbor"):
+        stack_batched.launches_multilinear = stack_batched.launches_nearest = 0
+        gather_rows.launches = 0
+        recover[interpolation] = ffi_recover(interpolation, dev, workdir.name, N_CHAINS)
+        recover[interpolation]["launches"] = (stack_batched.launches_multilinear,
+                                              stack_batched.launches_nearest)
+        k5_launches[f"ffi_recover_{interpolation}"] = gather_rows.launches
+    k4_launches = recover["nearest_neighbor"]["launches"][1]
+    if recover["multilinear"]["launches"][0] == 0 or k4_launches == 0:
+        raise SystemExit("the small FFI runs never launched K3 (multilinear) or K4 (nearest)")
+    workdir.cleanup()
+
+    # 17. results: launches from each kernel's main path (SMC for K1,
+    # MALA-SMC for K2, FFI SMC for K3 and K5, the nearest-neighbour FFI SMC
+    # for K4), with every path's count beside them.  K3's and K4's times are
+    # those on the real library, K5's those at the FFI population's shape.
     print(json.dumps({"kernels": [
         {"name": "bilinear_rows", "route": "cuda", "source": "beat_tpu_torch/csrc/bilgather.cu",
          "replaces": "beat_tpu/ops/bilgather.py:47", "launches": launches,
@@ -436,7 +860,28 @@ def main() -> int:
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": k2_lib_ms,
          "launches_by_path": {"mala_smc": mala_launches[1], "map": map_launches[1],
-                              "laplace": lap_launches[1]}}]}))
+                              "laplace": lap_launches[1]}},
+        {"name": "gf_stack_multilinear", "route": "cuda",
+         "source": "beat_tpu_torch/csrc/gfstack.cu", "replaces": "beat_tpu/ops/gfstack.py:241",
+         "launches": ffi_launches, "max_abs_err": real["k3"]["max_abs_err"],
+         "ms": real["k3"]["ms"], "plain_ms": real["k3"]["plain_ms"],
+         "bound_ms": real["k3"]["bound_ms"], "bound_by": real["k3"]["bound_by"],
+         "library_ms": None, "bench_shape": bench["k3"],
+         "launches_by_path": {"ffi_smc": ffi_launches,
+                              "ffi_recover": recover["multilinear"]["launches"][0]}},
+        {"name": "gf_stack_nearest", "route": "cuda",
+         "source": "beat_tpu_torch/csrc/gfstack.cu", "replaces": "beat_tpu/ops/gfstack.py:218",
+         "launches": k4_launches, "max_abs_err": real["k4"]["max_abs_err"],
+         "ms": real["k4"]["ms"], "plain_ms": real["k4"]["plain_ms"],
+         "bound_ms": real["k4"]["bound_ms"], "bound_by": real["k4"]["bound_by"],
+         "library_ms": None, "bench_shape": bench["k4"],
+         "launches_by_path": {"ffi_recover_nearest_neighbor": k4_launches}},
+        {"name": "gather_rows", "route": "cuda", "source": "beat_tpu_torch/csrc/rowgather.cu",
+         "replaces": "beat_tpu/ops/rowgather.py:34", "launches": k5_launches["ffi_smc"],
+         "max_abs_err": 0.0, "ms": k5["smc"]["ms"], "plain_ms": k5["smc"]["plain_ms"],
+         "bound_ms": k5["smc"]["bound_ms"], "bound_by": k5["smc"]["bound_by"],
+         "library_ms": k5["smc"]["library_ms"], "table_shape": k5["table"],
+         "launches_by_path": k5_launches}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))
     return 0

@@ -1,9 +1,10 @@
 """
 Tests of the port that need an NVIDIA GPU: kernels K1 and K2
-(``beat_tpu_torch/csrc/bilgather.cu``) against their plain PyTorch
-versions, the log-likelihood and its gradient through the kernels
-against the same through the plain gather, and a Hessian whose double
-backward launches K1.  They skip without a card; run them on one with
+(``beat_tpu_torch/csrc/bilgather.cu``), K3 and K4 (``gfstack.cu``) and
+K5 (``rowgather.cu``) against their plain PyTorch versions, the
+log-likelihoods and the gradient through the kernels against the same
+through the plain versions, and a Hessian whose double backward
+launches K1.  They skip without a card; run them on one with
 
     python -m pytest tests -m gpu -q
 """
@@ -12,9 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from beat_tpu_torch.flagship import TEST_SIZE, build_flagship
+from beat_tpu_torch.ffi import SeismicGFLibrary
+from beat_tpu_torch.flagship import FFI_TEST_SIZE, TEST_SIZE, build_ffi_flagship, build_flagship
 from beat_tpu_torch.ops.bilgather import (bilinear_rows, bilinear_rows_reference, corner_dot,
                                           corner_dot_reference, corner_rows_reference)
+from beat_tpu_torch.ops.gfstack import stack_batched, stack_batched_reference
+from beat_tpu_torch.ops.rowgather import gather_rows, gather_rows_reference
 from beat_tpu_torch.samplers import value_and_grad
 from test_torch_common import assert_grad_close
 
@@ -32,6 +36,9 @@ K2_RTOL = 1e-5
 # (tests/test_bilgather.py:219-221): rtol, and atol as a share of each
 # parameter's max|grad|
 GRAD_RTOL = 5e-3
+# K3/K4 sum P · corners products in another order than the plain einsum:
+# per (chain, target) |err| <= STACK_RTOL · Σ_p |slip_p| · Σ_corners |w| · max|data|
+STACK_RTOL = 1e-5
 
 
 @pytest.fixture
@@ -140,3 +147,90 @@ def test_hessian_double_backward_launches_k1(cuda):
     assert bilinear_rows.launches - k1 > n * 4
     want = torch.autograd.functional.hessian(f(bilinear_rows_reference), w)
     torch.testing.assert_close(hess, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("interpolation", ["multilinear", "nearest_neighbor"])
+@pytest.mark.parametrize("C,T,P,D,S,N", [(37, 3, 11, 4, 9, 100),      # ragged tiles, float4 rows
+                                         (5, 2, 33, 2, 2, 101),       # scalar rows, 2 chunks
+                                         (2000, 8, 12, 6, 16, 256)])  # the GF-stack bench shape
+def test_k3_k4_match_plain(cuda, interpolation, C, T, P, D, S, N):
+    gen = torch.Generator(device=cuda).manual_seed(C + N)
+    lib = SeismicGFLibrary(torch.randn((T, P, D, S, N), generator=gen, device=cuda),
+                           duration_min=0.5, duration_sampling=0.5, starttime_min=0.0,
+                           starttime_sampling=0.25, device=cuda)
+
+    def uniform(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=cuda)
+
+    # on the grids and beyond them on both sides: the weights leave [0, 1]
+    durations = uniform((C, P), 0.0, 0.5 * (D + 1))
+    starttimes = uniform((C, T, P), -0.5, 0.25 * (S + 2))
+    slips = uniform((C, P), 0.0, 3.0)
+    didx, rtf = lib.durations2idxs(durations, interpolation)
+    sidx, stf = lib.starttimes2idxs(starttimes, interpolation)
+    name = "launches_multilinear" if rtf is not None else "launches_nearest"
+    before = getattr(stack_batched, name)
+    got = stack_batched(lib.data, didx, sidx, slips, rtf, stf)
+    torch.cuda.synchronize()
+    assert getattr(stack_batched, name) == before + 1
+    ref = stack_batched_reference(lib.data, didx, sidx, slips, rtf, stf)
+    wabs = 1.0
+    if rtf is not None:
+        wabs = (rtf.abs() + (1 - rtf).abs())[:, None, :] * (stf.abs() + (1 - stf).abs())
+    bar = STACK_RTOL * (slips.abs()[:, None, :] * wabs).sum(-1) * lib.data.abs().max()
+    assert bool(((got - ref).abs().amax(-1) <= bar).all())
+    # shared onsets, (C, 1, P), are every target's onsets
+    shared = stack_batched(lib.data, didx, sidx[:, :1], slips, rtf,
+                           None if stf is None else stf[:, :1])
+    assert torch.equal(shared, stack_batched(
+        lib.data, didx, sidx[:, :1].expand(C, T, P), slips, rtf,
+        None if stf is None else stf[:, :1].expand(C, T, P)))
+
+
+def test_k3_rejects_bad_input(cuda):
+    data = torch.zeros((2, 3, 2, 2, 8), device=cuda)
+    didx = torch.ones((4, 3), dtype=torch.int32, device=cuda)
+    sidx = torch.ones((4, 2, 3), dtype=torch.int32, device=cuda)
+    slips = torch.ones((4, 3), device=cuda)
+    with pytest.raises(ValueError):
+        stack_batched(data, didx, sidx, slips.cpu())                  # slips on the CPU
+    with pytest.raises(ValueError):
+        stack_batched(data.double(), didx, sidx, slips.double())      # float64 on the card
+    with pytest.raises(NotImplementedError):
+        stack_batched(data, didx, sidx, slips.requires_grad_())
+
+
+@pytest.mark.parametrize("R,M,n", [(500, 1548, 700), (97, 333, 41), (9270, 6156, 60000),
+                                   (2000, 1504, 2000)])      # the FFI population
+def test_k5_matches_plain(cuda, R, M, n):
+    gen = torch.Generator(device=cuda).manual_seed(R)
+    tbl = torch.randn((R, M), generator=gen, device=cuda)
+    idx = torch.randint(-3, R + 3, (n,), generator=gen, device=cuda)   # clipped at both ends
+    before = gather_rows.launches
+    got = gather_rows(tbl, idx)
+    torch.cuda.synchronize()
+    assert gather_rows.launches == before + 1
+    assert torch.equal(got, gather_rows_reference(tbl, idx))
+
+
+@pytest.mark.parametrize("interpolation", ["multilinear", "nearest_neighbor"])
+def test_ffi_llk_parity_on_card(cuda, interpolation):
+    problem = build_ffi_flagship(**FFI_TEST_SIZE, seed=5, device=cuda,
+                                 interpolation=interpolation)
+    logp, data = problem.make_logp_fn()
+    lower, upper = problem.priors.bounds_arrays()
+    q = np.random.default_rng(0).uniform(lower, upper, size=(64, lower.size))
+    q = torch.as_tensor(q, dtype=torch.float32, device=cuda)
+    before = stack_batched.launches_multilinear + stack_batched.launches_nearest
+    llk = logp(q, data)
+    assert stack_batched.launches_multilinear + stack_batched.launches_nearest == before + 1
+    problem.composites["seismic"].libs[0]["uparr"].stack_fn = stack_batched_reference
+    llk_plain = logp(q, data)
+    assert torch.isfinite(llk).all()
+    # the llk is the difference of its residual-free part llk0 and the
+    # whitened misfit and passes through 0: the bar is on |llk| + |llk0|
+    h = problem.ordering.to_point(q)["h_any_P_0"]
+    llk0 = -0.5 * (data[0][0]["slog_pdets"].sum()
+                   + data[0][0]["nsamples"].sum() * (2.0 * h + np.log(2.0 * np.pi)))
+    bar = LLK_RTOL * (llk_plain.abs() + llk0.abs())
+    assert bool(((llk - llk_plain).abs() <= bar).all())

@@ -32,6 +32,10 @@ from beat_tpu_torch.samplers import SMCParams
 problem = build_flagship(**TEST_SIZE, seed=1, device="cpu", outfolder=sys.argv[1])
 q_tr, llk_tr = problem.sample(SMCParams(n_chains=16, n_steps=2, seed=0))
 assert q_tr.shape[1:] == (16, len(problem.ordering.names)), q_tr.shape
+from beat_tpu_torch.flagship import FFI_TEST_SIZE, build_ffi_flagship
+ffi = build_ffi_flagship(**FFI_TEST_SIZE, seed=1, device="cpu", outfolder=sys.argv[1] + "_ffi")
+q_tr, llk_tr = ffi.sample(SMCParams(n_chains=16, n_steps=2, seed=0))
+assert q_tr.shape[1:] == (16, ffi.ordering.size), q_tr.shape
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
 jax_package = sorted(m for m in sys.modules if m == "beat_tpu" or m.startswith("beat_tpu."))
 assert not jax_package, jax_package
@@ -57,11 +61,16 @@ def test_tiny_slice_runs_without_importing_jax(tmp_path):
 
 
 PORT_FILES = sorted((REPO / "beat_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+#: the modules of the kinematic FFI slice, which the scan must reach
+FFI_MODULES = ("ffi/fault.py", "ffi/gflibrary.py", "ffi/laplacian.py", "ops/eikonal.py",
+               "ops/gfstack.py", "ops/rowgather.py", "models/distributer.py",
+               "models/laplacian.py")
 
 
 def _importers(pattern: str) -> list:
     regex = re.compile(pattern, re.MULTILINE)
-    assert len(PORT_FILES) > 10
+    scanned = {str(f.relative_to(REPO / "beat_tpu_torch")) for f in PORT_FILES[:-1]}
+    assert len(PORT_FILES) > 10 and scanned.issuperset(FFI_MODULES)
     return [str(f.relative_to(REPO)) for f in PORT_FILES if regex.search(f.read_text())]
 
 
@@ -77,6 +86,33 @@ def test_no_port_file_imports_the_jax_package():
                      re.MULTILINE) is None
     assert re.search(pattern, "x = 1\n    from beat_tpu.backend import SampleStage",
                      re.MULTILINE) is not None
+
+
+_C_TYPES = {"int": "c_int", "int64_t": "c_int64", "void*": "c_void_p"}
+
+
+@pytest.mark.parametrize("source", sorted(p.stem for p in (REPO / "beat_tpu_torch" / "csrc")
+                                          .glob("*.cu")))
+def test_kernel_signatures_match_the_sources(source):
+    """Every ``extern "C"`` entry of a kernel source is declared in
+    ``SIGNATURES`` with the same argument types, and nothing else is (a
+    text check: nothing is compiled here)."""
+    import ctypes
+
+    from beat_tpu_torch.kernels.build import SIGNATURES
+
+    text = (REPO / "beat_tpu_torch" / "csrc" / f"{source}.cu").read_text()
+    entries = re.findall(r'extern "C" (\w+) (\w+)\(([^)]*)\)', text)
+    assert entries and {name for _, name, _ in entries} == set(SIGNATURES[source])
+    for restype, name, args in entries:
+        want = []
+        for arg in args.split(","):
+            ctype = arg.replace("const", "").split()[:-1]        # drop the name
+            ctype = "void*" if "*" in "".join(ctype) else ctype[0]
+            want.append(getattr(ctypes, _C_TYPES[ctype]))
+        got_restype, got_args = SIGNATURES[source][name]
+        assert got_restype is getattr(ctypes, _C_TYPES[restype])
+        assert got_args == want, name
 
 
 @pytest.mark.parametrize("writer,reader", [(beat_tpu_torch.backend, beat_tpu.backend),
