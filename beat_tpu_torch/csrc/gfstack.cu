@@ -17,40 +17,91 @@
 //   K4:  out[c, t, n] = sum_p slip[c,p] * data[t, p, d, s, n]   (one cell).
 //
 // Layout: data is the natural (T, P, D, S, N) float32 array.  A (d, s) cell
-// of a patch is one contiguous row of N floats, so a cell is one coalesced
-// row read.  The TPU's lane-transposed (T, P, N, D*S_pad) stacking layout,
-// its one-hot selection matmuls and its 128-chain / 8-patch padding exist
-// because the TPU has no cheap gather; none of them has a counterpart here.
+// of a patch is one contiguous row of N floats.  The TPU's lane-transposed
+// (T, P, N, D*S_pad) stacking layout, its one-hot selection matmuls and its
+// 128-chain / 8-patch padding exist because the TPU has no cheap gather; none
+// of them has a counterpart here.
 //
-// Design: one block per (target t, tile of kChains chains, tile of n).  A
-// thread owns V consecutive samples (V = 4, float4, when N % 4 == 0; else 1)
-// of every chain of the tile and keeps those kChains * V sums in registers.
-// The block walks the P patches in chunks: its threads first turn the chunk's
-// indices and weights into one 64-bit row offset and CORNERS weights per
-// (patch, chain) in shared memory, then every thread adds the CORNERS
-// weighted rows of each chain.  One plain store per output, no atomics, float32
-// accumulation: the result is deterministic.  Ragged tiles (C, P, N not
-// multiples of the tile sizes) are masked in the kernel.  Indices are
-// clamped to the grid here (d, s in [1, D-1] x [1, S-1] for K3, [0, D-1] x
-// [0, S-1] for K4), so no index reads outside the library.
+// Operands come as the caller has them: every per-chain array is addressed
+// through its own chain stride (and sidx, stf through a target stride, 0 when
+// all targets share the onsets), so nothing is expanded or copied for the
+// launch.  Indices are clamped to the grid here (d, s in [1, D-1] x [1, S-1]
+// for K3, [0, D-1] x [0, S-1] for K4), so no index reads outside the library.
 //
 // Bound: device-memory bandwidth (the library read once, the indices and
 // weights, the output); the operations, 2*CORNERS flops per row float, come
-// to about half of that time at 2000 chains.  This kernel reads
-// C*T*P*CORNERS rows through L2, each row many times over the batch: blocks
-// of one target walk the patches together, so the cells of a (t, p) pair
-// (D*S*N*4 bytes) stay in L2 while they are wanted.  It therefore runs at
-// L2 speed, well above the bound.  Streaming the library once (cell tiles in
-// shared memory, TMA) is later work.
+// to about 60 % of that time at 2000 chains.  What a kernel really has to
+// move is C*T*P*CORNERS rows to the threads that sum them, 25 times the
+// library at 2000 chains (98 GB at the Laquila shape).  Two variants, chosen
+// by ops/gfstack.py::plan_stack from the shapes:
+//
+// `gather` (gf_stack_kernel): one block per (target, 8 chains, n tile); a
+// thread keeps 8 sums of V samples in registers and pulls every row straight
+// from the library.  All C*T*P*CORNERS rows cross the L2 -> SM path unless L1
+// happens to hold them, and that path bounds it (with all chains on one cell,
+// where L1 serves 7 of a block's 8 chains, it takes a third of the time).  It
+// stays for shapes where a staged cell row would be read less often than it
+// costs to stage (few chains, or K4 on a short walk over the patches), for
+// cell tiles that do not fit shared memory and for N % 4 != 0.
+//
+// `tiled` (gf_stack_tiled_kernel): a block of 512 threads owns (target, n
+// tile of 4*LANES samples, chain tile of 16 * 512/LANES chains) and walks the
+// patches.  For each patch it brings the whole (D*S x n tile) cell tile of
+// data[t, p] into shared memory once, with 16-byte cp.async copies into the
+// other of two buffers while the sums of the present patch run (one barrier a
+// patch), and every chain of the tile takes its CORNERS rows from there.
+// L2 -> SM traffic falls from C*T*P*CORNERS rows to the library times the
+// number of chain tiles (4 at 2000 chains and LANES = 16); blocks of one
+// (target, n tile) are neighbours in the grid, so their chain tiles stream
+// the same cells through L2 together.  LANES threads spread along n serve one
+// chain: a shared-memory read is one contiguous row segment (conflict-free)
+// and the chain's weights are a broadcast.  A thread keeps 16 chains x 4
+// samples of sums in registers (64 of its 128).  Per (chain, patch) one
+// 16-byte entry {slip*rf, slip*(1-rf), sf, row offset} (K4: {slip, offset})
+// is folded from the operands for a chunk of patches at a time, swizzled so
+// that neither its writes nor its reads conflict; with shared onsets an entry
+// serves every sample of the tile, and is folded again by the blocks of other
+// targets and n tiles (no scratch array is allocated for the launch).  At
+// D*S = 320 the two cell tiles of 64 samples take 160 KB and 8 patches of
+// entries 64 KB of the 227 KB a block may use.  What bounds this variant is
+// shared memory: the reads of the C*T*P*CORNERS rows at 128 bytes a clock and
+// SM (a quarter of the float32 rate), beside which the copies into the tiles
+// and the fold of the entries, which pass through the same unit, do not
+// hide.  tools/bench_torch_gfstack.py reads each part's share of the time
+// from builds with parts left out; PERF.md has the numbers.
+//
+// Both variants add a chain's products in the same order (patches ascending,
+// corners in the order above) with the same folded weights and float32 FMAs,
+// one plain store per output and no atomics: they are deterministic and equal
+// bit for bit.  Ragged tiles (C, P, N not multiples of the tile sizes) are
+// masked in the kernels.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kChains = 8;        // chains per block: accumulators in registers
-constexpr int kPatchChunk = 32;   // patches staged in shared memory at a time
-constexpr int kMaxThreads = 128;
+constexpr int kChains = 8;        // gather: chains per block, sums in registers
+constexpr int kPatchChunk = 32;   // gather: patches staged in shared memory at a time
+constexpr int kMaxThreads = 128;  // gather: threads per block
+constexpr int kSmemPerBlock = 232448;   // bytes of shared memory a block may use
+
+// The operands of one launch; strides in elements.
+struct Strides {
+    int64_t didx_c, sidx_c, sidx_t, slips_c, rtf_c, stf_c, stf_t;
+};
+
+struct Operands {
+    const float* data;        // (T, P, D, S, N), contiguous
+    const int32_t* didx;      // [c * didx_c + p]
+    const int32_t* sidx;      // [c * sidx_c + t * sidx_t + p]
+    const float* slips;       // [c * slips_c + p]
+    const float* rtf;         // [c * rtf_c + p]                 (K3)
+    const float* stf;         // [c * stf_c + t * stf_t + p]     (K3)
+    float* out;               // (C, T, N), contiguous
+    int C, T, P, D, S, N;
+    Strides st;
+};
 
 template <int V> struct Vec;
 template <> struct Vec<4> {
@@ -75,18 +126,26 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
     return x < lo ? lo : (x > hi ? hi : x);
 }
 
-// CORNERS = 4: K3 (multilinear); CORNERS = 1: K4 (nearest neighbour; rtf and
-// stf are not read).  grid = (chain tiles, n tiles, T).
+// ---------------------------------------------------------------------------
+// gather: CORNERS = 4: K3 (multilinear); CORNERS = 1: K4 (nearest neighbour;
+// rtf and stf are not read).  grid = (chain tiles, n tiles, T).
+//
+// How the compiler orders the row loads decides this kernel's time, so two
+// things pin it (times at the Laquila shape, 2000 chains, H100): K3 takes a
+// chain's first corner before it asks for the other three (a compiler barrier
+// between them): 13.0 ms against 15-19 ms with all four loads started at once;
+// K4 is held to 8 blocks an SM, which keeps it the faster at the launch-sized
+// shapes that stay on this variant.
 template <int CORNERS, int V>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kMaxThreads, (CORNERS == 1 ? 8 : 1))
 gf_stack_kernel(const float* __restrict__ data,
-                const int32_t* __restrict__ didx,     // (C, P)
-                const int32_t* __restrict__ sidx,     // (C, T, P)
-                const float* __restrict__ slips,      // (C, P)
-                const float* __restrict__ rtf,        // (C, P)
-                const float* __restrict__ stf,        // (C, T, P)
-                float* __restrict__ out,              // (C, T, N)
-                int C, int T, int P, int D, int S, int N) {
+                const int32_t* __restrict__ didx,
+                const int32_t* __restrict__ sidx,
+                const float* __restrict__ slips,
+                const float* __restrict__ rtf,
+                const float* __restrict__ stf,
+                float* __restrict__ out,
+                int C, int T, int P, int D, int S, int N, const Strides st) {
     using vec_t = typename Vec<V>::type;
     __shared__ int64_t s_off[kPatchChunk][kChains];
     __shared__ float s_w[kPatchChunk][kChains][CORNERS];
@@ -110,16 +169,16 @@ gf_stack_kernel(const float* __restrict__ data,
         for (int i = threadIdx.x; i < kChains * kPatchChunk; i += blockDim.x) {
             const int cc = i / kPatchChunk, pp = i % kPatchChunk;
             if (cc < nc && pp < pn) {
-                const int c = c0 + cc, p = p0 + pp;
-                const int64_t cp = (int64_t)c * P + p;
-                const int64_t ctp = ((int64_t)c * T + t) * P + p;
-                const int d = clampi(didx[cp], lo, D - 1);
-                const int s = clampi(sidx[ctp], lo, S - 1);
-                const float w = slips[cp];
+                const int64_t c = c0 + cc;
+                const int p = p0 + pp;
+                const int d = clampi(didx[c * st.didx_c + p], lo, D - 1);
+                const int s = clampi(sidx[c * st.sidx_c + t * st.sidx_t + p], lo, S - 1);
+                const float w = slips[c * st.slips_c + p];
                 // the first corner's row: (d-1, s-1) for K3, (d, s) for K4
                 s_off[pp][cc] = ((((int64_t)t * P + p) * D + (d - lo)) * S + (s - lo)) * N;
                 if constexpr (CORNERS == 4) {
-                    const float rf = rtf[cp], sf = stf[ctp];
+                    const float rf = rtf[c * st.rtf_c + p];
+                    const float sf = stf[c * st.stf_c + t * st.stf_t + p];
                     s_w[pp][cc][0] = w * rf * sf;                      // (d-1, s-1)
                     s_w[pp][cc][1] = w * rf * (1.0f - sf);             // (d-1, s)
                     s_w[pp][cc][2] = w * (1.0f - rf) * sf;             // (d,   s-1)
@@ -138,10 +197,11 @@ gf_stack_kernel(const float* __restrict__ data,
                     const float* row = data + s_off[pp][cc] + n0;
                     if constexpr (CORNERS == 4) {
                         const vec_t x0 = __ldg(reinterpret_cast<const vec_t*>(row));
+                        Vec<V>::fma(acc[cc], s_w[pp][cc][0], x0);
+                        asm volatile("" ::: "memory");      // see the note above the kernel
                         const vec_t x1 = __ldg(reinterpret_cast<const vec_t*>(row + row_s));
                         const vec_t x2 = __ldg(reinterpret_cast<const vec_t*>(row + row_d));
                         const vec_t x3 = __ldg(reinterpret_cast<const vec_t*>(row + row_d + row_s));
-                        Vec<V>::fma(acc[cc], s_w[pp][cc][0], x0);
                         Vec<V>::fma(acc[cc], s_w[pp][cc][1], x1);
                         Vec<V>::fma(acc[cc], s_w[pp][cc][2], x2);
                         Vec<V>::fma(acc[cc], s_w[pp][cc][3], x3);
@@ -164,55 +224,260 @@ gf_stack_kernel(const float* __restrict__ data,
 }
 
 template <int CORNERS>
-int launch(const float* data, const int32_t* didx, const int32_t* sidx, const float* slips,
-           const float* rtf, const float* stf, float* out, int C, int T, int P, int D,
-           int S, int N, cudaStream_t stream) {
-    if (C <= 0 || T <= 0 || N <= 0) return 0;
-    if (P < 0 || D < 1 + (CORNERS == 4) || S < 1 + (CORNERS == 4) || T > 65535) {
-        return (int)cudaErrorInvalidValue;
-    }
-    // float4 columns need every row 16-byte aligned: N % 4 == 0 and aligned bases
-    const bool vec4 = N % 4 == 0 && (reinterpret_cast<uintptr_t>(data) % 16 == 0) &&
-                      (reinterpret_cast<uintptr_t>(out) % 16 == 0);
-    const int columns = vec4 ? N / 4 : N;
+int launch_gather(const Operands& a, bool vec4, cudaStream_t stream) {
+    const int columns = vec4 ? a.N / 4 : a.N;
     int threads = ((columns + 31) / 32) * 32;
     if (threads > kMaxThreads) threads = kMaxThreads;
     const int n_tiles = (columns + threads - 1) / threads;
     if (n_tiles > 65535) return (int)cudaErrorInvalidValue;
-    const dim3 grid((C + kChains - 1) / kChains, n_tiles, T);
+    const dim3 grid((a.C + kChains - 1) / kChains, n_tiles, a.T);
     if (vec4) {
         gf_stack_kernel<CORNERS, 4><<<grid, threads, 0, stream>>>(
-            data, didx, sidx, slips, rtf, stf, out, C, T, P, D, S, N);
+            a.data, a.didx, a.sidx, a.slips, a.rtf, a.stf, a.out, a.C, a.T, a.P, a.D, a.S, a.N,
+            a.st);
     } else {
         gf_stack_kernel<CORNERS, 1><<<grid, threads, 0, stream>>>(
-            data, didx, sidx, slips, rtf, stf, out, C, T, P, D, S, N);
+            a.data, a.didx, a.sidx, a.slips, a.rtf, a.stf, a.out, a.C, a.T, a.P, a.D, a.S, a.N,
+            a.st);
     }
     return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// tiled
+
+// Measurement builds only (tools/bench_torch_gfstack.py): -DBEAT_ABLATE=n
+// leaves parts of the tiled kernel out (1: the fold of the entries after the
+// first chunk, 2: the tile copies after the first two, 4: the sums), so that
+// each part's share of the time can be read on a machine where no kernel
+// profiler runs.  Such a build computes nothing of use.
+#ifndef BEAT_ABLATE
+#define BEAT_ABLATE 0
+#endif
+
+constexpr int kTiledThreads = 512;      // 16 warps, one block an SM
+constexpr int kChainsPerThread = 16;    // 16 chains x 4 samples of sums: 64 registers
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The folded operands of one (chain, patch).
+template <int CORNERS> struct Entry;
+template <> struct Entry<4> {
+    using type = float4;      // {slip*rf, slip*(1-rf), sf, bits of the first corner's row offset}
+    static __device__ __forceinline__ float4 zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+};
+template <> struct Entry<1> {
+    using type = float2;      // {slip, bits of the cell's row offset}
+    static __device__ __forceinline__ float2 zero() { return make_float2(0.f, 0.f); }
+};
+
+// grid = (chain tiles, n tiles, T); kTiledThreads threads; dynamic shared
+// memory: two cell tiles of D*S x 4*LANES floats, then CT << chunk_shift
+// entries.
+template <int CORNERS, int LANES>
+__global__ void __launch_bounds__(kTiledThreads, 1)
+gf_stack_tiled_kernel(const Operands a, const int chunk_shift) {
+    using entry_t = typename Entry<CORNERS>::type;
+    constexpr int THREADS = kTiledThreads, CPT = kChainsPerThread;
+    constexpr int NT = 4 * LANES;             // samples of the n tile
+    constexpr int G = THREADS / LANES;        // chains served at a time
+    constexpr int CT = G * CPT;               // chains of the tile
+    extern __shared__ __align__(16) unsigned char smem[];
+
+    const int P = a.P, S = a.S;
+    const int DS = a.D * S;
+    const int lo = CORNERS == 4 ? 1 : 0;
+    float* const tiles = reinterpret_cast<float*>(smem);
+    entry_t* const ents = reinterpret_cast<entry_t*>(tiles + 2 * DS * NT);
+    const int chunk_mask = (1 << chunk_shift) - 1;
+
+    const int c0 = blockIdx.x * CT;
+    const int n0 = blockIdx.y * NT;
+    const int t = blockIdx.z;
+    const int nc = min(CT, a.C - c0);
+    const int lane = threadIdx.x % LANES;     // this thread's 4 samples of the tile
+    const int g = threadIdx.x / LANES;        // its chains: g, g + G, g + 2 G, ...
+    const bool live = n0 + 4 * lane < a.N;
+
+    // the cell tile of patch p into buffer buf: row r of the tile is cell r of
+    // data[t, p], samples n0 .. n0 + NT
+    auto copy_tile = [&](int p, int buf) {
+        const float* src = a.data + (((int64_t)t * P + p) * DS) * a.N + n0 + 4 * lane;
+        float* dst = tiles + buf * DS * NT + 4 * lane;
+        if (live) {
+            for (int r = g; r < DS; r += G) cp_async16(dst + r * NT, src + (int64_t)r * a.N);
+        }
+        cp_async_commit();
+    };
+
+    // the entries of patches p0 .. p0 + chunk: entry (cc, pp) lies at
+    // cc * chunk + (pp ^ (cc % chunk)).  Consecutive threads read consecutive
+    // patches of one chain (whole 32-byte sectors at a chunk of 8) and write
+    // one line of shared memory; two neighbouring chains read at one patch
+    // fall into different banks.  Entries beyond the chains or the patches are
+    // zero: weight 0 on row 0.
+    auto fold_chunk = [&](int p0) {
+        for (int i = threadIdx.x; i < (CT << chunk_shift); i += THREADS) {
+            const int cc = i >> chunk_shift, pp = i & chunk_mask;
+            const bool ok = cc < nc && p0 + pp < P;
+            // a masked entry loads (c0, p0), which exists, and is zeroed below:
+            // the loads stand clear of any branch
+            const int64_t c = c0 + (ok ? cc : 0);
+            const int p = p0 + (ok ? pp : 0);
+            const int d = clampi(__ldg(a.didx + c * a.st.didx_c + p), lo, a.D - 1);
+            const int s = clampi(__ldg(a.sidx + c * a.st.sidx_c + t * a.st.sidx_t + p), lo, S - 1);
+            const float w = __ldg(a.slips + c * a.st.slips_c + p);
+            const float off = __int_as_float(((d - lo) * S + (s - lo)) * NT);
+            entry_t e;
+            if constexpr (CORNERS == 4) {
+                const float rf = __ldg(a.rtf + c * a.st.rtf_c + p);
+                const float sf = __ldg(a.stf + c * a.st.stf_c + t * a.st.stf_t + p);
+                e = make_float4(w * rf, w * (1.0f - rf), sf, off);
+            } else {
+                e = make_float2(w, off);
+            }
+            ents[(cc << chunk_shift) + (pp ^ (cc & chunk_mask))] = ok ? e : Entry<CORNERS>::zero();
+        }
+    };
+
+    float4 acc[CPT];
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) acc[j] = Vec<4>::zero();
+
+    // the CORNERS rows of chain j * G + g at patch slot pp of the chunk
+    auto add_chain = [&](int j, int pp, const float* tile) {
+        const int cc = j * G + g;
+        const entry_t e = ents[(cc << chunk_shift) + (pp ^ (cc & chunk_mask))];
+        if constexpr (CORNERS == 4) {
+            const float* row = tile + __float_as_int(e.w);
+            const float4 x0 = *reinterpret_cast<const float4*>(row);
+            const float4 x1 = *reinterpret_cast<const float4*>(row + NT);
+            const float4 x2 = *reinterpret_cast<const float4*>(row + S * NT);
+            const float4 x3 = *reinterpret_cast<const float4*>(row + S * NT + NT);
+            const float u = 1.0f - e.z;
+            Vec<4>::fma(acc[j], e.x * e.z, x0);       // (d-1, s-1)
+            Vec<4>::fma(acc[j], e.x * u, x1);         // (d-1, s)
+            Vec<4>::fma(acc[j], e.y * e.z, x2);       // (d,   s-1)
+            Vec<4>::fma(acc[j], e.y * u, x3);         // (d,   s)
+        } else {
+            const float* row = tile + __float_as_int(e.y);
+            Vec<4>::fma(acc[j], e.x, *reinterpret_cast<const float4*>(row));
+        }
+    };
+
+    copy_tile(0, 0);
+    for (int p = 0; p < P; ++p) {
+        const int buf = p & 1;
+        const int pp = p & chunk_mask;
+        cp_async_wait_all();                  // this thread's share of tile p has landed
+        __syncthreads();                      // tile p is whole; patch p - 1 is summed by all
+        if (p + 1 < P && !((BEAT_ABLATE & 2) && p > 0)) {
+            copy_tile(p + 1, buf ^ 1);        // lands while patch p is summed
+        }
+        if (pp == 0 && !((BEAT_ABLATE & 1) && p > 0)) {
+            fold_chunk(p);
+            __syncthreads();
+        }
+        if (BEAT_ABLATE & 4) continue;
+        const float* tile = tiles + buf * DS * NT + 4 * lane;
+        // K3 on a whole chain tile runs its chains without a branch between
+        // them, so the reads of one overlap the sums of the last; measured,
+        // K4 (one row a chain) is faster with the branch
+        if (CORNERS == 4 && nc == CT) {
+#pragma unroll
+            for (int j = 0; j < CPT; ++j) add_chain(j, pp, tile);
+        } else {
+#pragma unroll
+            for (int j = 0; j < CPT; ++j) {
+                if (j * G < nc) add_chain(j, pp, tile);       // same for the whole block
+            }
+        }
+    }
+    if (!live) return;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+        const int cc = j * G + g;
+        if (cc < nc) {
+            float* o = a.out + ((int64_t)(c0 + cc) * a.T + t) * a.N + n0 + 4 * lane;
+            *reinterpret_cast<float4*>(o) = acc[j];
+        }
+    }
+}
+
+template <int CORNERS, int LANES>
+int launch_tiled(const Operands& a, int chunk_shift, cudaStream_t stream) {
+    constexpr int NT = 4 * LANES, CT = kTiledThreads / LANES * kChainsPerThread;
+    const size_t smem = (size_t)2 * a.D * a.S * NT * sizeof(float) +
+                        ((size_t)CT << chunk_shift) * sizeof(typename Entry<CORNERS>::type);
+    const int n_tiles = (a.N + NT - 1) / NT;
+    if (smem > kSmemPerBlock || n_tiles > 65535) return (int)cudaErrorInvalidValue;
+    auto kernel = gf_stack_tiled_kernel<CORNERS, LANES>;
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc != cudaSuccess) return (int)rc;
+    const dim3 grid((a.C + CT - 1) / CT, n_tiles, a.T);
+    kernel<<<grid, kTiledThreads, smem, stream>>>(a, chunk_shift);
+    return (int)cudaGetLastError();
+}
+
+// variant 0: gather; 1: tiled with `lanes` threads along n a chain (16 or 8)
+// and 1 << chunk_shift patches of entries.  The tiled variant needs 16-byte
+// aligned rows.
+template <int CORNERS>
+int launch(const Operands& a, int variant, int lanes, int chunk_shift, cudaStream_t stream) {
+    if (a.C <= 0 || a.T <= 0 || a.N <= 0) return 0;
+    if (a.P < 0 || a.D < 1 + (CORNERS == 4) || a.S < 1 + (CORNERS == 4) || a.T > 65535) {
+        return (int)cudaErrorInvalidValue;
+    }
+    // float4 columns need every row 16-byte aligned: N % 4 == 0 and aligned bases
+    const bool vec4 = a.N % 4 == 0 && (reinterpret_cast<uintptr_t>(a.data) % 16 == 0) &&
+                      (reinterpret_cast<uintptr_t>(a.out) % 16 == 0);
+    if (variant == 0) return launch_gather<CORNERS>(a, vec4, stream);
+    if (variant != 1 || !vec4 || chunk_shift < 0 || chunk_shift > 5 || a.P == 0) {
+        return (int)cudaErrorInvalidValue;
+    }
+    if (lanes == 16) return launch_tiled<CORNERS, 16>(a, chunk_shift, stream);
+    if (lanes == 8) return launch_tiled<CORNERS, 8>(a, chunk_shift, stream);
+    return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// Plain C entries, bound with ctypes.  Pointers are device pointers of
-// contiguous arrays; the launch goes on `stream` (PyTorch's current stream)
-// and does not synchronise.  Each returns cudaGetLastError() after the launch
-// (0 = success).
+// Plain C entries, bound with ctypes.  Pointers are device pointers; data and
+// out are contiguous, the other arrays have unit stride along the patches and
+// the given strides (in elements) along chains and targets.  `variant`,
+// `lanes` and `chunk_shift` are the plan of ops/gfstack.py::plan_stack.  The
+// launch goes on `stream` (PyTorch's current stream) and does not
+// synchronise.  Each returns cudaGetLastError() after the launch (0 =
+// success).
 
-// K3: data (T,P,D,S,N) f32; didx, slips, rtf (C,P); sidx, stf (C,T,P);
-// out (C,T,N) f32.
-extern "C" int beat_gf_stack_multilinear_f32(const float* data, const int32_t* didx,
-                                             const int32_t* sidx, const float* slips,
-                                             const float* rtf, const float* stf, float* out,
-                                             int C, int T, int P, int D, int S, int N,
-                                             void* stream) {
-    return launch<4>(data, didx, sidx, slips, rtf, stf, out, C, T, P, D, S, N,
-                     (cudaStream_t)stream);
+// K3: data (T,P,D,S,N) f32; didx, slips, rtf (C,P); sidx, stf (C,T,P) or,
+// with a target stride of 0, (C,1,P); out (C,T,N) f32.
+extern "C" int beat_gf_stack_multilinear_f32(
+    const float* data, const int32_t* didx, const int32_t* sidx, const float* slips,
+    const float* rtf, const float* stf, float* out, int C, int T, int P, int D, int S, int N,
+    int64_t didx_c, int64_t sidx_c, int64_t sidx_t, int64_t slips_c, int64_t rtf_c,
+    int64_t stf_c, int64_t stf_t, int variant, int lanes, int chunk_shift, void* stream) {
+    const Operands a{data, didx, sidx, slips, rtf, stf, out, C, T, P, D, S, N,
+                     {didx_c, sidx_c, sidx_t, slips_c, rtf_c, stf_c, stf_t}};
+    return launch<4>(a, variant, lanes, chunk_shift, (cudaStream_t)stream);
 }
 
 // K4: as K3 without rtf and stf.
-extern "C" int beat_gf_stack_nearest_f32(const float* data, const int32_t* didx,
-                                         const int32_t* sidx, const float* slips, float* out,
-                                         int C, int T, int P, int D, int S, int N,
-                                         void* stream) {
-    return launch<1>(data, didx, sidx, slips, nullptr, nullptr, out, C, T, P, D, S, N,
-                     (cudaStream_t)stream);
+extern "C" int beat_gf_stack_nearest_f32(
+    const float* data, const int32_t* didx, const int32_t* sidx, const float* slips, float* out,
+    int C, int T, int P, int D, int S, int N, int64_t didx_c, int64_t sidx_c, int64_t sidx_t,
+    int64_t slips_c, int variant, int lanes, int chunk_shift, void* stream) {
+    const Operands a{data, didx, sidx, slips, nullptr, nullptr, out, C, T, P, D, S, N,
+                     {didx_c, sidx_c, sidx_t, slips_c, 0, 0, 0}};
+    return launch<1>(a, variant, lanes, chunk_shift, (cudaStream_t)stream);
 }

@@ -39,11 +39,12 @@ SIGNATURES = {
         "beat_corner_dot_f32": (_I, [_P, _P, _P, _P, _P, _I64, _I, _I, _P]),
     },
     "gfstack": {
-        "beat_gf_stack_multilinear_f32": (_I, [_P] * 7 + [_I] * 6 + [_P]),
-        "beat_gf_stack_nearest_f32": (_I, [_P] * 5 + [_I] * 6 + [_P]),
+        "beat_gf_stack_multilinear_f32": (_I, [_P] * 7 + [_I] * 6 + [_I64] * 7 + [_I] * 3
+                                          + [_P]),
+        "beat_gf_stack_nearest_f32": (_I, [_P] * 5 + [_I] * 6 + [_I64] * 4 + [_I] * 3 + [_P]),
     },
     "rowgather": {
-        "beat_gather_rows_f32": (_I, [_P, _P, _P, _I64, _I64, _I, _P]),
+        "beat_gather_rows_f32": (_I, [_P, _P, _I, _I64, _P, _I64, _I64, _I, _P]),
     },
 }
 
@@ -58,7 +59,7 @@ class BuildInfo:
     log: str            # nvcc's output, including ``-Xptxas -v``
 
 
-_loaded: dict = {}  # name -> (ctypes.CDLL, BuildInfo), per process
+_loaded: dict = {}  # (name, defines) -> (ctypes.CDLL, BuildInfo), per process
 
 
 def nvcc_path() -> str:
@@ -76,17 +77,19 @@ def nvcc_path() -> str:
     return found
 
 
-def build(name: str) -> BuildInfo:
+def build(name: str, defines: tuple = ()) -> BuildInfo:
     """Compile ``csrc/<name>.cu`` into ``_build/lib<name>-<hash>.so``
-    unless that file exists already."""
+    unless that file exists already.  ``defines`` are extra ``-D`` flags
+    (measurement builds: ``tools/bench_torch_gfstack.py``)."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    flags = NVCC_FLAGS + tuple(defines)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
     out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     if out.exists():
         return BuildInfo(out, 0.0, True, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [nvcc_path(), *flags, "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -108,14 +111,35 @@ def build_all(names) -> dict:
         return dict(zip(names, pool.map(build, names)))
 
 
-def load(name: str):
+def load(name: str, defines: tuple = ()):
     """The loaded ``ctypes`` library of kernel ``name`` (built on first
-    use) and its :class:`BuildInfo`."""
-    if name not in _loaded:
-        info = build(name)
+    use, with ``defines`` as for :func:`build`) and its
+    :class:`BuildInfo`."""
+    key = (name, tuple(defines))
+    if key not in _loaded:
+        info = build(name, defines)
         lib = ctypes.CDLL(str(info.path))
         for fn, (restype, argtypes) in SIGNATURES[name].items():
             getattr(lib, fn).restype = restype
             getattr(lib, fn).argtypes = argtypes
-        _loaded[name] = (lib, info)
-    return _loaded[name]
+        _loaded[key] = (lib, info)
+    return _loaded[key]
+
+
+def _stream(torch, device) -> int:
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return raw(device.index) if raw is not None else torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(device, entry, *args) -> int:
+    """Call the C entry ``entry(*args, stream)`` with ``device`` current
+    and ``stream`` PyTorch's current stream on it; returns the entry's
+    code.  The device guard is entered only where ``device`` is not the
+    current one already, and the stream comes as a plain integer: a
+    launch-sized kernel is bounded by this path."""
+    import torch
+
+    if device.index == torch.cuda.current_device():
+        return entry(*args, _stream(torch, device))
+    with torch.cuda.device(device):
+        return entry(*args, _stream(torch, device))

@@ -20,6 +20,12 @@ stack extrapolates, as the JAX package's does.
   launches ``csrc/gfstack.cu`` (or raises), on CPU tensors it runs the
   plain version.  ``.launches_multilinear`` and ``.launches_nearest``
   count K3's and K4's launches.
+* :func:`plan_stack` picks the kernel variant and its tile sizes from the
+  shapes: ``tiled`` (the cell tile of a patch in shared memory, serving a
+  whole chain tile) or ``gather`` (rows straight from the library).
+* :func:`stack_operands` hands the operands to the kernel as they come:
+  ``(C, 1, P)`` onsets go with a target stride of 0, nothing is expanded
+  or copied.
 * :func:`stack_batched_reference` is the plain PyTorch version: the
   fancy gather of ``SeismicGFLibrary.stack_all`` in the JAX package,
   batched over chains and run in chain chunks so the gathered
@@ -32,7 +38,12 @@ op has no VJP either).
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from functools import lru_cache
+
 import torch
+
+from beat_tpu_torch.kernels.build import launch, load
 
 #: elements of one gathered (chains, T, P, N) corner the plain version
 #: holds at a time (1 GiB of float32)
@@ -129,42 +140,158 @@ def _check(data, didx, sidx, slips, rtf, stf) -> None:
         raise ValueError("a dimension exceeds the kernels' 32-bit sizes")
 
 
-def _launch(data, didx, sidx, slips, rtf, stf) -> torch.Tensor:
-    """One K3 or K4 launch on checked operands, on the current stream."""
-    from beat_tpu_torch.kernels.build import load
+#: what one block of an H100 may use (``csrc/gfstack.cu`` checks the same)
+SMEM_PER_BLOCK = 232_448        # bytes of shared memory
+REGISTERS_PER_SM = 65_536       # 32-bit registers; the tiled variant runs one block an SM
+#: the tiled variant's block (``kTiledThreads``, ``kChainsPerThread`` in
+#: the source) and the threads along n that may serve one chain, by
+#: preference; the n tile is 4 · lanes samples
+_TILED_THREADS, _CHAINS_PER_THREAD, _TILED_LANES = 512, 16, (16, 8)
+#: the tiled variant pays where a staged cell row serves enough row reads
+#: of the chain tile (chains · corners / D·S).  On a long walk over the
+#: patches the tile copies hide behind the sums and 1.5 reads a row are
+#: enough (K4 at D·S = 320 serves 1.6); on a short walk the first copy and
+#: fold lie open and it takes 6 (measured at the GF-stack bench shape and
+#: the small FFI problem's: ``PERF.md`` §6)
+_LONG_WALK_PATCHES, _ROW_REUSE_LONG_WALK, _ROW_REUSE_SHORT_WALK = 64, 1.5, 6.0
+#: the gather variant's tile: chains a block, threads, patches of entries
+_GATHER_CHAINS, _GATHER_THREADS, _GATHER_CHUNK = 8, 128, 32
 
+
+@dataclass(frozen=True)
+class StackPlan:
+    """How one K3/K4 launch is cut, chosen from the shapes alone."""
+
+    variant: str                # "tiled" or "gather"
+    why: str                    # the reason for the variant
+    threads: int                # threads of a block
+    lanes: int                  # threads along n that serve one chain (tiled; else 0)
+    chains_per_thread: int      # chains whose sums one thread keeps
+    n_tile: int                 # samples of a block
+    chain_tile: int             # chains of a block
+    patch_chunk: int            # patches whose folded operands are staged at a time
+    stages: int                 # cell-tile buffers in shared memory (tiled; else 0)
+    smem_bytes: int             # shared memory of a block
+    sum_registers: int          # registers a thread spends on its sums
+    grid: tuple                 # (chain tiles, n tiles, targets)
+
+    @property
+    def chunk_shift(self) -> int:
+        return self.patch_chunk.bit_length() - 1
+
+
+def _gather_plan(T, N, C, corners, why) -> StackPlan:
+    vec = 4 if N % 4 == 0 else 1
+    columns = -(-N // vec)
+    threads = min(_GATHER_THREADS, -(-columns // 32) * 32)
+    return StackPlan(
+        "gather", why, threads, 0, _GATHER_CHAINS, threads * vec, _GATHER_CHAINS,
+        _GATHER_CHUNK, 0, _GATHER_CHUNK * _GATHER_CHAINS * (8 + 4 * corners),
+        _GATHER_CHAINS * vec, (-(-C // _GATHER_CHAINS), -(-columns // threads), T))
+
+
+@lru_cache(maxsize=256)
+def plan_stack(T: int, P: int, D: int, S: int, N: int, C: int, corners: int = 4,
+               variant: str | None = None, aligned: bool = True) -> StackPlan:
+    """The variant and tile sizes of one K3 (``corners=4``) or K4
+    (``corners=1``) launch on a (T, P, D, S, N) library and C chains.
+
+    ``tiled`` needs 16-byte rows (``N % 4 == 0``, ``aligned`` bases) and
+    two (D·S × n tile) cell tiles plus a chunk of folded operands within
+    :data:`SMEM_PER_BLOCK`; it is chosen where it pays: every staged
+    cell row serves at least :data:`_ROW_REUSE_LONG_WALK` row reads of
+    the chain tile over :data:`_LONG_WALK_PATCHES` patches or more, or
+    :data:`_ROW_REUSE_SHORT_WALK` over fewer.  Everything else takes
+    ``gather``.  ``variant`` forces one (``ValueError`` where
+    ``tiled`` cannot run)."""
+    if variant not in (None, "tiled", "gather"):
+        raise ValueError(f"unknown variant {variant!r}")
+    if variant == "gather":
+        return _gather_plan(T, N, C, corners, "asked for")
+    why = tile = None
+    if N % 4 != 0 or not aligned:
+        why = "rows are not 16-byte aligned (N % 4 != 0 or an unaligned base)"
+    elif min(T, P, C) < 1:
+        why = "nothing to stack"
+    else:
+        entry_bytes = 16 if corners == 4 else 8
+        for lanes in _TILED_LANES:
+            if lanes == 16 and N <= 32:
+                continue                      # half of the n tile would be idle
+            chain_tile = _TILED_THREADS // lanes * _CHAINS_PER_THREAD
+            tiles_bytes = 2 * D * S * 4 * lanes * 4
+            for chunk in (8, 4, 2, 1):
+                smem = tiles_bytes + chain_tile * chunk * entry_bytes
+                if smem <= SMEM_PER_BLOCK:
+                    tile = (lanes, chain_tile, chunk, smem)
+                    break
+            if tile:
+                break
+        if tile is None:
+            why = (f"two cell tiles of D·S = {D * S} rows do not fit {SMEM_PER_BLOCK} bytes "
+                   f"of shared memory")
+    if why is None and variant is None:
+        reuse = min(C, tile[1]) * corners / (D * S)
+        if reuse < (_ROW_REUSE_LONG_WALK if P >= _LONG_WALK_PATCHES else _ROW_REUSE_SHORT_WALK):
+            why = (f"a staged cell row would serve {reuse:.2f} reads of the chain tile over "
+                   f"{P} patches")
+    if why is not None:
+        if variant == "tiled":
+            raise ValueError(f"the tiled variant cannot run here: {why}")
+        return _gather_plan(T, N, C, corners, why)
+    lanes, chain_tile, chunk, smem = tile
+    return StackPlan(
+        "tiled", "asked for" if variant else "cell tiles fit and are reused", _TILED_THREADS,
+        lanes, _CHAINS_PER_THREAD, 4 * lanes, chain_tile, chunk, 2, smem,
+        4 * _CHAINS_PER_THREAD, (-(-C // chain_tile), -(-N // (4 * lanes)), T))
+
+
+def stack_operands(didx, sidx, slips, rtf=None, stf=None) -> tuple:
+    """The operands as the kernels address them: ``(tensors, strides)``
+    with ``tensors = (didx, sidx, slips[, rtf, stf])`` and ``strides``
+    the chain strides (and, for ``sidx`` and ``stf``, the target
+    strides) in elements, in the C entries' order.  ``int32`` indices
+    and floats with unit stride along the patches pass as they are; a
+    ``(C, 1, P)`` ``sidx``/``stf`` gets a target stride of 0.  Other
+    index types and layouts are converted (a copy)."""
+    def unit(x):
+        return x if x.stride(-1) == 1 or x.shape[-1] <= 1 else x.contiguous()
+
+    def i32(x):
+        return unit(x if x.dtype == torch.int32 else x.to(torch.int32))
+
+    def t_stride(x):
+        return 0 if x.shape[1] == 1 else x.stride(1)
+
+    didx, sidx, slips = i32(didx), i32(sidx), unit(slips)
+    if rtf is None:
+        return ((didx, sidx, slips),
+                (didx.stride(0), sidx.stride(0), t_stride(sidx), slips.stride(0)))
+    rtf, stf = unit(rtf), unit(stf)
+    return ((didx, sidx, slips, rtf, stf),
+            (didx.stride(0), sidx.stride(0), t_stride(sidx), slips.stride(0),
+             rtf.stride(0), stf.stride(0), t_stride(stf)))
+
+
+def _launch(data, didx, sidx, slips, rtf, stf, plan: StackPlan) -> torch.Tensor:
+    """One K3 or K4 launch on checked operands, on the current stream."""
     lib, _ = load("gfstack")
     T, P, D, S, N = data.shape
     C = didx.shape[0]
-
-    def i32(x):
-        return x.to(torch.int32).contiguous()
-
-    def full(x):        # (C, 1, P) → (C, T, P), as the kernel indexes it
-        return x.expand(C, T, P).contiguous()
-
-    didx, sidx = i32(didx), full(i32(sidx))
-    slips = slips.contiguous()
+    tensors, strides = stack_operands(didx, sidx, slips, rtf, stf)
     out = torch.empty((C, T, N), dtype=data.dtype, device=data.device)
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if rtf is not None:
-            rtf, stf = rtf.contiguous(), full(stf)
-            rc = lib.beat_gf_stack_multilinear_f32(
-                data.data_ptr(), didx.data_ptr(), sidx.data_ptr(), slips.data_ptr(),
-                rtf.data_ptr(), stf.data_ptr(), out.data_ptr(), C, T, P, D, S, N, stream)
-        else:
-            rc = lib.beat_gf_stack_nearest_f32(
-                data.data_ptr(), didx.data_ptr(), sidx.data_ptr(), slips.data_ptr(),
-                out.data_ptr(), C, T, P, D, S, N, stream)
+    entry = lib.beat_gf_stack_nearest_f32 if rtf is None else lib.beat_gf_stack_multilinear_f32
+    rc = launch(data.device, entry, data.data_ptr(), *(x.data_ptr() for x in tensors),
+                out.data_ptr(), C, T, P, D, S, N, *strides, int(plan.variant == "tiled"),
+                plan.lanes, plan.chunk_shift)
     if rc != 0:
-        raise RuntimeError(f"GF stack kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"GF stack kernel launch failed ({plan.variant}): cudaError {rc}")
     return out
 
 
 def stack_batched(data: torch.Tensor, didx: torch.Tensor, sidx: torch.Tensor,
                   slips: torch.Tensor, rtf: torch.Tensor | None = None,
-                  stf: torch.Tensor | None = None) -> torch.Tensor:
+                  stf: torch.Tensor | None = None, variant: str | None = None) -> torch.Tensor:
     """K3 (with ``rtf`` and ``stf``) or K4 (without): the all-chain
     kinematic stack.
 
@@ -175,6 +302,9 @@ def stack_batched(data: torch.Tensor, didx: torch.Tensor, sidx: torch.Tensor,
     slips : (C, P).
     rtf, stf : floor-cell weights, (C, P) and shaped like ``sidx``.
     Indices are clamped to the grid; the weights are used as given.
+    variant : ``None`` lets :func:`plan_stack` choose the kernel variant
+        from the shapes; ``"tiled"`` or ``"gather"`` asks for one (the
+        two are equal bit for bit).
 
     Returns (C, T, N).  CPU tensors take the plain version; CUDA tensors
     launch the kernel, and any failure raises."""
@@ -184,7 +314,10 @@ def stack_batched(data: torch.Tensor, didx: torch.Tensor, sidx: torch.Tensor,
     if didx.shape[0] == 0 or data.shape[0] == 0 or data.shape[4] == 0:
         return torch.empty((didx.shape[0], data.shape[0], data.shape[4]),
                            dtype=data.dtype, device=data.device)
-    out = _launch(data, didx, sidx, slips, rtf, stf)
+    T, P, D, S, N = data.shape
+    plan = plan_stack(T, P, D, S, N, didx.shape[0], corners=1 if rtf is None else 4,
+                      variant=variant, aligned=data.data_ptr() % 16 == 0)
+    out = _launch(data, didx, sidx, slips, rtf, stf, plan)
     if rtf is not None:
         stack_batched.launches_multilinear += 1
     else:

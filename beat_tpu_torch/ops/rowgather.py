@@ -15,17 +15,24 @@ device (:mod:`beat_tpu_torch.samplers.smc`).
 
 Unlike the TPU entry there is no padding of the row length to (8, L)
 tiles nor of ``idx`` to a block multiple: any ``M`` and ``n`` go to the
-kernel as they are.
+kernel as they are.  ``idx`` is clipped to ``[0, R-1]`` as an integer of
+its own width: an ``int64`` index beyond the ``int32`` range clips, where
+the TPU entry (which casts to ``int32`` first, ``rowgather.py:109``)
+would wrap.  An ``int32`` or ``int64`` index of any stride goes to the
+kernel as it is, so one call on the card is one device kernel and no
+other device operation.
 """
 
 from __future__ import annotations
 
 import torch
 
+from beat_tpu_torch.kernels.build import launch, load
+
 
 def gather_rows_reference(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch K5: ``tbl[idx]`` with ``idx`` clipped to
-    ``[0, R-1]`` (``rowgather.py:109``)."""
+    ``[0, R-1]`` in 64 bits."""
     return tbl[idx.long().clamp(0, tbl.shape[0] - 1)]
 
 
@@ -54,18 +61,14 @@ def gather_rows(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     n = idx.shape[0]
     if n > 2**31 - 1 or M > 2**31 - 1:
         raise ValueError(f"{n} rows of {M} exceed one launch grid")
-    out = torch.empty((n, M), dtype=tbl.dtype, device=tbl.device)
+    out = tbl.new_empty((n, M))
     if n == 0 or M == 0:
         return out
-    from beat_tpu_torch.kernels.build import load
-
+    if idx.dtype not in (torch.int32, torch.int64):
+        idx = idx.long()        # the narrow types: an index pass, off the main path
     lib, _ = load("rowgather")
-    # clipped here as well as in the kernel: an int64 index must not wrap
-    # on its way to the kernel's int32
-    idx32 = idx.clamp(0, R - 1).to(torch.int32).contiguous()
-    with torch.cuda.device(tbl.device):
-        rc = lib.beat_gather_rows_f32(tbl.data_ptr(), idx32.data_ptr(), out.data_ptr(), R, n,
-                                      M, torch.cuda.current_stream().cuda_stream)
+    rc = launch(tbl.device, lib.beat_gather_rows_f32, tbl.data_ptr(), idx.data_ptr(),
+                idx.element_size(), idx.stride(0), out.data_ptr(), R, n, M)
     if rc != 0:
         raise RuntimeError(f"beat_gather_rows_f32 kernel launch failed: cudaError {rc}")
     gather_rows.launches += 1

@@ -43,16 +43,25 @@ targets × 500 patches × 10 durations × 32 starttimes × 512 samples: a
     the Hessian;
 11. [k5] K5 against its plain version (a copy: equal exactly) at the
     shape the SMC's resampling gives it (2000 × 1504), on the FullMT
-    table's rows and at a ragged row length; its time, the plain time,
-    ``index_select``'s time and its bound;
+    table's rows and at a ragged row length, with ``int64`` and ``int32``
+    indices and with indices of ±2^40, which must clip; its time and
+    ``index_select``'s in turns, the plain time, its bound, the device
+    operations one call makes (must be 1) and the kernel's device time;
 12. [k3], [k4] K3 and K4 against their plain version at the GF-stack
     bench shape (C=2000, T=8, P=12, D=6, S=16, N=256, the inputs of
     ``tools/bench_gfstack.py``) and, after [ffi_build], on the real
     library with durations and starttimes on and beyond the grid; per
     (chain, target) |err| <= 1e-5 · Σ_p |slip_p| · Σ_corners |w| ·
-    max|data|; time, plain time and bound (no single PyTorch call
+    max|data|, for the variant ``plan_stack`` chose and for the other
+    one where it can run, which must also equal each other bit for bit;
+    the chosen variant's time and ``previous_ms``, the ``gather``
+    variant's, in turns; plain time and bound (no single PyTorch call
     computes the stack; at the bench shape a dense ``bmm`` over the
-    scattered corner weights is timed as a second yardstick);
+    scattered corner weights is timed as a second yardstick).  On the
+    real library also K3 with the onsets shared by the targets, (C, 1, P)
+    operands as the main path passes them, which must allocate the
+    output and nothing else, and K3 with all chains on one cell and on
+    eight cells;
 13. [ffi_build] the real-size FFI problem, its library built on the card
     through K1;
 14. [ffi_llk] the 2000-chain FFI log-likelihood through K3 against the
@@ -72,8 +81,10 @@ targets × 500 patches × 10 durations × 32 starttimes × 512 samples: a
     above a rupture with 2.5 times the slip;
 17. a JSON line of the kernels, then ``{"ok": true, "device": ...}`` last.
 
-Every launch count is read from counters set to 0 just before the path
-it counts.  It needs CUDA and exits non-zero without it; it never falls
+Phases 11 and the bench-shape half of 12 run right after phase 4 (the
+profiler's device records of launch-sized calls go missing later in the
+process).  Every launch count is read from counters set to 0 just before
+the path it counts.  It needs CUDA and exits non-zero without it; it never falls
 back to the CPU.
 """
 
@@ -110,6 +121,15 @@ FP32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
 
 def say(phase: str, **fields) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
+
+
+def ms_or_none(x: float):
+    """A device time for the JSON line: ``None`` where it was not measured."""
+    return None if math.isnan(x) else x
+
+
+def fmt_ms(x) -> str:
+    return "not_measured" if x is None else f"{x:.4f}"
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -155,20 +175,39 @@ def k1_queries(table, n: int, gen):
     return comp * (table.packed.shape[0] // 3) + d0, z0, w4
 
 
+#: the CUDA calls by which a host thread hands work to the device; the
+#: profiler records them on the host side of a trace
+DEVICE_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy", "cuMemcpy", "cudaMemset",
+                "cuMemset", "cudaGraphLaunch")
+
+
 def device_kernels(fn) -> tuple:
     """``(launches, ms, {kernel name: ms})`` of the device operations one
-    call of ``fn`` runs, from ``torch.profiler``."""
+    call of ``fn`` runs, from ``torch.profiler``.
+
+    ``launches`` counts what the call hands to the device: the launches,
+    copies and fills among the CUDA calls on the host side of the trace.
+    The times are the device's own records.  Those can miss from a trace (CUPTI
+    hands out a new record buffer in mid-trace and the records in it do
+    not come back with this trace; seen a minute into a process): the
+    trace is then taken again, four times at most, and if the records
+    still miss ``ms`` is NaN and the dictionary empty."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: -e.self_device_time_total)
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kernels = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
+                         key=lambda e: -e.self_device_time_total)
+        if kernels:
+            break
+    launches = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CPU
+                   and e.key.startswith(DEVICE_CALLS))
     by_name = {e.key: e.self_device_time_total / 1e3 for e in kernels}
-    return sum(e.count for e in kernels), sum(by_name.values()), by_name
+    return launches, (sum(by_name.values()) if kernels else float("nan")), by_name
 
 
 def stack_inputs(lib, n_chains: int, duration_range, starttime_range, gen) -> tuple:
@@ -186,13 +225,32 @@ def stack_inputs(lib, n_chains: int, duration_range, starttime_range, gen) -> tu
             uniform((n_chains, P), 0.0, 3.0))
 
 
+def stack_gate(data, slips, rtf, stf, got, ref) -> float:
+    """Worst |got - ref| per (chain, target) over its bar, STACK_RTOL ·
+    Σ_p |slip_p| · Σ_corners |w| · max|data| (the float32 sums of P ·
+    corners products differ in order)."""
+    wabs = 1.0
+    if rtf is not None:
+        wabs = (rtf.abs() + (1 - rtf).abs())[:, None, :] * (stf.abs() + (1 - stf).abs())
+    bar = STACK_RTOL * (slips.abs()[:, None, :] * wabs).sum(-1) * data.abs().max()
+    return float(((got - ref).abs().amax(-1) / bar).max())
+
+
+def time_in_turns(fn_a, fn_b, iters: int) -> tuple:
+    """Mean CUDA-event milliseconds of ``fn_a`` and ``fn_b`` timed a, b, b, a."""
+    a1, b1 = cuda_ms(fn_a, iters=iters), cuda_ms(fn_b, iters=iters)
+    b2, a2 = cuda_ms(fn_b, iters=iters), cuda_ms(fn_a, iters=iters)
+    return 0.5 * (a1 + a2), 0.5 * (b1 + b2)
+
+
 def check_stack(lib, durations, starttimes, slips, interpolation: str, iters: int) -> dict:
     """One GF-stack kernel (K3 for multilinear, K4 for nearest neighbour)
-    against its plain version on the same inputs, its times and its
-    bound.  Raises SystemExit when they disagree."""
+    against its plain version on the same inputs: the variant the plan
+    chose and the other one where it can run; their times in turns, the
+    plain time and the bound.  Raises SystemExit when they disagree."""
     import torch
 
-    from beat_tpu_torch.ops.gfstack import stack_batched, stack_batched_reference
+    from beat_tpu_torch.ops.gfstack import plan_stack, stack_batched, stack_batched_reference
 
     data = lib.data
     T, P, D, S, N = data.shape
@@ -200,20 +258,35 @@ def check_stack(lib, durations, starttimes, slips, interpolation: str, iters: in
     didx, rtf = lib.durations2idxs(durations, interpolation)
     sidx, stf = lib.starttimes2idxs(starttimes, interpolation)
     multilinear = rtf is not None
-    got = stack_batched(data, didx, sidx, slips, rtf, stf)
+    corners = 4 if multilinear else 1
+    plan = plan_stack(T, P, D, S, N, C, corners, aligned=data.data_ptr() % 16 == 0)
+    variants = [plan.variant]
+    try:
+        variants.append(plan_stack(T, P, D, S, N, C, corners, variant={
+            "tiled": "gather", "gather": "tiled"}[plan.variant]).variant)
+    except ValueError:          # tiled cannot run at this shape
+        pass
+
+    def run(variant):
+        return stack_batched(data, didx, sidx, slips, rtf, stf, variant=variant)
+
     ref = stack_batched_reference(data, didx, sidx, slips, rtf, stf)
+    got = {v: run(v) for v in variants}
     torch.cuda.synchronize()
-    # per (chain, target): the float32 sums of P · corners products differ in order
-    wabs = 1.0
-    if multilinear:
-        wabs = (rtf.abs() + (1 - rtf).abs())[:, None, :] * (stf.abs() + (1 - stf).abs())
-    bar = STACK_RTOL * (slips.abs()[:, None, :] * wabs).sum(-1) * data.abs().max()
-    err = (got - ref).abs().amax(-1)
-    out = {"max_abs_err": float(err.max()), "worst_err_over_bar": float((err / bar).max()),
-           "max_ref": float(ref.abs().max())}
-    del got, ref, err, bar, wabs
+    out = {"variant": plan.variant, "why": plan.why, "max_ref": float(ref.abs().max()),
+           "max_abs_err": max(float((g - ref).abs().max()) for g in got.values()),
+           "worst_err_over_bar": max(stack_gate(data, slips, rtf, stf, g, ref)
+                                     for g in got.values()),
+           "variants_equal": all(torch.equal(g, got[plan.variant]) for g in got.values())}
+    del got, ref
     torch.cuda.empty_cache()
-    out["ms"] = cuda_ms(lambda: stack_batched(data, didx, sidx, slips, rtf, stf), iters=iters)
+    # the chosen variant and the gather variant (the kernel before the tiled one) in turns
+    out["ms"], out["previous_ms"] = time_in_turns(lambda: run(plan.variant),
+                                                  lambda: run("gather"), iters)
+    if plan.variant == "gather" and "tiled" in variants:
+        out["tiled_ms"] = cuda_ms(lambda: run("tiled"), iters=iters)
+    out["device_ms"] = ms_or_none(device_kernels(lambda: run(plan.variant))[1])
+    out["previous_device_ms"] = ms_or_none(device_kernels(lambda: run("gather"))[1])
     out["plain_ms"] = cuda_ms(
         lambda: stack_batched_reference(data, didx, sidx, slips, rtf, stf), iters=2, warmup=1)
     # bytes: the library cells these indices touch, the indices and weights, the output
@@ -223,15 +296,29 @@ def check_stack(lib, durations, starttimes, slips, interpolation: str, iters: in
     for dd, ss in ((0, 0), (0, 1), (1, 0), (1, 1)) if multilinear else ((0, 0),):
         touched[((tp * D + (didx.long()[:, None, :] - dd)) * S + (sidx.long() - ss))] = True
     out["cells_read"] = int(touched.sum())
-    corners = 4 if multilinear else 1
     per_entry = 8 if multilinear else 4          # sidx (+ stf); didx, slips (+ rtf)
-    n_bytes = (out["cells_read"] * N * 4 + C * T * P * per_entry + C * P * (per_entry + 4)
+    n_bytes = (out["cells_read"] * N * 4 + sidx.numel() * per_entry + C * P * (per_entry + 4)
                + C * T * N * 4)
     out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, 2.0 * corners * C * T * P * N)
-    if not out["worst_err_over_bar"] <= 1.0:
-        raise SystemExit(f"the {interpolation} GF stack disagrees with its plain version: "
-                         f"worst err/bar {out['worst_err_over_bar']}")
+    if not (out["worst_err_over_bar"] <= 1.0 and out["variants_equal"]):
+        raise SystemExit(f"the {interpolation} GF stack disagrees with its plain version (or its "
+                         f"variants with each other): worst err/bar {out['worst_err_over_bar']}, "
+                         f"variants equal {out['variants_equal']}")
     return out
+
+
+def say_stack(key: str, shape: str, dims: dict, r: dict, **extra) -> None:
+    fields = dict(variant=r["variant"], max_abs_err=f"{r['max_abs_err']:.3e}",
+                  max_ref=f"{r['max_ref']:.3e}",
+                  worst_err_over_bar=f"{r['worst_err_over_bar']:.3e}",
+                  variants_equal=r["variants_equal"], ms=f"{r['ms']:.4f}",
+                  previous_ms=f"{r['previous_ms']:.4f}", device_ms=fmt_ms(r["device_ms"]),
+                  previous_device_ms=fmt_ms(r["previous_device_ms"]))
+    if "tiled_ms" in r:
+        fields["tiled_ms"] = f"{r['tiled_ms']:.4f}"
+    say(key, shape=shape, **dims, **fields, plain_ms=f"{r['plain_ms']:.4f}", library_ms="none",
+        cells_read=r["cells_read"], bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"],
+        share_of_bound=f"{r['bound_ms'] / r['ms']:.3f}", why=json.dumps(r["why"]), **extra)
 
 
 def dense_bmm_ms(lib, durations, starttimes, slips) -> tuple:
@@ -445,6 +532,80 @@ def main() -> int:
     del cd, z0, w4, g, idx4, flat, ind, offsets, offset2bag
     torch.cuda.empty_cache()
 
+    # 11. K5 against its plain version (a copy: equal exactly) at the shape
+    # the SMC gives it (the FFI population, resampling indices ascending), on
+    # the FullMT table's rows (float4 path) and at a ragged row length
+    # (scalar path); index_select is the library call, timed in turns with K5.
+    # This phase and 12a run here, while the process is young: later on the
+    # device's records go missing from short profiler traces
+    def check_k5(tbl2, idx, iters):
+        ref = gather_rows_reference(tbl2, idx)
+        clipped = idx.clamp(0, tbl2.shape[0] - 1)
+        far = idx.clone()               # beyond the int32 range on both sides: must clip
+        far[::3], far[1::3] = 2**40, -2**40
+        r = {"equal": torch.equal(gather_rows(tbl2, idx), ref),
+             "equal_int32": torch.equal(gather_rows(tbl2, idx.to(torch.int32)), ref),
+             "clips_int64": torch.equal(gather_rows(tbl2, far),
+                                        gather_rows_reference(tbl2, far)),
+             "library_equal": torch.equal(torch.index_select(tbl2, 0, clipped), ref),
+             "rows_read": int(torch.unique(clipped).numel())}
+        r["ms"], r["library_ms"] = time_in_turns(
+            lambda: gather_rows(tbl2, idx), lambda: torch.index_select(tbl2, 0, clipped), iters)
+        r["plain_ms"] = cuda_ms(lambda: gather_rows_reference(tbl2, idx), iters=iters)
+        r["device_kernels_per_call"], device_ms, _ = device_kernels(
+            lambda: gather_rows(tbl2, idx))
+        r["device_ms"] = ms_or_none(device_ms)
+        r["library_device_ms"] = ms_or_none(device_kernels(
+            lambda: torch.index_select(tbl2, 0, clipped))[1])
+        n, m = idx.shape[0], tbl2.shape[1]
+        r["bound_ms"], r["bound_by"] = bound_ms(r["rows_read"] * m * 4 + n * 8 + n * m * 4, 0.0)
+        return r
+
+    ffi_dims = 3 * FFI_REAL_SIZE["n_strike"] * FFI_REAL_SIZE["n_dip"] + 4
+    population = torch.randn((N_CHAINS, ffi_dims), generator=gen, device=dev)
+    parents = torch.sort(torch.randint(0, N_CHAINS, (N_CHAINS,), generator=gen,
+                                       device=dev)).values
+    flat = tbl.reshape(CD * NZ, M)
+    idx = torch.randint(-2, CD * NZ + 2, (n_queries,), generator=gen, device=dev)
+    ragged = flat[:97, :333].contiguous()
+    k5 = {"smc": check_k5(population, parents, 100), "table": check_k5(flat, idx, 20),
+          "ragged": check_k5(ragged, idx[:41], 100)}
+    for shape, r in k5.items():
+        say("k5", shape=shape, equal=r["equal"], equal_int32=r["equal_int32"],
+            clips_int64=r["clips_int64"], ms=f"{r['ms']:.4f}",
+            library_ms=f"{r['library_ms']:.4f}", device_ms=fmt_ms(r["device_ms"]),
+            library_device_ms=fmt_ms(r["library_device_ms"]),
+            device_kernels_per_call=r["device_kernels_per_call"],
+            plain_ms=f"{r['plain_ms']:.4f}", library_equal=r["library_equal"],
+            table_rows_read=r["rows_read"], bound_ms=f"{r['bound_ms']:.5f}",
+            bound_by=r["bound_by"], share_of_bound=f"{r['bound_ms'] / r['ms']:.3f}")
+    if not all(r["equal"] and r["equal_int32"] and r["clips_int64"] and r["library_equal"]
+               for r in k5.values()):
+        raise SystemExit("K5 (or its library yardstick) is not the plain row gather")
+    if not all(r["device_kernels_per_call"] == 1 for r in k5.values()):
+        raise SystemExit("a gather_rows call made another device operation beside K5")
+    del flat, idx, ragged, population, parents
+
+    # 12a. K3 and K4 at the GF-stack bench shape, the bench's inputs
+    b = K3_BENCH_SHAPE
+    bench_lib = SeismicGFLibrary(
+        torch.randn((b["T"], b["P"], b["D"], b["S"], b["N"]), generator=gen, device=dev),
+        duration_min=0.5, duration_sampling=0.5, starttime_min=0.0, starttime_sampling=0.25,
+        device=dev)
+    bench_in = stack_inputs(bench_lib, b["C"], (0.5, 2.0), (0.0, 2.0), gen)
+    bench = {}
+    for key, interpolation in (("k3", "multilinear"), ("k4", "nearest_neighbor")):
+        bench[key] = r = check_stack(bench_lib, *bench_in, interpolation, iters=50)
+        extra = {}
+        if key == "k3":
+            bmm_ms, bmm_scatter_ms, bmm_err = dense_bmm_ms(bench_lib, *bench_in)
+            extra = dict(dense_bmm_ms=f"{bmm_ms:.4f}",
+                         dense_bmm_with_scatter_ms=f"{bmm_scatter_ms:.4f}",
+                         dense_bmm_max_abs_err=f"{bmm_err:.3e}")
+        say_stack(key, "bench", b, r, **extra)
+    del bench_lib, bench_in
+    torch.cuda.empty_cache()
+
     # 5. 2000-chain log-likelihood: K1 against the plain gather
     logp, data = problem.make_logp_fn()
     lower, upper = problem.priors.bounds_arrays()
@@ -630,68 +791,8 @@ def main() -> int:
         raise SystemExit("the Laplace Hessian never launched K1")
 
 
-    # 11. K5 against its plain version (a copy: equal exactly) at the shape
-    # the SMC gives it (the FFI population, resampling indices ascending), on
-    # the FullMT table's rows (float4 path) and at a ragged row length
-    # (scalar path); index_select is the library call
-    def check_k5(tbl2, idx, iters):
-        got, ref = gather_rows(tbl2, idx), gather_rows_reference(tbl2, idx)
-        clipped = idx.clamp(0, tbl2.shape[0] - 1)
-        r = {"equal": torch.equal(got, ref),
-             "library_equal": torch.equal(torch.index_select(tbl2, 0, clipped), ref),
-             "ms": cuda_ms(lambda: gather_rows(tbl2, idx), iters=iters),
-             "plain_ms": cuda_ms(lambda: gather_rows_reference(tbl2, idx), iters=iters),
-             "library_ms": cuda_ms(lambda: torch.index_select(tbl2, 0, clipped), iters=iters),
-             "rows_read": int(torch.unique(clipped).numel())}
-        n, m = idx.shape[0], tbl2.shape[1]
-        r["bound_ms"], r["bound_by"] = bound_ms(r["rows_read"] * m * 4 + n * 4 + n * m * 4, 0.0)
-        return r
-
-    ffi_dims = 3 * FFI_REAL_SIZE["n_strike"] * FFI_REAL_SIZE["n_dip"] + 4
-    population = torch.randn((N_CHAINS, ffi_dims), generator=gen, device=dev)
-    parents = torch.sort(torch.randint(0, N_CHAINS, (N_CHAINS,), generator=gen,
-                                       device=dev)).values
-    flat = tbl.reshape(CD * NZ, M)
-    idx = torch.randint(-2, CD * NZ + 2, (n_queries,), generator=gen, device=dev)
-    ragged = flat[:97, :333].contiguous()
-    k5 = {"smc": check_k5(population, parents, 50), "table": check_k5(flat, idx, 20),
-          "ragged": check_k5(ragged, idx[:41], 50)}
-    for shape, r in k5.items():
-        say("k5", shape=shape, equal=r["equal"], ms=f"{r['ms']:.4f}",
-            plain_ms=f"{r['plain_ms']:.4f}", library_ms=f"{r['library_ms']:.4f}",
-            library_equal=r["library_equal"], table_rows_read=r["rows_read"],
-            bound_ms=f"{r['bound_ms']:.5f}", bound_by=r["bound_by"],
-            share_of_bound=f"{r['bound_ms'] / r['ms']:.3f}")
-    if not all(r["equal"] and r["library_equal"] for r in k5.values()):
-        raise SystemExit("K5 (or its library yardstick) is not the plain row gather")
-    del flat, idx, ragged, population, parents
-
     # the FullMT problem is done: free its table before the FFI library
     del problem, comp, table, tbl, logp, data, lap, q_map, state, cov_chol, lo, hi
-    torch.cuda.empty_cache()
-
-    # 12a. K3 and K4 at the GF-stack bench shape, the bench's inputs
-    b = K3_BENCH_SHAPE
-    bench_lib = SeismicGFLibrary(
-        torch.randn((b["T"], b["P"], b["D"], b["S"], b["N"]), generator=gen, device=dev),
-        duration_min=0.5, duration_sampling=0.5, starttime_min=0.0, starttime_sampling=0.25,
-        device=dev)
-    bench_in = stack_inputs(bench_lib, b["C"], (0.5, 2.0), (0.0, 2.0), gen)
-    bench = {}
-    for key, interpolation in (("k3", "multilinear"), ("k4", "nearest_neighbor")):
-        bench[key] = r = check_stack(bench_lib, *bench_in, interpolation, iters=50)
-        extra = {}
-        if key == "k3":
-            bmm_ms, bmm_scatter_ms, bmm_err = dense_bmm_ms(bench_lib, *bench_in)
-            extra = dict(dense_bmm_ms=f"{bmm_ms:.4f}",
-                         dense_bmm_with_scatter_ms=f"{bmm_scatter_ms:.4f}",
-                         dense_bmm_max_abs_err=f"{bmm_err:.3e}")
-        say(key, shape="bench", **b, max_abs_err=f"{r['max_abs_err']:.3e}",
-            max_ref=f"{r['max_ref']:.3e}", worst_err_over_bar=f"{r['worst_err_over_bar']:.3e}",
-            ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}", library_ms="none",
-            cells_read=r["cells_read"], bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"],
-            share_of_bound=f"{r['bound_ms'] / r['ms']:.3f}", **extra)
-    del bench_lib, bench_in
     torch.cuda.empty_cache()
 
     # 13. the real-size FFI problem: its library is built on the card, through K1
@@ -718,15 +819,53 @@ def main() -> int:
     # 12b. K3 and K4 on the real library: durations and starttimes on and
     # beyond the grids (0.5–5.0 s, 0–7.75 s), so the weights leave [0, 1]
     real_in = stack_inputs(lib, N_CHAINS, (0.2, 5.5), (-0.5, 9.0), gen)
+    real_dims = dict(C=N_CHAINS, T=lib.ntargets, P=lib.npatches, D=lib.ndurations,
+                     S=lib.nstarttimes, N=lib.nsamples)
     real = {}
     for key, interpolation in (("k3", "multilinear"), ("k4", "nearest_neighbor")):
         real[key] = r = check_stack(lib, *real_in, interpolation, iters=10)
-        say(key, shape="real", C=N_CHAINS, T=lib.ntargets, P=lib.npatches, D=lib.ndurations,
-            S=lib.nstarttimes, N=lib.nsamples, max_abs_err=f"{r['max_abs_err']:.3e}",
-            max_ref=f"{r['max_ref']:.3e}", worst_err_over_bar=f"{r['worst_err_over_bar']:.3e}",
-            ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}", library_ms="none",
-            cells_read=r["cells_read"], bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"],
-            share_of_bound=f"{r['bound_ms'] / r['ms']:.3f}")
+        say_stack(key, "real", real_dims, r)
+
+    # K3 as the main path calls it: the onsets shared by the targets, (C, 1, P)
+    # operands; the call may allocate its output and nothing else
+    durations, starttimes, slips = real_in
+    shared = check_stack(lib, durations, starttimes[:, :1].contiguous(), slips, "multilinear",
+                         iters=10)
+    didx, rtf = lib.durations2idxs(durations, "multilinear")
+    sidx, stf = lib.starttimes2idxs(starttimes[:, :1].contiguous(), "multilinear")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = stack_batched(lib.data, didx, sidx, slips, rtf, stf)
+    torch.cuda.synchronize()
+    extra_bytes = torch.cuda.max_memory_allocated() - base
+    out_bytes = out.numel() * out.element_size()
+    say_stack("k3", "real_shared", real_dims, shared, operands=tuple(sidx.shape),
+              allocated_MB=f"{extra_bytes / 1e6:.3f}", output_MB=f"{out_bytes / 1e6:.3f}")
+    if extra_bytes > out_bytes + 2**21:
+        raise SystemExit(f"K3 with shared onsets allocated {extra_bytes} bytes for an output "
+                         f"of {out_bytes}")
+    del out, sidx, stf
+
+    # what bounds the gather variant: all chains on one cell (the 8 chains of
+    # a block load the same rows: L1 serves 7 of 8), then eight cells, one per
+    # chain of a block (no row shared within a block, few enough rows to stay
+    # in cache); the tiled variant's time does not depend on the cells
+    chain = torch.arange(N_CHAINS, device=dev, dtype=torch.int32)
+    T, P = lib.ntargets, lib.npatches
+    for shape, d_cells, s_cells in (
+            ("real_one_cell", torch.full_like(didx, 5),
+             torch.full((N_CHAINS, T, P), 17, dtype=torch.int32, device=dev)),
+            ("real_eight_cells", (1 + chain % 8)[:, None].expand(N_CHAINS, P).contiguous(),
+             (2 + 3 * (chain % 8))[:, None, None].expand(N_CHAINS, T, P).contiguous())):
+        stf_full = torch.rand((N_CHAINS, T, P), generator=gen, device=dev)
+        tiled_ms, gather_ms = time_in_turns(
+            lambda: stack_batched(lib.data, d_cells, s_cells, slips, rtf, stf_full,
+                                  variant="tiled"),
+            lambda: stack_batched(lib.data, d_cells, s_cells, slips, rtf, stf_full,
+                                  variant="gather"), 5)
+        say("k3", shape=shape, tiled_ms=f"{tiled_ms:.4f}", gather_ms=f"{gather_ms:.4f}")
+    del durations, starttimes, slips, didx, rtf, d_cells, s_cells, stf_full
     del real_in
     torch.cuda.empty_cache()
 
@@ -765,7 +904,7 @@ def main() -> int:
         eikonal_ms=f"{eik_ms:.3f}", eikonal_launches=eik_launches,
         eikonal_kernel_ms=f"{eik_kernel_ms:.3f}", launches=n_launches,
         kernel_ms=f"{kernel_ms:.3f}",
-        k3_ms=f"{sum(v for k, v in by_name.items() if 'gf_stack_kernel' in k):.4f}",
+        k3_ms=f"{sum(v for k, v in by_name.items() if 'gf_stack' in k):.4f}",
         onsets_beyond_grid=f"{beyond:.3f}", finite=bool(torch.isfinite(llk).all()),
         top=json.dumps([[k[:60], round(v, 4)] for k, v in list(by_name.items())[:6]]))
     if not (worst <= 1.0 and launched > 0 and torch.isfinite(llk).all()):
@@ -866,7 +1005,9 @@ def main() -> int:
          "launches": ffi_launches, "max_abs_err": real["k3"]["max_abs_err"],
          "ms": real["k3"]["ms"], "plain_ms": real["k3"]["plain_ms"],
          "bound_ms": real["k3"]["bound_ms"], "bound_by": real["k3"]["bound_by"],
-         "library_ms": None, "bench_shape": bench["k3"],
+         "library_ms": None, "variant": real["k3"]["variant"],
+         "previous_ms": real["k3"]["previous_ms"], "shared_onsets": shared,
+         "bench_shape": bench["k3"],
          "launches_by_path": {"ffi_smc": ffi_launches,
                               "ffi_recover": recover["multilinear"]["launches"][0]}},
         {"name": "gf_stack_nearest", "route": "cuda",
@@ -874,13 +1015,17 @@ def main() -> int:
          "launches": k4_launches, "max_abs_err": real["k4"]["max_abs_err"],
          "ms": real["k4"]["ms"], "plain_ms": real["k4"]["plain_ms"],
          "bound_ms": real["k4"]["bound_ms"], "bound_by": real["k4"]["bound_by"],
-         "library_ms": None, "bench_shape": bench["k4"],
+         "library_ms": None, "variant": real["k4"]["variant"],
+         "previous_ms": real["k4"]["previous_ms"], "bench_shape": bench["k4"],
          "launches_by_path": {"ffi_recover_nearest_neighbor": k4_launches}},
         {"name": "gather_rows", "route": "cuda", "source": "beat_tpu_torch/csrc/rowgather.cu",
          "replaces": "beat_tpu/ops/rowgather.py:34", "launches": k5_launches["ffi_smc"],
          "max_abs_err": 0.0, "ms": k5["smc"]["ms"], "plain_ms": k5["smc"]["plain_ms"],
          "bound_ms": k5["smc"]["bound_ms"], "bound_by": k5["smc"]["bound_by"],
-         "library_ms": k5["smc"]["library_ms"], "table_shape": k5["table"],
+         "library_ms": k5["smc"]["library_ms"], "variant": "flat", "previous_ms": None,
+         "device_ms": k5["smc"]["device_ms"],
+         "device_kernels_per_call": k5["smc"]["device_kernels_per_call"],
+         "table_shape": k5["table"],
          "launches_by_path": k5_launches}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -17,7 +17,7 @@ from beat_tpu_torch.ffi import SeismicGFLibrary
 from beat_tpu_torch.flagship import FFI_TEST_SIZE, TEST_SIZE, build_ffi_flagship, build_flagship
 from beat_tpu_torch.ops.bilgather import (bilinear_rows, bilinear_rows_reference, corner_dot,
                                           corner_dot_reference, corner_rows_reference)
-from beat_tpu_torch.ops.gfstack import stack_batched, stack_batched_reference
+from beat_tpu_torch.ops.gfstack import plan_stack, stack_batched, stack_batched_reference
 from beat_tpu_torch.ops.rowgather import gather_rows, gather_rows_reference
 from beat_tpu_torch.samplers import value_and_grad
 from test_torch_common import assert_grad_close
@@ -149,11 +149,27 @@ def test_hessian_double_backward_launches_k1(cuda):
     torch.testing.assert_close(hess, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
 
 
+def _kernel_ops(fn):
+    """Names of the device operations one call of ``fn`` makes (profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA for _ in range(e.count)]
+
+
+@pytest.mark.parametrize("variant", [None, "tiled", "gather"])
 @pytest.mark.parametrize("interpolation", ["multilinear", "nearest_neighbor"])
-@pytest.mark.parametrize("C,T,P,D,S,N", [(37, 3, 11, 4, 9, 100),      # ragged tiles, float4 rows
-                                         (5, 2, 33, 2, 2, 101),       # scalar rows, 2 chunks
-                                         (2000, 8, 12, 6, 16, 256)])  # the GF-stack bench shape
-def test_k3_k4_match_plain(cuda, interpolation, C, T, P, D, S, N):
+@pytest.mark.parametrize("C,T,P,D,S,N", [
+    (37, 3, 11, 4, 9, 100),        # ragged tiles, float4 rows, a half-used n tile
+    (5, 2, 33, 2, 2, 101),         # N % 4 != 0: the plan keeps the gather variant
+    (1030, 2, 45, 3, 5, 72),       # three chain tiles, the last ragged; 6 chunks of patches
+    (300, 3, 20, 3, 4, 24),        # N <= 32: the narrow n tile
+    (600, 2, 9, 20, 32, 64),       # D·S = 640: only the narrow n tile fits
+    (2000, 8, 12, 6, 16, 256)])    # the GF-stack bench shape
+def test_k3_k4_match_plain(cuda, interpolation, variant, C, T, P, D, S, N):
     gen = torch.Generator(device=cuda).manual_seed(C + N)
     lib = SeismicGFLibrary(torch.randn((T, P, D, S, N), generator=gen, device=cuda),
                            duration_min=0.5, duration_sampling=0.5, starttime_min=0.0,
@@ -165,12 +181,17 @@ def test_k3_k4_match_plain(cuda, interpolation, C, T, P, D, S, N):
     # on the grids and beyond them on both sides: the weights leave [0, 1]
     durations = uniform((C, P), 0.0, 0.5 * (D + 1))
     starttimes = uniform((C, T, P), -0.5, 0.25 * (S + 2))
-    slips = uniform((C, P), 0.0, 3.0)
+    # slips as the sampler hands them on: a column slice of a wider matrix
+    slips = uniform((C, P + 5), 0.0, 3.0)[:, 2:2 + P]
     didx, rtf = lib.durations2idxs(durations, interpolation)
     sidx, stf = lib.starttimes2idxs(starttimes, interpolation)
+    if variant == "tiled" and N % 4 != 0:
+        with pytest.raises(ValueError, match="16-byte"):
+            stack_batched(lib.data, didx, sidx, slips, rtf, stf, variant=variant)
+        return
     name = "launches_multilinear" if rtf is not None else "launches_nearest"
     before = getattr(stack_batched, name)
-    got = stack_batched(lib.data, didx, sidx, slips, rtf, stf)
+    got = stack_batched(lib.data, didx, sidx, slips, rtf, stf, variant=variant)
     torch.cuda.synchronize()
     assert getattr(stack_batched, name) == before + 1
     ref = stack_batched_reference(lib.data, didx, sidx, slips, rtf, stf)
@@ -179,12 +200,49 @@ def test_k3_k4_match_plain(cuda, interpolation, C, T, P, D, S, N):
         wabs = (rtf.abs() + (1 - rtf).abs())[:, None, :] * (stf.abs() + (1 - stf).abs())
     bar = STACK_RTOL * (slips.abs()[:, None, :] * wabs).sum(-1) * lib.data.abs().max()
     assert bool(((got - ref).abs().amax(-1) <= bar).all())
+    # both variants add the same products in the same order
+    assert torch.equal(got, stack_batched(lib.data, didx, sidx, slips, rtf, stf,
+                                          variant="gather"))
     # shared onsets, (C, 1, P), are every target's onsets
     shared = stack_batched(lib.data, didx, sidx[:, :1], slips, rtf,
-                           None if stf is None else stf[:, :1])
+                           None if stf is None else stf[:, :1], variant=variant)
     assert torch.equal(shared, stack_batched(
         lib.data, didx, sidx[:, :1].expand(C, T, P), slips, rtf,
-        None if stf is None else stf[:, :1].expand(C, T, P)))
+        None if stf is None else stf[:, :1].expand(C, T, P), variant=variant))
+
+
+def test_k3_plan_covers_both_variants_on_the_card(cuda):
+    """The shapes above reach the tiled kernel with both n tiles and the
+    gather kernel by the plan's own choice."""
+    chosen = {(plan_stack(T, P, D, S, N, C, corners).variant,
+               plan_stack(T, P, D, S, N, C, corners).lanes)
+              for corners in (4, 1)
+              for C, T, P, D, S, N in [(37, 3, 11, 4, 9, 100), (5, 2, 33, 2, 2, 101),
+                                       (1030, 2, 45, 3, 5, 72), (300, 3, 20, 3, 4, 24),
+                                       (600, 2, 9, 20, 32, 64), (2000, 8, 12, 6, 16, 256)]}
+    assert chosen == {("tiled", 16), ("tiled", 8), ("gather", 0)}
+
+
+def test_k3_main_path_call_is_one_kernel_and_one_allocation(cuda):
+    """int32 indices, (C, 1, P) onsets and a slice of the samples go to the
+    kernel as they are: one device operation, the output the only allocation."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    C, T, P, D, S, N = 2000, 12, 18, 10, 32, 96
+    data = torch.randn((T, P, D, S, N), generator=gen, device=cuda)
+    didx = torch.randint(1, D, (C, P), generator=gen, device=cuda, dtype=torch.int32)
+    sidx = torch.randint(1, S, (C, 1, P), generator=gen, device=cuda, dtype=torch.int32)
+    slips = torch.rand((C, 3 * P + 4), generator=gen, device=cuda)[:, P:2 * P]
+    rtf = torch.rand((C, P), generator=gen, device=cuda)
+    stf = torch.rand((C, 1, P), generator=gen, device=cuda)
+    stack_batched(data, didx, sidx, slips, rtf, stf)            # builds and warms
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = stack_batched(data, didx, sidx, slips, rtf, stf)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base <= out.numel() * 4 + 2**21
+    ops = _kernel_ops(lambda: stack_batched(data, didx, sidx, slips, rtf, stf))
+    assert len(ops) == 1 and "gf_stack" in ops[0]
 
 
 def test_k3_rejects_bad_input(cuda):
@@ -200,17 +258,33 @@ def test_k3_rejects_bad_input(cuda):
         stack_batched(data, didx, sidx, slips.requires_grad_())
 
 
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
 @pytest.mark.parametrize("R,M,n", [(500, 1548, 700), (97, 333, 41), (9270, 6156, 60000),
-                                   (2000, 1504, 2000)])      # the FFI population
-def test_k5_matches_plain(cuda, R, M, n):
+                                   (50, 8, 3000), (7, 1, 5000),     # rows shorter than a block
+                                   (2000, 1504, 2000)])             # the FFI population
+def test_k5_matches_plain(cuda, R, M, n, dtype):
     gen = torch.Generator(device=cuda).manual_seed(R)
     tbl = torch.randn((R, M), generator=gen, device=cuda)
-    idx = torch.randint(-3, R + 3, (n,), generator=gen, device=cuda)   # clipped at both ends
+    # clipped at both ends
+    idx = torch.randint(-3, R + 3, (n,), generator=gen, device=cuda).to(dtype)
+    far = 2**40 if dtype == torch.int64 else 2**31 - 1
+    idx[::7], idx[1::7] = far, -far
     before = gather_rows.launches
     got = gather_rows(tbl, idx)
     torch.cuda.synchronize()
     assert gather_rows.launches == before + 1
     assert torch.equal(got, gather_rows_reference(tbl, idx))
+    # a strided index view goes to the kernel as it is
+    assert torch.equal(gather_rows(tbl, torch.stack([idx, idx], 1)[:, 1]), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+def test_k5_call_is_one_kernel(cuda, dtype):
+    tbl = torch.randn((2000, 1504), device=cuda)
+    idx = torch.randint(0, 2000, (2000,), device=cuda).to(dtype)
+    gather_rows(tbl, idx)
+    ops = _kernel_ops(lambda: gather_rows(tbl, idx))
+    assert len(ops) == 1 and "gather_rows_kernel" in ops[0]
 
 
 @pytest.mark.parametrize("interpolation", ["multilinear", "nearest_neighbor"])
