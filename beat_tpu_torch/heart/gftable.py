@@ -2,14 +2,14 @@
 Device-resident Green's-function tables and the seismic forward (port of
 ``beat_tpu/heart/gftable.py``).
 
-    bilinear table gather in (distance, depth), channel fused — kernel K1
-    → moment-tensor weighting in the ray frame
+    bilinear table gather in (distance, depth), channel fused,
+    and the moment-tensor weighting in the ray frame — kernel K1c
     → × STF spectrum × time-shift phasor × filter response
     → windowed inverse DFT (matmul basis, taper folded in)
 
 The forward is batched over a leading chain axis: sources carry shape
 (C,), targets (T,), and the whole population of C·T (chain, target)
-queries reaches K1 as one flat list.  Spectra are real float32 with a
+queries reaches K1c as one flat list.  Spectra are real float32 with a
 trailing (re, im) axis, as in the JAX package, so every stage compares
 directly against it.
 
@@ -30,7 +30,7 @@ from torch import nn
 
 from beat_tpu_torch.device import DTYPE, resolve
 from beat_tpu_torch.heart.taper import stf_spectrum_pair
-from beat_tpu_torch.ops.bilgather import bilinear_rows, pack_table
+from beat_tpu_torch.ops.bilgather import bilinear_contract, bilinear_rows, pack_table
 from beat_tpu_torch.ops.cplx import cexp, cmul, irfft_basis, irfft_pair
 
 logger = logging.getLogger("beat_tpu_torch.heart.gftable")
@@ -69,12 +69,15 @@ class GreensTable(nn.Module):
     dt, nt, t0 : sample interval [s], samples, time of the first sample
         after the origin [s].
 
-    Buffers: ``spectra``, the K1 gather layout ``packed`` (built once,
+    Buffers: ``spectra``, the gather layout ``packed`` (built once,
     here), the inverse-rFFT basis ``ic``/``is_`` and ``freqs``.
-    ``rows_fn`` is the row gather the forward calls — K1's wrapper
-    :func:`~beat_tpu_torch.ops.bilgather.bilinear_rows`, differentiable
-    in the bilinear weights through K2 (and K1 again for second
-    derivatives).  It may be swapped for the plain version, as the
+    ``contract_fn`` is what the forward (:meth:`point_spectra`) calls —
+    K1c's wrapper :func:`~beat_tpu_torch.ops.bilgather.bilinear_contract`,
+    the gather fused with the m6 contraction, differentiable in its
+    coefficients through K2c (and K1c again for second derivatives).
+    ``rows_fn`` is the row gather of :meth:`gather_spectra` — K1's wrapper
+    :func:`~beat_tpu_torch.ops.bilgather.bilinear_rows` (K2 its
+    backward).  Either may be swapped for its plain version, as the
     parity checks do.
     """
 
@@ -112,6 +115,7 @@ class GreensTable(nn.Module):
         self.register_buffer("freqs", torch.as_tensor(
             np.fft.rfftfreq(self.nt, self.dt), dtype=DTYPE, device=dev))
         self.rows_fn = bilinear_rows
+        self.contract_fn = bilinear_contract
 
     @property
     def nf(self) -> int:
@@ -141,17 +145,11 @@ class GreensTable(nn.Module):
 
     # -- the forward ----------------------------------------------------------
 
-    def gather_spectra(self, distance: torch.Tensor, depth: torch.Tensor,
-                       comp_idx: torch.Tensor) -> torch.Tensor:
-        """
-        Bilinear (distance, depth) interpolation of each target's own
-        channel block, through K1; differentiable in ``distance`` and
-        ``depth`` through the weights.
-
-        distance (..., T); depth (...) — one depth per chain, broadcast
-        over its targets; comp_idx (T,) channel (0 Z / 1 R / 2 T).
-        Returns (..., T, 6, nf, 2).
-        """
+    def _corner_queries(self, distance: torch.Tensor, depth: torch.Tensor,
+                        comp_idx: torch.Tensor) -> tuple:
+        """Each target's lower corner in the packed layout and its four
+        bilinear weights: ``cd``, ``z0`` (..., T) and ``w4`` (..., T, 4),
+        differentiable in ``distance`` (..., T) and ``depth`` (...)."""
         d_grid, z_grid = self.distances, self.depths
         di = torch.clamp((distance - d_grid[0]) / _grid_step(d_grid), 0.0, d_grid.size - 1.0)
         zi = torch.clamp((depth - z_grid[0]) / _grid_step(z_grid), 0.0, z_grid.size - 1.0)
@@ -167,23 +165,42 @@ class GreensTable(nn.Module):
         z0b = torch.broadcast_to(z0[..., None], cd.shape)
         w4 = torch.stack(torch.broadcast_tensors(
             (1 - fd) * (1 - fz), (1 - fd) * fz, fd * (1 - fz), fd * fz), dim=-1)
-        rows = self.rows_fn(self.packed, cd.reshape(-1), z0b.reshape(-1),
-                            w4.reshape(-1, 4))
+        return cd, z0b, w4
+
+    def gather_spectra(self, distance: torch.Tensor, depth: torch.Tensor,
+                       comp_idx: torch.Tensor) -> torch.Tensor:
+        """
+        Bilinear (distance, depth) interpolation of each target's own
+        channel block, through K1; differentiable in ``distance`` and
+        ``depth`` through the weights.
+
+        distance (..., T); depth (...) — one depth per chain, broadcast
+        over its targets; comp_idx (T,) channel (0 Z / 1 R / 2 T).
+        Returns (..., T, 6, nf, 2).
+        """
+        cd, z0, w4 = self._corner_queries(distance, depth, comp_idx)
+        rows = self.rows_fn(self.packed, cd.reshape(-1), z0.reshape(-1), w4.reshape(-1, 4))
         return rows.reshape(cd.shape + (6, self.nf, 2))
 
     def point_spectra(self, m6, east_shift, north_shift, depth, station_east,
                       station_north, comp_idx, filter_response=None) -> torch.Tensor:
         """Raw channel spectra (no STF, no time shift) of point MT sources:
-        m6 (..., 6), positions (...), stations (T,) → (..., T, nf, 2)."""
+        m6 (..., 6), positions (...), stations (T,) → (..., T, nf, 2).
+
+        The gather and the m6 contraction are one pass, K1c, over the
+        coefficients ``A = w4 ⊗ m6_ray`` (..., T, 4, 6); its backward is
+        K2c, and the autograd of the outer product (a matmul: two in the
+        backward) turns K2c's (..., T, 4, 6) into the weights' and the
+        moment tensor's cotangents.  No (..., T, 6, nf, 2) rows are made."""
         de = station_east - east_shift[..., None]
         dn = station_north - north_shift[..., None]
         distance = torch.sqrt(de**2 + dn**2)
         azimuth = torch.atan2(de, dn)
-        g = self.gather_spectra(distance, depth, comp_idx)       # (..., T, 6, nf, 2)
-        m6_ray = rotate_m6_to_ray_frame(m6[..., None, :], azimuth)
-        spec = (m6_ray.to(g.dtype)[..., None, :]
-                @ g.reshape(g.shape[:-3] + (6, 2 * self.nf)))
-        spec = spec.reshape(g.shape[:-3] + (self.nf, 2))
+        cd, z0, w4 = self._corner_queries(distance, depth, comp_idx)
+        m6_ray = rotate_m6_to_ray_frame(m6[..., None, :], azimuth)   # (..., T, 6)
+        dt = self.packed.dtype
+        A = w4.to(dt)[..., :, None] @ m6_ray.to(dt)[..., None, :]
+        spec = self.contract_fn(self.packed, cd, z0, A).reshape(cd.shape + (self.nf, 2))
         if filter_response is not None:
             spec = cmul(spec, filter_response)
         return spec

@@ -37,6 +37,9 @@ SIGNATURES = {
     "bilgather": {
         "beat_bilinear_rows_f32": (_I, [_P, _P, _P, _P, _P, _I64, _I, _I, _P]),
         "beat_corner_dot_f32": (_I, [_P, _P, _P, _P, _P, _I64, _I, _I, _P]),
+        "beat_bilinear_contract_f32": (_I, [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P]),
+        "beat_contract_corner_dot_f32": (_I, [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P]),
+        "beat_contract_tile": (_I, [_I]),
     },
     "gfstack": {
         "beat_gf_stack_multilinear_f32": (_I, [_P] * 7 + [_I] * 6 + [_I64] * 7 + [_I] * 3

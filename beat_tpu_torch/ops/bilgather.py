@@ -1,6 +1,7 @@
 """
 Blended bilinear row gather of the GF table and its transpose — kernels
-K1 and K2 (port of ``beat_tpu/ops/bilgather.py``).
+K1 and K2 (port of ``beat_tpu/ops/bilgather.py``) — and the gather fused
+with the moment-tensor contraction and its transpose — K1c and K2c.
 
 K1: ``out[i] = Σ_c w4[i,c] · corner_c(i)`` over a table laid out
 ``(3·nd, nz, M)`` with ``M = 6·nf·2``, so the four bilinear corners of a
@@ -31,6 +32,23 @@ differentiated; both functions save only ``tbl``, ``cd`` and ``z0``.
   (6, 3, nd, nz, nf, 2) spectra.  Unlike the TPU layout there is no
   (8, L) tile padding: ``M = 12·nf`` is a multiple of 4, so every row is
   16-byte aligned for ``float4`` access as it stands.
+
+K1c and K2c read a row as 6 component segments of ``L = 2·nf`` floats,
+``T_c(i)[k] = corner_c(i)[k·L:(k+1)·L]``:
+
+* K1c, :func:`bilinear_contract`: ``out[i] = Σ_c Σ_k A[i,c,k]·T_c(i)[k]``,
+  (n, L) from (n, 4, 6) coefficients — K1 followed by the m6 contraction
+  of ``GreensTable.point_spectra`` (``A = w4 ⊗ m6_ray``) in one pass;
+* K2c, :func:`contract_corner_dot`: ``P[i,c,k] = <G[i], T_c(i)[k]>``,
+  the coefficients' cotangent of K1c for an output cotangent G (n, L).
+
+They are each other's transpose and each other's backward
+(:class:`BilinearContract`, :class:`ContractCornerDot`), as K1 and K2 are,
+so every order of derivative of the forward runs through K1c and K2c.
+No (n, 6, L) tensor exists on their path.  Their queries come as
+(..., T): the kernels group the queries of one target ``t``, which tend
+to share corners in the forward's (chain, target) layout; the grouping
+never changes the result.
 """
 
 from __future__ import annotations
@@ -88,9 +106,10 @@ def corner_dot_reference(tbl: torch.Tensor, cd: torch.Tensor,
     return torch.einsum("nj,ncj->nc", g, corner_rows_reference(tbl, cd, z0))
 
 
-def _check(tbl, cd, z0, x, x_name: str, x_cols) -> None:
-    """Shapes, dtypes and devices of a K1 (``x = w4``, 4 columns) or K2
-    (``x = g``, M columns) call."""
+def _check(tbl, cd, z0, x, x_name: str, x_tail: tuple, batched: bool = False) -> None:
+    """Shapes, dtypes and devices of a K1 (``x = w4``, (n, 4)), K2 (``x =
+    g``, (n, M)), K1c (``x = A``, (..., T, 4, 6)) or K2c (``x = G``, (...,
+    T, L)) call; ``batched`` takes (..., T) indices in place of (n,)."""
     if tbl.dim() != 3 or not tbl.is_contiguous() or tbl.dtype not in (torch.float32,
                                                                       torch.float64):
         raise ValueError(f"table must be a contiguous (CD, NZ, M) float tensor, got "
@@ -101,10 +120,12 @@ def _check(tbl, cd, z0, x, x_name: str, x_cols) -> None:
                          f"duplicates single nodes), got {(CD, NZ)}")
     if M % 4:
         raise ValueError(f"row length {M} must be a multiple of 4 (float4 rows)")
-    n = cd.shape[0] if cd.dim() == 1 else -1
-    if (cd.dim() != 1 or z0.shape != cd.shape or x.shape != (n, x_cols)
+    lead = "(..., T" if batched else "(n"
+    if ((cd.dim() < 1 if batched else cd.dim() != 1) or z0.shape != cd.shape
+            or x.shape != cd.shape + tuple(x_tail)
             or cd.dtype.is_floating_point or z0.dtype.is_floating_point):
-        raise ValueError(f"need integer cd, z0 of shape (n,) and {x_name} (n, {x_cols}); got "
+        raise ValueError(f"need integer cd, z0 of shape {lead},) and {x_name} {lead}, "
+                         f"{', '.join(map(str, x_tail))}); got "
                          f"{tuple(cd.shape)} {cd.dtype}, {tuple(z0.shape)} {z0.dtype}, "
                          f"{tuple(x.shape)}")
     if x.dtype != tbl.dtype:
@@ -115,14 +136,14 @@ def _check(tbl, cd, z0, x, x_name: str, x_cols) -> None:
     if tbl.device.type == "cpu":
         return
     if tbl.device.type != "cuda":
-        raise ValueError(f"K1 and K2 run on CUDA (or their plain versions on the CPU), "
+        raise ValueError(f"the bilinear kernels run on CUDA (or their plain versions on the CPU), "
                          f"not on {tbl.device}")
     if tbl.dtype != torch.float32:
         raise ValueError(f"the CUDA kernels take float32 tables, got {tbl.dtype}")
     if tbl.data_ptr() % 16:
         raise ValueError("table storage must be 16-byte aligned for float4 rows")
-    if n > 2**31 - 1:
-        raise ValueError(f"{n} queries exceed one launch grid")
+    if cd.numel() > 2**31 - 1:
+        raise ValueError(f"{cd.numel()} queries exceed one launch grid")
 
 
 def _clamped(tbl, cd, z0):
@@ -133,16 +154,14 @@ def _clamped(tbl, cd, z0):
             z0.clamp(0, NZ - 2).to(torch.int32).contiguous())
 
 
-def _launch(entry: str, tbl, cd, z0, x, out) -> None:
-    """One launch of a ``csrc/bilgather.cu`` entry on the current stream."""
-    from beat_tpu_torch.kernels.build import load
+def _launch(entry: str, tbl, cd, z0, x, out, *sizes) -> None:
+    """One launch of a ``csrc/bilgather.cu`` entry on the current stream:
+    ``entry(tbl, cd, z0, x, out, n, *sizes, stream)``."""
+    from beat_tpu_torch.kernels.build import launch, load
 
     lib, _ = load("bilgather")
-    CD, NZ, M = tbl.shape
-    with torch.cuda.device(tbl.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, entry)(tbl.data_ptr(), cd.data_ptr(), z0.data_ptr(),
-                                 x.data_ptr(), out.data_ptr(), cd.shape[0], NZ, M, stream)
+    rc = launch(tbl.device, getattr(lib, entry), tbl.data_ptr(), cd.data_ptr(), z0.data_ptr(),
+                x.data_ptr(), out.data_ptr(), cd.numel(), *sizes)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError {rc}")
 
@@ -153,7 +172,7 @@ def _k1(tbl, cd, z0, w4) -> torch.Tensor:
         return bilinear_rows_reference(tbl, cd, z0, w4)
     out = torch.empty((cd.shape[0], tbl.shape[2]), dtype=tbl.dtype, device=tbl.device)
     if cd.shape[0]:
-        _launch("beat_bilinear_rows_f32", tbl, cd, z0, w4, out)
+        _launch("beat_bilinear_rows_f32", tbl, cd, z0, w4, out, *tbl.shape[1:])
         bilinear_rows.launches += 1
     return out
 
@@ -166,7 +185,7 @@ def _k2(tbl, cd, z0, g) -> torch.Tensor:
     if g.data_ptr() % 16:        # a view at an odd offset: float4 rows need alignment
         g = g.clone()
     if cd.shape[0]:
-        _launch("beat_corner_dot_f32", tbl, cd, z0, g, out)
+        _launch("beat_corner_dot_f32", tbl, cd, z0, g, out, *tbl.shape[1:])
         corner_dot.launches += 1
     return out
 
@@ -218,7 +237,7 @@ def bilinear_rows(tbl: torch.Tensor, cd: torch.Tensor, z0: torch.Tensor,
 
     Returns (n, M).  CPU tensors take the plain version; CUDA tensors
     launch the kernel, and any failure raises."""
-    _check(tbl, cd, z0, w4, "w4", 4)
+    _check(tbl, cd, z0, w4, "w4", (4,))
     cd, z0 = _clamped(tbl, cd, z0)
     return BilinearRows.apply(tbl, cd, z0, w4)
 
@@ -229,10 +248,150 @@ def corner_dot(tbl: torch.Tensor, cd: torch.Tensor, z0: torch.Tensor,
     weights' cotangent of :func:`bilinear_rows` for the output cotangent
     ``g`` (n, M).  Same operands, clamping and device rule as K1;
     differentiable in ``g`` (through K1)."""
-    _check(tbl, cd, z0, g, "g", tbl.shape[2] if tbl.dim() == 3 else -1)
+    _check(tbl, cd, z0, g, "g", (tbl.shape[2] if tbl.dim() == 3 else -1,))
     cd, z0 = _clamped(tbl, cd, z0)
     return CornerDot.apply(tbl, cd, z0, g)
 
 
+# ---------------------------------------------------------------------------
+# K1c and K2c: the gather fused with the m6 contraction, and its transpose
+# ---------------------------------------------------------------------------
+
+
+def _corner_segments(tbl, cd, z0) -> torch.Tensor:
+    """(..., 4, 6, L) corner rows of (...) queries cut into their component
+    segments."""
+    rows = corner_rows_reference(tbl, cd.reshape(-1), z0.reshape(-1))
+    return rows.reshape(cd.shape + (4, 6, rows.shape[2] // 6))
+
+
+def bilinear_contract_reference(tbl: torch.Tensor, cd: torch.Tensor, z0: torch.Tensor,
+                                A: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K1c: (..., L), in the JAX package's structure — the
+    corner rows, then ``einsum`` (``gftable.py:468`` on K1's blend)."""
+    return torch.einsum("...ck,...ckl->...l", A, _corner_segments(tbl, cd, z0))
+
+
+def contract_corner_dot_reference(tbl: torch.Tensor, cd: torch.Tensor, z0: torch.Tensor,
+                                  G: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K2c: (..., 4, 6) — the corner rows, then ``einsum``."""
+    return torch.einsum("...l,...ckl->...ck", G, _corner_segments(tbl, cd, z0))
+
+
+def _check_contract(tbl, cd, z0, x, x_name: str, x_tail: tuple) -> None:
+    """A K1c or K2c call: K1's checks on (..., T) queries, and even
+    segments (``M = 6·L``, L even)."""
+    _check(tbl, cd, z0, x, x_name, x_tail, batched=True)
+    CD, NZ, M = tbl.shape
+    if M % 12:
+        raise ValueError(f"row length {M} must be 6 segments of an even length")
+    if tbl.device.type == "cuda" and CD * NZ > 2**31 - 1:
+        raise ValueError(f"{CD * NZ} table rows exceed the kernels' 32-bit row keys")
+
+
+def _targets(cd) -> int:
+    """The kernels' grouping stride: T for (..., T) queries, 1 for (n,)."""
+    return cd.shape[-1] if cd.dim() > 1 else 1
+
+
+def _k1c(tbl, cd, z0, A) -> torch.Tensor:
+    """K1c on already checked, clamped, contiguous operands."""
+    if tbl.device.type == "cpu":
+        return bilinear_contract_reference(tbl, cd, z0, A)
+    out = torch.empty(cd.shape + (tbl.shape[2] // 6,), dtype=tbl.dtype, device=tbl.device)
+    if cd.numel():
+        _launch("beat_bilinear_contract_f32", tbl, cd, z0, A, out, _targets(cd), tbl.shape[1],
+                tbl.shape[2] // 6)
+        bilinear_contract.launches += 1
+    return out
+
+
+def _k2c(tbl, cd, z0, G) -> torch.Tensor:
+    """K2c on already checked, clamped, contiguous operands."""
+    if tbl.device.type == "cpu":
+        return contract_corner_dot_reference(tbl, cd, z0, G)
+    out = torch.empty(cd.shape + (4, 6), dtype=tbl.dtype, device=tbl.device)
+    if cd.numel():
+        _launch("beat_contract_corner_dot_f32", tbl, cd, z0, G, out, _targets(cd), tbl.shape[1],
+                tbl.shape[2] // 6)
+        contract_corner_dot.launches += 1
+    return out
+
+
+class BilinearContract(torch.autograd.Function):
+    """K1c with K2c as the coefficients' gradient."""
+
+    @staticmethod
+    def forward(ctx, tbl, cd, z0, A):
+        ctx.save_for_backward(tbl, cd, z0)
+        return _k1c(tbl, cd, z0, A.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.needs_input_grad[0]:
+            raise RuntimeError("bilinear_contract does not differentiate the GF table: "
+                               "the table is data (pass it without requires_grad)")
+        tbl, cd, z0 = ctx.saved_tensors
+        dA = (ContractCornerDot.apply(tbl, cd, z0, g.contiguous())
+              if ctx.needs_input_grad[3] else None)
+        return None, None, None, dA
+
+
+class ContractCornerDot(torch.autograd.Function):
+    """K2c with K1c as the cotangent's gradient (K2c is linear in ``G``)."""
+
+    @staticmethod
+    def forward(ctx, tbl, cd, z0, G):
+        ctx.save_for_backward(tbl, cd, z0)
+        return _k2c(tbl, cd, z0, G.contiguous())
+
+    @staticmethod
+    def backward(ctx, u):
+        if ctx.needs_input_grad[0]:
+            raise RuntimeError("contract_corner_dot does not differentiate the GF table")
+        tbl, cd, z0 = ctx.saved_tensors
+        dG = (BilinearContract.apply(tbl, cd, z0, u.contiguous())
+              if ctx.needs_input_grad[3] else None)
+        return None, None, None, dG
+
+
+def bilinear_contract(tbl: torch.Tensor, cd: torch.Tensor, z0: torch.Tensor,
+                      A: torch.Tensor) -> torch.Tensor:
+    """K1c: ``out[..., t, :] = Σ_c Σ_k A[..., t, c, k] · T_c(..., t)[k]``,
+    (..., T, L) with ``L = M/6`` — the bilinear gather and the m6
+    contraction in one pass, differentiable in ``A`` to every order
+    (through K2c and K1c).
+
+    tbl : (CD, NZ, M) float32 (float64 on the CPU), contiguous, M = 6·L
+        with L even.
+    cd, z0 : (..., T) integer lower-corner indices, clamped here as for K1.
+        The queries of one target ``t`` tend to share a corner block (the
+        forward's (chain, target) layout), and the kernel groups them;
+        (n,) indices are n chains of one target.
+    A : (..., T, 4, 6) coefficients of the table's dtype, corners in (00,
+        01, 10, 11) order, components in the table's order.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    and any failure raises."""
+    _check_contract(tbl, cd, z0, A, "A", (4, 6))
+    cd, z0 = _clamped(tbl, cd, z0)
+    return BilinearContract.apply(tbl, cd, z0, A)
+
+
+def contract_corner_dot(tbl: torch.Tensor, cd: torch.Tensor, z0: torch.Tensor,
+                        G: torch.Tensor) -> torch.Tensor:
+    """K2c: ``P[..., t, c, k] = <G[..., t, :], T_c(..., t)[k]>``, (..., T,
+    4, 6) — the coefficients' cotangent of :func:`bilinear_contract` for
+    the output cotangent ``G`` (..., T, L).  Same operands, clamping,
+    grouping and device rule as K1c; differentiable in ``G`` (through
+    K1c)."""
+    L = tbl.shape[2] // 6 if tbl.dim() == 3 else -1
+    _check_contract(tbl, cd, z0, G, "G", (L,))
+    cd, z0 = _clamped(tbl, cd, z0)
+    return ContractCornerDot.apply(tbl, cd, z0, G)
+
+
 bilinear_rows.launches = 0
 corner_dot.launches = 0
+bilinear_contract.launches = 0
+contract_corner_dot.launches = 0

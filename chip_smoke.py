@@ -14,9 +14,9 @@ targets × 500 patches × 10 durations × 32 starttimes × 512 samples: a
 3.9 GiB library on the card, 2000 chains, 1504 dimensions).
 
 1. device: name, count, ``nvidia-smi`` name and power limit;
-2. build: every kernel source under ``beat_tpu_torch/csrc/`` (K1 and K2
-   ``bilgather.cu``, K3 and K4 ``gfstack.cu``, K5 ``rowgather.cu``), one
-   ``nvcc`` each, all started together;
+2. build: every kernel source under ``beat_tpu_torch/csrc/`` (K1, K2,
+   K1c and K2c ``bilgather.cu``, K3 and K4 ``gfstack.cu``, K5
+   ``rowgather.cu``), one ``nvcc`` each, all started together;
 3. [k1] K1 against its plain PyTorch version at the main path's shapes
    (60,000 queries), max |err| <= 1e-6 · max|ref|; its time, the plain
    time, the one-call library time (``embedding_bag``) and its bound;
@@ -24,30 +24,43 @@ targets × 500 patches × 10 durations × 32 starttimes × 512 samples: a
    cotangent, per query |err| <= 1e-5 · Σ_j|g_ij| · max_c|row_cj|; its
    time, the plain time, the one-call library time (the per-sample-weights
    backward of ``embedding_bag``) and its bound;
-5. [llk] the 2000-chain log-likelihood through K1 against the plain
-   gather, rtol 2e-5;
-6. [grad] the 2000-chain gradient ∂llk/∂q through K1 and K2 against the
-   plain gather's, per parameter rtol 5e-3 and atol 5e-3 · that
-   parameter's max|grad|; one evaluation profiled ([grad_profile]);
-7. [smc] ``Problem.sample()`` with SMC (2000 chains, 60 steps per
-   stage): β = 1 with finite llks, K1 launched, the true depth (±500 m)
+5. [k1c], [k2c] K1c (the gather fused with the m6 contraction) and K2c
+   (its transpose) against their plain versions on the main path's own
+   60,000 queries (captured from one likelihood over the prior) and on
+   random ones, per query |err| <= 1e-5 · Σ|A_i| · max|rows_i| and
+   1e-5 · Σ|G_i| · max|rows_i|, each equal to itself on a second call;
+   their times, ``previous_ms`` (the unfused path in turns: K1 and the
+   matmul; the matmul's backward and K2), the plain times, the one-call
+   library times (``embedding_bag`` over the table's component segments,
+   24 a query, and its per-sample-weights backward, held to the same
+   bars), the bounds, the table rows read and the corner-block groups;
+6. [llk] the 2000-chain log-likelihood through K1c against the plain
+   versions, rtol 2e-5;
+7. [grad] the 2000-chain gradient ∂llk/∂q through K1c and K2c against
+   the plain versions', per parameter rtol 5e-3 and atol 5e-3 · that
+   parameter's max|grad|; then [grad_profile]: one value-and-grad
+   profiled through K1c/K2c and through the unfused path (K1 and a
+   matmul, ``gather_spectra``'s path), with the CUDA calls of a forward
+   and of a value-and-grad and the peak memory of each;
+8. [smc] ``Problem.sample()`` with SMC (2000 chains, 60 steps per
+   stage): β = 1 with finite llks, K1c launched, the true depth (±500 m)
    and magnitude (±0.05) recovered;
-8. [mala_smc] the same with ``proposal_name="MALA"``, which must launch
-   K2 as well;
-9. [hmc] one 10-step HMC stage (5 leapfrog steps, the step size
-   retuned after 5) at β = 1 from the MALA-SMC posterior: acceptance in
-   (0, 1], finite positions and llks;
-10. [map] ``map_estimate`` (32 restarts, 150 steps, from the test point)
+9. [mala_smc] the same with ``proposal_name="MALA"``, which must launch
+   K2c as well;
+10. [hmc] one 10-step HMC stage (5 leapfrog steps, the step size
+    retuned after 5) at β = 1 from the MALA-SMC posterior: acceptance in
+    (0, 1], finite positions and llks, K1c and K2c launched;
+11. [map] ``map_estimate`` (32 restarts, 150 steps, from the test point)
     within 600 m of the depth and 0.15 of Mw, then
-    ``laplace_approximation`` with a finite evidence and K1 launched in
-    the Hessian;
-11. [k5] K5 against its plain version (a copy: equal exactly) at the
+    ``laplace_approximation`` with a finite evidence, its Hessian through
+    K1c and K2c and no plain version;
+12. [k5] K5 against its plain version (a copy: equal exactly) at the
     shape the SMC's resampling gives it (2000 × 1504), on the FullMT
     table's rows and at a ragged row length, with ``int64`` and ``int32``
     indices and with indices of ±2^40, which must clip; its time and
     ``index_select``'s in turns, the plain time, its bound, the device
     operations one call makes (must be 1) and the kernel's device time;
-12. [k3], [k4] K3 and K4 against their plain version at the GF-stack
+13. [k3], [k4] K3 and K4 against their plain version at the GF-stack
     bench shape (C=2000, T=8, P=12, D=6, S=16, N=256, the inputs of
     ``tools/bench_gfstack.py``) and, after [ffi_build], on the real
     library with durations and starttimes on and beyond the grid; per
@@ -62,28 +75,28 @@ targets × 500 patches × 10 durations × 32 starttimes × 512 samples: a
     operands as the main path passes them, which must allocate the
     output and nothing else, and K3 with all chains on one cell and on
     eight cells;
-13. [ffi_build] the real-size FFI problem, its library built on the card
-    through K1;
-14. [ffi_llk] the 2000-chain FFI log-likelihood through K3 against the
+14. [ffi_build] the real-size FFI problem, its library built on the card
+    through K1c;
+15. [ffi_llk] the 2000-chain FFI log-likelihood through K3 against the
     plain stack on 128 chains spread over the batch: |err| <= 2e-5 ·
     (|llk| + |llk0|), llk0 being the likelihood's residual-free part (the
     llk is the difference of llk0 and the whitened misfit and passes
     through 0, so a bar on |llk| alone is ill-posed); its time, the
     eikonal solve's time and kernel launches within it;
-15. [ffi_smc] ``Problem.sample(SMCParams(n_chains=2000, n_steps=20,
+16. [ffi_smc] ``Problem.sample(SMCParams(n_chains=2000, n_steps=20,
     max_stages=4, seed=1))`` as the example runs it: the stage cap ends
     it (the one expected exception); β strictly increasing, finite llks,
     K3 launched; the cost of the stage files;
-16. [ffi_recover] a small FFI problem (12 targets, 6 × 3 patches) sampled
+17. [ffi_recover] a small FFI problem (12 targets, 6 × 3 patches) sampled
     to β = 1 with each interpolation (multilinear: K3; nearest
     neighbour: K4): the magnitude of the rupture behind the data within
     0.05, the best sample's variance reduction >= 0.9, and the posterior
     above a rupture with 2.5 times the slip;
-17. a JSON line of the kernels, then ``{"ok": true, "device": ...}`` last.
+18. a JSON line of the kernels, then ``{"ok": true, "device": ...}`` last.
 
-Phases 11 and the bench-shape half of 12 run right after phase 4 (the
-profiler's device records of launch-sized calls go missing later in the
-process).  Every launch count is read from counters set to 0 just before
+Phase 12 and the bench-shape half of 13 run right after phase 4, phase 5
+after them (the profiler's device records of launch-sized calls go
+missing later in the process).  Every launch count is read from counters set to 0 just before
 the path it counts.  It needs CUDA and exits non-zero without it; it never falls
 back to the CPU.
 """
@@ -104,6 +117,7 @@ N_CHAINS = 2000
 N_STEPS = 60
 K1_RTOL = 1e-6          # K1 vs plain: max |err| <= K1_RTOL · max|ref|
 K2_RTOL = 1e-5          # K2 vs plain, per query: see phase 4 above
+CONTRACT_RTOL = 1e-5    # K1c/K2c vs plain, per query: see phase 5 above
 LLK_RTOL = 2e-5         # the JAX package's per-chain llk bar
 GRAD_RTOL = 5e-3        # the JAX package's bar between its gather paths' gradients
 DEPTH_TOL, MAG_TOL = 500.0, 0.05
@@ -353,6 +367,158 @@ def dense_bmm_ms(lib, durations, starttimes, slips) -> tuple:
             cuda_ms(lambda: torch.bmm(weights(), flat), iters=20), err)
 
 
+def unfused_point_spectra(table):
+    """``table.point_spectra`` as it was before K1c: K1's blended (…, 6,
+    nf, 2) rows (``gather_spectra``), then the m6 contraction as a matmul,
+    whose backward is a gemm, a gemv and K2.  The yardstick of
+    [grad_profile]; not a path of the port."""
+    import torch
+
+    from beat_tpu_torch.heart.gftable import rotate_m6_to_ray_frame
+    from beat_tpu_torch.ops.cplx import cmul
+
+    def point_spectra(m6, east_shift, north_shift, depth, station_east, station_north,
+                      comp_idx, filter_response=None):
+        de = station_east - east_shift[..., None]
+        dn = station_north - north_shift[..., None]
+        g = table.gather_spectra(torch.sqrt(de**2 + dn**2), depth, comp_idx)
+        m6_ray = rotate_m6_to_ray_frame(m6[..., None, :], torch.atan2(de, dn))
+        spec = (m6_ray.to(g.dtype)[..., None, :]
+                @ g.reshape(g.shape[:-3] + (6, 2 * table.nf))).reshape(g.shape[:-3]
+                                                                      + (table.nf, 2))
+        return spec if filter_response is None else cmul(spec, filter_response)
+
+    return point_spectra
+
+
+def check_contract(tbl, queries: dict, gen) -> dict:
+    """K1c and K2c against their plain versions on one set of (..., T)
+    queries (``cd``, ``z0`` and ``A = w4 ⊗ m6`` (..., T, 4, 6), with its
+    factors), per query within CONTRACT_RTOL · Σ|A| (or Σ|G|) · max|rows|;
+    their times, the unfused path's in turns (``previous_ms``: K1 and the
+    matmul for K1c, the matmul's backward and K2 for K2c), the plain times,
+    the one-call library times and the bounds.  The library call is
+    ``embedding_bag`` over the table's component segments, one bag of 24
+    segments a query weighted by A, and for K2c its per-sample-weights
+    backward; it is held to the same bar.  Raises SystemExit when a kernel
+    or the library call disagrees."""
+    import torch
+
+    from beat_tpu_torch.kernels.build import load
+    from beat_tpu_torch.ops.bilgather import (bilinear_contract, bilinear_contract_reference,
+                                              bilinear_rows, contract_corner_dot,
+                                              contract_corner_dot_reference, corner_dot,
+                                              corner_rows_reference)
+
+    CD, NZ, M = tbl.shape
+    L = M // 6
+    cd, z0, A = queries["cd"], queries["z0"], queries["A"]
+    T, n = cd.shape[-1], cd.numel()
+    w4, m6 = queries["w4"].reshape(n, 4), queries["m6"].reshape(n, 6)
+    G = torch.randn(cd.shape + (L,), generator=gen, device=tbl.device)
+    cdf, z0f, Af, Gf = cd.reshape(n), z0.reshape(n), A.reshape(n, 4, 6), G.reshape(n, L)
+    cdc, z0c = cdf.clamp(0, CD - 2), z0f.clamp(0, NZ - 2)       # the plain versions do not clamp
+    rows = corner_rows_reference(tbl, cdc, z0c)
+    row_max = rows.abs().amax(dim=(1, 2))
+    row = cdc * NZ + z0c
+    rows_read = int(torch.unique(torch.cat([row, row + 1, row + NZ, row + NZ + 1])).numel())
+    del rows
+    # groups: distinct corner blocks of each (chain tile, target), what the
+    # kernels bring from L2 once each; the tiles are the built kernels' own
+    lib, _ = load("bilgather")
+    q = torch.arange(n, device=tbl.device)
+    groups = {}
+    for key, kernel_id in (("k1c", 0), ("k2c", 1)):
+        tile = lib.beat_contract_tile(kernel_id)
+        block = (q // T) // tile * T + q % T
+        groups[key] = int(torch.unique(block * (CD * NZ) + row).numel())
+    out = {"queries": n, "targets": T, "table_rows_read": rows_read, "groups": groups}
+
+    # the library yardstick: the table as (CD·NZ·6, L) segment rows, a bag
+    # of the 24 segments (corner c, component k) of each query
+    seg = tbl.view(CD * NZ * 6, L)
+    corners = torch.stack([row, row + 1, row + NZ, row + NZ + 1], dim=1)
+    idx24 = (corners[:, :, None] * 6 + torch.arange(6, device=tbl.device)).reshape(n, 24)
+    offsets = torch.arange(0, 24 * n, 24, device=tbl.device)
+    offset2bag = torch.arange(n, device=tbl.device).repeat_interleave(24)
+    ind = idx24.reshape(-1)
+    A24 = Af.reshape(n, 24)
+
+    def library_forward():
+        return torch.nn.functional.embedding_bag(idx24, seg, per_sample_weights=A24, mode="sum")
+
+    def library_backward():
+        return torch.ops.aten._embedding_bag_per_sample_weights_backward(
+            Gf, seg, ind, offsets, offset2bag, 0, -1).view(n, 4, 6)
+
+    def unfused_forward():
+        blended = bilinear_rows(tbl, cdf, z0f, w4)                     # K1, (n, 6·L)
+        return (m6[:, None, :] @ blended.view(n, 6, L)).view(n, L)
+
+    blended = bilinear_rows(tbl, cdf, z0f, w4).view(n, 6, L)
+
+    def unfused_backward():
+        d_rows = m6[:, :, None] @ Gf[:, None, :]                       # gemm, (n, 6, L)
+        dm6 = blended @ Gf[:, :, None]                                 # gemv
+        return corner_dot(tbl, cdf, z0f, d_rows.view(n, M)), dm6       # K2
+
+    for key, kernel, plain, unfused, library, x, x_abs, sum_dims in (
+            ("k1c", bilinear_contract, bilinear_contract_reference, unfused_forward,
+             library_forward, A, Af.abs().sum((1, 2)), -1),
+            ("k2c", contract_corner_dot, contract_corner_dot_reference, unfused_backward,
+             library_backward, G, Gf.abs().sum(-1), (1, 2))):
+        got = kernel(tbl, cd, z0, x)
+        again = kernel(tbl, cd, z0, x)
+        xf = Af if key == "k1c" else Gf
+        ref = plain(tbl, cdc, z0c, xf)
+        lib_got = library()
+        torch.cuda.synchronize()
+        bar = CONTRACT_RTOL * x_abs * row_max
+        err = (got.reshape(ref.shape) - ref).abs().amax(sum_dims)
+        r = {"max_abs_err": float(err.max()), "max_ref": float(ref.abs().max()),
+             "worst_err_over_bar": float((err / bar).max()),
+             "deterministic": bool(torch.equal(got, again)),
+             "library_worst_err_over_bar": float(
+                 ((lib_got - ref).abs().amax(sum_dims) / bar).max())}
+        del got, again, ref, err, lib_got, bar
+        torch.cuda.empty_cache()
+        r["ms"], r["previous_ms"] = time_in_turns(lambda: kernel(tbl, cd, z0, x), unfused, 20)
+        r["library_ms"] = cuda_ms(library, iters=20)
+        r["plain_ms"] = cuda_ms(lambda: plain(tbl, cdc, z0c, xf), iters=3, warmup=1)
+        # bytes: the touched table rows, the int32 indices, the coefficients
+        # (A in, or P out), the spectra (out) or their cotangent (G in)
+        r["bound_ms"], r["bound_by"] = bound_ms(rows_read * M * 4 + n * 8 + n * 24 * 4
+                                                + n * L * 4, 2.0 * 24 * L * n)
+        out[key] = r
+    del blended, idx24, ind, offsets, offset2bag
+    torch.cuda.empty_cache()
+    for key in ("k1c", "k2c"):
+        r = out[key]
+        if not (r["worst_err_over_bar"] <= 1.0 and r["deterministic"]):
+            raise SystemExit(f"{key} disagrees with its plain version (or with itself): "
+                             f"worst err/bar {r['worst_err_over_bar']}, "
+                             f"deterministic {r['deterministic']}")
+        if not r["library_worst_err_over_bar"] <= 1.0:
+            raise SystemExit(f"{key}'s library yardstick computes another function: "
+                             f"worst err/bar {r['library_worst_err_over_bar']}")
+    return out
+
+
+def say_contract(shape: str, r: dict) -> None:
+    for key in ("k1c", "k2c"):
+        k = r[key]
+        say(key, shape=shape, queries=r["queries"], targets=r["targets"],
+            max_abs_err=f"{k['max_abs_err']:.3e}", max_ref=f"{k['max_ref']:.3e}",
+            worst_err_over_bar=f"{k['worst_err_over_bar']:.3e}",
+            deterministic=k["deterministic"], ms=f"{k['ms']:.4f}",
+            previous_ms=f"{k['previous_ms']:.4f}", plain_ms=f"{k['plain_ms']:.4f}",
+            library_ms=f"{k['library_ms']:.4f}",
+            library_worst_err_over_bar=f"{k['library_worst_err_over_bar']:.3e}",
+            table_rows_read=r["table_rows_read"], groups=r["groups"][key],
+            bound_ms=f"{k['bound_ms']:.4f}", bound_by=k["bound_by"],
+            share_of_bound=f"{k['bound_ms'] / k['ms']:.3f}")
+
+
 def ffi_recover(interpolation: str, dev, workdir: str, n_chains: int) -> dict:
     """Sample the small FFI problem to β = 1 and hold the posterior
     against the rupture behind its data.  Raises SystemExit on a miss."""
@@ -415,9 +581,11 @@ def main() -> int:
     from beat_tpu_torch.flagship import (FFI_REAL_SIZE, REAL_SIZE, TRUE_DEPTH, TRUE_MAGNITUDE,
                                          build_ffi_flagship, build_flagship)
     from beat_tpu_torch.kernels.build import SIGNATURES, build_all, load
-    from beat_tpu_torch.ops.bilgather import (bilinear_rows, bilinear_rows_reference,
-                                              corner_dot, corner_dot_reference,
-                                              corner_rows_reference)
+    from beat_tpu_torch.ops import bilgather
+    from beat_tpu_torch.ops.bilgather import (bilinear_contract, bilinear_contract_reference,
+                                              bilinear_rows, bilinear_rows_reference,
+                                              contract_corner_dot, corner_dot,
+                                              corner_dot_reference, corner_rows_reference)
     from beat_tpu_torch.ops.gfstack import stack_batched, stack_batched_reference
     from beat_tpu_torch.ops.rowgather import gather_rows, gather_rows_reference
     from beat_tpu_torch.optimize import laplace_approximation, map_estimate
@@ -443,7 +611,8 @@ def main() -> int:
         say("build", kernel=kernel, cached=info.cached, seconds=f"{info.seconds:.2f}",
             all_seconds=f"{build_s:.2f}", path=os.path.relpath(info.path))
         for line in info.log.splitlines():
-            if "ptxas" in line and ("registers" in line or "warning" in line):
+            if ("ptxas" in line and ("registers" in line or "warning" in line)
+                    or "spill" in line):
                 print("  " + line.strip(), flush=True)
 
     # the real-size problem (its data synthesis already runs K1)
@@ -532,11 +701,11 @@ def main() -> int:
     del cd, z0, w4, g, idx4, flat, ind, offsets, offset2bag
     torch.cuda.empty_cache()
 
-    # 11. K5 against its plain version (a copy: equal exactly) at the shape
+    # 12. K5 against its plain version (a copy: equal exactly) at the shape
     # the SMC gives it (the FFI population, resampling indices ascending), on
     # the FullMT table's rows (float4 path) and at a ragged row length
     # (scalar path); index_select is the library call, timed in turns with K5.
-    # This phase and 12a run here, while the process is young: later on the
+    # This phase and 13a run here, while the process is young: later on the
     # device's records go missing from short profiler traces
     def check_k5(tbl2, idx, iters):
         ref = gather_rows_reference(tbl2, idx)
@@ -586,7 +755,7 @@ def main() -> int:
         raise SystemExit("a gather_rows call made another device operation beside K5")
     del flat, idx, ragged, population, parents
 
-    # 12a. K3 and K4 at the GF-stack bench shape, the bench's inputs
+    # 13a. K3 and K4 at the GF-stack bench shape, the bench's inputs
     b = K3_BENCH_SHAPE
     bench_lib = SeismicGFLibrary(
         torch.randn((b["T"], b["P"], b["D"], b["S"], b["N"]), generator=gen, device=dev),
@@ -606,45 +775,88 @@ def main() -> int:
     del bench_lib, bench_in
     torch.cuda.empty_cache()
 
-    # 5. 2000-chain log-likelihood: K1 against the plain gather
+    # 5. K1c and K2c against their plain versions: on the main path's own
+    # queries (captured from one 2000-chain likelihood over the prior, the
+    # chains of a target clustered on a few depth cells) and on random ones
     logp, data = problem.make_logp_fn()
     lower, upper = problem.priors.bounds_arrays()
+    span = upper - lower
+    q_prior = torch.as_tensor(np.random.default_rng(3).uniform(
+        lower + 0.01 * span, upper - 0.01 * span, size=(N_CHAINS, lower.size)),
+        dtype=DTYPE, device=dev)
+    captured = {}
+
+    def capture(tbl_, cd_, z0_, A_):
+        captured.update(cd=cd_, z0=z0_, A=A_.detach())
+        return bilinear_contract(tbl_, cd_, z0_, A_)
+
+    table.contract_fn = capture
+    try:
+        logp(q_prior, data)
+    finally:
+        table.contract_fn = bilinear_contract
+    A_main = captured["A"]
+    # A = w4 ⊗ m6_ray with w4 >= 0 and Σ_c w4 = 1: its factors, up to rounding
+    main_q = dict(cd=captured["cd"], z0=captured["z0"], A=A_main, m6=A_main.sum(-2),
+                  w4=A_main.abs().sum(-1) / A_main.abs().sum((-2, -1))[..., None])
+    cd, z0, w4 = (x.view((N_CHAINS, n_targets) + x.shape[1:])
+                  for x in k1_queries(table, n_queries, gen))
+    m6 = torch.randn((N_CHAINS, n_targets, 6), generator=gen, device=dev)
+    random_q = dict(cd=cd, z0=z0, A=w4[..., :, None] * m6[..., None, :], w4=w4, m6=m6)
+    contract = {"main_path": check_contract(tbl, main_q, gen),
+                "random": check_contract(tbl, random_q, gen)}
+    for shape, r in contract.items():
+        say_contract(shape, r)
+    del captured, A_main, main_q, random_q, cd, z0, w4, m6
+    torch.cuda.empty_cache()
+
+    def plain_gathers():
+        """Swap the table's gathers for their plain versions (the parity
+        checks); returns the undo."""
+        table.rows_fn, table.contract_fn = bilinear_rows_reference, bilinear_contract_reference
+
+        def undo():
+            table.rows_fn, table.contract_fn = bilinear_rows, bilinear_contract
+        return undo
+
+    # 6. 2000-chain log-likelihood: K1c against the plain version
     q = torch.as_tensor(np.random.default_rng(2).uniform(
         lower, upper, size=(N_CHAINS, lower.size)), dtype=torch.float32, device=dev)
-    before = bilinear_rows.launches
+    before = bilinear_contract.launches
     llk = logp(q, data)
-    launched = bilinear_rows.launches - before
+    launched = bilinear_contract.launches - before
     logp_ms = cuda_ms(lambda: logp(q, data), iters=10)
-    table.rows_fn = bilinear_rows_reference
+    undo = plain_gathers()
     try:
         llk_plain = logp(q, data)
     finally:
-        table.rows_fn = bilinear_rows
+        undo()
     torch.cuda.synchronize()
     rel = float(((llk - llk_plain).abs() / llk_plain.abs()).max())
-    say("llk", chains=N_CHAINS, max_rel_err=f"{rel:.3e}", k1_launches=launched,
+    say("llk", chains=N_CHAINS, max_rel_err=f"{rel:.3e}", k1c_launches=launched,
         logp_ms=f"{logp_ms:.3f}", finite=bool(torch.isfinite(llk).all()))
     if not (rel <= LLK_RTOL and launched > 0 and torch.isfinite(llk).all()):
-        raise SystemExit("llk parity failed (or K1 was not launched)")
+        raise SystemExit("llk parity failed (or K1c was not launched)")
     del llk, llk_plain, q
     torch.cuda.empty_cache()
 
-    # 6. 2000-chain gradient through K1 and K2 against the plain gather's;
-    # queries kept off the box edges, where clamp passes no gradient
-    span = upper - lower
-    q = torch.as_tensor(np.random.default_rng(3).uniform(
-        lower + 0.01 * span, upper - 0.01 * span, size=(N_CHAINS, lower.size)),
-        dtype=DTYPE, device=dev)
-    bilinear_rows.launches = corner_dot.launches = 0
+    # 7. 2000-chain gradient through K1c and K2c against the plain
+    # versions'; queries kept off the box edges, where clamp passes no gradient
+    q = q_prior
+    bilinear_contract.launches = contract_corner_dot.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_GB = torch.cuda.memory_allocated() / 1e9
     _, grad = value_and_grad(logp, q, (data,))
     torch.cuda.synchronize()
-    grad_launches = (bilinear_rows.launches, corner_dot.launches)
+    vg_peak_GB = torch.cuda.max_memory_allocated() / 1e9 - base_GB
+    grad_launches = (bilinear_contract.launches, contract_corner_dot.launches)
     vg_ms = cuda_ms(lambda: value_and_grad(logp, q, (data,)), iters=5)
-    table.rows_fn = bilinear_rows_reference
+    undo = plain_gathers()
     try:
         _, grad_plain = value_and_grad(logp, q, (data,))
     finally:
-        table.rows_fn = bilinear_rows
+        undo()
     # the bar per parameter (column): the columns' scales differ by orders
     # of magnitude, and only depth's gradient passes through K2
     diff = (grad - grad_plain).abs()
@@ -656,80 +868,129 @@ def main() -> int:
     say("grad", chains=N_CHAINS, max_abs_err=f"{float(diff.max()):.3e}",
         max_abs_grad=f"{float(col_max.max()):.3e}", worst_err_over_bar=f"{worst:.3e}",
         depth_max_abs_err=f"{float(diff[:, dz].max()):.3e}",
-        depth_max_abs_grad=f"{float(col_max[dz].max()):.3e}", k1_launches=grad_launches[0],
-        k2_launches=grad_launches[1], value_and_grad_ms=f"{vg_ms:.3f}",
-        forward_ms=f"{logp_ms:.3f}", peak_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        depth_max_abs_grad=f"{float(col_max[dz].max()):.3e}", k1c_launches=grad_launches[0],
+        k2c_launches=grad_launches[1], value_and_grad_ms=f"{vg_ms:.3f}",
+        forward_ms=f"{logp_ms:.3f}", value_and_grad_peak_GB=f"{vg_peak_GB:.2f}",
+        peak_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
     if not (grad_ok and min(grad_launches) > 0):
-        raise SystemExit("gradient parity failed (or K1/K2 were not launched)")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        value_and_grad(logp, q, (data,))
-        torch.cuda.synchronize()
-    # kernels only: the operators' own rows repeat their kernels' device time
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: -e.self_device_time_total)
-    kernel_ms = {e.key: e.self_device_time_total / 1e3 for e in kernels}
-    say("grad_profile", kernel_ms=f"{sum(kernel_ms.values()):.3f}", kernels=len(kernels),
-        k1_ms=f"{sum(v for k, v in kernel_ms.items() if 'bilinear_rows_kernel' in k):.4f}",
-        k2_ms=f"{sum(v for k, v in kernel_ms.items() if 'corner_dot_kernel' in k):.4f}",
-        top=json.dumps([[k[:70], round(v, 4)] for k, v in list(kernel_ms.items())[:10]]))
-    del q, grad, grad_plain, diff, bar
+        raise SystemExit("gradient parity failed (or K1c/K2c were not launched)")
+    del grad, grad_plain, diff, bar
     torch.cuda.empty_cache()
 
-    # 7. the slice-1 main path: random-walk SMC at 2000 chains
-    bilinear_rows.launches = corner_dot.launches = gather_rows.launches = 0
+    # one forward and one value-and-grad profiled, through K1c/K2c and,
+    # as the yardstick, through the unfused path (K1, a matmul; its
+    # backward a gemm, a gemv and K2) in the same process: the CUDA calls
+    # each hands to the device, the kernels' device time, the peak memory
+    def profile_path(name: str) -> dict:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            value_and_grad(logp, q, (data,))
+            torch.cuda.synchronize()
+        # kernels only: the operators' own rows repeat their kernels' device time
+        kernels = sorted((e for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA),
+                         key=lambda e: -e.self_device_time_total)
+        kernel_ms = {e.key: e.self_device_time_total / 1e3 for e in kernels}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        value_and_grad(logp, q, (data,))
+        torch.cuda.synchronize()
+
+        def ms_of(kernel):
+            return f"{sum(v for k, v in kernel_ms.items() if '::' + kernel + '(' in k):.4f}"
+
+        r = dict(path=name, kernel_ms=f"{sum(kernel_ms.values()):.3f}", kernels=len(kernels),
+                 forward_ms=f"{cuda_ms(lambda: logp(q, data), iters=10):.3f}",
+                 value_and_grad_ms=f"{cuda_ms(lambda: value_and_grad(logp, q, (data,)), 5):.3f}",
+                 calls_forward=device_kernels(lambda: logp(q, data))[0],
+                 calls_value_and_grad=device_kernels(
+                     lambda: value_and_grad(logp, q, (data,)))[0],
+                 value_and_grad_peak_GB=f"{torch.cuda.max_memory_allocated() / 1e9 - base_GB:.2f}",
+                 k1c_ms=ms_of("bilinear_contract_kernel"),
+                 k2c_ms=ms_of("contract_corner_dot_kernel"),
+                 k1_ms=ms_of("bilinear_rows_kernel"), k2_ms=ms_of("corner_dot_kernel"),
+                 top=json.dumps([[k[:70], round(v, 4)] for k, v in list(kernel_ms.items())[:10]]))
+        say("grad_profile", **r)
+        return r
+
+    fused_profile = profile_path("fused")
+    bilinear_rows.launches = corner_dot.launches = 0
+    table.point_spectra = unfused_point_spectra(table)
+    try:
+        unfused_profile = profile_path("unfused")
+    finally:
+        del table.point_spectra
+    # K1 and K2 now run in this yardstick only (gather_spectra's path)
+    gather_launches = (bilinear_rows.launches, corner_dot.launches)
+    if min(gather_launches) == 0:
+        raise SystemExit("the unfused path (gather_spectra) never launched K1 or K2")
+    del q, q_prior
+    torch.cuda.empty_cache()
+
+    # every path's launches of K1c, K2c, K1 and K2, counted from 0 before it
+    def zero_bilinear():
+        bilinear_contract.launches = contract_corner_dot.launches = 0
+        bilinear_rows.launches = corner_dot.launches = 0
+
+    def bilinear_launches() -> dict:
+        return dict(k1c_launches=bilinear_contract.launches,
+                    k2c_launches=contract_corner_dot.launches,
+                    k1_launches=bilinear_rows.launches, k2_launches=corner_dot.launches)
+
+    # 8. the slice-1 main path: random-walk SMC at 2000 chains
+    zero_bilinear()
+    gather_rows.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     q_tr, llk_tr = problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=N_STEPS, seed=0))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = bilinear_rows.launches
+    smc_launches = bilinear_launches()
     k5_launches = {"smc": gather_rows.launches}
     state = SampleStage(problem.outfolder, ordering=problem.ordering).load_state(-1)
     est = problem.ordering.to_point(q_tr[-1].mean(axis=0))
     depth, mag = float(np.asarray(est["depth"])), float(np.asarray(est["magnitude"]))
     say("smc", chains=N_CHAINS, steps=N_STEPS, wall_s=f"{wall:.2f}",
-        stages=len(state["acceptance"]), beta=float(state["beta"]), k1_launches=launches,
+        stages=len(state["acceptance"]), beta=float(state["beta"]), **smc_launches,
         k5_launches=k5_launches["smc"],
         peak_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
         depth_m=f"{depth:.1f}", magnitude=f"{mag:.4f}",
         acceptance_final=f"{state['acceptance'][-1]:.3f}")
     if not (float(state["beta"]) == 1.0 and np.isfinite(llk_tr).all()):
         raise SystemExit("SMC did not reach beta = 1 with finite llks")
-    if launches == 0 or k5_launches["smc"] == 0:
-        raise SystemExit("the SMC run never launched K1 (or K5, its resampling gather)")
+    if smc_launches["k1c_launches"] == 0 or k5_launches["smc"] == 0:
+        raise SystemExit("the SMC run never launched K1c (or K5, its resampling gather)")
     if abs(depth - TRUE_DEPTH) >= DEPTH_TOL or abs(mag - TRUE_MAGNITUDE) >= MAG_TOL:
         raise SystemExit(f"posterior misses the truth: depth {depth}, Mw {mag}")
 
-    # 8. the slice-2 main path: MALA-SMC at 2000 chains
+    # 9. the slice-2 main path: MALA-SMC at 2000 chains
     problem.outfolder = os.path.join(workdir.name, "mala_smc")
-    bilinear_rows.launches = corner_dot.launches = gather_rows.launches = 0
+    zero_bilinear()
+    gather_rows.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     q_tr, llk_tr = problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=N_STEPS, seed=0,
                                             proposal_name="MALA"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    mala_launches = (bilinear_rows.launches, corner_dot.launches)
+    mala_launches = bilinear_launches()
     k5_launches["mala_smc"] = gather_rows.launches
     state = SampleStage(problem.outfolder, ordering=problem.ordering).load_state(-1)
     est = problem.ordering.to_point(q_tr[-1].mean(axis=0))
     depth, mag = float(np.asarray(est["depth"])), float(np.asarray(est["magnitude"]))
     smc_log_z = float(state["log_evidence"])
     say("mala_smc", chains=N_CHAINS, steps=N_STEPS, wall_s=f"{wall:.2f}",
-        stages=len(state["acceptance"]), beta=float(state["beta"]),
-        k1_launches=mala_launches[0], k2_launches=mala_launches[1],
+        stages=len(state["acceptance"]), beta=float(state["beta"]), **mala_launches,
         peak_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
         depth_m=f"{depth:.1f}", magnitude=f"{mag:.4f}",
         acceptance_final=f"{state['acceptance'][-1]:.3f}", log_evidence=f"{smc_log_z:.3f}")
     if not (float(state["beta"]) == 1.0 and np.isfinite(llk_tr).all()):
         raise SystemExit("MALA-SMC did not reach beta = 1 with finite llks")
-    if min(mala_launches) == 0:
-        raise SystemExit("the MALA-SMC run never launched K1 or K2")
+    if min(mala_launches["k1c_launches"], mala_launches["k2c_launches"]) == 0:
+        raise SystemExit("the MALA-SMC run never launched K1c or K2c")
     if abs(depth - TRUE_DEPTH) >= DEPTH_TOL or abs(mag - TRUE_MAGNITUDE) >= MAG_TOL:
         raise SystemExit(f"MALA-SMC posterior misses the truth: depth {depth}, Mw {mag}")
 
-    # 9. one HMC stage at beta = 1 from the MALA-SMC population and covariance
+    # 10. one HMC stage at beta = 1 from the MALA-SMC population and covariance
     lo = torch.as_tensor(lower, dtype=DTYPE, device=dev)
     hi = torch.as_tensor(upper, dtype=DTYPE, device=dev)
     start = MetropolisState(
@@ -740,7 +1001,7 @@ def main() -> int:
         acc_total=torch.zeros(N_CHAINS, dtype=DTYPE, device=dev))
     cov_chol = torch.as_tensor(np.linalg.cholesky(state["cov"]), dtype=DTYPE, device=dev)
     hmc_steps, n_leapfrog = 10, 5
-    bilinear_rows.launches = corner_dot.launches = 0
+    zero_bilinear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     final, _ = run_metropolis_stage(
@@ -751,16 +1012,20 @@ def main() -> int:
     hmc_ms = (time.perf_counter() - t0) * 1e3 / hmc_steps
     hmc_acc = float(final.acc_total.mean()) / hmc_steps
     hmc_finite = bool(torch.isfinite(final.q).all() and torch.isfinite(final.llk).all())
+    hmc_launches = bilinear_launches()
     say("hmc", chains=N_CHAINS, steps=hmc_steps, n_leapfrog=n_leapfrog,
         ms_per_transition=f"{hmc_ms:.2f}", acceptance=f"{hmc_acc:.3f}", finite=hmc_finite,
-        k1_launches=bilinear_rows.launches, k2_launches=corner_dot.launches)
+        **hmc_launches)
     if not (0.0 < hmc_acc <= 1.0 and hmc_finite):
         raise SystemExit("HMC stage failed: acceptance outside (0, 1] or non-finite state")
+    if min(hmc_launches["k1c_launches"], hmc_launches["k2c_launches"]) == 0:
+        raise SystemExit("the HMC stage never launched K1c or K2c")
     del start, final
     torch.cuda.empty_cache()
 
-    # 10. MAP + Laplace
-    bilinear_rows.launches = corner_dot.launches = 0
+    # 11. MAP + Laplace; the Laplace Hessian must run through K1c and K2c
+    # and call no plain version
+    zero_bilinear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     q_map, llk_map, all_llks = map_estimate(logp, lower, upper, n_restarts=32, n_steps=150,
@@ -768,35 +1033,49 @@ def main() -> int:
                                             start=problem.priors.test_array()[None],
                                             device=dev)
     map_s = time.perf_counter() - t0
-    map_launches = (bilinear_rows.launches, corner_dot.launches)
-    bilinear_rows.launches = corner_dot.launches = 0
+    map_launches = bilinear_launches()
+    zero_bilinear()
+    plain_names = ("bilinear_contract_reference", "contract_corner_dot_reference",
+                   "bilinear_rows_reference", "corner_dot_reference")
+    plain_fns = {fname: getattr(bilgather, fname) for fname in plain_names}
+    plain_calls = []
+    for fname, fn in plain_fns.items():
+        setattr(bilgather, fname, lambda *a, _fn=fn, _name=fname, **k: (
+            plain_calls.append(_name), _fn(*a, **k))[1])
     t0 = time.perf_counter()
-    lap = laplace_approximation(logp, q_map, lower, upper, logp_args=(data,), device=dev)
+    try:
+        lap = laplace_approximation(logp, q_map, lower, upper, logp_args=(data,), device=dev)
+    finally:
+        for fname, fn in plain_fns.items():
+            setattr(bilgather, fname, fn)
     lap_s = time.perf_counter() - t0
-    lap_launches = (bilinear_rows.launches, corner_dot.launches)
+    lap_launches = bilinear_launches()
     point = problem.ordering.to_point(q_map)
     depth, mag = float(point["depth"]), float(point["magnitude"])
     say("map", restarts=32, steps=150, wall_s=f"{map_s:.2f}", laplace_s=f"{lap_s:.2f}",
         depth_m=f"{depth:.1f}", magnitude=f"{mag:.4f}", llk_map=f"{llk_map:.3f}",
         restart_llk_spread=f"{float(all_llks.max() - np.median(all_llks)):.3f}",
         curvature_ok=lap["curvature_ok"], laplace_log_evidence=f"{lap['log_evidence']:.3f}",
-        laplace_minus_smc=f"{lap['log_evidence'] - smc_log_z:.3f}",
-        k1_launches=map_launches[0], k2_launches=map_launches[1],
-        hessian_k1_launches=lap_launches[0], hessian_k2_launches=lap_launches[1])
+        laplace_minus_smc=f"{lap['log_evidence'] - smc_log_z:.3f}", **map_launches,
+        **{"hessian_" + k: v for k, v in lap_launches.items()},
+        hessian_plain_calls=len(plain_calls))
     if abs(depth - TRUE_DEPTH) >= MAP_DEPTH_TOL or abs(mag - TRUE_MAGNITUDE) >= MAP_MAG_TOL:
         raise SystemExit(f"MAP misses the truth: depth {depth}, Mw {mag}")
     if not np.isfinite(lap["log_evidence"]):
         raise SystemExit("Laplace log-evidence is not finite")
-    if lap_launches[0] == 0:
-        raise SystemExit("the Laplace Hessian never launched K1")
+    if min(map_launches["k1c_launches"], map_launches["k2c_launches"]) == 0:
+        raise SystemExit("MAP never launched K1c or K2c")
+    if min(lap_launches["k1c_launches"], lap_launches["k2c_launches"]) == 0 or plain_calls:
+        raise SystemExit(f"the Laplace Hessian did not run through K1c and K2c alone: "
+                         f"{lap_launches}, plain calls {sorted(set(plain_calls))}")
 
 
     # the FullMT problem is done: free its table before the FFI library
     del problem, comp, table, tbl, logp, data, lap, q_map, state, cov_chol, lo, hi
     torch.cuda.empty_cache()
 
-    # 13. the real-size FFI problem: its library is built on the card, through K1
-    bilinear_rows.launches = 0
+    # 14. the real-size FFI problem: its library is built on the card, through K1c
+    zero_bilinear()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     problem = build_ffi_flagship(**FFI_REAL_SIZE, seed=0, device=dev,
@@ -808,15 +1087,16 @@ def main() -> int:
     fsub = comp.fault.get_subfault(0)
     say("ffi_build", library=tuple(lib.data.shape),
         library_GiB=f"{lib.data.numel() * 4 / 2**30:.2f}", seconds=f"{ffi_build_s:.2f}",
-        k1_launches=bilinear_rows.launches, patches=f"{fsub.n_strike}x{fsub.n_dip}",
+        **bilinear_launches(), patches=f"{fsub.n_strike}x{fsub.n_dip}",
         dims=problem.ordering.size, finite=bool(torch.isfinite(lib.data).all()),
         max_abs=f"{float(lib.data.abs().max()):.3e}",
         peak_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
-    if not (torch.isfinite(lib.data).all() and bilinear_rows.launches > 0
+    ffi_build_launches = bilinear_launches()
+    if not (torch.isfinite(lib.data).all() and ffi_build_launches["k1c_launches"] > 0
             and float(lib.data.abs().max()) > 0):
-        raise SystemExit("the FFI library is not finite and non-zero (or K1 was not launched)")
+        raise SystemExit("the FFI library is not finite and non-zero (or K1c was not launched)")
 
-    # 12b. K3 and K4 on the real library: durations and starttimes on and
+    # 13b. K3 and K4 on the real library: durations and starttimes on and
     # beyond the grids (0.5–5.0 s, 0–7.75 s), so the weights leave [0, 1]
     real_in = stack_inputs(lib, N_CHAINS, (0.2, 5.5), (-0.5, 9.0), gen)
     real_dims = dict(C=N_CHAINS, T=lib.ntargets, P=lib.npatches, D=lib.ndurations,
@@ -869,7 +1149,7 @@ def main() -> int:
     del real_in
     torch.cuda.empty_cache()
 
-    # 14. the 2000-chain FFI log-likelihood through K3, against the plain
+    # 15. the 2000-chain FFI log-likelihood through K3, against the plain
     # stack on chains spread over the batch
     logp, data = problem.make_logp_fn()
     lower, upper = problem.priors.bounds_arrays()
@@ -912,7 +1192,7 @@ def main() -> int:
     del llk, llk_plain, q, point, diff
     torch.cuda.empty_cache()
 
-    # 15. the slice-3 main path: random-walk SMC at 2000 chains and 1504
+    # 16. the slice-3 main path: random-walk SMC at 2000 chains and 1504
     # dimensions, ended by the stage cap as the example runs it; the stage
     # files are timed where they are written
     writes = []
@@ -926,7 +1206,8 @@ def main() -> int:
                        np.asarray(trace["q"]).nbytes / 1e6))
 
     stack_batched.launches_multilinear = stack_batched.launches_nearest = 0
-    bilinear_rows.launches = gather_rows.launches = 0
+    zero_bilinear()
+    gather_rows.launches = 0
     torch.cuda.reset_peak_memory_stats()
     SampleStage.save_stage = timed_save_stage
     t0 = time.perf_counter()
@@ -969,7 +1250,7 @@ def main() -> int:
     del problem, comp, lib, logp, data
     torch.cuda.empty_cache()
 
-    # 16. a small FFI problem sampled to beta = 1, with each interpolation
+    # 17. a small FFI problem sampled to beta = 1, with each interpolation
     recover = {}
     for interpolation in ("multilinear", "nearest_neighbor"):
         stack_batched.launches_multilinear = stack_batched.launches_nearest = 0
@@ -983,23 +1264,46 @@ def main() -> int:
         raise SystemExit("the small FFI runs never launched K3 (multilinear) or K4 (nearest)")
     workdir.cleanup()
 
-    # 17. results: launches from each kernel's main path (SMC for K1,
-    # MALA-SMC for K2, FFI SMC for K3 and K5, the nearest-neighbour FFI SMC
-    # for K4), with every path's count beside them.  K3's and K4's times are
-    # those on the real library, K5's those at the FFI population's shape.
+    # 18. results: launches from each kernel's main path (SMC for K1 and
+    # K1c, MALA-SMC for K2 and K2c, FFI SMC for K3 and K5, the
+    # nearest-neighbour FFI SMC for K4), with every path's count beside
+    # them.  K1 and K2 run on no path now (0): K1c and K2c took their
+    # place; their launches in [grad_profile]'s unfused yardstick, which
+    # is not a path of the port, stand apart.  K1c's and K2c's times are
+    # those on the main path's queries, K3's and K4's those on the real
+    # library, K5's those at the FFI population's shape.
+    paths = {"smc": smc_launches, "mala_smc": mala_launches, "hmc": hmc_launches,
+             "map": map_launches, "laplace": lap_launches, "ffi_build": ffi_build_launches}
+
+    def by_path(key):
+        return {path: counts[key] for path, counts in paths.items()}
+
+    def contract_entry(key, name, replaces, launches):
+        main, rnd = contract["main_path"], contract["random"]
+        r = main[key]
+        return {"name": name, "route": "cuda", "source": "beat_tpu_torch/csrc/bilgather.cu",
+                "replaces": replaces, "launches": launches, "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "previous_ms": r["previous_ms"],
+                "table_rows_read": main["table_rows_read"], "groups": main["groups"][key],
+                "random_queries": rnd[key], "launches_by_path": by_path(key + "_launches")}
+
     print(json.dumps({"kernels": [
         {"name": "bilinear_rows", "route": "cuda", "source": "beat_tpu_torch/csrc/bilgather.cu",
-         "replaces": "beat_tpu/ops/bilgather.py:47", "launches": launches,
+         "replaces": "beat_tpu/ops/bilgather.py:47", "launches": smc_launches["k1_launches"],
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": k1_lib_ms,
-         "launches_by_path": {"smc": launches, "mala_smc": mala_launches[0],
-                              "map": map_launches[0], "laplace": lap_launches[0]}},
+         "bound_by": k1_by, "library_ms": k1_lib_ms, "launches_by_path": by_path("k1_launches"),
+         "unfused_yardstick_launches": gather_launches[0]},
         {"name": "corner_dot", "route": "cuda", "source": "beat_tpu_torch/csrc/bilgather.cu",
-         "replaces": "beat_tpu/ops/bilgather.py:154", "launches": mala_launches[1],
+         "replaces": "beat_tpu/ops/bilgather.py:154", "launches": mala_launches["k2_launches"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": k2_lib_ms,
-         "launches_by_path": {"mala_smc": mala_launches[1], "map": map_launches[1],
-                              "laplace": lap_launches[1]}},
+         "bound_by": k2_by, "library_ms": k2_lib_ms, "launches_by_path": by_path("k2_launches"),
+         "unfused_yardstick_launches": gather_launches[1]},
+        contract_entry("k1c", "bilinear_contract", "beat_tpu/ops/bilgather.py:47",
+                       smc_launches["k1c_launches"]),
+        contract_entry("k2c", "contract_corner_dot", "beat_tpu/ops/bilgather.py:154",
+                       mala_launches["k2c_launches"]),
         {"name": "gf_stack_multilinear", "route": "cuda",
          "source": "beat_tpu_torch/csrc/gfstack.cu", "replaces": "beat_tpu/ops/gfstack.py:241",
          "launches": ffi_launches, "max_abs_err": real["k3"]["max_abs_err"],

@@ -27,3 +27,19 @@ def assert_grad_close(got, want, rtol: float, atol_rel: float) -> None:
     assert (np.abs(got - want) <= bar).all(), (
         f"chain {worst[0]}, parameter {worst[1]}: {got[worst]} against {want[worst]}, "
         f"bar {bar[worst]}")
+
+
+def spy(monkeypatch, module, name: str) -> list:
+    """Put a wrapper in place of ``module.name`` that records the device
+    type of each call's first argument and calls through; returns the
+    record.  The tests use it to see which plain versions or kernel
+    paths a computation went through on the CPU."""
+    fn = getattr(module, name)
+    calls = []
+
+    def wrapper(*args, **kwargs):
+        calls.append(args[0].device.type)
+        return fn(*args, **kwargs)
+
+    monkeypatch.setattr(module, name, wrapper)
+    return calls

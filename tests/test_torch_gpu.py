@@ -1,10 +1,11 @@
 """
-Tests of the port that need an NVIDIA GPU: kernels K1 and K2
+Tests of the port that need an NVIDIA GPU: kernels K1, K2, K1c and K2c
 (``beat_tpu_torch/csrc/bilgather.cu``), K3 and K4 (``gfstack.cu``) and
 K5 (``rowgather.cu``) against their plain PyTorch versions, the
 log-likelihoods and the gradient through the kernels against the same
-through the plain versions, and a Hessian whose double backward
-launches K1.  They skip without a card; run them on one with
+through the plain versions, and Hessians whose double backward launches
+the kernels (K1 and K2; K1c and K2c, the Laplace Hessian of the
+forward).  They skip without a card; run them on one with
 
     python -m pytest tests -m gpu -q
 """
@@ -14,12 +15,19 @@ import pytest
 import torch
 
 from beat_tpu_torch.ffi import SeismicGFLibrary
-from beat_tpu_torch.flagship import FFI_TEST_SIZE, TEST_SIZE, build_ffi_flagship, build_flagship
-from beat_tpu_torch.ops.bilgather import (bilinear_rows, bilinear_rows_reference, corner_dot,
-                                          corner_dot_reference, corner_rows_reference)
+from beat_tpu_torch.flagship import (FFI_TEST_SIZE, TEST_SIZE, TRUE_DEPTH, TRUE_DURATION,
+                                     TRUE_MAGNITUDE, TRUE_SDR, build_ffi_flagship,
+                                     build_flagship)
+from beat_tpu_torch.ops import bilgather
+from beat_tpu_torch.ops.bilgather import (bilinear_contract, bilinear_contract_reference,
+                                          bilinear_rows, bilinear_rows_reference,
+                                          contract_corner_dot, contract_corner_dot_reference,
+                                          corner_dot, corner_dot_reference, corner_rows_reference)
 from beat_tpu_torch.ops.gfstack import plan_stack, stack_batched, stack_batched_reference
 from beat_tpu_torch.ops.rowgather import gather_rows, gather_rows_reference
+from beat_tpu_torch.optimize import laplace_approximation
 from beat_tpu_torch.samplers import value_and_grad
+from beat_tpu_torch.sources import sdr_to_m6
 from test_torch_common import assert_grad_close
 
 pytestmark = pytest.mark.gpu
@@ -32,6 +40,10 @@ LLK_RTOL = 2e-5
 # K2 sums M products in another order than the plain einsum: per query
 # |err| <= K2_RTOL · Σ_j |g_ij| · max_c |row_cj|
 K2_RTOL = 1e-5
+# K1c and K2c sum 24 and L products in another order than the plain
+# einsums: per query |err| <= CONTRACT_RTOL · Σ|A_i| · max|rows_i| (K1c)
+# and CONTRACT_RTOL · Σ|G_i| · max|rows_i| (K2c)
+CONTRACT_RTOL = 1e-5
 # the JAX package's bar between its gather paths' gradients
 # (tests/test_bilgather.py:219-221): rtol, and atol as a share of each
 # parameter's max|grad|
@@ -80,11 +92,12 @@ def test_llk_parity_on_card(cuda):
     lower, upper = problem.priors.bounds_arrays()
     q = np.random.default_rng(0).uniform(lower, upper, size=(64, lower.size))
     q = torch.as_tensor(q, dtype=torch.float32, device=cuda)
-    before = bilinear_rows.launches
+    before = bilinear_contract.launches
     llk = logp(q, data)
-    assert bilinear_rows.launches > before
+    assert bilinear_contract.launches == before + 1
     table = problem.composites["seismic"].tables[0]
     table.rows_fn = bilinear_rows_reference
+    table.contract_fn = bilinear_contract_reference
     llk_plain = logp(q, data)
     assert torch.isfinite(llk).all()
     np.testing.assert_allclose(llk.cpu().numpy(), llk_plain.cpu().numpy(), rtol=LLK_RTOL)
@@ -117,10 +130,12 @@ def test_grad_parity_on_card(cuda):
     q = np.random.default_rng(1).uniform(lower + 0.01 * span, upper - 0.01 * span,
                                          size=(64, lower.size))
     q = torch.as_tensor(q, dtype=torch.float32, device=cuda)
-    k1, k2 = bilinear_rows.launches, corner_dot.launches
+    k1c, k2c = bilinear_contract.launches, contract_corner_dot.launches
     llk, grad = value_and_grad(logp, q, (data,))
-    assert bilinear_rows.launches > k1 and corner_dot.launches > k2
-    problem.composites["seismic"].tables[0].rows_fn = bilinear_rows_reference
+    assert bilinear_contract.launches == k1c + 1 and contract_corner_dot.launches == k2c + 1
+    table = problem.composites["seismic"].tables[0]
+    table.rows_fn = bilinear_rows_reference
+    table.contract_fn = bilinear_contract_reference
     llk_plain, grad_plain = value_and_grad(logp, q, (data,))
     assert torch.isfinite(grad).all()
     np.testing.assert_allclose(llk.cpu().numpy(), llk_plain.cpu().numpy(), rtol=LLK_RTOL)
@@ -147,6 +162,126 @@ def test_hessian_double_backward_launches_k1(cuda):
     assert bilinear_rows.launches - k1 > n * 4
     want = torch.autograd.functional.hessian(f(bilinear_rows_reference), w)
     torch.testing.assert_close(hess, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+def _contract_queries(layout, CD, NZ, C, T, gen, dev):
+    """(cd, z0) of C chains × T targets, (C, T) as the forward issues
+    them (flat (C,) where T is 1): every chain of a target on one cell, on
+    three cells (the depth cells of the main path's prior), or anywhere
+    (top-edge indices among them, which the wrapper clamps)."""
+    def ints(hi, shape):
+        return torch.randint(0, hi, shape, generator=gen, device=dev)
+
+    if layout == "random":
+        cd, z0 = ints(CD - 1, (C, T)), ints(NZ, (C, T))
+        cd[::7] = CD - 1
+    else:
+        cd = ints(CD - 1, (1, T)).expand(C, T)
+        z0 = ints(NZ - 3, (1, T)) + (0 if layout == "one_cell" else ints(3, (C, 1)))
+    lead = (C, T) if T > 1 else (C,)
+    return cd.reshape(lead).contiguous(), z0.expand(C, T).reshape(lead).contiguous()
+
+
+def _at_odd_offset(shape, gen, dev):
+    """A contiguous float32 tensor whose storage starts 4 bytes past a
+    16-byte boundary."""
+    n = int(np.prod(shape))
+    return torch.randn(n + 1, generator=gen, device=dev)[1:].view(shape)
+
+
+CONTRACT_SHAPES = [(3 * 11, 5, 65, 37, 3),          # the test size, a ragged chain tile
+                   (3 * 6, 4, 9, 5, 2),             # fewer chains than a tile
+                   (3 * 11, 5, 64, 300, 1),         # L ≡ 0 (mod 4), (n,) queries
+                   (3 * 206, 15, 513, 2000, 30),    # the main path: 60,000 queries
+                   (3 * 12, 8, 1201, 40, 12)]       # L = 2402 > one staging chunk
+
+
+@pytest.mark.parametrize("layout", ["one_cell", "three_cells", "random"])
+@pytest.mark.parametrize("CD,NZ,nf,C,T", CONTRACT_SHAPES)
+def test_k1c_matches_plain(cuda, CD, NZ, nf, C, T, layout):
+    gen = torch.Generator(device=cuda).manual_seed(C * T + nf)
+    tbl = torch.randn((CD, NZ, 12 * nf), generator=gen, device=cuda)
+    cd, z0 = _contract_queries(layout, CD, NZ, C, T, gen, cuda)
+    A = _at_odd_offset(cd.shape + (4, 6), gen, cuda)
+    before = bilinear_contract.launches
+    got = bilinear_contract(tbl, cd, z0, A)
+    torch.cuda.synchronize()
+    assert bilinear_contract.launches == before + 1
+    assert torch.equal(got, bilinear_contract(tbl, cd, z0, A))   # no atomics
+    cd, z0 = cd.clamp(max=CD - 2), z0.clamp(max=NZ - 2)      # the plain versions do not clamp
+    ref = bilinear_contract_reference(tbl, cd, z0, A)
+    rows = corner_rows_reference(tbl, cd.reshape(-1), z0.reshape(-1))
+    bar = CONTRACT_RTOL * A.abs().sum((-2, -1)).reshape(-1) * rows.abs().amax(dim=(1, 2))
+    assert bool(((got - ref).abs().amax(-1).reshape(-1) <= bar).all())
+
+
+@pytest.mark.parametrize("layout", ["one_cell", "three_cells", "random"])
+@pytest.mark.parametrize("CD,NZ,nf,C,T", CONTRACT_SHAPES)
+def test_k2c_matches_plain(cuda, CD, NZ, nf, C, T, layout):
+    gen = torch.Generator(device=cuda).manual_seed(C * T + nf + 1)
+    tbl = torch.randn((CD, NZ, 12 * nf), generator=gen, device=cuda)
+    cd, z0 = _contract_queries(layout, CD, NZ, C, T, gen, cuda)
+    G = _at_odd_offset(cd.shape + (2 * nf,), gen, cuda)
+    before = contract_corner_dot.launches
+    got = contract_corner_dot(tbl, cd, z0, G)
+    torch.cuda.synchronize()
+    assert contract_corner_dot.launches == before + 1
+    assert torch.equal(got, contract_corner_dot(tbl, cd, z0, G))
+    cd, z0 = cd.clamp(max=CD - 2), z0.clamp(max=NZ - 2)      # the plain versions do not clamp
+    ref = contract_corner_dot_reference(tbl, cd, z0, G)
+    rows = corner_rows_reference(tbl, cd.reshape(-1), z0.reshape(-1))
+    bar = CONTRACT_RTOL * G.abs().sum(-1).reshape(-1) * rows.abs().amax(dim=(1, 2))
+    assert bool(((got - ref).abs().amax(dim=(-2, -1)).reshape(-1) <= bar).all())
+
+
+def test_hessian_double_backward_launches_k1c_and_k2c(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    tbl = torch.randn((3 * 6, 4, 12 * 9), generator=gen, device=cuda)
+    n = 6
+    cd = torch.randint(0, 3 * 6 - 1, (2, n // 2), generator=gen, device=cuda)
+    z0 = torch.randint(0, 3, (2, n // 2), generator=gen, device=cuda)
+    a = torch.rand((n * 24,), generator=gen, device=cuda)
+
+    def f(contract_fn):
+        return lambda x: torch.sum(torch.tanh(contract_fn(tbl, cd, z0,
+                                                          x.reshape(2, n // 2, 4, 6))) ** 2)
+
+    k1c, k2c = bilinear_contract.launches, contract_corner_dot.launches
+    hess = torch.autograd.functional.hessian(f(bilinear_contract), a)
+    torch.cuda.synchronize()
+    # forward K1c, K2c in the first backward, K1c in every row's double backward
+    assert contract_corner_dot.launches - k2c >= 1
+    assert bilinear_contract.launches - k1c > n * 24
+    want = torch.autograd.functional.hessian(f(bilinear_contract_reference), a)
+    torch.testing.assert_close(hess, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+def test_laplace_hessian_on_card_launches_the_pair_and_no_plain_version(cuda, monkeypatch):
+    """Laplace at the true source, moment tensor pinned (its scale is a
+    null direction of the curvature): K1c forward and in every Hessian
+    row, K2c in the backward, and neither K1, K2 nor a plain version."""
+    problem = build_flagship(**TEST_SIZE, seed=5, device=cuda)
+    logp, data = problem.make_logp_fn()
+    lower, upper = problem.priors.bounds_arrays()
+    m6 = dict(zip(("mnn", "mee", "mdd", "mne", "mnd", "med"), sdr_to_m6(*TRUE_SDR).numpy()))
+    for name, value in m6.items():
+        lower[problem.ordering[name].slc] = upper[problem.ordering[name].slc] = value
+    q_true = problem.ordering.to_array(dict(
+        m6, magnitude=TRUE_MAGNITUDE, depth=TRUE_DEPTH, time=0.0, duration=TRUE_DURATION,
+        h_any_P_0=0.0, h_any_S_1=0.0))
+    plain = []
+    for name in ("bilinear_contract_reference", "contract_corner_dot_reference",
+                 "bilinear_rows_reference", "corner_dot_reference"):
+        monkeypatch.setattr(bilgather, name, lambda *a, _n=name, **k: plain.append(_n))
+    counts = (bilinear_contract.launches, contract_corner_dot.launches,
+              bilinear_rows.launches, corner_dot.launches)
+    lap = laplace_approximation(logp, q_true, lower, upper, logp_args=(data,), device=cuda)
+    torch.cuda.synchronize()
+    launched = [now - before for now, before in zip(
+        (bilinear_contract.launches, contract_corner_dot.launches, bilinear_rows.launches,
+         corner_dot.launches), counts)]
+    assert launched[0] > 1 and launched[1] >= 1 and launched[2:] == [0, 0]
+    assert not plain and np.isfinite(lap["log_evidence"]) and lap["curvature_ok"]
 
 
 def _kernel_ops(fn):

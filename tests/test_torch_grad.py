@@ -1,7 +1,7 @@
 """
 The gradient path of the port against the JAX package: per-chain
 ∂llk/∂q of the small FullMT flagship through the port's batched
-value-and-grad (the autograd pair of K1 and K2, plain versions on the
+value-and-grad (the autograd pair of K1c and K2c, plain versions on the
 CPU) against ``jax.vmap(jax.grad(logp))`` on both JAX gather paths —
 the default XLA gather and the Pallas kernel with its ``custom_vjp``
 (interpret mode).
@@ -15,10 +15,12 @@ import jax.numpy as jnp
 import torch
 
 from beat_tpu_torch import flagship
-from beat_tpu_torch.ops.bilgather import bilinear_rows, corner_dot
+from beat_tpu_torch.ops import bilgather
+from beat_tpu_torch.ops.bilgather import (bilinear_contract, bilinear_rows,
+                                          contract_corner_dot, corner_dot)
 from beat_tpu_torch.samplers import value_and_grad
 from test_torch_seismic_llk import _jax_flagship
-from test_torch_common import assert_grad_close
+from test_torch_common import assert_grad_close, spy
 
 N_CHAINS = 16
 # the JAX package's bar between its gather paths' gradients is rtol 5e-3,
@@ -56,8 +58,12 @@ def test_per_chain_gradient_matches_jax(port, chains, monkeypatch, gather):
     want = np.asarray(jax.jit(jax.vmap(jax.grad(lambda x: jlogp(x, jdata))))(
         jnp.asarray(chains)))
     logp, data = port.make_logp_fn()
+    k1c, k2c = spy(monkeypatch, bilgather, "_k1c"), spy(monkeypatch, bilgather, "_k2c")
     llk, got = value_and_grad(logp, torch.as_tensor(chains), (data,))
     assert not llk.requires_grad and not got.requires_grad
     assert_grad_close(got.numpy(), want, GRAD_RTOL, GRAD_ATOL_REL)
-    # on the CPU the wrappers run the plain versions: no kernel launches
+    # the forward went through K1c and the backward through K2c, on the
+    # CPU as their plain versions: no kernel launches
+    assert k1c == ["cpu"] and k2c == ["cpu"]
     assert bilinear_rows.launches == corner_dot.launches == 0
+    assert bilinear_contract.launches == contract_corner_dot.launches == 0

@@ -22,8 +22,9 @@ from beat_tpu.models.seismic import SeismicGeometryComposite as JaxComposite
 from beat_tpu.sources import MTSource as JaxMTSource
 from beat_tpu_torch import flagship
 from beat_tpu_torch.convert import greens_table_from_numpy, wavemap_data_from_numpy
+from beat_tpu_torch.ops import bilgather
 from beat_tpu_torch.sources import sdr_to_m6
-import test_torch_common  # noqa: F401  (the tests' thread policy)
+from test_torch_common import spy
 
 N_CHAINS = 16
 # per-chain llk bar of the JAX package's own float32 checks
@@ -114,7 +115,9 @@ def test_llk_matches_jax(problems, chains, monkeypatch, gather):
         monkeypatch.delenv("BEAT_TPU_MM_GATHER", raising=False)
     want = _jax_llk(_jax_flagship(port), chains)
     logp, data = port.make_logp_fn()
+    k1c = spy(monkeypatch, bilgather, "_k1c")
     got = logp(torch.as_tensor(chains), data).numpy()
+    assert k1c == ["cpu"]                   # one fused gather for both wavemaps
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=LLK_RTOL)
 
