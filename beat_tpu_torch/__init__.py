@@ -15,16 +15,22 @@ Device policy: every entry point takes an explicit ``device``; nothing
 picks a device on its own and nothing falls back from CUDA to the CPU
 (:mod:`beat_tpu_torch.device`).
 
-Covered today: the geometry-mode FullMT point moment-tensor inversion —
-GF table gather (kernel K1, ``csrc/bilgather.cu``) and its gradient
-(kernel K2, the same source), synthesis, whitened Gaussian likelihood,
-the lockstep random-walk Metropolis, MALA and HMC stages, the SMC host
-loop, the single-stage Metropolis sampler, and MAP + Laplace
-(:mod:`beat_tpu_torch.optimize`); and the kinematic finite-fault
-inversion — fault discretization, the 5-D GF library built on the device,
-batched eikonal onsets, the library stack (kernels K3 and K4,
-``csrc/gfstack.cu``), the distributer and Laplacian composites under the
-random-walk SMC.  Kernel K5 (``csrc/rowgather.cu``), the plain row
+Covered today: the geometry mode — every point and finite source type
+(moment tensor, lune MT, double couple, explosion, CLVD, two separated
+double couples, ring fault, rectangle), synthesized through the GF table
+gather fused with the moment-tensor contraction (kernel K1c,
+``csrc/bilgather.cu``; K2c its transpose and backward; K1 and K2 the
+plain gather and its gradient), station corrections, two or more
+events, the time and spectrum domains, the whitened Gaussian likelihood
+with one noise hyperparameter per wavemap or per target, the
+hyper-only posterior and the between-stage covariance update; the
+lockstep Metropolis stage with every proposal of the JAX package, MALA
+and HMC, the SMC host loop, the single-stage Metropolis sampler, and
+MAP + Laplace (:mod:`beat_tpu_torch.optimize`); and the kinematic
+finite-fault inversion — fault discretization, the 5-D GF library built
+on the device, batched eikonal onsets, the library stack (kernels K3 and
+K4, ``csrc/gfstack.cu``), the distributer and Laplacian composites under
+the random-walk SMC.  Kernel K5 (``csrc/rowgather.cu``), the plain row
 gather, resamples the SMC population on the device.
 """
 

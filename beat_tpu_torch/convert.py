@@ -1,19 +1,26 @@
 """
 State carried across from the JAX package: build the port's objects
-from numpy arrays of ``beat_tpu``'s, so both packages compute the same
-thing on the same inputs.  Nothing here imports ``jax``; callers pass
-``jax.device_get`` results.
+from numpy arrays of ``beat_tpu``'s, or from its host objects read by
+attribute (source templates, wavemaps and their options), so both
+packages compute the same thing on the same inputs.  Nothing here
+imports ``jax`` or ``beat_tpu``; callers pass ``jax.device_get``
+results and the JAX package's objects.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from beat_tpu_torch.covariance import Covariance
 from beat_tpu_torch.ffi.fault import FaultGeometry, SubfaultGrid
 from beat_tpu_torch.ffi.gflibrary import SeismicGFLibrary
+from beat_tpu_torch.heart import taper
 from beat_tpu_torch.heart.gftable import GreensTable
-from beat_tpu_torch.sources import RectangularSource
+from beat_tpu_torch.heart.seismic import SeismicDataset, WaveformMapping
+from beat_tpu_torch.sources import RectangularSource, source_catalog
 
 
 def greens_table_from_numpy(spectra, distances, depths, dt, nt, t0=0.0, vp=6000.0,
@@ -74,3 +81,49 @@ def fault_geometry_from_numpy(subfaults, components=("uparr",)) -> FaultGeometry
         grids.append(SubfaultGrid(plane=src, n_strike=int(n_strike), n_dip=int(n_dip),
                                   patches=src.patches(int(n_strike), int(n_dip))))
     return FaultGeometry(subfaults=grids, components=list(components))
+
+
+def source_from_numpy(d: dict):
+    """A port source template from the ``to_dict()`` of a JAX package
+    source (its ``type`` entry picks the class)."""
+    cls = source_catalog[d["type"]]
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: v for k, v in d.items() if k in names})
+
+
+def _filterer_from(obj):
+    """The port's filter of a JAX package filter (Filter, FrequencyFilter
+    or a FilterChain of them), by its class name and fields."""
+    kind = type(obj).__name__
+    if kind == "FilterChain":
+        return taper.FilterChain(filters=tuple(_filterer_from(f) for f in obj.filters))
+    cls = getattr(taper, kind)
+    return cls(**{f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)})
+
+
+def _covariance_from(cov):
+    if cov is None:
+        return None
+    return Covariance(**{k: None if getattr(cov, k) is None else np.array(getattr(cov, k))
+                         for k in ("data", "pred_g", "pred_v")})
+
+
+def wavemap_from_jax(jwmap, table: GreensTable) -> WaveformMapping:
+    """A port :class:`WaveformMapping` on ``table`` with a JAX package
+    wavemap's datasets (and their covariances), taper, filter and options
+    (domain, quantity, station corrections, picked arrivals, event,
+    map number, preprocessing)."""
+    datasets = [SeismicDataset(station=d.station, channel=d.channel, east=float(d.east),
+                               north=float(d.north), ydata=np.array(d.ydata),
+                               covariance=_covariance_from(d.covariance))
+                for d in jwmap.datasets]
+    t = jwmap.taper
+    return WaveformMapping(
+        name=jwmap.name, datasets=datasets, table=table,
+        taper=taper.ArrivalTaper(a=t.a, b=t.b, c=t.c, d=t.d),
+        filterer=_filterer_from(jwmap.filterer), domain=jwmap.domain,
+        quantity=jwmap.quantity, station_corrections=jwmap.station_corrections,
+        arrival_overrides=(None if jwmap.arrival_overrides is None
+                           else dict(jwmap.arrival_overrides)),
+        event_idx=int(jwmap.event_idx), event_offset=tuple(map(float, jwmap.event_offset)),
+        mapnumber=int(jwmap.mapnumber), preprocess_data=bool(jwmap.preprocess_data))

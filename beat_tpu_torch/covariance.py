@@ -83,13 +83,19 @@ def autocovariance(data: np.ndarray) -> np.ndarray:
     return np.correlate(centered, centered, mode="full")[n - 1:] / n
 
 
+def toeplitz_covariance(data: np.ndarray, window_size: int) -> tuple:
+    """Symmetric Toeplitz covariance from the autocovariance of the
+    RMS-normalised series, and the running-window RMS: ``(toeplitz, stds)``."""
+    data = np.asarray(data, dtype=np.float64)
+    stds = running_window_rms(data, window_size=window_size, mode="same")
+    return scipy.linalg.toeplitz(autocovariance(data / stds)), stds
+
+
 def non_toeplitz_covariance(data: np.ndarray, window_size: int) -> np.ndarray:
     """Non-stationary covariance (Dettmer et al. 2007): the Toeplitz
     autocovariance of the RMS-normalised series, scaled by the outer
     product of the running-window RMS."""
-    data = np.asarray(data, dtype=np.float64)
-    stds = running_window_rms(data, window_size=window_size, mode="same")
-    toep = scipy.linalg.toeplitz(autocovariance(data / stds))
+    toep, stds = toeplitz_covariance(data, window_size)
     return toep * np.outer(stds, stds)
 
 
@@ -136,3 +142,36 @@ def init_proposal_covariance(priors_lower: np.ndarray, priors_upper: np.ndarray,
     widths = (priors_upper - priors_lower) / scale
     widths = np.where(widths <= 0, 1e-12, widths)
     return np.diag((widths / 6.0) ** 2)
+
+
+def prediction_covariance_from_ensemble(predictions: np.ndarray) -> np.ndarray:
+    """Sample covariance (PSD-repaired) of forward-model predictions over
+    an ensemble of earth models: ``Covariance.pred_v``.
+
+    predictions : (n_models, nsamples) synthetic data per ensemble member."""
+    predictions = np.asarray(predictions, dtype=np.float64)
+    if predictions.shape[0] < 2:
+        raise ValueError("need >= 2 ensemble members for a prediction covariance")
+    return ensure_cov_psd(np.cov(predictions, rowvar=False, bias=False))
+
+
+def seismic_cov_velocity_models(composite, point: dict, ensemble_tables,
+                                wmap_idx: int = 0) -> list:
+    """Per-dataset prediction covariances of one wavemap from an ensemble
+    of GF tables (velocity-model variations): the fit-space synthetics at
+    ``point`` (one chain) through each table, with the reference model's
+    fit windows.  Returns one (nsamples_fit, nsamples_fit) matrix per
+    dataset."""
+    wmap = composite.wavemaps[wmap_idx]
+    data = composite.device_data()
+    preds = []
+    for table in ensemble_tables:
+        # swap only the table-dependent entries of this wavemap's data
+        ICw, ISw = table.windowed_ibasis(wmap.window_starts, wmap.taper_window,
+                                         wmap.nsamples_win)
+        swapped = list(data)
+        swapped[wmap_idx] = dict(data[wmap_idx], table=table, win_basis_c=ICw, win_basis_s=ISw)
+        preds.append(composite.synthetics_fit(point, wmap_idx, swapped)[0]
+                     .detach().cpu().numpy())
+    preds = np.stack(preds)                 # (n_models, ntargets, nsamples_fit)
+    return [prediction_covariance_from_ensemble(preds[:, i]) for i in range(preds.shape[1])]

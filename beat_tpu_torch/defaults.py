@@ -147,3 +147,7 @@ def hypername(varname: str) -> str:
 
 def default_bounds(varname: str) -> tuple:
     return parameter_info[hypername(varname)].default_bounds
+
+
+def physical_bounds(varname: str) -> tuple:
+    return parameter_info[hypername(varname)].physical_bounds

@@ -29,6 +29,14 @@ def multivariate_normal_chol_batched(residuals, chol_inverses, slog_pdets,
     return -0.5 * (slog_pdets + norm + torch.exp(-2.0 * hyperparams) * quad)
 
 
+def hyper_normal(residuals_fixed, slog_pdets, hyperparams, nsamples) -> torch.Tensor:
+    """The same Gaussian on fixed residuals: ``residuals_fixed`` are the
+    precomputed weighted squared norms ``||W r||²`` (D,), so a draw of the
+    hyperparameters (..., D) costs O(D).  Returns (..., D)."""
+    norm = nsamples * (2.0 * hyperparams + LOG_2PI)
+    return -0.5 * (slog_pdets + norm + torch.exp(-2.0 * hyperparams) * residuals_fixed)
+
+
 def uniform_prior_logp(q, lower, upper) -> torch.Tensor:
     """Flat-box prior: 0 inside the bounds, -inf outside (only finiteness
     matters for the Metropolis accept)."""

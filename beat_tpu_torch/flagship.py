@@ -1,5 +1,5 @@
 """
-The port's two hermetic problems.
+The port's hermetic problems.
 
 **The FullMT problem** (port of ``__graft_entry__._build_flagship``):
 a homogeneous GF table, stations on a ring, synthetic waveforms from a
@@ -16,6 +16,15 @@ of the real FullMT table (206 distance × 15 depth nodes over 10–215 km
 and 1–29 km, nt = 1024 at dt = 0.5 s; spectra 228 MB) with the FullMT
 project's 10 stations; the test size keeps every width and shrinks the
 grid and the trace length.
+
+The same problem inverts for any other source type
+(``build_flagship(source=...)``, priors of :func:`source_priors`), with
+the wavemap and composite options of the geometry mode: station
+corrections, the ``spectrum`` domain, one noise hyperparameter per
+target, two events, non-Toeplitz covariances and ensemble tables.  A
+``RectangularSource`` problem fits data synthesized from a true 8 × 5 km
+rectangle (:data:`TRUE_RECTANGLE`) on the patch grid that
+``recommended_finite_patches`` gives for its priors' upper bounds.
 
 **The kinematic FFI problem** (:func:`build_ffi_flagship`, port of
 ``examples/laquila_scale_ffi.py``): a 2 km patch grid on a normal fault
@@ -45,9 +54,12 @@ from beat_tpu_torch.heart.taper import ArrivalTaper, Filter
 from beat_tpu_torch.models.distributer import SeismicDistributerComposite
 from beat_tpu_torch.models.laplacian import LaplacianDistributerComposite
 from beat_tpu_torch.models.problem import Problem
-from beat_tpu_torch.models.seismic import SeismicGeometryComposite
+from beat_tpu_torch.models.seismic import (SeismicGeometryComposite,
+                                           finite_rectangular_spectra,
+                                           recommended_finite_patches)
 from beat_tpu_torch.parameter import Parameter, PriorSet
-from beat_tpu_torch.sources import MTSource, RectangularSource, magnitude_to_moment, sdr_to_m6
+from beat_tpu_torch.sources import (MTSource, RectangularSource, magnitude_to_moment,
+                                    sdr_to_m6, source_catalog)
 
 REAL_SIZE = dict(n_stations=10, n_distances=206, n_depths=15, nt=1024)
 TEST_SIZE = dict(n_stations=4, n_distances=11, n_depths=5, nt=128)
@@ -67,17 +79,77 @@ NOISE_LEVEL = 0.02
 WAVEMAPS = {"any_P": ("Z", "R"), "any_S": ("T",)}
 
 
-def flagship_priors() -> PriorSet:
-    """The source priors of the JAX flagship (hyperparameters are added
-    by the Problem from the composite)."""
+#: the finite source behind the data of the RectangularSource problem
+#: (anchored at its top-center; Mw ≈ 5.82 with the table's rigidity)
+TRUE_RECTANGLE = dict(strike=40.0, dip=55.0, rake=20.0, length=8e3, width=5e3, slip=0.45,
+                      depth=7e3, nucleation_x=-0.4, nucleation_y=0.2, velocity=2800.0,
+                      duration=TRUE_DURATION)
+#: (east, north, time) of the second event of a two-event problem
+EVENT_OFFSETS = ((0.0, 0.0, 0.0), (3e3, -2e3, 4.0))
+
+_DC = dict(strike=(0.0, 180.0), dip=(10.0, 90.0), rake=(-90.0, 90.0))
+_POINT = dict(east_shift=(-3e3, 3e3), north_shift=(-3e3, 3e3), depth=(3e3, 18e3),
+              time=(-2.0, 2.0), duration=(0.5, 4.0))
+_MAGNITUDE = dict(magnitude=(5.0, 6.5))
+#: the source priors of each source type, ``name: (lower, upper)``
+#: (the registry's bounds where the value is None)
+SOURCE_PRIORS = {
+    "MTSource": dict(**{n: None for n in ("mnn", "mee", "mdd", "mne", "mnd", "med")},
+                     magnitude=(5.0, 6.5), depth=(3e3, 18e3), time=(-2.0, 2.0),
+                     duration=(0.5, 4.0)),
+    "MTQTSource": dict(w=None, v=None, kappa=None, sigma=None, h=None, **_MAGNITUDE, **_POINT),
+    "DCSource": dict(**_DC, **_MAGNITUDE, **_POINT),
+    "ExplosionSource": dict(volume_change=(1e6, 1e8), **_POINT),
+    "CLVDSource": dict(azimuth=(0.0, 180.0), dip=(0.0, 90.0), **_MAGNITUDE, **_POINT),
+    "DoubleDCSource": dict(**{k + i: v for i in "12" for k, v in _DC.items()},
+                           mix=(0.0, 1.0), delta_time=(0.0, 3.0), delta_depth=(0.0, 3e3),
+                           distance=(0.0, 5e3), azimuth=(0.0, 180.0), **_MAGNITUDE, **_POINT),
+    "RingfaultSource": dict(strike=(0.0, 180.0), dip=(0.0, 30.0), diameter=(1e3, 5e3),
+                            sign=(-1.0, 1.0), **_MAGNITUDE, **_POINT),
+    "RectangularSource": dict(length=(6e3, 10e3), width=(3e3, 6e3), slip=(0.1, 1.5),
+                              rake=(-30.0, 70.0), east_shift=(-3e3, 3e3),
+                              north_shift=(-3e3, 3e3), depth=(4e3, 10e3),
+                              nucleation_x=(-1.0, 1.0), nucleation_y=(-1.0, 1.0),
+                              velocity=(2000.0, 3500.0), time=(-2.0, 2.0),
+                              duration=(0.5, 4.0)),
+}
+
+
+def source_priors(source: str = "MTSource", n_sources: int = 1) -> PriorSet:
+    """The source priors of ``source`` for ``n_sources`` sources (vector
+    parameters when more than one; hyperparameters are added by the
+    Problem from the composite)."""
     priors = PriorSet()
-    for name in ("mnn", "mee", "mdd", "mne", "mnd", "med"):
-        priors.add(Parameter.from_defaults(name))
-    priors.add(Parameter("magnitude", [5.0], [6.5]))
-    priors.add(Parameter("depth", [3e3], [18e3]))
-    priors.add(Parameter("time", [-2.0], [2.0]))
-    priors.add(Parameter("duration", [0.5], [4.0]))
+    for name, bounds in SOURCE_PRIORS[source].items():
+        p = Parameter.from_defaults(name, n_sources)
+        if bounds is not None:
+            p = Parameter(name, [bounds[0]] * n_sources, [bounds[1]] * n_sources)
+        priors.add(p)
     return priors
+
+
+def flagship_priors() -> PriorSet:
+    """The source priors of the JAX flagship (the MTSource problem)."""
+    return source_priors("MTSource")
+
+
+def source_template(source: str):
+    """The template of a source type: the true source where the problem
+    has one, the type's defaults otherwise (the sampled parameters
+    override them)."""
+    if source == "RectangularSource":
+        return RectangularSource(**TRUE_RECTANGLE)
+    if source == "MTSource":
+        return MTSource(depth=TRUE_DEPTH, magnitude=TRUE_MAGNITUDE)
+    return source_catalog[source](depth=TRUE_DEPTH)
+
+
+def finite_patches(priors: PriorSet) -> tuple:
+    """The RectangularSource patch grid for the priors' upper length and
+    width and the filter's upper corner."""
+    return recommended_finite_patches(float(priors.parameters["length"].upper.max()),
+                                      float(priors.parameters["width"].upper.max()),
+                                      FILTER["upper_corner"])
 
 
 def flagship_stations(n_stations: int, rng: np.random.Generator):
@@ -87,23 +159,32 @@ def flagship_stations(n_stations: int, rng: np.random.Generator):
     return dist * np.sin(az), dist * np.cos(az)
 
 
-def flagship_observations(table, station_east, station_north,
-                          rng: np.random.Generator) -> dict:
-    """Noisy raw traces ``{channel: (n_stations, nt)}`` of the true
-    source, synthesized with the port's forward on the table's device."""
+def flagship_observations(table, station_east, station_north, rng: np.random.Generator,
+                          rectangle_patches: tuple | None = None) -> dict:
+    """Noisy raw traces ``{channel: (n_stations, nt)}`` of the true source
+    (the double couple, or with ``rectangle_patches`` the rectangle of
+    :data:`TRUE_RECTANGLE` on that grid), synthesized with the port's
+    forward on the table's device."""
     dev = table.freqs.device
     n = len(station_east)
     comp = torch.as_tensor(np.repeat([0, 1, 2], n), device=dev)
     st_e = torch.as_tensor(np.tile(station_east, 3), dtype=torch.float32, device=dev)
     st_n = torch.as_tensor(np.tile(station_north, 3), dtype=torch.float32, device=dev)
-    m6 = sdr_to_m6(*TRUE_SDR, magnitude_to_moment(TRUE_MAGNITUDE)).to(dev)[None]
 
     def one(v):
         return torch.full((1,), v, dtype=torch.float32, device=dev)
 
-    spec = table.synthesize_spectra(m6, one(0.0), one(0.0), one(TRUE_DEPTH), one(0.0),
-                                    one(TRUE_DURATION), st_e, st_n, comp)
-    raw = table.to_time_domain(spec)[0].cpu().numpy()
+    with torch.no_grad():
+        if rectangle_patches is None:
+            m6 = sdr_to_m6(*TRUE_SDR, magnitude_to_moment(TRUE_MAGNITUDE)).to(dev)[None]
+            spec = table.synthesize_spectra(m6, one(0.0), one(0.0), one(TRUE_DEPTH), one(0.0),
+                                            one(TRUE_DURATION), st_e, st_n, comp)
+        else:
+            true = dict(TRUE_RECTANGLE, east_shift=0.0, north_shift=0.0, time=0.0)
+            spec = finite_rectangular_spectra(table, lambda name: one(true[name]), st_e, st_n,
+                                              comp, "HalfSinusoid", None,
+                                              n_patches=rectangle_patches)
+        raw = table.to_time_domain(spec)[0].cpu().numpy()
     raw = raw + rng.normal(0, NOISE_LEVEL * np.abs(raw).max(), raw.shape)
     return {ch: raw[i * n:(i + 1) * n] for i, ch in enumerate("ZRT")}
 
@@ -116,23 +197,53 @@ def flagship_datasets(station_east, station_north, raw: dict) -> dict:
             for name, channels in WAVEMAPS.items()}
 
 
+def flagship_table(n_distances: int, n_depths: int, nt: int, *, device, vp: float = 6000.0,
+                   vs: float = 3500.0):
+    """The homogeneous GF table of the FullMT problem (other velocities:
+    the ensemble tables of a velocity-model variation)."""
+    return build_homogeneous_table(np.linspace(*DISTANCE_RANGE, n_distances),
+                                   np.linspace(*DEPTH_RANGE, n_depths), nt=nt, dt=DT, vp=vp,
+                                   vs=vs, device=device)
+
+
 def build_flagship(n_stations: int, n_distances: int, n_depths: int, nt: int,
-                   seed: int = 0, *, device, outfolder: str = "flagship_run") -> Problem:
-    """The flagship Problem at the given size, all tensors on ``device``."""
+                   seed: int = 0, *, device, outfolder: str = "flagship_run",
+                   source: str = "MTSource", table=None, domain: str = "time",
+                   station_corrections: bool = False, n_events: int = 1,
+                   **composite_options) -> Problem:
+    """The flagship Problem at the given size, all tensors on ``device``,
+    inverting for a ``source`` of that type with its :func:`source_priors`.
+
+    table : the GF table to use (built when None), so several variants
+        share one.
+    domain, station_corrections : the wavemaps' options.
+    n_events : 2 adds the wavemaps of a second event at
+        ``EVENT_OFFSETS[1]`` (the same observations) and a second source.
+    composite_options : ``SeismicGeometryComposite`` keywords
+        (``hp_specific``, ``noise_analyser``, ``ensemble_tables``)."""
     dev = resolve(device)
     rng = np.random.default_rng(seed)
-    table = build_homogeneous_table(np.linspace(*DISTANCE_RANGE, n_distances),
-                                    np.linspace(*DEPTH_RANGE, n_depths), nt=nt, dt=DT,
-                                    device=dev)
+    if table is None:
+        table = flagship_table(n_distances, n_depths, nt, device=dev)
+    priors = source_priors(source, n_events)
+    patches = finite_patches(priors) if source == "RectangularSource" else None
     st_e, st_n = flagship_stations(n_stations, rng)
-    raw = flagship_observations(table, st_e, st_n, rng)
-    wavemaps = [WaveformMapping(name=name, datasets=dsets, table=table,
-                                taper=ArrivalTaper(**TAPER), filterer=Filter(**FILTER),
-                                mapnumber=i)
-                for i, (name, dsets) in enumerate(flagship_datasets(st_e, st_n, raw).items())]
-    comp = SeismicGeometryComposite(
-        wavemaps, [MTSource(depth=TRUE_DEPTH, magnitude=TRUE_MAGNITUDE)], device=dev)
-    return Problem(flagship_priors(), {"seismic": comp}, device=dev, outfolder=outfolder)
+    raw = flagship_observations(table, st_e, st_n, rng, rectangle_patches=patches)
+    wavemaps = []
+    for event in range(n_events):
+        for name, dsets in flagship_datasets(st_e, st_n, raw).items():
+            wavemaps.append(WaveformMapping(
+                name=name, datasets=dsets, table=table, taper=ArrivalTaper(**TAPER),
+                filterer=Filter(**FILTER), domain=domain,
+                station_corrections=station_corrections, event_idx=event,
+                event_offset=EVENT_OFFSETS[event], mapnumber=len(wavemaps)))
+    if patches is not None:
+        composite_options.setdefault("finite_patches", patches)
+    comp = SeismicGeometryComposite(wavemaps, [source_template(source)] * n_events,
+                                    n_events=n_events, device=dev, **composite_options)
+    problem = Problem(priors, {"seismic": comp}, device=dev, outfolder=outfolder)
+    problem.observations = (st_e, st_n, raw)
+    return problem
 
 
 # ---------------------------------------------------------------------------

@@ -3,17 +3,47 @@ Composite interface (port of ``beat_tpu/models/base.py``).
 
 A composite owns one datatype's datasets, noise model and forward
 model, and contributes ``loglike(point, data) -> (C,)`` for a batch of
-C chains plus its hyperparameter names.  ``data`` is the composite's
-device data (:meth:`Composite.device_data`), passed as an argument so
-callers can swap it (for example a composite rebuilt from the JAX
-package's arrays, :mod:`beat_tpu_torch.convert`).
+C chains, the hyperparameter-only ``hyper_loglike`` on residuals fixed
+at one point, its hyperparameter and hierarchical names, and the
+between-stage ``update_weights``.  ``data`` is the composite's device
+data (:meth:`Composite.device_data`), passed as an argument so callers
+can swap it (for example a composite rebuilt from the JAX package's
+arrays, :mod:`beat_tpu_torch.convert`).
 """
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from beat_tpu_torch.parameter import Parameter
+
+
+def wavemap_hyper_terms(devs, synths, wavemaps, hp_specific: bool) -> tuple:
+    """Fixed-residual terms of the hyper-only posterior
+    (:func:`~beat_tpu_torch.distributions.hyper_normal`) for every target
+    of every wavemap: ``(||W r||² (D,), slog_pdets (D,), nsamples (D,),
+    hyper names (D,))``.  ``devs`` carry (D_w, M) data and (D_w, M, M)
+    weights; ``synths`` are the fit-space synthetics (D_w, M) at the fixed
+    point."""
+    wrw, pds, ns, names = [], [], [], []
+    for dev, synth, wmap in zip(devs, synths, wavemaps):
+        tmp = torch.einsum("dij,dj->di", dev["weights"], dev["data"] - synth)
+        wrw.append(torch.sum(tmp * tmp, dim=-1))
+        pds.append(dev["slog_pdets"])
+        ns.append(dev["nsamples"])
+        if hp_specific:
+            names.extend(f"{wmap.hypername}_{i}" for i in range(wmap.ntargets))
+        else:
+            names.extend([wmap.hypername] * wmap.ntargets)
+    return torch.cat(wrw), torch.cat(pds), torch.cat(ns), names
+
+
+def _strip_prefix(name: str) -> str:
+    """The registry key of a hierarchical name: '<...>_time_shift' ->
+    'time_shift' (the JAX package's ``_strip_prefix``, trimmed to the
+    hierarchicals the port has)."""
+    return "time_shift" if name.endswith("time_shift") else name
 
 
 class Composite(nn.Module):
@@ -27,11 +57,25 @@ class Composite(nn.Module):
     def loglike(self, point: dict, data=None):
         raise NotImplementedError
 
+    def hyper_loglike(self, point: dict, fixed_point: dict, data=None):
+        raise NotImplementedError
+
     def get_hypernames(self) -> list[str]:
         return []
 
     def get_hyper_parameters(self) -> list[Parameter]:
         return [Parameter.from_defaults(name) for name in self.get_hypernames()]
 
-    def get_hierarchical_parameters(self) -> list[Parameter]:
+    def get_hierarchical_names(self) -> list[str]:
         return []
+
+    def get_hierarchical_parameters(self) -> list[Parameter]:
+        out = []
+        for name in self.get_hierarchical_names():
+            p = Parameter.from_defaults(_strip_prefix(name))
+            p.name = name        # the registry's bounds, the hierarchical's own name
+            out.append(p)
+        return out
+
+    def update_weights(self, point: dict) -> None:
+        """Re-estimate data covariances at ``point`` (no-op by default)."""

@@ -1,8 +1,10 @@
 """
 Problem: priors and composites assembled into one batched
 log-likelihood, and the sampler run over it — SMC or single-stage
-Metropolis, each with the random walk, MALA or HMC (port of
-``beat_tpu/models/problem.py``).
+Metropolis, each with any random-walk proposal, MALA or HMC — plus the
+hyperparameter-only posterior (``make_hyper_logp_fn``,
+``estimate_hypers``) and the between-stage covariance update
+(``update_weights``) (port of ``beat_tpu/models/problem.py``).
 """
 
 from __future__ import annotations
@@ -10,9 +12,14 @@ from __future__ import annotations
 import logging
 import os
 
+import numpy as np
+import torch
+
+from beat_tpu_torch import defaults
+from beat_tpu_torch.distributions import hyper_normal
 from beat_tpu_torch.parameter import PriorSet
 from beat_tpu_torch.backend import SampleStage
-from beat_tpu_torch.device import resolve
+from beat_tpu_torch.device import DTYPE, resolve
 from beat_tpu_torch.samplers.metropolis import MetropolisParams, metropolis_sample
 from beat_tpu_torch.samplers.smc import SMCParams, smc_sample
 
@@ -25,12 +32,13 @@ class Problem:
     on ``device``."""
 
     def __init__(self, priors: PriorSet, composites: dict, *, device,
-                 outfolder: str = "out", sampler_params=None):
+                 outfolder: str = "out", sampler_params=None, hyper_sampler_params=None):
         self.device = resolve(device)
         self.source_priors = priors
         self.composites = dict(composites)
         self.outfolder = outfolder
         self.sampler_params = sampler_params or SMCParams()
+        self.hyper_sampler_params = hyper_sampler_params
 
         # full sampled space: source params + hierarchicals + hyperparams
         self.priors = PriorSet()
@@ -45,6 +53,10 @@ class Problem:
     @property
     def ordering(self):
         return self.priors.ordering
+
+    @property
+    def hypernames(self) -> list:
+        return [name for comp in self.composites.values() for name in comp.get_hypernames()]
 
     def logp_data(self) -> tuple:
         """Per-composite device data, passed to ``logp`` as an argument."""
@@ -66,10 +78,43 @@ class Problem:
 
         return logp, self.logp_data()
 
-    def sample(self, params=None):
+    def make_hyper_logp_fn(self, fixed_point: dict):
+        """``(logp, data)`` of the hyperparameter-only posterior with the
+        residuals frozen at ``fixed_point`` (no chain axis).  Composites
+        with ``hyper_data`` get their weighted residual norms computed once
+        here, so a draw costs O(targets); the others evaluate
+        ``hyper_loglike``."""
+        ordering = self.ordering
+        comps = list(self.composites.values())
+        precomp, fallback = [], []
+        for ci, comp in enumerate(comps):
+            hd = getattr(comp, "hyper_data", None)
+            if hd is not None:
+                precomp.append(hd(fixed_point))
+            else:
+                fallback.append(ci)
+
+        def logp(q, data):
+            point = ordering.to_point(q)
+            n = q.shape[0]
+            total = 0.0
+            for wrw, pds, ns, names in precomp:
+                hs = torch.stack([point[name].reshape(n) if name in point
+                                  else torch.zeros(n, dtype=q.dtype, device=q.device)
+                                  for name in names], dim=-1)
+                total = total + torch.sum(hyper_normal(wrw, pds, hs, ns), dim=-1)
+            for ci in fallback:
+                total = total + comps[ci].hyper_loglike(point, fixed_point, data[ci])
+            return total
+
+        return logp, self.logp_data()
+
+    def sample(self, params=None, update_weights: bool = False):
         """Run the configured sampler: ``SMCParams`` → SMC,
         ``MetropolisParams`` → single-stage Metropolis saved as the final
-        stage.  Returns the final-stage ``(q_trace, llk_trace)``."""
+        stage.  ``update_weights`` re-estimates the data covariances at
+        each SMC stage's best sample.  Returns the final-stage
+        ``(q_trace, llk_trace)``."""
         params = params or self.sampler_params
         if not isinstance(params, (SMCParams, MetropolisParams)):
             raise NotImplementedError(
@@ -79,12 +124,72 @@ class Problem:
         logp_fn, data = self.make_logp_fn()
         os.makedirs(self.outfolder, exist_ok=True)
         if isinstance(params, SMCParams):
+            update_cb = None
+            if update_weights:
+                def update_cb(map_q):
+                    self.update_weights(self.ordering.to_point(map_q))
+                    return (self.logp_data(),)
             return smc_sample(logp_fn, lower, upper, params, device=self.device,
                               homepath=self.outfolder, ordering=self.ordering,
-                              logp_args=(data,))
+                              logp_args=(data,), update_weights=update_cb)
         return metropolis_sample(
             logp_fn, lower, upper, device=self.device, n_chains=params.n_chains,
             n_steps=params.n_steps, burn=params.burn, thin=params.thin,
             proposal_name=params.proposal_name, tune_interval=params.tune_interval,
             seed=params.seed, stage_handler=SampleStage(self.outfolder, ordering=self.ordering),
             logp_args=(data,), n_leapfrog=params.n_leapfrog)
+
+    def estimate_hypers(self, n_steps: int | None = None, n_chains: int | None = None,
+                        seed: int = 0) -> dict:
+        """A hyperparameter-only Metropolis run at the prior test point,
+        which rewrites each hyperparameter's prior bounds to the sampled
+        range widened by 1 and rounded outwards, clipped to the registry's
+        physical bounds.  Returns ``{name: (lower, upper)}``."""
+        hp = self.hyper_sampler_params
+        n_steps = n_steps or getattr(hp, "n_steps", None) or 5000
+        n_chains = n_chains or getattr(hp, "n_chains", None) or 20
+        test_point = self.priors.test_point()
+        logp_fn, data = self.make_hyper_logp_fn(test_point)
+        lower, upper = self.priors.bounds_arrays()
+        # sample only the hyper dimensions: with the residuals frozen the
+        # posterior is flat in all others
+        slices = {name: self.ordering[name].slc for name in self.hypernames}
+        idx = np.concatenate([np.arange(s.start, s.stop) for s in slices.values()])
+        test_q = torch.as_tensor(self.point_to_array(test_point), dtype=DTYPE,
+                                 device=self.device)
+        idx_dev = torch.as_tensor(idx, device=self.device)
+
+        def hyper_only_logp(h, data):
+            q = test_q.expand(h.shape[0], -1).clone()
+            q[:, idx_dev] = h
+            return logp_fn(q, data)
+
+        q_tr, _ = metropolis_sample(hyper_only_logp, lower[idx], upper[idx], device=self.device,
+                                    n_chains=n_chains, n_steps=n_steps, burn=0.5, thin=2,
+                                    seed=seed, logp_args=(data,))
+        samples = q_tr.reshape(-1, q_tr.shape[-1])
+        pos, off = {}, 0
+        for name, s in slices.items():
+            pos[name] = slice(off, off + (s.stop - s.start))
+            off += s.stop - s.start
+        for name in self.hypernames:
+            vals = samples[:, pos[name]]
+            par = self.priors.parameters[name]
+            phys_lo, phys_hi = defaults.physical_bounds(name)
+            par.lower = np.maximum(np.floor(vals.min(axis=0) - 1.0), phys_lo)
+            par.upper = np.minimum(np.ceil(vals.max(axis=0) + 1.0), phys_hi)
+            par.testvalue = (par.lower + par.upper) / 2.0
+            logger.info("Hyper %s bounds -> [%s, %s]", name, par.lower, par.upper)
+        return {name: (self.priors.parameters[name].lower, self.priors.parameters[name].upper)
+                for name in self.hypernames}
+
+    def point_to_array(self, point: dict) -> np.ndarray:
+        """Flatten a (possibly partial) point; the others take their prior
+        test values."""
+        full = self.priors.test_point()
+        full.update(point)
+        return self.ordering.to_array(full)
+
+    def update_weights(self, point: dict) -> None:
+        for comp in self.composites.values():
+            comp.update_weights(point)

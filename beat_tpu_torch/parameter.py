@@ -74,3 +74,8 @@ class PriorSet:
 
     def test_array(self) -> np.ndarray:
         return np.concatenate([p.testvalue for p in self.parameters.values()])
+
+    def test_point(self) -> dict:
+        """``{name: test value}``, scalars for one-element parameters."""
+        return {p.name: (p.testvalue.copy() if p.dimension > 1 else float(p.testvalue[0]))
+                for p in self.parameters.values()}

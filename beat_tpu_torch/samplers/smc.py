@@ -102,7 +102,7 @@ class SMCParams:
 
 def smc_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: SMCParams,
                *, device, homepath: str | None = None, ordering=None,
-               logp_args: tuple = ()):
+               logp_args: tuple = (), update_weights: Callable | None = None):
     """
     Run the full SMC sampler.
 
@@ -110,6 +110,11 @@ def smc_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: 
         log-likelihood on ``device``.
     lower, upper : flat prior bounds.
     homepath : stage checkpoint directory (resume supported); None = no IO.
+    update_weights : optional ``(map_q (dim,) numpy) -> new logp_args or
+        None``, called after every stage but the last at the stage's best
+        sample to re-estimate the data covariances; a returned value
+        replaces ``logp_args``, and the population's llks are evaluated
+        again under it.
 
     Returns the final-stage (β = 1) trace ``(q_trace, llk_trace)`` as numpy.
     """
@@ -241,6 +246,13 @@ def smc_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: 
                 for f in saves:
                     f.result()
                 return q_host, llk_host
+            if update_weights is not None:
+                new_args = update_weights(population[int(np.argmax(likelihoods))])
+                if new_args is not None:
+                    logp_args = tuple(new_args)
+                with torch.no_grad():
+                    llk_dev = logp_fn(q_dev, *logp_args)
+                likelihoods = llk_dev.double().cpu().numpy()
             stage += 1
         for f in saves:
             f.result()

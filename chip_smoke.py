@@ -8,10 +8,13 @@ Runs the port's main paths in phases that each print one line; any
 failure ends the run non-zero.  The paths: the geometry-mode FullMT
 moment-tensor inversion at real size (206 × 15 × nt 1024 GF table, 10
 stations / 30 targets, 2000 chains) with random-walk SMC, with MALA-SMC,
-with HMC and with MAP + Laplace; and the kinematic finite-fault
-inversion (FFI) at the scale of ``examples/laquila_scale_ffi.py`` (12
-targets × 500 patches × 10 durations × 32 starttimes × 512 samples: a
-3.9 GiB library on the card, 2000 chains, 1504 dimensions).
+with HMC and with MAP + Laplace; every other source type and composite
+option of the geometry mode on the same table and data, a DCSource
+MALA-SMC, a covariance update and a finite RectangularSource SMC; and
+the kinematic finite-fault inversion (FFI) at the scale of
+``examples/laquila_scale_ffi.py`` (12 targets × 500 patches × 10
+durations × 32 starttimes × 512 samples: a 3.9 GiB library on the card,
+2000 chains, 1504 dimensions).
 
 1. device: name, count, ``nvidia-smi`` name and power limit;
 2. build: every kernel source under ``beat_tpu_torch/csrc/`` (K1, K2,
@@ -75,6 +78,34 @@ targets × 500 patches × 10 durations × 32 starttimes × 512 samples: a
     operands as the main path passes them, which must allocate the
     output and nothing else, and K3 with all chains on one cell and on
     eight cells;
+11b. [sources_llk] MTQT, DC, Explosion, CLVD, DoubleDC, Ringfault and
+    Rectangular sources, and a DC composite with station corrections,
+    with one hyperparameter per target, in the ``spectrum`` domain and
+    with two events, each on the real-size table and data: one
+    2000-chain llk through K1c against the plain versions (chunked over
+    the chains at 60,000 queries a call), rtol 2e-5, and one
+    value-and-grad through K1c and K2c against theirs, per parameter
+    rtol 5e-3 / atol 5e-3 · max of its column; launches, times, peaks;
+11c. [dc_mala_smc] a DCSource MALA-SMC to β = 1 (2000 chains, 60 steps):
+    Mw within 0.05 of the truth, the posterior mean depth within 500 m of
+    the MAP's (from the test point, the best sample and 32 restarts over
+    the prior; with free
+    east/north shifts the data put the mode's depth where they do, the
+    truth's llk is printed beside the best sample's), finite llks, the
+    best sample's variance reduction over all windows >= 0.9 and its llk
+    at least the true source's, K1c, K2c and K5 launched;
+11d. [update_weights] ``Problem.update_weights`` at that best sample with
+    a non-Toeplitz analyser and two real-size ensemble tables (velocities
+    -3 % and +3 %), then one 2000-chain llk: finite, every wavemap's
+    weights changed, K1c launched;
+11e. [k1c_finite], [rect_smc] the finite RectangularSource (8 × 5
+    patches: 2.4 M K1c queries an evaluation): K1c on one likelihood's
+    queries as the composite lays them out, (K, C, T), and permuted to
+    (C, K, T), against its plain version chunk by chunk (the per-query
+    bar of phase 5), its time, the plain and ``embedding_bag`` times,
+    the bound, the llk's time and peak memory; then a random-walk SMC
+    capped at 3 stages × 20 steps: β strictly increasing, finite llks,
+    K1c launched;
 14. [ffi_build] the real-size FFI problem, its library built on the card
     through K1c;
 15. [ffi_llk] the 2000-chain FFI log-likelihood through K3 against the
@@ -129,6 +160,12 @@ FFI_PLAIN_CHAINS = 128           # chains of the [ffi_llk] comparison with the p
 FFI_RECOVER_SIZE = dict(n_targets=12, n_strike=6, n_dip=3, nt=256, nwin=96)
 FFI_RECOVER_STEPS = 20
 FFI_MAG_TOL, FFI_VR_MIN = 0.05, 0.9
+#: [sources_llk]: the other source types, each on the flagship's table and data
+SOURCE_TYPES = ("MTQTSource", "DCSource", "ExplosionSource", "CLVDSource", "DoubleDCSource",
+                "RingfaultSource", "RectangularSource")
+PLAIN_QUERIES = 60000           # K1c queries per call of the plain version (5.9 GB of rows)
+DC_VR_MIN = 0.9                 # [dc_mala_smc]: the best sample's variance reduction
+RECT_STEPS, RECT_MAX_STAGES = 20, 4                # [rect_smc]: 3 stages × 20 steps
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, HBM3
 FP32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
 
@@ -519,6 +556,96 @@ def say_contract(shape: str, r: dict) -> None:
             share_of_bound=f"{k['bound_ms'] / k['ms']:.3f}")
 
 
+def chunked_value(fn, q, chunk: int):
+    """``fn`` over the chains of ``q`` in chunks of ``chunk``, concatenated
+    (the plain versions at the finite layouts outgrow the card in one call)."""
+    import torch
+
+    outs = [fn(q[i:i + chunk]) for i in range(0, q.shape[0], chunk)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+def grad_gate(grad, grad_plain) -> tuple:
+    """Worst |err| over the per-parameter bar GRAD_RTOL · (|ref| + max of its
+    column), and whether every entry is finite and within it."""
+    import torch
+
+    diff = (grad - grad_plain).abs()
+    bar = GRAD_RTOL * grad_plain.abs() + GRAD_RTOL * grad_plain.abs().amax(0)
+    worst = float((diff / bar.clamp_min(torch.finfo(bar.dtype).tiny)).max())
+    return worst, bool(torch.isfinite(grad).all() and (diff <= bar).all())
+
+
+def queries_per_chain(comp) -> int:
+    """K1c queries one chain of a geometry composite makes per evaluation."""
+    from beat_tpu_torch.sources import DoubleDCSource, RectangularSource, RingfaultSource
+
+    def points(src):
+        if isinstance(src, RectangularSource):
+            return comp.finite_patches[0] * comp.finite_patches[1]
+        if isinstance(src, RingfaultSource):
+            return src.npointsources
+        return 2 if isinstance(src, DoubleDCSource) else 1
+
+    return sum(w.ntargets * sum(points(s) for _, s, _ in comp._selected_sources(w))
+               for w in comp.wavemaps)
+
+
+def check_finite_layout(tbl, cd, z0, A, gen) -> dict:
+    """K1c on the queries of one finite-source likelihood (millions: the
+    patches as one more leading axis) against its plain version chunk by
+    chunk, per query within CONTRACT_RTOL · Σ|A| · max|rows|; its time,
+    the plain version's over all chunks, the ``embedding_bag`` yardstick's
+    and the bound.  Raises SystemExit when K1c disagrees."""
+    import torch
+
+    from beat_tpu_torch.ops.bilgather import (bilinear_contract, bilinear_contract_reference,
+                                              corner_rows_reference)
+
+    CD, NZ, M = tbl.shape
+    L = M // 6
+    n = cd.numel()
+    cdc = cd.reshape(n).clamp(0, CD - 2)
+    z0c = z0.reshape(n).clamp(0, NZ - 2)
+    Af = A.reshape(n, 4, 6)
+    row = cdc * NZ + z0c
+    rows_read = int(torch.unique(torch.cat([row, row + 1, row + NZ, row + NZ + 1])).numel())
+    chunk = 60000
+    got = bilinear_contract(tbl, cd, z0, A).reshape(n, L)
+    worst, max_err = 0.0, 0.0
+    for i in range(0, n, chunk):
+        sl = slice(i, i + chunk)
+        ref = bilinear_contract_reference(tbl, cdc[sl], z0c[sl], Af[sl])
+        row_max = corner_rows_reference(tbl, cdc[sl], z0c[sl]).abs().amax(dim=(1, 2))
+        err = (got[sl] - ref).abs().amax(-1)
+        max_err = max(max_err, float(err.max()))
+        worst = max(worst, float((err / (CONTRACT_RTOL * Af[sl].abs().sum((1, 2))
+                                         * row_max)).max()))
+    del got, ref, row_max, err
+    torch.cuda.empty_cache()
+    out = {"queries": n, "shape": tuple(cd.shape), "max_abs_err": max_err,
+           "worst_err_over_bar": worst, "table_rows_read": rows_read}
+    out["ms"] = cuda_ms(lambda: bilinear_contract(tbl, cd, z0, A), iters=5, warmup=1)
+    out["plain_ms"] = cuda_ms(lambda: [bilinear_contract_reference(
+        tbl, cdc[i:i + chunk], z0c[i:i + chunk], Af[i:i + chunk]) for i in range(0, n, chunk)],
+        iters=1, warmup=1)
+    seg = tbl.view(CD * NZ * 6, L)
+    corners = torch.stack([row, row + 1, row + NZ, row + NZ + 1], dim=1)
+    idx24 = (corners[:, :, None] * 6 + torch.arange(6, device=tbl.device)).reshape(n, 24)
+    out["library_ms"] = cuda_ms(lambda: torch.nn.functional.embedding_bag(
+        idx24, seg, per_sample_weights=Af.reshape(n, 24), mode="sum"), iters=3, warmup=1)
+    del idx24, corners
+    torch.cuda.empty_cache()
+    out["bound_ms"], out["bound_by"] = bound_ms(rows_read * M * 4 + n * 8 + n * 24 * 4
+                                                + n * L * 4, 2.0 * 24 * L * n)
+    if not worst <= 1.0:
+        raise SystemExit(f"K1c disagrees with its plain version at the finite layout "
+                         f"{tuple(cd.shape)}: worst err/bar {worst}")
+    return out
+
+
 def ffi_recover(interpolation: str, dev, workdir: str, n_chains: int) -> dict:
     """Sample the small FFI problem to β = 1 and hold the posterior
     against the rupture behind its data.  Raises SystemExit on a miss."""
@@ -576,10 +703,12 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from beat_tpu_torch.backend import SampleStage
+    from beat_tpu_torch.covariance import SeismicNoiseAnalyser
     from beat_tpu_torch.device import DTYPE, require_cuda
     from beat_tpu_torch.ffi import SeismicGFLibrary
-    from beat_tpu_torch.flagship import (FFI_REAL_SIZE, REAL_SIZE, TRUE_DEPTH, TRUE_MAGNITUDE,
-                                         build_ffi_flagship, build_flagship)
+    from beat_tpu_torch.flagship import (FFI_REAL_SIZE, REAL_SIZE, TRUE_DEPTH, TRUE_DURATION,
+                                         TRUE_MAGNITUDE, TRUE_SDR, build_ffi_flagship,
+                                         build_flagship, flagship_table)
     from beat_tpu_torch.kernels.build import SIGNATURES, build_all, load
     from beat_tpu_torch.ops import bilgather
     from beat_tpu_torch.ops.bilgather import (bilinear_contract, bilinear_contract_reference,
@@ -1069,9 +1198,282 @@ def main() -> int:
         raise SystemExit(f"the Laplace Hessian did not run through K1c and K2c alone: "
                          f"{lap_launches}, plain calls {sorted(set(plain_calls))}")
 
+    del lap, q_map
+    torch.cuda.empty_cache()
+
+    # 11b. [sources_llk] every other source type, and the DC composite with
+    # each option, on the same table and observations: one 2000-chain
+    # likelihood and one value-and-grad through K1c and K2c against the
+    # plain versions (chunked over the chains where their corner rows
+    # would outgrow the card)
+    variants = {src: (src, {}) for src in SOURCE_TYPES}
+    variants.update(dc_station_corrections=("DCSource", dict(station_corrections=True)),
+                    dc_hp_specific=("DCSource", dict(hp_specific=True)),
+                    dc_spectrum=("DCSource", dict(domain="spectrum")),
+                    dc_two_events=("DCSource", dict(n_events=2)))
+    sources_llk_launches = dict.fromkeys(bilinear_launches(), 0)
+    sources_llk = {}
+    for case, (src, options) in variants.items():
+        vproblem = build_flagship(**REAL_SIZE, seed=0, device=dev, table=table, source=src,
+                                  outfolder=os.path.join(workdir.name, case), **options)
+        vcomp = vproblem.composites["seismic"]
+        vlogp, vdata = vproblem.make_logp_fn()
+        vlo, vhi = vproblem.priors.bounds_arrays()
+        vspan = vhi - vlo
+        vq = torch.as_tensor(np.random.default_rng(5).uniform(
+            vlo + 0.01 * vspan, vhi - 0.01 * vspan, size=(N_CHAINS, vlo.size)), dtype=DTYPE,
+            device=dev)
+        per_chain = queries_per_chain(vcomp)
+        chunk = max(1, PLAIN_QUERIES // per_chain)
+
+        def no_grad_logp(x):
+            with torch.no_grad():
+                return vlogp(x, vdata)
+
+        zero_bilinear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        llk = no_grad_logp(vq)
+        torch.cuda.synchronize()
+        llk_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        llk_launches = bilinear_contract.launches
+        for k, v in bilinear_launches().items():
+            sources_llk_launches[k] += v
+        zero_bilinear()
+        torch.cuda.reset_peak_memory_stats()
+        _, grad = value_and_grad(vlogp, vq, (vdata,))
+        torch.cuda.synchronize()
+        vg_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        vg_launches = (bilinear_contract.launches, contract_corner_dot.launches)
+        for k, v in bilinear_launches().items():
+            sources_llk_launches[k] += v
+        llk_ms = cuda_ms(lambda: no_grad_logp(vq), iters=3, warmup=1)
+        vg_ms = cuda_ms(lambda: value_and_grad(vlogp, vq, (vdata,)), iters=2, warmup=1)
+        calls_fwd, kernel_ms_fwd, by_name = device_kernels(lambda: no_grad_logp(vq))
+        calls_vg, kernel_ms_vg, _ = device_kernels(lambda: value_and_grad(vlogp, vq, (vdata,)))
+        undo = plain_gathers()
+        try:
+            llk_plain = chunked_value(no_grad_logp, vq, chunk)
+            _, grad_plain = chunked_value(lambda x: value_and_grad(vlogp, x, (vdata,)), vq,
+                                          chunk)
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        rel = float(((llk - llk_plain).abs() / llk_plain.abs()).max())
+        worst, grad_ok = grad_gate(grad, grad_plain)
+        finite = bool(torch.isfinite(llk).all())
+        sources_llk[case] = r = dict(
+            source=src, dims=vproblem.ordering.size, chains=N_CHAINS,
+            k1c_queries=per_chain * N_CHAINS, plain_chunk_chains=chunk,
+            max_rel_err=f"{rel:.3e}", grad_worst_err_over_bar=f"{worst:.3e}", finite=finite,
+            k1c_launches=llk_launches, vg_k1c_launches=vg_launches[0],
+            vg_k2c_launches=vg_launches[1], llk_ms=f"{llk_ms:.3f}",
+            value_and_grad_ms=f"{vg_ms:.3f}", llk_peak_GB=f"{llk_peak:.2f}",
+            value_and_grad_peak_GB=f"{vg_peak:.2f}", calls_forward=calls_fwd,
+            calls_value_and_grad=calls_vg, kernel_ms_forward=fmt_ms(ms_or_none(kernel_ms_fwd)),
+            kernel_ms_value_and_grad=fmt_ms(ms_or_none(kernel_ms_vg)),
+            top_forward=json.dumps([[k[:60], round(v, 4)] for k, v in list(by_name.items())[:5]]))
+        say("sources_llk", case=case, **r)
+        if not (rel <= LLK_RTOL and finite and llk_launches > 0):
+            raise SystemExit(f"[sources_llk] {case}: llk parity failed (or K1c not launched)")
+        if not (grad_ok and min(vg_launches) > 0):
+            raise SystemExit(f"[sources_llk] {case}: gradient parity failed (or K1c/K2c "
+                             f"not launched)")
+        del vproblem, vcomp, vlogp, vdata, vq, llk, llk_plain, grad, grad_plain
+        torch.cuda.empty_cache()
+
+    # 11c. [dc_mala_smc] a DCSource MALA-SMC to beta = 1 on the flagship data
+    dc = build_flagship(**REAL_SIZE, seed=0, device=dev, table=table, source="DCSource",
+                        outfolder=os.path.join(workdir.name, "dc_mala_smc"))
+    zero_bilinear()
+    gather_rows.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    q_tr, llk_tr = dc.sample(SMCParams(n_chains=N_CHAINS, n_steps=N_STEPS, seed=0,
+                                       proposal_name="MALA"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dc_launches = bilinear_launches()
+    k5_launches["dc_mala_smc"] = gather_rows.launches
+    dc_state = SampleStage(dc.outfolder, ordering=dc.ordering).load_state(-1)
+    est = dc.ordering.to_point(q_tr[-1].mean(axis=0))
+    depth, mag = float(np.asarray(est["depth"])), float(np.asarray(est["magnitude"]))
+    depth_sd = float(q_tr[-1][:, dc.ordering["depth"].slc].std())
+    i_best = int(np.argmax(llk_tr[-1]))
+    dc_best = dc.ordering.to_point(q_tr[-1][i_best])
+    vr = dc.composites["seismic"].get_variance_reductions(dc_best)
+    synths = dc.composites["seismic"].get_synthetics(dc_best)
+    obs = {w.mapid: w.data_windows for w in dc.composites["seismic"].wavemaps}
+    vr_all = 1.0 - (sum(float(((obs[k] - synths[k]) ** 2).sum()) for k in obs)
+                    / sum(float((o ** 2).sum()) for o in obs.values()))
+    # the MAP from the test point, the SMC's best sample and 32 uniform
+    # restarts (a better mode elsewhere would show the SMC missed it), and
+    # the llk at the true source with the best sample's hyperparameters:
+    # with free shifts the depth trades off with the position, time and
+    # duration, and the data place the mode where they do
+    dlogp, ddata = dc.make_logp_fn()
+    dlo, dhi = dc.priors.bounds_arrays()
+    q_dmap, llk_dmap, _ = map_estimate(dlogp, dlo, dhi, n_restarts=32, n_steps=150, seed=0,
+                                       logp_args=(ddata,), device=dev,
+                                       start=np.stack([dc.priors.test_array(), q_tr[-1][i_best]]))
+    depth_map = float(dc.ordering.to_point(q_dmap)["depth"])
+    true_q = dict(dc_best, strike=TRUE_SDR[0], dip=TRUE_SDR[1], rake=TRUE_SDR[2],
+                  magnitude=TRUE_MAGNITUDE, east_shift=0.0, north_shift=0.0, depth=TRUE_DEPTH,
+                  time=0.0, duration=TRUE_DURATION)
+    with torch.no_grad():
+        llk_true = float(dlogp(torch.as_tensor(dc.ordering.to_array(true_q), dtype=DTYPE,
+                                               device=dev)[None], ddata))
+    say("dc_mala_smc", chains=N_CHAINS, steps=N_STEPS, dims=dc.ordering.size,
+        wall_s=f"{wall:.2f}", stages=len(dc_state["acceptance"]), beta=float(dc_state["beta"]),
+        **dc_launches, k5_launches=k5_launches["dc_mala_smc"],
+        peak_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", depth_m=f"{depth:.1f}",
+        depth_sd_m=f"{depth_sd:.1f}", depth_map_m=f"{depth_map:.1f}", magnitude=f"{mag:.4f}",
+        acceptance_final=f"{dc_state['acceptance'][-1]:.3f}",
+        llk_best=f"{float(llk_tr[-1][i_best]):.3f}", llk_map=f"{llk_dmap:.3f}",
+        llk_true=f"{llk_true:.3f}", variance_reduction_best=f"{vr_all:.4f}",
+        variance_reduction_best_by_wavemap=json.dumps({k: round(v, 4) for k, v in vr.items()}),
+        best=json.dumps({k: round(float(np.asarray(v)), 3) for k, v in dc_best.items()}))
+    if not (float(dc_state["beta"]) == 1.0 and np.isfinite(llk_tr).all()):
+        raise SystemExit("DC MALA-SMC did not reach beta = 1 with finite llks")
+    if min(dc_launches["k1c_launches"], dc_launches["k2c_launches"],
+           k5_launches["dc_mala_smc"]) == 0:
+        raise SystemExit("the DC MALA-SMC run never launched K1c, K2c or K5")
+    # the depth is held against the data's own mode, found independently by
+    # the MAP; Mw against the truth
+    if abs(depth - depth_map) >= DEPTH_TOL or abs(mag - TRUE_MAGNITUDE) >= MAG_TOL:
+        raise SystemExit(f"DC MALA-SMC posterior misses: depth {depth} (MAP {depth_map}), "
+                         f"Mw {mag}")
+    if not (vr_all >= DC_VR_MIN and float(llk_tr[-1][i_best]) >= llk_true):
+        raise SystemExit(f"DC MALA-SMC best sample: variance reduction {vr_all} < {DC_VR_MIN}, "
+                         f"or its llk below the true source's {llk_true}")
+    dc_population = torch.as_tensor(dc_state["population"], dtype=DTYPE, device=dev)
+    del dc, q_tr, llk_tr, dlogp, ddata
+    torch.cuda.empty_cache()
+
+    # 11d. [update_weights] at the DC run's best sample: non-Toeplitz data
+    # covariances from its residuals and the prediction covariances of two
+    # ensemble tables (velocities -3 % and +3 %), then one likelihood
+    ens = [flagship_table(REAL_SIZE["n_distances"], REAL_SIZE["n_depths"], REAL_SIZE["nt"],
+                          device=dev, vp=6000.0 * f, vs=3500.0 * f) for f in (0.97, 1.03)]
+    uw = build_flagship(**REAL_SIZE, seed=0, device=dev, table=table, source="DCSource",
+                        noise_analyser=SeismicNoiseAnalyser("non-toeplitz"),
+                        ensemble_tables=ens, outfolder=os.path.join(workdir.name, "uw"))
+    ulogp, udata = uw.make_logp_fn()
+    before = [d["weights"].clone() for d in udata[0]]
+    zero_bilinear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    uw.update_weights(dc_best)
+    torch.cuda.synchronize()
+    uw_s = time.perf_counter() - t0
+    uw_launches = bilinear_launches()
+    with torch.no_grad():
+        ullk = ulogp(dc_population, udata)
+    torch.cuda.synchronize()
+    changed = [not torch.equal(b, d["weights"]) for b, d in zip(before, udata[0])]
+    say("update_weights", seconds=f"{uw_s:.2f}", ensemble_tables=len(ens),
+        weights_changed=changed, llk_finite=bool(torch.isfinite(ullk).all()),
+        llk_median=f"{float(ullk.median()):.1f}", **uw_launches)
+    if not (torch.isfinite(ullk).all() and all(changed) and uw_launches["k1c_launches"] > 0):
+        raise SystemExit("update_weights: non-finite llks, unchanged weights or no K1c launch")
+    del uw, ulogp, udata, ens, before, ullk, dc_population
+    torch.cuda.empty_cache()
+
+    # 11e. [rect_smc] the finite RectangularSource: K1c at its query layout
+    # and the other one (K = 40 patches), then a random-walk SMC capped at
+    # RECT_MAX_STAGES - 1 stages
+    rect = build_flagship(**REAL_SIZE, seed=0, device=dev, table=table,
+                          source="RectangularSource",
+                          outfolder=os.path.join(workdir.name, "rect_smc"))
+    rcomp = rect.composites["seismic"]
+    rlogp, rdata = rect.make_logp_fn()
+    rlo, rhi = rect.priors.bounds_arrays()
+    rq = torch.as_tensor(np.random.default_rng(6).uniform(rlo, rhi, size=(N_CHAINS, rlo.size)),
+                         dtype=DTYPE, device=dev)
+    # the queries of one likelihood as the composite lays them out, (K, C,
+    # T), and the same queries as (C, K, T), the other layout
+    captured = {}
+
+    def capture(tbl_, cd_, z0_, A_):
+        captured.update(cd=cd_, z0=z0_, A=A_.detach())
+        return bilinear_contract(tbl_, cd_, z0_, A_)
+
+    table.contract_fn = capture
+    try:
+        with torch.no_grad():
+            rlogp(rq, rdata)
+    finally:
+        table.contract_fn = bilinear_contract
+    kept, other = "patches_first", "chains_first"
+    layouts = {kept: check_finite_layout(tbl, captured["cd"], captured["z0"], captured["A"],
+                                         gen)}
+    layouts[other] = check_finite_layout(
+        tbl, *(captured[k].transpose(0, 1).contiguous() for k in ("cd", "z0", "A")), gen)
+    del captured
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        rlogp(rq, rdata)
+    torch.cuda.synchronize()
+    layouts[kept]["llk_peak_GB"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    def rect_llk():
+        with torch.no_grad():
+            return rlogp(rq, rdata)
+
+    layouts[kept]["logp_ms"] = cuda_ms(rect_llk, iters=3, warmup=1)
+    for name_, r in layouts.items():
+        extra = ({} if name_ != kept else dict(logp_ms=f"{r['logp_ms']:.3f}",
+                                               llk_peak_GB=f"{r['llk_peak_GB']:.2f}"))
+        say("k1c_finite", layout=name_, kept=name_ == kept, shape=r["shape"],
+            queries=r["queries"], max_abs_err=f"{r['max_abs_err']:.3e}",
+            worst_err_over_bar=f"{r['worst_err_over_bar']:.3e}", ms=f"{r['ms']:.4f}",
+            plain_ms=f"{r['plain_ms']:.4f}", library_ms=f"{r['library_ms']:.4f}",
+            table_rows_read=r["table_rows_read"], bound_ms=f"{r['bound_ms']:.4f}",
+            bound_by=r["bound_by"], share_of_bound=f"{r['bound_ms'] / r['ms']:.3f}", **extra)
+    faster = min(layouts, key=lambda k: layouts[k]["ms"])
+    del rq
+    zero_bilinear()
+    gather_rows.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        rect.sample(SMCParams(n_chains=N_CHAINS, n_steps=RECT_STEPS, max_stages=RECT_MAX_STAGES,
+                              seed=0))
+        capped = False
+    except RuntimeError as e:
+        if "did not reach beta=1" not in str(e):
+            raise
+        capped = True
+    torch.cuda.synchronize()
+    rect_wall = time.perf_counter() - t0
+    rect_launches = bilinear_launches()
+    k5_launches["rect_smc"] = gather_rows.launches
+    handler = SampleStage(rect.outfolder, ordering=rect.ordering)
+    rstates = [handler.load_state(st) for st in (range(1, RECT_MAX_STAGES) if capped else [-1])]
+    rbetas = [0.0] + [float(st["beta"]) for st in rstates]
+    rfinite = all(np.isfinite(st["likelihoods"]).all() for st in rstates)
+    say("rect_smc", chains=N_CHAINS, steps=RECT_STEPS, dims=rect.ordering.size,
+        patches=f"{rcomp.finite_patches[0]}x{rcomp.finite_patches[1]}",
+        k1c_queries_per_eval=queries_per_chain(rcomp) * N_CHAINS, layout=kept,
+        faster_layout=faster, wall_s=f"{rect_wall:.2f}", stages_run=len(rstates),
+        capped=capped, betas=json.dumps([round(x, 6) for x in rbetas]), finite=rfinite,
+        **rect_launches, k5_launches=k5_launches["rect_smc"],
+        acceptance=json.dumps([round(float(a), 3) for a in rstates[-1]["acceptance"]]),
+        peak_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    if not (all(b1 > b0 for b0, b1 in zip(rbetas, rbetas[1:])) and rfinite):
+        raise SystemExit("rect SMC: beta not strictly increasing, or non-finite llks")
+    if rect_launches["k1c_launches"] == 0:
+        raise SystemExit("the rect SMC run never launched K1c")
+    del rect, rcomp, rlogp, rdata, rstates
+    torch.cuda.empty_cache()
+
 
     # the FullMT problem is done: free its table before the FFI library
-    del problem, comp, table, tbl, logp, data, lap, q_map, state, cov_chol, lo, hi
+    del problem, comp, table, tbl, logp, data, state, cov_chol, lo, hi
     torch.cuda.empty_cache()
 
     # 14. the real-size FFI problem: its library is built on the card, through K1c
@@ -1267,13 +1669,17 @@ def main() -> int:
     # 18. results: launches from each kernel's main path (SMC for K1 and
     # K1c, MALA-SMC for K2 and K2c, FFI SMC for K3 and K5, the
     # nearest-neighbour FFI SMC for K4), with every path's count beside
-    # them.  K1 and K2 run on no path now (0): K1c and K2c took their
+    # them (the geometry-mode paths of 11b-11e among them; K1c also
+    # with its times at the finite source's two query layouts).  K1 and K2 run on no path now (0): K1c and K2c took their
     # place; their launches in [grad_profile]'s unfused yardstick, which
     # is not a path of the port, stand apart.  K1c's and K2c's times are
     # those on the main path's queries, K3's and K4's those on the real
     # library, K5's those at the FFI population's shape.
     paths = {"smc": smc_launches, "mala_smc": mala_launches, "hmc": hmc_launches,
-             "map": map_launches, "laplace": lap_launches, "ffi_build": ffi_build_launches}
+             "map": map_launches, "laplace": lap_launches,
+             "sources_llk": sources_llk_launches, "dc_mala_smc": dc_launches,
+             "update_weights": uw_launches, "rect_smc": rect_launches,
+             "ffi_build": ffi_build_launches}
 
     def by_path(key):
         return {path: counts[key] for path, counts in paths.items()}
@@ -1289,6 +1695,12 @@ def main() -> int:
                 "table_rows_read": main["table_rows_read"], "groups": main["groups"][key],
                 "random_queries": rnd[key], "launches_by_path": by_path(key + "_launches")}
 
+    k1c_entry = contract_entry("k1c", "bilinear_contract", "beat_tpu/ops/bilgather.py:47",
+                               smc_launches["k1c_launches"])
+    k1c_entry["finite_layouts"] = {k: {f: v for f, v in r.items() if f != "shape"}
+                                   for k, r in layouts.items()}
+    k1c_entry["finite_layout_kept"] = kept
+
     print(json.dumps({"kernels": [
         {"name": "bilinear_rows", "route": "cuda", "source": "beat_tpu_torch/csrc/bilgather.cu",
          "replaces": "beat_tpu/ops/bilgather.py:47", "launches": smc_launches["k1_launches"],
@@ -1300,8 +1712,7 @@ def main() -> int:
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": k2_lib_ms, "launches_by_path": by_path("k2_launches"),
          "unfused_yardstick_launches": gather_launches[1]},
-        contract_entry("k1c", "bilinear_contract", "beat_tpu/ops/bilgather.py:47",
-                       smc_launches["k1c_launches"]),
+        k1c_entry,
         contract_entry("k2c", "contract_corner_dot", "beat_tpu/ops/bilgather.py:154",
                        mala_launches["k2c_launches"]),
         {"name": "gf_stack_multilinear", "route": "cuda",

@@ -1,7 +1,9 @@
 """
 Tests of the port that need an NVIDIA GPU: kernels K1, K2, K1c and K2c
 (``beat_tpu_torch/csrc/bilgather.cu``), K3 and K4 (``gfstack.cu``) and
-K5 (``rowgather.cu``) against their plain PyTorch versions, the
+K5 (``rowgather.cu``) against their plain PyTorch versions (K1c and K2c
+also on the query layouts of sources made of K point sources: a finite
+rectangle's patches as (C, K, T) and (K, C, T), a ring), the
 log-likelihoods and the gradient through the kernels against the same
 through the plain versions, and Hessians whose double backward launches
 the kernels (K1 and K2; K1c and K2c, the Laplace Hessian of the
@@ -443,3 +445,84 @@ def test_ffi_llk_parity_on_card(cuda, interpolation):
                    + data[0][0]["nsamples"].sum() * (2.0 * h + np.log(2.0 * np.pi)))
     bar = LLK_RTOL * (llk_plain.abs() + llk0.abs())
     assert bool(((llk - llk_plain).abs() <= bar).all())
+
+
+def _subsource_queries(table, layout, C, gen):
+    """K1c queries of sources made of K point sources, on a real table:
+    the 8 × 5 patches of rectangles (or a ring of 8 sub-sources) of C
+    random chains, laid out (C, K, T) or (K, C, T)."""
+    from beat_tpu_torch.sources import rectangular_patch_grid
+
+    dev = table.freqs.device
+
+    def u(lo, hi, shape=(C,)):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+
+    if layout == "ring":
+        phi = torch.arange(8, device=dev) * (2 * np.pi / 8)
+        r = u(500.0, 2500.0)[:, None]
+        east, north = r * torch.cos(phi), r * torch.sin(phi)
+        depth = u(3e3, 18e3)[:, None].expand(C, 8)
+    else:
+        east, north, depth, _, _ = rectangular_patch_grid(
+            u(0.0, 180.0), u(20.0, 80.0), u(6e3, 10e3), u(3e3, 6e3), u(-3e3, 3e3),
+            u(-3e3, 3e3), u(4e3, 10e3), 8, 5)
+    if layout == "patches_first":
+        east, north, depth = (x.transpose(0, 1).contiguous() for x in (east, north, depth))
+    n_st = 10
+    az = torch.arange(n_st, device=dev) * (2 * np.pi / n_st)
+    st_e, st_n = (100e3 * torch.sin(az)).repeat(3), (100e3 * torch.cos(az)).repeat(3)
+    comp = torch.arange(3, device=dev).repeat_interleave(n_st)
+    distance = torch.sqrt((st_e - east[..., None]) ** 2 + (st_n - north[..., None]) ** 2)
+    cd, z0, w4 = table._corner_queries(distance, depth, comp)
+    m6 = torch.randn(cd.shape + (6,), generator=gen, device=dev)
+    return cd, z0, w4[..., :, None] * m6[..., None, :]
+
+
+@pytest.mark.parametrize("layout", ["chains_first", "patches_first", "ring"])
+def test_k1c_k2c_match_plain_on_subsource_layouts(cuda, layout):
+    """K1c and K2c against their plain versions on the query layouts of the
+    finite rectangle ((C, K, T) and (K, C, T), K = 40) and of a ring of
+    sub-sources, on the real-size table's grid."""
+    from beat_tpu_torch.flagship import REAL_SIZE, flagship_table
+
+    table = flagship_table(REAL_SIZE["n_distances"], REAL_SIZE["n_depths"], 256, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    cd, z0, A = _subsource_queries(table, layout, 64, gen)
+    tbl = table.packed
+    k1c, k2c = bilinear_contract.launches, contract_corner_dot.launches
+    got = bilinear_contract(tbl, cd, z0, A)
+    G = torch.randn(got.shape, generator=gen, device=cuda)
+    got_p = contract_corner_dot(tbl, cd, z0, G)
+    torch.cuda.synchronize()
+    assert (bilinear_contract.launches, contract_corner_dot.launches) == (k1c + 1, k2c + 1)
+    rows = corner_rows_reference(tbl, cd.reshape(-1), z0.reshape(-1)).abs().amax(dim=(1, 2))
+    ref = bilinear_contract_reference(tbl, cd, z0, A)
+    bar = CONTRACT_RTOL * A.abs().sum((-2, -1)).reshape(-1) * rows
+    assert bool(((got - ref).abs().amax(-1).reshape(-1) <= bar).all())
+    ref_p = contract_corner_dot_reference(tbl, cd, z0, G)
+    bar = CONTRACT_RTOL * G.abs().sum(-1).reshape(-1) * rows
+    assert bool(((got_p - ref_p).abs().amax(dim=(-2, -1)).reshape(-1) <= bar).all())
+
+
+@pytest.mark.parametrize("source", ["RectangularSource", "DoubleDCSource", "RingfaultSource"])
+def test_subsource_llk_and_grad_parity_on_card(cuda, source):
+    """A source made of K point sources on the card: one K1c launch per
+    likelihood, one K2c per value-and-grad, the same llk and gradient as
+    through the plain versions."""
+    problem = build_flagship(**TEST_SIZE, seed=5, device=cuda, source=source)
+    logp, data = problem.make_logp_fn()
+    lower, upper = problem.priors.bounds_arrays()
+    span = upper - lower
+    q = torch.as_tensor(np.random.default_rng(2).uniform(
+        lower + 0.01 * span, upper - 0.01 * span, size=(64, lower.size)), dtype=torch.float32,
+        device=cuda)
+    k1c, k2c = bilinear_contract.launches, contract_corner_dot.launches
+    llk, grad = value_and_grad(logp, q, (data,))
+    assert (bilinear_contract.launches, contract_corner_dot.launches) == (k1c + 1, k2c + 1)
+    table = problem.composites["seismic"].tables[0]
+    table.contract_fn = bilinear_contract_reference
+    llk_plain, grad_plain = value_and_grad(logp, q, (data,))
+    assert torch.isfinite(llk).all() and torch.isfinite(grad).all()
+    np.testing.assert_allclose(llk.cpu().numpy(), llk_plain.cpu().numpy(), rtol=LLK_RTOL)
+    assert_grad_close(grad.cpu().numpy(), grad_plain.cpu().numpy(), GRAD_RTOL, GRAD_RTOL)
