@@ -16,9 +16,11 @@ import torch
 
 from beat_tpu_torch.covariance import Covariance
 from beat_tpu_torch.ffi.fault import FaultGeometry, SubfaultGrid
-from beat_tpu_torch.ffi.gflibrary import SeismicGFLibrary
+from beat_tpu_torch.ffi.gflibrary import GeodeticGFLibrary, SeismicGFLibrary
 from beat_tpu_torch.heart import taper
+from beat_tpu_torch.heart.geodesy import GeodeticDataset
 from beat_tpu_torch.heart.gftable import GreensTable
+from beat_tpu_torch.heart.statictable import StaticGFTable
 from beat_tpu_torch.heart.seismic import SeismicDataset, WaveformMapping
 from beat_tpu_torch.sources import RectangularSource, source_catalog
 
@@ -127,3 +129,36 @@ def wavemap_from_jax(jwmap, table: GreensTable) -> WaveformMapping:
                            else dict(jwmap.arrival_overrides)),
         event_idx=int(jwmap.event_idx), event_offset=tuple(map(float, jwmap.event_offset)),
         mapnumber=int(jwmap.mapnumber), preprocess_data=bool(jwmap.preprocess_data))
+
+
+def geodetic_dataset_from_numpy(name, typ, coords, displacement, los_vector, odw=None,
+                                covariance=None, **kwargs) -> GeodeticDataset:
+    """A port :class:`GeodeticDataset` from a JAX dataset's arrays:
+    ``covariance`` is the JAX dataset's covariance (read by attribute:
+    ``data``, ``pred_g``, ``pred_v``) or a data covariance matrix;
+    ``kwargs`` the optional fields (lats, lons, stations, mask, ...)."""
+    if isinstance(covariance, np.ndarray):
+        covariance = Covariance(data=np.array(covariance, dtype=np.float64))
+    else:
+        covariance = _covariance_from(covariance)
+    return GeodeticDataset(name=name, typ=typ, coords=np.array(coords, dtype=np.float64),
+                           displacement=np.array(displacement, dtype=np.float64),
+                           los_vector=np.array(los_vector, dtype=np.float64),
+                           odw=None if odw is None else np.array(odw, dtype=np.float64),
+                           covariance=covariance, **kwargs)
+
+
+def static_table_from_numpy(values, distances, depths, mu_tops=None, mus=None, lams=None,
+                            name: str = "static", *, device) -> StaticGFTable:
+    """A port :class:`StaticGFTable` from a JAX static table's arrays
+    (a layered table built by the JAX package among them)."""
+    return StaticGFTable(np.array(values, dtype=np.float32), distances, depths,
+                         mu_tops=mu_tops, mus=mus, lams=lams, name=name, device=device)
+
+
+def geodetic_gflibrary_from_numpy(gfs: dict, component_names=None, *,
+                                  device) -> GeodeticGFLibrary:
+    """A port :class:`GeodeticGFLibrary` from the JAX library's
+    ``{component: (npatches, nsamples)}`` matrices."""
+    return GeodeticGFLibrary({c: np.array(g, dtype=np.float32) for c, g in gfs.items()},
+                             component_names=component_names, device=device)

@@ -1,6 +1,8 @@
 """
 Dataset noise covariances and the seed proposal covariance (copied from
-``beat_tpu/covariance.py``, trimmed to what the port calls).
+``beat_tpu/covariance.py``, trimmed to what the port calls): waveform and
+geodetic noise analysers, the non-Toeplitz estimates in one and two
+dimensions, and the prediction covariances of earth-model ensembles.
 
 Host numpy, float64: the products the likelihood consumes on the device
 are each dataset's inverse-Cholesky weight matrix and log-determinant.
@@ -13,6 +15,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import scipy.linalg
+import torch
 
 from beat_tpu_torch.utility import ensure_cov_psd, running_window_rms
 
@@ -99,6 +102,41 @@ def non_toeplitz_covariance(data: np.ndarray, window_size: int) -> np.ndarray:
     return toep * np.outer(stds, stds)
 
 
+def k_nearest_neighbor_rms(coords: np.ndarray, data: np.ndarray, k: int | None = None,
+                           max_dist_perc: float | None = 0.2) -> np.ndarray:
+    """Per-point RMS over neighbours: the ``k`` nearest, or all within
+    ``max_dist_perc`` of the scene's extent (exactly one of the two)."""
+    from scipy.spatial import cKDTree
+
+    if (k is None) == (max_dist_perc is None):
+        raise ValueError("Define either k or max_dist_perc (exactly one)")
+    tree = cKDTree(coords)
+    if k is not None:
+        _, idxs = tree.query(coords, k=k)
+        idxs = np.reshape(idxs, (data.size, -1))  # k=1 squeezes the axis
+        return np.sqrt(np.mean(data[idxs] ** 2, axis=-1))
+    rms = np.empty(data.size)
+    radius = float(np.linalg.norm(coords.max(axis=0) - coords.min(axis=0))) * max_dist_perc
+    for i, idxs in enumerate(tree.query_ball_point(coords, r=radius)):
+        rms[i] = np.sqrt(np.mean(data[idxs] ** 2))
+    return rms
+
+
+def toeplitz_covariance_2d(coords: np.ndarray, data: np.ndarray,
+                           max_dist_perc: float = 0.2) -> tuple:
+    """The 2-d analogue of :func:`toeplitz_covariance`: the neighbourhood
+    RMS in place of the running window, ``(toeplitz, stds)``."""
+    stds = k_nearest_neighbor_rms(coords, data, max_dist_perc=max_dist_perc)
+    return scipy.linalg.toeplitz(autocovariance(data / stds)), stds
+
+
+def non_toeplitz_covariance_2d(coords: np.ndarray, data: np.ndarray,
+                               max_dist_perc: float = 0.2) -> np.ndarray:
+    """Spatial non-stationary covariance of an InSAR scene."""
+    toep, stds = toeplitz_covariance_2d(coords, data, max_dist_perc)
+    return ensure_cov_psd(toep * np.outer(stds, stds))
+
+
 @dataclass
 class SeismicNoiseAnalyser:
     """Data covariance of waveform datasets.
@@ -133,6 +171,29 @@ class SeismicNoiseAnalyser:
             return non_toeplitz_covariance(res, window_size=max(4, res.size // 5))
         elif self.structure == "import":
             return np.eye(n)
+        raise ValueError(f"Unknown noise structure {self.structure}")
+
+
+@dataclass
+class GeodeticNoiseAnalyser:
+    """Data covariance of geodetic datasets: 'import' (the imported
+    matrix, or the data variance × identity without one) or
+    'non-toeplitz' (of the residuals)."""
+
+    structure: str = "import"
+    max_dist_perc: float = 0.2
+
+    def get_data_covariance(self, coords: np.ndarray, displacement: np.ndarray,
+                            imported: np.ndarray | None = None,
+                            residual: np.ndarray | None = None) -> np.ndarray:
+        n = displacement.size
+        if self.structure == "import":
+            if imported is None:
+                return np.eye(n) * max(float(np.var(displacement)), 1e-30)
+            return imported
+        elif self.structure == "non-toeplitz":
+            res = residual if residual is not None else displacement
+            return non_toeplitz_covariance_2d(coords, res, self.max_dist_perc)
         raise ValueError(f"Unknown noise structure {self.structure}")
 
 
@@ -175,3 +236,31 @@ def seismic_cov_velocity_models(composite, point: dict, ensemble_tables,
                      .detach().cpu().numpy())
     preds = np.stack(preds)                 # (n_models, ntargets, nsamples_fit)
     return [prediction_covariance_from_ensemble(preds[:, i]) for i in range(preds.shape[1])]
+
+
+def geodetic_cov_velocity_models(composite, point: dict, nus=(0.2, 0.25, 0.3),
+                                 ensemble_tables=None) -> list:
+    """Per-dataset prediction covariances of a geodetic geometry composite
+    from earth-model variations: the LOS synthetics at ``point`` (one
+    chain) through each of ``ensemble_tables`` (static GF tables), or,
+    without tables, with each Poisson ratio of ``nus`` on the analytic
+    halfspace.  Returns one matrix per dataset."""
+    batched = composite.batch_of_one(point)
+    data = composite.device_data()
+    preds = []
+    with torch.no_grad():
+        if ensemble_tables:
+            for table in ensemble_tables:
+                preds.append(composite.synthetics_los(batched, dict(data, static_table=table))[0]
+                             .double().cpu().numpy())
+        else:
+            base_nu = composite.nu
+            try:
+                for nu in nus:
+                    composite.nu = float(nu)
+                    preds.append(composite.synthetics_los(batched, data)[0]
+                                 .double().cpu().numpy())
+            finally:
+                composite.nu = base_nu
+    preds = np.stack(preds)
+    return [prediction_covariance_from_ensemble(preds[:, slc]) for slc in composite.stack.slices]

@@ -17,6 +17,15 @@ import torch
 LOG_2PI = math.log(2.0 * math.pi)
 
 
+def multivariate_normal_chol(residual, chol_inverse, slog_pdet, hyperparam) -> torch.Tensor:
+    """One dataset's Gaussian log-likelihood for a batch: residual (..., M),
+    ``chol_inverse`` (M, M), ``hyperparam`` (...) or a number.  Returns (...)."""
+    tmp = residual @ chol_inverse.T
+    h = torch.as_tensor(hyperparam, dtype=residual.dtype, device=residual.device)
+    return -0.5 * (slog_pdet + residual.shape[-1] * (2.0 * h + LOG_2PI)
+                   + torch.exp(-2.0 * h) * torch.sum(tmp * tmp, dim=-1))
+
+
 def multivariate_normal_chol_batched(residuals, chol_inverses, slog_pdets,
                                      hyperparams, nsamples) -> torch.Tensor:
     """Per-dataset Gaussian log-likelihoods.

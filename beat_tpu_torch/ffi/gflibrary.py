@@ -1,6 +1,14 @@
 """
-The 5-D kinematic Green's-function library of distributed-slip (FFI)
-inversion (port of the seismic half of ``beat_tpu/ffi/gflibrary.py``).
+The Green's-function libraries of distributed-slip (FFI) inversion
+(port of ``beat_tpu/ffi/gflibrary.py``): the static geodetic library and
+the 5-D kinematic one.
+
+``GeodeticGFLibrary`` holds one (npatches, nsamples) matrix per slip
+component, the LOS displacement of unit slip on each patch; the forward
+is ``Σ_c s_c @ G_c`` over a batch of slips (C, npatches), one product per
+component (plain ``torch.matmul``: the JAX package computes it in XLA,
+not in a Pallas kernel).  :func:`geo_construct_gf_linear` builds it with
+one batched Okada call over the patches, on the device it is given.
 
 ``data[target, patch, duration, starttime, sample]`` holds the
 tapered, filtered unit-slip synthetics of every patch for a grid of
@@ -13,9 +21,6 @@ source durations and rupture-onset times.
 * **Stacking** (:meth:`SeismicGFLibrary.stack_all`): the index
   quantisation of the JAX package, then the all-chain stack through
   kernels K3/K4 (:func:`beat_tpu_torch.ops.gfstack.stack_batched`).
-
-The static ``GeodeticGFLibrary`` waits for a later slice (ROADMAP:
-static FFI).
 """
 
 from __future__ import annotations
@@ -37,6 +42,84 @@ from beat_tpu_torch.sources import sdr_to_m6, tensile_m6
 logger = logging.getLogger("beat_tpu_torch.ffi.gflibrary")
 
 INTERPOLATIONS = ("nearest_neighbor", "multilinear")
+
+
+#: the static slip components: along rake, rake + 90°, and opening
+GEODETIC_COMPONENTS = ("uparr", "uperp", "utens")
+
+
+class GeodeticGFLibrary(nn.Module):
+    """Static GF matrices, ``gf_<component>`` (npatches, nsamples) float32
+    buffers; ``component_names`` in order."""
+
+    def __init__(self, gfs: dict, component_names=None, *, device):
+        super().__init__()
+        self.component_names = list(component_names or gfs.keys())
+        for comp in self.component_names:
+            self.register_buffer(f"gf_{comp}", torch.as_tensor(gfs[comp], dtype=DTYPE,
+                                                               device=device))
+
+    def gf(self, comp: str) -> torch.Tensor:
+        return getattr(self, f"gf_{comp}")
+
+    @property
+    def npatches(self) -> int:
+        return self.gf(self.component_names[0]).shape[0]
+
+    @property
+    def nsamples(self) -> int:
+        return self.gf(self.component_names[0]).shape[1]
+
+    def stack_all(self, **slips) -> torch.Tensor:
+        """``Σ_c s_c @ G_c``: slips (C, npatches) per component → (C, nsamples)."""
+        out = 0.0
+        for comp, s in slips.items():
+            if s is not None:
+                out = out + s @ self.gf(comp)
+        return out
+
+    def save(self, path: str) -> None:
+        """The JAX package's ``.npz`` format: either package reads it."""
+        np.savez_compressed(path, **{c: self.gf(c).cpu().numpy() for c in self.component_names})
+
+    @classmethod
+    def load(cls, path: str, *, device) -> "GeodeticGFLibrary":
+        with np.load(path) as z:
+            return cls({c: z[c] for c in z.files}, device=device)
+
+
+def geo_construct_gf_linear(fault, coords, los, components=("uparr", "uperp"), nu=0.25, *,
+                            device) -> GeodeticGFLibrary:
+    """The static library of ``fault``: the LOS displacement of unit slip
+    on every patch, each component one batched Okada call over all
+    patches on ``device``, evaluated in
+    :data:`~beat_tpu_torch.heart.okada.FORWARD_DTYPE` and stored as
+    float32.  'uparr' is unit slip along the patch rake, 'uperp' along
+    rake + 90°, 'utens' unit opening."""
+    from beat_tpu_torch.heart import okada
+
+    dtype = okada.FORWARD_DTYPE
+    patches = fault.get_all_patches()
+    coords = torch.as_tensor(np.asarray(coords), dtype=dtype, device=device)
+    los = torch.as_tensor(np.asarray(los), dtype=dtype, device=device)
+    params = {a: torch.as_tensor([getattr(p, a) for p in patches], dtype=dtype, device=device)
+              for a in ("east_shift", "north_shift", "depth", "strike", "dip", "rake",
+                        "length", "width")}
+    gfs = {}
+    for comp in components:
+        if comp not in GEODETIC_COMPONENTS:
+            raise ValueError(f"Unknown slip component {comp}")
+        kw = dict(params)
+        if comp == "uperp":
+            kw["rake"] = kw["rake"] + 90.0
+        slip, opening = (0.0, 1.0) if comp == "utens" else (1.0, 0.0)
+        with torch.no_grad():
+            disp = okada.okada_surface_displacement(coords, **kw, slip=slip, opening=opening,
+                                                    nu=nu, anchor="top")
+        gfs[comp] = torch.sum(disp * los, dim=-1).float()
+    logger.info("Built geodetic GF library: %i patches x %i samples x %s", len(patches),
+                coords.shape[0], list(components))
+    return GeodeticGFLibrary(gfs, component_names=list(components), device=device)
 
 
 class SeismicGFLibrary(nn.Module):

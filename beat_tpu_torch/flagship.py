@@ -348,3 +348,277 @@ def build_ffi_flagship(n_targets: int, n_strike: int, n_dip: int, nt: int, nwin:
                       device=dev, outfolder=outfolder)
     problem.true_point = true
     return problem
+
+
+# The geodetic problems
+# ---------------------------------------------------------------------------
+#
+# Both follow BEAT's documented L'Aquila workflow (the geometry run, then
+# the static finite-fault inversion of ``docs/examples/FFI_static.rst``),
+# hermetic: the scenes are synthesized, not read.  Each has two InSAR
+# scenes with Envisat-like geometry (ascending heading −13°, descending
+# −167°, incidence 23°), points scattered with a density falling off away
+# from the source as quadtree leaves are, a full exponential noise
+# covariance (sd 5 mm, 5 km correlation length) and a draw of that noise.
+
+GEO_REAL_SIZE = dict(n_points=1500)
+GEO_TEST_SIZE = dict(n_points=120)
+#: the L'Aquila rectangle of the published geometry inversion (anchored at
+#: its top-center)
+GEO_TRUE = dict(east_shift=1000.0, north_shift=-500.0, depth=1.5e3, strike=146.0, dip=52.0,
+                rake=-110.0, length=12e3, width=10e3, slip=0.6)
+GEO_PRIORS = dict(east_shift=(-5e3, 5e3), north_shift=(-5e3, 5e3), depth=(0.5e3, 4e3),
+                  strike=(120.0, 170.0), dip=(35.0, 70.0), rake=(-150.0, -70.0),
+                  length=(8e3, 16e3), width=(6e3, 14e3), slip=(0.2, 1.5))
+#: scene name: (heading, incidence) [deg]
+GEO_SCENES = {"asc": (-13.0, 23.0), "dsc": (-167.0, 23.0)}
+#: scene name: (azimuth ramp, range ramp [m/m], offset [m]) behind the data
+GEO_RAMPS = {"asc": (2.0e-7, -1.5e-7, 4e-3), "dsc": (-1.0e-7, 2.5e-7, -3e-3)}
+GEO_RAMP_PRIORS = dict(azimuth_ramp=(-1e-6, 1e-6), range_ramp=(-1e-6, 1e-6),
+                       offset=(-0.02, 0.02))
+GEO_HALF_BOX = 40e3                 # the scenes cover ±40 km
+GEO_NOISE_SD = 5e-3
+GEO_CORRELATION_LENGTH = 5e3
+#: the event's geographic reference (L'Aquila), for the GNSS stations
+GEO_EVENT_LATLON = (42.35, 13.38)
+#: the plate rotation and strain rate behind the GNSS data
+GEO_POLE = dict(pole_lat=50.0, pole_lon=5.0, omega=0.3)
+GEO_POLE_PRIORS = dict(pole_lat=(45.0, 55.0), pole_lon=(0.0, 10.0), omega=(0.1, 0.5))
+GEO_STRAIN = dict(exx=20.0, eyy=-15.0, exy=8.0, rotation=-5.0)
+GEO_STRAIN_PRIORS = dict(exx=(-50.0, 50.0), eyy=(-50.0, 50.0), exy=(-50.0, 50.0),
+                         rotation=(-50.0, 50.0))
+GEO_GNSS_SD = {"east": 1e-3, "north": 1e-3, "up": 3e-3}
+
+
+def scatter_points(n: int, rng: np.random.Generator, half_along: float, half_across: float,
+                   dense_at=(0.0, 0.0), scale: float = 12e3) -> np.ndarray:
+    """(n, 2) points in the box ±half_along × ±half_across [m], each kept
+    with probability exp(-r/scale) + 0.1, r its distance to ``dense_at``:
+    dense near the source, sparse far from it, as the leaves of a
+    quadtree-subsampled scene."""
+    pts = np.empty((0, 2))
+    while len(pts) < n:
+        cand = rng.uniform([-half_along, -half_across], [half_along, half_across], (4 * n, 2))
+        r = np.hypot(*(cand - np.asarray(dense_at)).T)
+        pts = np.concatenate([pts, cand[rng.uniform(size=len(cand)) < np.exp(-r / scale) + 0.1]])
+    return pts[:n]
+
+
+def exponential_covariance(coords: np.ndarray, sd: float, length: float) -> np.ndarray:
+    """C_ij = sd² exp(-|x_i - x_j| / length)."""
+    d = np.hypot(*(coords[:, None, :] - coords[None, :, :]).transpose(2, 0, 1))
+    return sd**2 * np.exp(-d / length)
+
+
+def insar_scenes(coords_by_scene: dict, signal_fn, rng: np.random.Generator,
+                 ramps: dict | None = None) -> list:
+    """The two InSAR datasets: LOS of ``signal_fn(coords) → (n, 3)`` ENU
+    displacements, plus the scene's ramp, plus a correlated noise draw,
+    each with its exponential covariance."""
+    from beat_tpu_torch.heart.geodesy import diff_ifg
+
+    datasets = []
+    for name, (heading, incidence) in GEO_SCENES.items():
+        coords = coords_by_scene[name]
+        cov = exponential_covariance(coords, GEO_NOISE_SD, GEO_CORRELATION_LENGTH)
+        noise = np.linalg.cholesky(cov) @ rng.normal(size=len(coords))
+        ds = diff_ifg(name, coords, np.zeros(len(coords)), incidence, heading,
+                      covariance=Covariance(data=cov))
+        disp = np.sum(signal_fn(coords) * ds.los_vector, axis=-1) + noise
+        if ramps is not None:
+            az, rg, off = ramps[name]
+            disp = disp + coords[:, 1] * az + coords[:, 0] * rg + off
+        ds.displacement = disp
+        datasets.append(ds)
+    return datasets
+
+
+def rectangle_displacement(coords: np.ndarray, **params) -> np.ndarray:
+    """(n, 3) ENU displacements of one rectangle, float64 on the host."""
+    from beat_tpu_torch.heart.okada import okada_surface_displacement
+
+    c = torch.as_tensor(coords, dtype=torch.float64)
+    p = {k: torch.tensor(float(v), dtype=torch.float64) for k, v in params.items()}
+    return okada_surface_displacement(c, **p).numpy()
+
+
+def geodetic_source_priors(source: str) -> PriorSet:
+    """The source priors of the geodetic geometry problem: GEO_PRIORS for
+    the rectangle; for the other source types those of the waveform
+    problem without time and duration, around the rectangle's position."""
+    if source == "RectangularSource":
+        bounds = GEO_PRIORS
+    else:
+        bounds = {k: v for k, v in SOURCE_PRIORS[source].items()
+                  if k not in ("time", "duration", "delta_time")}
+        bounds.update(east_shift=(-5e3, 5e3), north_shift=(-5e3, 5e3), depth=(2e3, 10e3))
+    priors = PriorSet()
+    for name, b in bounds.items():
+        priors.add(Parameter.from_defaults(name) if b is None else Parameter(name, [b[0]], [b[1]]))
+    return priors
+
+
+def gnss_network(n_stations: int, rng: np.random.Generator, signal_fn) -> tuple:
+    """Three GNSS component datasets (east, north, up) of ``n_stations``
+    stations within ±80 km, displaced by ``signal_fn`` plus the plate
+    rotation and strain rate of GEO_POLE and GEO_STRAIN over one year plus
+    noise, and their Euler-pole and strain-rate corrections."""
+    from beat_tpu_torch.heart.corrections import (EulerPoleCorrection, StrainRateCorrection,
+                                                  velocities_from_pole,
+                                                  velocities_from_strain_rate_tensor)
+    from beat_tpu_torch.heart.geodesy import EARTH_RADIUS, D2R, gnss_compound
+
+    lat0, lon0 = GEO_EVENT_LATLON
+    coords = rng.uniform(-80e3, 80e3, (n_stations, 2))
+    lats = lat0 + coords[:, 1] / (D2R * EARTH_RADIUS)
+    lons = lon0 + coords[:, 0] / (D2R * EARTH_RADIUS * np.cos(lat0 * D2R))
+    norths, easts = coords[:, 1] - coords[:, 1].mean(), coords[:, 0] - coords[:, 0].mean()
+    f64 = {k: torch.tensor(v, dtype=torch.float64) for k, v in GEO_POLE.items()}
+    v_pole = velocities_from_pole(lats, lons, **f64).numpy()
+    s64 = {k: torch.tensor(v, dtype=torch.float64) for k, v in GEO_STRAIN.items()}
+    v_strain = velocities_from_strain_rate_tensor(norths, easts, **s64).numpy()
+    enu = signal_fn(coords)
+    stations = np.array([f"GN{i:02d}" for i in range(n_stations)])
+    datasets, corrections = [], []
+    for axis, comp in enumerate(("east", "north", "up")):
+        neu = (1, 0, 2)[axis]
+        sd = GEO_GNSS_SD[comp]
+        disp = enu[:, axis] + v_pole[:, neu] + v_strain[:, neu] + rng.normal(0, sd, n_stations)
+        name = f"gnss_{comp}"
+        datasets.append(gnss_compound(name, coords, disp, comp, lats=lats, lons=lons,
+                                      stations=stations,
+                                      covariance=Covariance(data=np.eye(n_stations) * sd**2)))
+        corrections += [EulerPoleCorrection(0, lats, lons, dataset_name=name),
+                        StrainRateCorrection(0, norths, easts, dataset_name=name)]
+    return datasets, corrections
+
+
+def build_geodetic_flagship(n_points: int, seed: int = 0, *, device,
+                            outfolder: str = "geo_run", source: str = "RectangularSource",
+                            gnss_stations: int = 0, static_table=None, finite_patches=(4, 4),
+                            noise_structure: str = "import", ensemble_nus=None,
+                            ensemble_tables=None, hp_specific: bool = False) -> Problem:
+    """The geodetic geometry Problem (BASELINE config 1): two InSAR
+    scenes of ``n_points`` each from the rectangle GEO_TRUE plus ramps
+    and correlated noise; sampled are ``source``'s parameters (GEO_PRIORS
+    for the rectangle), one ramp per scene (3 parameters each) and the
+    hyperparameter(s).  ``gnss_stations`` adds a GNSS network with an
+    Euler-pole and a strain-rate correction; ``static_table`` routes the
+    forward through a static GF table.  ``problem.true_point`` holds the
+    parameters behind the data (the rectangle's)."""
+    from beat_tpu_torch.heart.corrections import RampCorrection
+    from beat_tpu_torch.models.geodetic import GeodeticGeometryComposite
+
+    dev = resolve(device)
+    rng = np.random.default_rng(seed)
+    center = (GEO_TRUE["east_shift"], GEO_TRUE["north_shift"])
+    coords = {name: scatter_points(n_points, rng, GEO_HALF_BOX, GEO_HALF_BOX) + center
+              for name in GEO_SCENES}
+
+    def signal(c):
+        return rectangle_displacement(c, **GEO_TRUE)
+
+    datasets = insar_scenes(coords, signal, rng, GEO_RAMPS)
+    corrections = [RampCorrection(name) for name in GEO_SCENES]
+    priors = geodetic_source_priors(source)
+    true = dict(GEO_TRUE)
+    for name in GEO_SCENES:
+        for key, value in zip(GEO_RAMP_PRIORS, GEO_RAMPS[name]):
+            priors.add(Parameter(f"{name}_{key}", [GEO_RAMP_PRIORS[key][0]],
+                                 [GEO_RAMP_PRIORS[key][1]]))
+            true[f"{name}_{key}"] = value
+    if gnss_stations:
+        gnss, gnss_corr = gnss_network(gnss_stations, rng, signal)
+        datasets += gnss
+        corrections += gnss_corr
+        for bounds, values in ((GEO_POLE_PRIORS, GEO_POLE), (GEO_STRAIN_PRIORS, GEO_STRAIN)):
+            for key, (lo, hi) in bounds.items():
+                priors.add(Parameter(f"0_{key}", [lo], [hi]))
+                true[f"0_{key}"] = values[key]
+    template = (RectangularSource(**GEO_TRUE) if source == "RectangularSource"
+                else source_catalog[source](depth=5e3))
+    comp = GeodeticGeometryComposite(
+        datasets, [template], static_table=static_table, finite_patches=finite_patches,
+        ensemble_nus=ensemble_nus, ensemble_tables=ensemble_tables, corrections=corrections,
+        noise_structure=noise_structure, hp_specific=hp_specific, device=dev)
+    problem = Problem(priors, {"geodetic": comp}, device=dev, outfolder=outfolder)
+    problem.true_point = dict(true, **{h: 0.0 for h in comp.get_hypernames()})
+    return problem
+
+
+STATIC_FFI_REAL_SIZE = dict(n_strike=50, n_dip=10, n_points=1500)
+STATIC_FFI_TEST_SIZE = dict(n_strike=4, n_dip=2, n_points=100)
+#: the sampled slip ranges of ``FFI_static.rst`` (uparr, uperp) [m]
+STATIC_FFI_PRIORS = dict(uparr=(-0.1, 2.0), uperp=(-1.0, 1.0))
+STATIC_FFI_MARGIN = 30e3            # the scenes cover the fault's projection ± 30 km
+STATIC_FFI_PEAK_SLIP = 1.5
+
+
+def static_ffi_true_slips(fault, n_strike: int, n_dip: int) -> dict:
+    """The smooth slip patch behind the data: a Gaussian of peak 1.5 m
+    along rake centred at 0.4 of the length and of the width, and a tenth
+    of it across rake."""
+    centers = fault.subfaults[0].patch_centers_local()
+    length, width = n_strike * FFI_PATCH, n_dip * FFI_PATCH
+    blob = STATIC_FFI_PEAK_SLIP * np.exp(
+        -0.5 * (((centers[:, 0] - 0.4 * length) / (0.15 * length + 2e3)) ** 2
+                + ((centers[:, 1] - 0.4 * width) / (0.3 * width + 2e3)) ** 2))
+    return {"uparr": blob, "uperp": 0.1 * blob}
+
+
+def build_static_ffi_flagship(n_strike: int, n_dip: int, n_points: int, seed: int = 0, *,
+                              device, outfolder: str = "static_ffi_run",
+                              initialization: str = "lsq") -> Problem:
+    """The static finite-fault Problem (BASELINE config 4): the fault of
+    :func:`build_ffi_flagship` (strike 135°, dip 50°, 2 km patches), two
+    InSAR scenes of ``n_points`` each over the fault's surface projection
+    ± 30 km, synthesized through the library from a smooth slip patch
+    plus correlated noise (ramps fixed and removed); sampled are
+    ``uparr`` and ``uperp`` per patch, ``h_laplacian`` and ``h_SAR``,
+    started from the NNLS solution (``initialization``).
+    ``problem.true_point`` holds the slips behind the data."""
+    from beat_tpu_torch.ffi.gflibrary import geo_construct_gf_linear
+    from beat_tpu_torch.heart.geodesy import los_vectors
+    from beat_tpu_torch.models.distributer import GeodeticDistributerComposite
+
+    dev = resolve(device)
+    rng = np.random.default_rng(seed)
+    ref = RectangularSource(length=n_strike * FFI_PATCH, width=n_dip * FFI_PATCH, **FFI_PLANE)
+    fault = discretize_sources([ref], patch_length=FFI_PATCH, patch_width=FFI_PATCH,
+                               components=("uparr", "uperp"))
+    # the scenes in the fault's frame: along strike from the plane's
+    # center, across it horizontally from the middle of its projection
+    st = np.deg2rad(ref.strike)
+    across_w = ref.width * np.cos(np.deg2rad(ref.dip))
+    s_vec, t_vec = np.array([np.sin(st), np.cos(st)]), np.array([np.cos(st), -np.sin(st)])
+    true = static_ffi_true_slips(fault, n_strike, n_dip)
+    blob_c = fault.subfaults[0].patches[int(np.argmax(true["uparr"]))].center()[:2]
+    origin = np.array([ref.east_shift, ref.north_shift]) + 0.5 * across_w * t_vec
+    blob_rel = blob_c - origin
+    coords = {}
+    for name in GEO_SCENES:
+        local = scatter_points(n_points, rng, ref.length / 2 + STATIC_FFI_MARGIN,
+                               across_w / 2 + STATIC_FFI_MARGIN,
+                               dense_at=(blob_rel @ s_vec, blob_rel @ t_vec))
+        coords[name] = origin + local[:, :1] * s_vec + local[:, 1:] * t_vec
+    all_coords = np.concatenate(list(coords.values()))
+    los = np.concatenate([los_vectors(len(coords[name]), GEO_SCENES[name][1],
+                                      GEO_SCENES[name][0]) for name in GEO_SCENES])
+    lib = geo_construct_gf_linear(fault, all_coords, los, components=("uparr", "uperp"),
+                                  device=dev)
+    synth = sum(true[c] @ lib.gf(c).double().cpu().numpy() for c in ("uparr", "uperp"))
+    offsets = np.cumsum([0] + [len(coords[name]) for name in GEO_SCENES])
+    datasets = insar_scenes(coords, lambda c: np.zeros((len(c), 3)), rng)
+    for ds, a, b in zip(datasets, offsets[:-1], offsets[1:]):
+        ds.displacement = ds.displacement + synth[a:b]
+
+    priors = PriorSet()
+    for name, (lo, hi) in STATIC_FFI_PRIORS.items():
+        priors.add(Parameter(name, [lo] * fault.npatches, [hi] * fault.npatches))
+    comp = GeodeticDistributerComposite(datasets, lib, fault, device=dev)
+    lap = LaplacianDistributerComposite(fault, slip_varnames=("uparr", "uperp"), device=dev)
+    problem = Problem(priors, {"geodetic": comp, "laplacian": lap}, device=dev,
+                      outfolder=outfolder, initialization=initialization)
+    problem.true_point = dict(true, h_SAR=0.0, h_laplacian=0.0)
+    return problem
+

@@ -19,6 +19,20 @@ from torch import nn
 from beat_tpu_torch.parameter import Parameter
 
 
+def dataset_hyper_terms(residuals, weights, slog_pdets, nsamples, names) -> tuple:
+    """Fixed-residual terms of the hyper-only posterior for datasets of
+    different sizes, one residual (M_d,) and weight matrix (M_d, M_d)
+    each: ``(||W r||² (D,), slog_pdets (D,), nsamples (D,), hyper names)``."""
+    wrw = []
+    for r, w in zip(residuals, weights):
+        tmp = w @ r
+        wrw.append(torch.dot(tmp, tmp))
+    wrw = torch.stack(wrw)
+    return (wrw, torch.stack([torch.as_tensor(p, dtype=wrw.dtype, device=wrw.device)
+                              for p in slog_pdets]),
+            torch.as_tensor(nsamples, dtype=wrw.dtype, device=wrw.device), list(names))
+
+
 def wavemap_hyper_terms(devs, synths, wavemaps, hp_specific: bool) -> tuple:
     """Fixed-residual terms of the hyper-only posterior
     (:func:`~beat_tpu_torch.distributions.hyper_normal`) for every target
@@ -40,10 +54,17 @@ def wavemap_hyper_terms(devs, synths, wavemaps, hp_specific: bool) -> tuple:
 
 
 def _strip_prefix(name: str) -> str:
-    """The registry key of a hierarchical name: '<...>_time_shift' ->
-    'time_shift' (the JAX package's ``_strip_prefix``, trimmed to the
-    hierarchicals the port has)."""
-    return "time_shift" if name.endswith("time_shift") else name
+    """The registry key of a hierarchical name: '<dataset>_azimuth_ramp'
+    -> 'ramp', '<n>_pole_lat' -> 'lat', '<...>_time_shift' ->
+    'time_shift', and so on."""
+    for suffix, key in (
+            ("azimuth_ramp", "ramp"), ("range_ramp", "ramp"), ("offset", "offset"),
+            ("pole_lat", "lat"), ("pole_lon", "lon"), ("omega", "omega"),
+            ("exx", "exx"), ("eyy", "eyy"), ("exy", "exy"), ("rotation", "rotation"),
+            ("time_shift", "time_shift")):
+        if name.endswith(suffix):
+            return key
+    return name
 
 
 class Composite(nn.Module):

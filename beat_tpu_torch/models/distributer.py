@@ -1,8 +1,14 @@
 """
-Kinematic distributed-slip (FFI) composite — a linear forward model over
+Distributed-slip (FFI) composites — linear forward models over
 precomputed Green's-function libraries (port of
-``SeismicDistributerComposite``, ``beat_tpu/models/distributer.py``),
-batched over a leading chain axis:
+``beat_tpu/models/distributer.py``), batched over a leading chain axis.
+
+The static composite (:class:`GeodeticDistributerComposite`): the LOS
+synthetics are ``Σ_c s_c @ G_c`` over the slip components of the
+geodetic library, then the per-dataset whitened Gaussian; it also gives
+the non-negative least-squares warm start of the slips (``lsq_solution``).
+
+The kinematic composite (:class:`SeismicDistributerComposite`):
 
     eikonal rupture-onset times from nucleation point + patch velocities
     → index quantisation on the library's (duration, starttime) grid
@@ -16,9 +22,9 @@ vector parameters (``uparr``, ``durations``, ``velocities`` are
 
 Station time shifts, the ``spectrum`` domain, per-target hyperparameters
 (``hp_specific``) and the hyper-only posterior (``hyper_loglike``,
-``hyper_data``) wait for a later slice (ROADMAP: what slice 3 left out),
-as do ``GeodeticDistributerComposite`` and ``transd_sample_ffi``
-(ROADMAP: static FFI).
+``hyper_data``) of the kinematic composite wait for a later slice
+(ROADMAP: what slice 3 left out), as does ``transd_sample_ffi`` (ROADMAP:
+trans-dimensional FFI).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from beat_tpu_torch.device import DTYPE, resolve
 from beat_tpu_torch.distributions import multivariate_normal_chol_batched
 from beat_tpu_torch.ffi.gflibrary import INTERPOLATIONS
 from beat_tpu_torch.models.base import Composite
+from beat_tpu_torch.models.geodetic import GeodeticComposite
 
 logger = logging.getLogger("beat_tpu_torch.models.distributer")
 
@@ -40,6 +47,55 @@ _LATER = "a later port slice (ROADMAP: what slice 3 left out)"
 
 #: per-wavemap device arrays (besides the GF libraries)
 DEVICE_KEYS = ("data", "weights", "slog_pdets", "nsamples")
+
+
+class GeodeticDistributerComposite(GeodeticComposite):
+    """Static slip inversion: synthetics ``Σ_c s_c @ G_c``.  The datasets,
+    weights, hyperparameters, hyper-only posterior and diagnostics are
+    the geodetic composite's (without corrections); the library is a
+    submodule (``gflibrary``)."""
+
+    def __init__(self, datasets, gflibrary, fault, hp_specific=False, *, device):
+        super().__init__(datasets, hp_specific=hp_specific, device=device)
+        lib_device = gflibrary.gf(gflibrary.component_names[0]).device
+        if lib_device != self.data.device:
+            raise ValueError(f"library on {lib_device}, composite on {self.data.device}")
+        if (gflibrary.npatches, gflibrary.nsamples) != (fault.npatches, self.stack.samples):
+            raise ValueError(f"library is ({gflibrary.npatches}, {gflibrary.nsamples}), "
+                             f"expected ({fault.npatches}, {self.stack.samples})")
+        self.gflibrary = gflibrary
+        self.fault = fault
+
+    def device_data(self) -> dict:
+        return dict(super().device_data(), gflib=self.gflibrary)
+
+    def synthetics_los(self, point: dict, data=None) -> torch.Tensor:
+        """(C, nsamples) LOS synthetics of a batch of slips."""
+        gflib = self.gflibrary if data is None else data["gflib"]
+        return gflib.stack_all(**{c: point[c] for c in gflib.component_names if c in point})
+
+    def lsq_solution(self, ridge: float = 0.0) -> dict:
+        """Non-negative least-squares slips of the whitened system: the
+        library and the weights are read from the device and solved in
+        float64 on the host (``scipy.optimize.nnls``).  Returns
+        ``{component: (npatches,) slips}``."""
+        from scipy.optimize import nnls
+
+        comps = self.gflibrary.component_names
+        G = np.concatenate([self.gflibrary.gf(c).double().cpu().numpy().T for c in comps],
+                           axis=1)                                     # (nsamples, C·P)
+        d = np.asarray(self.stack.displacement, dtype=np.float64)
+        Gw, dw = np.empty_like(G), np.empty_like(d)
+        for i, slc in enumerate(self.stack.slices):
+            W = getattr(self, f"dataset{i}_weights").double().cpu().numpy()
+            Gw[slc] = W @ G[slc]
+            dw[slc] = W @ d[slc]
+        if ridge > 0:
+            Gw = np.vstack([Gw, np.sqrt(ridge) * np.eye(Gw.shape[1])])
+            dw = np.concatenate([dw, np.zeros(Gw.shape[1])])
+        sol, _ = nnls(Gw, dw)
+        npatch = self.gflibrary.npatches
+        return {c: sol[i * npatch:(i + 1) * npatch] for i, c in enumerate(comps)}
 
 
 class SeismicDistributerComposite(Composite):

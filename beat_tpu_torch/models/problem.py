@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import logging
 import os
+import time
 
 import numpy as np
 import torch
@@ -32,8 +33,15 @@ class Problem:
     on ``device``."""
 
     def __init__(self, priors: PriorSet, composites: dict, *, device,
-                 outfolder: str = "out", sampler_params=None, hyper_sampler_params=None):
+                 outfolder: str = "out", sampler_params=None, hyper_sampler_params=None,
+                 initialization: str = "random"):
+        """``initialization``: 'random' starts SMC from the prior, 'lsq'
+        from a population jittered around the composites' non-negative
+        least-squares slips (:meth:`_lsq_start`)."""
+        if initialization not in ("random", "lsq"):
+            raise ValueError(f"initialization {initialization!r} (random|lsq)")
         self.device = resolve(device)
+        self.initialization = initialization
         self.source_priors = priors
         self.composites = dict(composites)
         self.outfolder = outfolder
@@ -129,15 +137,45 @@ class Problem:
                 def update_cb(map_q):
                     self.update_weights(self.ordering.to_point(map_q))
                     return (self.logp_data(),)
+            start = (self._lsq_start(params.n_chains, lower, upper, seed=params.seed)
+                     if self.initialization == "lsq" else None)
             return smc_sample(logp_fn, lower, upper, params, device=self.device,
                               homepath=self.outfolder, ordering=self.ordering,
-                              logp_args=(data,), update_weights=update_cb)
+                              logp_args=(data,), update_weights=update_cb, start=start)
         return metropolis_sample(
             logp_fn, lower, upper, device=self.device, n_chains=params.n_chains,
             n_steps=params.n_steps, burn=params.burn, thin=params.thin,
             proposal_name=params.proposal_name, tune_interval=params.tune_interval,
             seed=params.seed, stage_handler=SampleStage(self.outfolder, ordering=self.ordering),
             logp_args=(data,), n_leapfrog=params.n_leapfrog)
+
+    def _lsq_start(self, n_chains: int, lower, upper, seed: int = 0) -> np.ndarray:
+        """Start population (n_chains, dim): the slip components jittered
+        around the first composite's ``lsq_solution`` (normal, sd 10 % of
+        the prior range, clipped to the bounds), every other parameter
+        drawn from the prior.  The solve's host seconds are kept in
+        ``self.lsq_seconds``."""
+        rng = np.random.default_rng(seed)
+        start = rng.uniform(lower, upper, size=(n_chains, lower.size))
+        solver = next((c.lsq_solution for c in self.composites.values()
+                       if hasattr(c, "lsq_solution")), None)
+        if solver is None:
+            logger.warning("initialization='lsq' but no composite has an lsq_solution — "
+                           "starting from the prior")
+            return start
+        t0 = time.perf_counter()
+        sol = solver()
+        self.lsq_seconds = time.perf_counter() - t0
+        logger.info("NNLS warm start: %.2f s", self.lsq_seconds)
+        for name, values in sol.items():
+            if name not in self.ordering.names:
+                continue
+            sl = self.ordering[name].slc
+            scale = 0.1 * (upper[sl] - lower[sl])
+            jitter = rng.normal(0.0, scale, size=(n_chains, values.size))
+            start[:, sl] = np.clip(values[None, :] + jitter, lower[sl], upper[sl])
+            logger.info("LSQ start for %s: mean %.3f", name, values.mean())
+        return start
 
     def estimate_hypers(self, n_steps: int | None = None, n_chains: int | None = None,
                         seed: int = 0) -> dict:

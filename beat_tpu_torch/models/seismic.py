@@ -43,9 +43,10 @@ logger = logging.getLogger("beat_tpu_torch.models.seismic")
 
 M6_NAMES = ("mnn", "mee", "mdd", "mne", "mnd", "med")
 
-def point_getter(template, point: dict, idx: int, n_sources: int, n_chains: int, device):
+def point_getter(template, point: dict, idx: int, n_sources: int, n_chains: int, device,
+                 dtype=DTYPE):
     """Accessor for source ``idx``'s parameters as (C,) tensors: sampled
-    values override the template's attributes."""
+    values override the template's attributes (``dtype`` theirs)."""
 
     def get(name):
         if name in point:
@@ -53,7 +54,7 @@ def point_getter(template, point: dict, idx: int, n_sources: int, n_chains: int,
             if val.dim() > 1 and n_sources > 1:
                 return val[:, idx]
             return val.reshape(n_chains)
-        return torch.full((n_chains,), float(getattr(template, name)), dtype=DTYPE,
+        return torch.full((n_chains,), float(getattr(template, name)), dtype=dtype,
                           device=device)
 
     return get

@@ -102,7 +102,8 @@ class SMCParams:
 
 def smc_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: SMCParams,
                *, device, homepath: str | None = None, ordering=None,
-               logp_args: tuple = (), update_weights: Callable | None = None):
+               logp_args: tuple = (), update_weights: Callable | None = None,
+               start: np.ndarray | None = None):
     """
     Run the full SMC sampler.
 
@@ -115,6 +116,9 @@ def smc_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: 
         sample to re-estimate the data covariances; a returned value
         replaces ``logp_args``, and the population's llks are evaluated
         again under it.
+    start : optional (n_chains, dim) initial population of a fresh run
+        (e.g. jittered around a least-squares solution); default a
+        uniform draw from the prior.
 
     Returns the final-stage (β = 1) trace ``(q_trace, llk_trace)`` as numpy.
     """
@@ -160,7 +164,15 @@ def smc_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: 
 
     # the current population on the device, beside its float64 host copy
     if population is None:
-        population = rng.uniform(lower64, upper64, size=(params.n_chains, dim))
+        if start is None:
+            start = rng.uniform(lower64, upper64, size=(params.n_chains, dim))
+        population = np.asarray(start, dtype=np.float64)
+        if population.shape != (params.n_chains, dim):
+            raise ValueError(f"start population {population.shape}, expected "
+                             f"({params.n_chains}, {dim})")
+        if np.any(population < lower64) or np.any(population > upper64):
+            raise ValueError("Start population outside prior bounds — chains "
+                             "could never re-enter the support")
         with torch.no_grad():
             state0 = init_metropolis_state(
                 logp_fn, torch.as_tensor(population, dtype=DTYPE, device=dev),

@@ -103,16 +103,18 @@ def sdr_to_m6(strike, dip, rake, moment=1.0) -> torch.Tensor:
 def tensile_m6(strike, dip, potency, lam=33e9, mu=33e9) -> torch.Tensor:
     """Moment tensor of a tensile crack opening normal to a plane with
     the given strike/dip [deg]: M = potency·(λ·I + 2µ·n nᵀ), NED basis,
-    ``potency`` = area × opening [m³].  Batched like :func:`sdr_to_m6`
-    → (..., 6)."""
-    phi, delta, pot = (torch.as_tensor(a, dtype=torch.float32) for a in (strike, dip, potency))
+    ``potency`` = area × opening [m³]; ``lam`` and ``mu`` numbers or
+    tensors of the angles' shape (moduli at each patch's depth).  Batched
+    like :func:`sdr_to_m6` → (..., 6)."""
+    phi, delta, pot, lam, mu = _f32s(strike, dip, potency, lam, mu)
     phi, delta = torch.deg2rad(phi), torch.deg2rad(delta)
     # fault normal (hanging-wall side, pointing up) in NED (Aki & Richards)
     n_vec = torch.stack([-torch.sin(delta) * torch.sin(phi),
                          torch.sin(delta) * torch.cos(phi),
                          -torch.cos(delta)], dim=-1)
     nn = n_vec[..., :, None] * n_vec[..., None, :]
-    m = pot[..., None, None] * (lam * torch.eye(3) + 2.0 * mu * nn)
+    eye = torch.eye(3, dtype=phi.dtype, device=phi.device)
+    m = pot[..., None, None] * (lam[..., None, None] * eye + 2.0 * mu[..., None, None] * nn)
     return matrix_to_m6(m)
 
 
@@ -278,6 +280,10 @@ class RectangularSource(BaseSource):
                     velocity=self.velocity))
         return out
 
+    @property
+    def bottom_depth(self) -> float:
+        return self.depth + self.width * np.sin(np.deg2rad(self.dip))
+
     def center(self) -> np.ndarray:
         """(E, N, Z) of the plane center [m]."""
         st, di = np.deg2rad(self.strike), np.deg2rad(self.dip)
@@ -405,7 +411,7 @@ class RingfaultSource(BaseSource):
         # tangent vertical fault: strike along the tangent, slip vertical;
         # sign=+1 -> inner block down
         m = m6_to_matrix(sdr_to_m6(torch.rad2deg(phis) + 90.0, 90.0,
-                                   -90.0 * get("sign")[:, None], m0_each[:, None]))
+                                   -90.0 * get("sign")[:, None], m0_each[:, None])).to(R.dtype)
         m = R[:, None] @ m @ R[:, None].transpose(-1, -2)
         return matrix_to_m6(m), p[..., 1], p[..., 0], p[..., 2]
 

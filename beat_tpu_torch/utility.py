@@ -1,6 +1,7 @@
 """
-Point/vector bijection, covariance PSD repair and windowed statistics
-(copied from ``beat_tpu/utility.py``, trimmed to what the port calls).
+Point/vector bijection, covariance PSD repair, windowed statistics and
+the elbow of a curve (copied from ``beat_tpu/utility.py``, trimmed
+to what the port calls).
 
 :class:`Ordering` maps between named parameter dicts ("points") and one
 flat vector, batched over leading axes; it slices numpy arrays and
@@ -111,3 +112,14 @@ def running_window_rms(data: np.ndarray, window_size: int, mode: str = "valid") 
     data2 = np.power(np.asarray(data, dtype=np.float64), 2)
     window = np.ones(int(window_size)) / float(window_size)
     return np.sqrt(np.convolve(data2, window, mode))
+
+
+def find_elbow(data: np.ndarray) -> int:
+    """Index of the elbow of a monotone curve ``data`` (n, 2) of (x, y):
+    the point farthest from the straight line between the endpoints."""
+    data = np.asarray(data, dtype=np.float64)
+    line = data[-1] - data[0]
+    line = line / np.linalg.norm(line)
+    rel = data - data[0]
+    dists = np.linalg.norm(rel - np.outer(rel @ line, line), axis=1)
+    return int(np.argmax(dists))

@@ -123,6 +123,25 @@ durations × 32 starttimes × 512 samples: a 3.9 GiB library on the card,
     neighbour: K4): the magnitude of the rupture behind the data within
     0.05, the best sample's variance reduction >= 0.9, and the posterior
     above a rupture with 2.5 times the slip;
+17b. the geodetic slice (no kernel of its own; its SMCs resample through
+    K5): [geo_llk] every source type of the geometry problem (two InSAR
+    scenes of 1500 points) and a 60-station GNSS network with Euler-pole
+    and strain-rate corrections: the 2000-chain llk within 2e-5 · (|llk|
+    + Σ |log det C| + n·|2h + log 2π|) of the same code in float64 on the
+    host (64 chains), the value-and-grad per parameter as in phase 7;
+    beside it a control reading, not a gate: the same llk with the
+    analytic forward in float32 (``okada.FORWARD_DTYPE``), its time and
+    its error under the same bar; [geo_table] the rectangle through a
+    homogeneous static table built on the card, as [geo_llk];
+    [geo_smc] the geometry SMC to β = 1 (position, variance reductions,
+    ramps) and ``update_weights``; [static_ffi_build] the real-size
+    static library against float64 on the host per column, 1e-4 ·
+    max|G|, with a float32 build's time and error as a control reading;
+    [static_ffi_llk] as [geo_llk]; [static_ffi_smc] the capped
+    1002-dimension SMC from the NNLS start; [static_ffi_recover] a small
+    static FFI to β = 1 (Mw within 0.05, variance reduction >= 0.9);
+    [discretization] the resolution discretization on the card and on
+    the host, equal;
 18. a JSON line of the kernels, then ``{"ok": true, "device": ...}`` last.
 
 Phase 12 and the bench-shape half of 13 run right after phase 4, phase 5
@@ -166,6 +185,30 @@ SOURCE_TYPES = ("MTQTSource", "DCSource", "ExplosionSource", "CLVDSource", "Doub
 PLAIN_QUERIES = 60000           # K1c queries per call of the plain version (5.9 GB of rows)
 DC_VR_MIN = 0.9                 # [dc_mala_smc]: the best sample's variance reduction
 RECT_STEPS, RECT_MAX_STAGES = 20, 4                # [rect_smc]: 3 stages × 20 steps
+#: [geo_llk]: the source types of the geodetic geometry problem, and a GNSS
+#: network with an Euler-pole and a strain-rate correction
+GEO_CASES = ("RectangularSource", "ExplosionSource", "MTSource", "MTQTSource", "DCSource",
+             "CLVDSource", "DoubleDCSource", "RingfaultSource", "gnss")
+GEO_GNSS_STATIONS = 60
+GEO_REF_CHAINS = 64             # chains of the float64 host evaluation of the llk
+GEO_GRAD_CHAINS = 16            # ... and of the gradient
+#: the value-and-grad's chains where 2000 do not fit the card: the
+#: moment-tensor families evaluate 9 float64 cracks per point source,
+#: (C, 9, 4, 3000) float64 temporaries; the table path 16 patch gathers
+GEO_VG_CHAINS = {"MTSource": 500, "MTQTSource": 500, "DCSource": 500, "CLVDSource": 500,
+                 "DoubleDCSource": 250, "RingfaultSource": 60, "table": 500}
+GEO_TABLE_GRID = dict(distances=(0.0, 90e3, 181), depths=(0.5e3, 20e3, 40))
+GEO_TABLE_PATCHES = (4, 4)
+GEO_STEPS = 40
+GEO_POS_TOL, GEO_DEPTH_TOL, GEO_VR_MIN = 300.0, 500.0, 0.9
+STATIC_BUILD_PATCHES, STATIC_BUILD_RTOL = 20, 1e-4
+STATIC_FFI_STEPS, STATIC_FFI_MAX_STAGES, STATIC_FFI_THINNING = 20, 4, 10
+STATIC_RECOVER_SIZE = dict(n_strike=8, n_dip=4, n_points=300)
+STATIC_RECOVER_STEPS = 20
+DISCRETIZATION_PLANE = dict(depth=2e3, strike=135.0, dip=50.0, rake=-90.0, length=24e3,
+                            width=12e3)
+DISCRETIZATION_POINTS = 400
+DISCRETIZATION_SPREAD_RTOL = 1e-9
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, HBM3
 FP32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
 
@@ -688,6 +731,427 @@ def ffi_recover(interpolation: str, dev, workdir: str, n_chains: int) -> dict:
                          f"{true_mag}, variance reduction {vr}")
     if not np.median(llk_tr[-1]) > llk_big:
         raise SystemExit(f"FFI posterior ({interpolation}) no better than 2.5 times the slip")
+    return out
+
+
+def llk_scale(problem, point: dict):
+    """The magnitude of the residual-free terms of a geodetic problem's llk
+    at a batch ``point``: Σ |log det C_d| + n_d · |2h + log 2π| over the
+    datasets, and the same terms of the Laplacian prior.  They are the
+    scale beside |llk| in the llk bars: in float32 each is rounded to
+    about 6e-8 of itself (the log-determinants are float32 device data in
+    both packages), while at a large hyperparameter they cancel each
+    other and the llk to a few units."""
+    import torch
+
+    log2pi = math.log(2 * math.pi)
+    total = 0.0
+    for comp in problem.composites.values():
+        if comp.name == "laplacian":
+            h = point.get("h_laplacian", 0.0)
+            total = total + len(comp.slip_varnames) * (
+                abs(comp.slog_det) + comp.npatches * torch.abs(2.0 * h + log2pi))
+            continue
+        for i, ds in enumerate(comp.datasets):
+            h = point.get(comp._hypername(i, ds), 0.0)
+            pdet = float(getattr(comp, f"dataset{i}_slog_pdet"))
+            total = total + abs(pdet) + ds.samples * torch.abs(2.0 * h + log2pi)
+    return torch.as_tensor(total)
+
+
+class forward_dtype:
+    """The port's analytic geodetic forwards evaluated in ``dtype`` inside
+    the block (``okada.FORWARD_DTYPE``, the one place that chooses it):
+    for control readings of what another precision would cost and miss."""
+
+    def __init__(self, dtype):
+        self.dtype = dtype
+
+    def __enter__(self):
+        from beat_tpu_torch.heart import okada
+
+        self.saved, okada.FORWARD_DTYPE = okada.FORWARD_DTYPE, self.dtype
+
+    def __exit__(self, *exc):
+        from beat_tpu_torch.heart import okada
+
+        okada.FORWARD_DTYPE = self.saved
+
+
+def geo_llk_case(problem, case: str, vg_chains: int, gen_seed: int = 5,
+                 control: bool = False) -> dict:
+    """One 2000-chain llk and one value-and-grad (at ``vg_chains``) of a
+    geodetic problem on the card, held against a float64 evaluation of
+    the same code on the host: the llk on GEO_REF_CHAINS chains within
+    LLK_RTOL · (|llk| + the scale of its residual-free terms, ``llk_scale``),
+    the gradient on GEO_GRAD_CHAINS chains at the per-parameter bar.  Raises
+    SystemExit on a miss.  With ``control``, also the llk with the analytic
+    forward in float32: its time, peak and error over the same bar (a
+    reading, not a gate)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from beat_tpu_torch.device import DTYPE
+    from beat_tpu_torch.samplers import value_and_grad
+
+    dev = next(iter(problem.composites.values())).data.device
+    logp, data = problem.make_logp_fn()
+    lo, hi = problem.priors.bounds_arrays()
+    span = hi - lo
+    q = torch.as_tensor(np.random.default_rng(gen_seed).uniform(
+        lo + 0.01 * span, hi - 0.01 * span, size=(N_CHAINS, lo.size)), dtype=DTYPE, device=dev)
+
+    def fwd(x=q):
+        with torch.no_grad():
+            return logp(x, data)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    llk = fwd()
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    llk_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    # as many timed calls as fit in about 0.2 s (1 for the slow MT families)
+    iters = max(1, min(5, int(200.0 / max(first_ms, 1e-3))))
+    llk_ms = cuda_ms(fwd, iters=iters, warmup=1 if iters > 1 else 0)
+    calls_fwd, kernel_fwd, by_name = device_kernels(fwd)
+    qv = q[:vg_chains]
+    torch.cuda.reset_peak_memory_stats()
+    _, grad = value_and_grad(logp, qv, (data,))
+    torch.cuda.synchronize()
+    vg_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    vg_ms = cuda_ms(lambda: value_and_grad(logp, qv, (data,)), iters=iters,
+                    warmup=1 if iters > 1 else 0)
+    calls_vg, kernel_vg, _ = device_kernels(lambda: value_and_grad(logp, qv, (data,)))
+
+    refs = [copy.deepcopy(c).to("cpu", torch.float64) for c in problem.composites.values()]
+
+    def logp64(x):
+        point = problem.ordering.to_point(x)
+        return sum(c.loglike(point) for c in refs)
+
+    q64 = q[:GEO_REF_CHAINS].double().cpu()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        llk64 = logp64(q64)
+    n_grad = min(GEO_GRAD_CHAINS, vg_chains)
+    _, grad64 = value_and_grad(logp64, q64[:n_grad])
+    ref_s = time.perf_counter() - t0
+    scale = llk_scale(problem, problem.ordering.to_point(q64))
+    diff = (llk[:GEO_REF_CHAINS].double().cpu() - llk64).abs()
+    rel = float((diff / llk64.abs()).max())
+    worst = float((diff / (LLK_RTOL * (llk64.abs() + scale))).max())
+    worst_g, grad_ok = grad_gate(grad[:n_grad].double().cpu(), grad64)
+    finite = bool(torch.isfinite(llk).all() and torch.isfinite(grad).all())
+    ctl = {}
+    if control:
+        with forward_dtype(torch.float32):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            llk32 = fwd()
+            torch.cuda.synchronize()
+            ctl_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+            ctl_ms = cuda_ms(fwd, iters=iters, warmup=1 if iters > 1 else 0)
+        diff32 = (llk32[:GEO_REF_CHAINS].double().cpu() - llk64).abs()
+        worst32 = float((diff32 / (LLK_RTOL * (llk64.abs() + scale))).max())
+        ctl = dict(float32_forward_llk_ms=f"{ctl_ms:.3f}",
+                   float32_forward_peak_GB=f"{ctl_peak:.2f}",
+                   float32_forward_worst_err_over_bar=f"{worst32:.3e}",
+                   float32_forward_max_rel_err=f"{float((diff32 / llk64.abs()).max()):.3e}")
+        del llk32
+    r = dict(case=case, dims=lo.size, chains=N_CHAINS, points=problem.composites[
+        "geodetic"].stack.samples, ref_chains=GEO_REF_CHAINS, max_rel_err=f"{rel:.3e}",
+        worst_err_over_bar=f"{worst:.3e}", vg_chains=vg_chains, grad_chains=n_grad,
+        grad_worst_err_over_bar=f"{worst_g:.3e}", finite=finite, llk_ms=f"{llk_ms:.3f}",
+        value_and_grad_ms=f"{vg_ms:.3f}", llk_peak_GB=f"{llk_peak:.2f}",
+        value_and_grad_peak_GB=f"{vg_peak:.2f}", calls_forward=calls_fwd,
+        calls_value_and_grad=calls_vg, kernel_ms_forward=fmt_ms(ms_or_none(kernel_fwd)),
+        kernel_ms_value_and_grad=fmt_ms(ms_or_none(kernel_vg)), host_f64_ref_s=f"{ref_s:.1f}",
+        top_forward=json.dumps([[k[:50], round(v, 4)] for k, v in list(by_name.items())[:5]]),
+        **ctl)
+    if not (worst <= 1.0 and grad_ok and finite):
+        say("geo_llk_failed", **r)
+        raise SystemExit(f"[geo_llk] {case}: llk or gradient disagrees with the float64 "
+                         f"evaluation (llk worst/bar {worst}, gradient worst/bar {worst_g})")
+    del llk, grad, q, qv, refs
+    torch.cuda.empty_cache()
+    return r
+
+
+def geodetic_phases(dev, workdir: str, k5_launches: dict) -> dict:
+    """The geodetic slice: [geo_llk], [geo_table], [geo_smc],
+    [static_ffi_build], [static_ffi_llk], [static_ffi_smc],
+    [static_ffi_recover], [discretization].  Adds the SMC paths' K5
+    launches to ``k5_launches``; returns the phases' results.  Raises
+    SystemExit at the first gate missed."""
+    import numpy as np
+    import torch
+
+    from beat_tpu_torch.backend import SampleStage
+    from beat_tpu_torch.covariance import GeodeticNoiseAnalyser
+    from beat_tpu_torch.device import DTYPE
+    from beat_tpu_torch.ffi.discretization import (ResolutionDiscretizationConfig, _build_G,
+                                                   model_resolution,
+                                                   normalized_resolution_spread,
+                                                   optimize_discretization)
+    from beat_tpu_torch.ffi.gflibrary import geo_construct_gf_linear
+    from beat_tpu_torch.flagship import (GEO_REAL_SIZE, GEO_TRUE, STATIC_FFI_REAL_SIZE,
+                                         build_geodetic_flagship, build_static_ffi_flagship,
+                                         scatter_points)
+    from beat_tpu_torch.heart.okada import okada_surface_displacement
+    from beat_tpu_torch.heart.statictable import build_homogeneous_static_table
+    from beat_tpu_torch.ops.rowgather import gather_rows
+    from beat_tpu_torch.samplers import SMCParams
+    from beat_tpu_torch.sources import RectangularSource, moment_to_magnitude
+
+    out = {}
+
+    # [geo_llk] every source type, and a GNSS network with its corrections
+    for case in GEO_CASES:
+        problem = build_geodetic_flagship(
+            **GEO_REAL_SIZE, seed=0, device=dev, outfolder=os.path.join(workdir, "geo_llk"),
+            source="RectangularSource" if case == "gnss" else case,
+            gnss_stations=GEO_GNSS_STATIONS if case == "gnss" else 0)
+        out[f"geo_llk_{case}"] = r = geo_llk_case(problem, case,
+                                                  GEO_VG_CHAINS.get(case, N_CHAINS), control=True)
+        say("geo_llk", **r)
+        del problem
+
+    # [geo_table] the rectangle through a homogeneous static table built on the card
+    d0, d1, nd = GEO_TABLE_GRID["distances"]
+    z0, z1, nz = GEO_TABLE_GRID["depths"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = build_homogeneous_static_table(np.linspace(d0, d1, nd), np.linspace(z0, z1, nz),
+                                           device=dev)
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t0
+    problem = build_geodetic_flagship(**GEO_REAL_SIZE, seed=0, device=dev, static_table=table,
+                                      finite_patches=GEO_TABLE_PATCHES,
+                                      outfolder=os.path.join(workdir, "geo_table"))
+    out["geo_table"] = r = geo_llk_case(problem, "table", GEO_VG_CHAINS["table"])
+    say("geo_table", table=tuple(table.values.shape), build_s=f"{table_s:.3f}",
+        patches=json.dumps(GEO_TABLE_PATCHES), **r)
+    del problem, table
+
+    # [geo_smc] the geometry inversion to beta = 1, then update_weights at its best sample
+    problem = build_geodetic_flagship(**GEO_REAL_SIZE, seed=0, device=dev,
+                                      outfolder=os.path.join(workdir, "geo_smc"))
+    comp = problem.composites["geodetic"]
+    gather_rows.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    q_tr, llk_tr = problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=GEO_STEPS, seed=0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k5_launches["geo_smc"] = gather_rows.launches
+    state = SampleStage(problem.outfolder, ordering=problem.ordering).load_state(-1)
+    post, llk_post = q_tr[-1], llk_tr[-1]
+    mean = problem.ordering.to_point(post.mean(axis=0))
+    sd = problem.ordering.to_point(post.std(axis=0))
+    best = problem.ordering.to_point(post[int(np.argmax(llk_post))])
+    true = problem.true_point
+    vr = comp.get_variance_reductions(best)
+    ramp_z = {n: abs(float(mean[n]) - true[n]) / max(float(sd[n]), 1e-30)
+              for n in comp.get_hierarchical_names()}
+    logp, data = problem.make_logp_fn()
+    with torch.no_grad():
+        llk_true = float(logp(torch.as_tensor(problem.point_to_array(true), dtype=DTYPE,
+                                              device=dev)[None], data)[0])
+    n_stages = len(state["acceptance"])
+    # update_weights: non-Toeplitz data covariances and a Poisson-ratio ensemble
+    comp.noise_analyser = GeodeticNoiseAnalyser("non-toeplitz")
+    comp.ensemble_nus = (0.2, 0.25, 0.3)
+    before = [w.clone() for w in data[0]["weights"]]
+    t0 = time.perf_counter()
+    problem.update_weights(best)
+    uw_s = time.perf_counter() - t0
+    changed = [not torch.equal(a, b) for a, b in zip(before, data[0]["weights"])]
+    with torch.no_grad():
+        llk_uw = logp(torch.as_tensor(post, dtype=DTYPE, device=dev), data)
+    finite_uw = bool(torch.isfinite(llk_uw).all())
+    pos_err = {k: float(mean[k]) - GEO_TRUE[k] for k in ("east_shift", "north_shift", "depth")}
+    out["geo_smc"] = r = dict(
+        chains=N_CHAINS, steps=GEO_STEPS, dims=problem.ordering.size, wall_s=f"{wall:.2f}",
+        stages=n_stages, beta=float(state["beta"]),
+        evals_per_s=f"{N_CHAINS * GEO_STEPS * n_stages / wall:.0f}",
+        acceptance=json.dumps([round(float(a), 3) for a in state["acceptance"]]),
+        position_err_m=json.dumps({k: round(v, 1) for k, v in pos_err.items()}),
+        mean=json.dumps({k: round(float(mean[k]), 4) for k in GEO_TRUE}),
+        variance_reduction_best=json.dumps({k: round(float(v), 4) for k, v in vr.items()}),
+        ramp_err_over_sd=json.dumps({k: round(v, 2) for k, v in ramp_z.items()}),
+        llk_best=f"{float(llk_post.max()):.2f}", llk_true=f"{llk_true:.2f}",
+        k5_launches=k5_launches["geo_smc"], update_weights_s=f"{uw_s:.2f}",
+        weights_changed=json.dumps(changed), llk_after_update_finite=finite_uw,
+        peak_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    say("geo_smc", **r)
+    if not (float(state["beta"]) == 1.0 and np.isfinite(llk_tr).all()):
+        raise SystemExit("[geo_smc] did not reach beta = 1 with finite llks")
+    if not (abs(pos_err["east_shift"]) <= GEO_POS_TOL and abs(pos_err["north_shift"])
+            <= GEO_POS_TOL and abs(pos_err["depth"]) <= GEO_DEPTH_TOL):
+        raise SystemExit(f"[geo_smc] posterior mean position misses the truth: {pos_err}")
+    if min(vr.values()) < GEO_VR_MIN or max(ramp_z.values()) > 3.0:
+        raise SystemExit(f"[geo_smc] variance reduction {vr} or ramps {ramp_z} miss")
+    if not (all(changed) and finite_uw) or k5_launches["geo_smc"] == 0:
+        raise SystemExit("[geo_smc] update_weights left a scene's weights unchanged, the llk "
+                         "is not finite after it, or K5 was never launched")
+    del problem, comp, logp, data, llk_uw
+    torch.cuda.empty_cache()
+
+    # [static_ffi_build] the real-size static library on the card, against float64
+    # on the host for 20 patches
+    problem = build_static_ffi_flagship(**STATIC_FFI_REAL_SIZE, seed=0, device=dev,
+                                        outfolder=os.path.join(workdir, "static_ffi_smc"))
+    comp = problem.composites["geodetic"]
+    lib, fault = comp.gflibrary, comp.fault
+    coords, los = comp.stack.coords, comp.stack.los
+    build_ms = cuda_ms(lambda: geo_construct_gf_linear(fault, coords, los, device=dev),
+                       iters=3, warmup=1)
+    with forward_dtype(torch.float32):
+        build32_ms = cuda_ms(lambda: geo_construct_gf_linear(fault, coords, los, device=dev),
+                             iters=3, warmup=1)
+        lib32 = geo_construct_gf_linear(fault, coords, los, device=dev)
+    patches = fault.get_all_patches()
+    idx = np.linspace(0, len(patches) - 1, STATIC_BUILD_PATCHES).astype(int)
+    worst = {}
+    for c in lib.component_names:
+        prm = {a: torch.tensor([getattr(patches[i], a) for i in idx], dtype=torch.float64)
+               for a in ("east_shift", "north_shift", "depth", "strike", "dip", "rake",
+                         "length", "width")}
+        if c == "uperp":
+            prm["rake"] = prm["rake"] + 90.0
+        with torch.no_grad():
+            ref = torch.sum(okada_surface_displacement(
+                torch.as_tensor(coords), **prm, slip=1.0, anchor="top")
+                * torch.as_tensor(los), dim=-1)
+        G = lib.gf(c).double().cpu()
+        bar = STATIC_BUILD_RTOL * float(G.abs().max())
+        worst[c] = float((G[idx] - ref).abs().max()) / bar
+        worst[c + "_float32_build"] = float((lib32.gf(c).double().cpu()[idx] - ref).abs().max()
+                                            ) / bar
+    out["static_ffi_build"] = r = dict(
+        library=json.dumps([len(lib.component_names), lib.npatches, lib.nsamples]),
+        library_MB=f"{len(lib.component_names) * lib.npatches * lib.nsamples * 4 / 1e6:.1f}",
+        build_ms=f"{build_ms:.3f}", build_float32_ms=f"{build32_ms:.3f}",
+        checked_patches=STATIC_BUILD_PATCHES,
+        worst_err_over_bar=json.dumps({k: round(v, 4) for k, v in worst.items()}))
+    say("static_ffi_build", **r)
+    if max(v for k, v in worst.items() if not k.endswith("float32_build")) > 1.0:
+        raise SystemExit(f"[static_ffi_build] library columns disagree with float64: {worst}")
+    del lib32
+
+    # [static_ffi_llk] the distributer + Laplacian llk and value-and-grad
+    out["static_ffi_llk"] = r = geo_llk_case(problem, "static_ffi", N_CHAINS)
+    say("static_ffi_llk", **r)
+
+    # [static_ffi_smc] lsq start, capped at STATIC_FFI_MAX_STAGES - 1 stages
+    gather_rows.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=STATIC_FFI_STEPS,
+                                 max_stages=STATIC_FFI_MAX_STAGES,
+                                 buffer_thinning=STATIC_FFI_THINNING, seed=1))
+        capped = False
+    except RuntimeError as e:
+        if "did not reach beta=1" not in str(e):
+            raise
+        capped = True
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k5_launches["static_ffi_smc"] = gather_rows.launches
+    handler = SampleStage(problem.outfolder, ordering=problem.ordering)
+    stages = list(range(1, STATIC_FFI_MAX_STAGES)) if capped else [-1]
+    states = [handler.load_state(st) for st in stages]
+    betas = [0.0] + [float(st["beta"]) for st in states]
+    finite = all(np.isfinite(st["likelihoods"]).all() for st in states)
+    out["static_ffi_smc"] = r = dict(
+        chains=N_CHAINS, steps=STATIC_FFI_STEPS, dims=problem.ordering.size,
+        buffer_thinning=STATIC_FFI_THINNING, wall_s=f"{wall:.2f}",
+        nnls_s=f"{problem.lsq_seconds:.2f}", stages_run=len(states), capped=capped,
+        betas=json.dumps([round(x, 6) for x in betas]), finite=finite,
+        acceptance=json.dumps([round(float(a), 3) for a in states[-1]["acceptance"]]),
+        k5_launches=k5_launches["static_ffi_smc"],
+        peak_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    say("static_ffi_smc", **r)
+    if not (all(b1 > b0 for b0, b1 in zip(betas, betas[1:])) and finite):
+        raise SystemExit("[static_ffi_smc] beta not strictly increasing, or non-finite llks")
+    if k5_launches["static_ffi_smc"] == 0:
+        raise SystemExit("[static_ffi_smc] K5 was never launched")
+    del problem, comp, lib
+    torch.cuda.empty_cache()
+
+    # [static_ffi_recover] a small static FFI to beta = 1
+    problem = build_static_ffi_flagship(**STATIC_RECOVER_SIZE, seed=0, device=dev,
+                                        outfolder=os.path.join(workdir, "static_recover"))
+    comp = problem.composites["geodetic"]
+    gather_rows.launches = 0
+    t0 = time.perf_counter()
+    q_tr, llk_tr = problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=STATIC_RECOVER_STEPS,
+                                            seed=0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k5_launches["static_ffi_recover"] = gather_rows.launches
+    state = SampleStage(problem.outfolder, ordering=problem.ordering).load_state(-1)
+    mean = problem.ordering.to_point(q_tr[-1].mean(axis=0))
+    best = problem.ordering.to_point(q_tr[-1][int(np.argmax(llk_tr[-1]))])
+    true = problem.true_point
+
+    def mw(point):
+        return comp.fault.magnitude(np.hypot(point["uparr"], point["uperp"]))
+
+    vr = comp.get_variance_reductions(best)
+    out["static_ffi_recover"] = r = dict(
+        dims=problem.ordering.size, chains=N_CHAINS, steps=STATIC_RECOVER_STEPS,
+        wall_s=f"{wall:.2f}", stages=len(state["acceptance"]), beta=float(state["beta"]),
+        nnls_s=f"{problem.lsq_seconds:.3f}", magnitude=f"{mw(mean):.4f}",
+        true_magnitude=f"{mw(true):.4f}",
+        variance_reduction_best=json.dumps({k: round(float(v), 4) for k, v in vr.items()}),
+        k5_launches=k5_launches["static_ffi_recover"])
+    say("static_ffi_recover", **r)
+    if not (float(state["beta"]) == 1.0 and np.isfinite(llk_tr).all()):
+        raise SystemExit("[static_ffi_recover] did not reach beta = 1 with finite llks")
+    if abs(mw(mean) - mw(true)) >= FFI_MAG_TOL or min(vr.values()) < FFI_VR_MIN:
+        raise SystemExit(f"[static_ffi_recover] misses the slip: Mw {mw(mean)} against "
+                         f"{mw(true)}, variance reduction {vr}")
+    if k5_launches["static_ffi_recover"] == 0:
+        raise SystemExit("[static_ffi_recover] K5 was never launched")
+    del problem, comp
+
+    # [discretization] the static problem's plane at a small size, G on the card
+    # against G on the host
+    ref_src = RectangularSource(**DISCRETIZATION_PLANE)
+    rng = np.random.default_rng(0)
+    d_coords = scatter_points(DISCRETIZATION_POINTS, rng, 30e3, 30e3)
+    d_los = np.tile([0.38, -0.08, 0.92], (DISCRETIZATION_POINTS, 1))
+    config = ResolutionDiscretizationConfig(patch_widths_min=2e3, patch_lengths_min=2e3)
+    runs = {}
+    for label, where in (("card", dev), ("host", "cpu")):
+        t0 = time.perf_counter()
+        fault, r_diag, quality = optimize_discretization(ref_src, d_coords, d_los, config,
+                                                         device=where)
+        secs = time.perf_counter() - t0
+        patches = fault.get_all_patches()
+        G = _build_G(patches, d_coords, d_los, device=where)
+        centers = np.stack([p.center() for p in patches]) / 1e3
+        runs[label] = dict(
+            patches=len(patches), quality=quality, seconds=secs,
+            spread=normalized_resolution_spread(model_resolution(G, centers, config.epsilon)))
+    card, host = runs["card"], runs["host"]
+    spread_rel = abs(card["spread"] - host["spread"]) / abs(host["spread"])
+    out["discretization"] = r = dict(
+        patches=card["patches"], patches_cpu=host["patches"], spread=f"{card['spread']:.6e}",
+        spread_cpu=f"{host['spread']:.6e}", spread_rel_diff=f"{spread_rel:.2e}",
+        seconds=f"{card['seconds']:.2f}", seconds_cpu=f"{host['seconds']:.2f}")
+    say("discretization", **r)
+    if card["patches"] != host["patches"] or spread_rel > DISCRETIZATION_SPREAD_RTOL:
+        raise SystemExit(f"[discretization] the card's run differs from the host's: {runs}")
     return out
 
 
@@ -1664,6 +2128,7 @@ def main() -> int:
     k4_launches = recover["nearest_neighbor"]["launches"][1]
     if recover["multilinear"]["launches"][0] == 0 or k4_launches == 0:
         raise SystemExit("the small FFI runs never launched K3 (multilinear) or K4 (nearest)")
+    geodetic_phases(dev, workdir.name, k5_launches)
     workdir.cleanup()
 
     # 18. results: launches from each kernel's main path (SMC for K1 and

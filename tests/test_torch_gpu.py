@@ -7,7 +7,9 @@ rectangle's patches as (C, K, T) and (K, C, T), a ring), the
 log-likelihoods and the gradient through the kernels against the same
 through the plain versions, and Hessians whose double backward launches
 the kernels (K1 and K2; K1c and K2c, the Laplace Hessian of the
-forward).  They skip without a card; run them on one with
+forward); and the geodetic slice's plain-torch forwards, static table
+and library build and its llk and gradient on the card against float64
+on the host.  They skip without a card; run them on one with
 
     python -m pytest tests -m gpu -q
 """
@@ -526,3 +528,131 @@ def test_subsource_llk_and_grad_parity_on_card(cuda, source):
     assert torch.isfinite(llk).all() and torch.isfinite(grad).all()
     np.testing.assert_allclose(llk.cpu().numpy(), llk_plain.cpu().numpy(), rtol=LLK_RTOL)
     assert_grad_close(grad.cpu().numpy(), grad_plain.cpu().numpy(), GRAD_RTOL, GRAD_RTOL)
+
+
+# -- the geodetic slice: plain torch on the card against float64 on the host --
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_okada_forwards_on_card_match_float64_host(cuda, dtype):
+    """The rectangle, Mogi and the MT expansion on the card against the
+    host in float64: in float64 (``okada.FORWARD_DTYPE``, as the port's
+    callers evaluate them) to rounding; in float32 within what their
+    Chinnery sums allow, 1e-3 · max|u| for the rectangle and 2e-2 for the
+    MT expansion (the host's own float32 reads 9.3e-3 on these sources)."""
+    from beat_tpu_torch.heart.okada import (mogi_surface_displacement, mt_surface_displacement,
+                                            okada_surface_displacement)
+
+    rng = np.random.default_rng(0)
+    coords = rng.uniform(-30e3, 30e3, (3000, 2))
+    rect = {k: rng.uniform(lo, hi, 64) for k, (lo, hi) in dict(
+        east_shift=(-3e3, 3e3), north_shift=(-3e3, 3e3), depth=(500.0, 4e3),
+        strike=(0.0, 360.0), dip=(30.0, 80.0), rake=(-180.0, 180.0), length=(4e3, 16e3),
+        width=(3e3, 12e3), slip=(0.1, 2.0), opening=(0.0, 0.3)).items()}
+    m6 = rng.normal(size=(64, 6)) * 1e17
+    pos = {k: rng.uniform(lo, hi, 64) for k, (lo, hi) in dict(
+        east_shift=(-3e3, 3e3), north_shift=(-3e3, 3e3), depth=(2e3, 9e3)).items()}
+
+    def on(where, dt, x):
+        return torch.as_tensor(x, dtype=dt, device=where)
+
+    cases = [
+        (okada_surface_displacement, lambda w, dt: ((on(w, dt, coords),),
+                                                    {k: on(w, dt, v) for k, v in rect.items()}),
+         1e-9 if dtype == torch.float64 else 1e-3),
+        (mogi_surface_displacement, lambda w, dt: ((on(w, dt, coords), *(on(w, dt, v) for v in
+                                                   pos.values()), on(w, dt, np.full(64, 1e6))),
+                                                   {}), 1e-5),
+        (mt_surface_displacement, lambda w, dt: ((on(w, dt, coords), on(w, dt, m6)),
+                                                 {k: on(w, dt, v) for k, v in pos.items()}),
+         1e-6 if dtype == torch.float64 else 2e-2),
+    ]
+    for fn, args, bar in cases:
+        a, kw = args(cuda, dtype)
+        got = fn(*a, **kw).double().cpu()
+        a, kw = args("cpu", torch.float64)
+        want = fn(*a, **kw)
+        scale = want.abs().amax(dim=(1, 2), keepdim=True)
+        assert torch.isfinite(got).all() and ((got - want).abs() <= bar * scale).all(), fn
+
+
+def test_static_table_build_and_gather_on_card(cuda):
+    from beat_tpu_torch.heart.statictable import build_homogeneous_static_table
+
+    d, z = np.linspace(0.0, 60e3, 121), np.linspace(0.5e3, 16e3, 32)
+    card = build_homogeneous_static_table(d, z, device=cuda)
+    host = build_homogeneous_static_table(d, z, device="cpu")
+    np.testing.assert_allclose(card.values.cpu().numpy(), host.values.numpy(), rtol=1e-6,
+                               atol=1e-6 * float(host.values.abs().max()))
+    rng = np.random.default_rng(1)
+    m6 = rng.normal(size=(256, 6)) * 1e17
+    e, n, dep = rng.uniform(-3e3, 3e3, 256), rng.uniform(-3e3, 3e3, 256), rng.uniform(1e3, 15e3,
+                                                                                       256)
+    obs = rng.uniform(-40e3, 40e3, (2, 500))
+    args = [m6, e, n, dep, obs[0], obs[1]]
+    got = card.synthesize_enu(*(torch.as_tensor(x, dtype=torch.float32, device=cuda)
+                                for x in args)).double().cpu()
+    want = host.to(torch.float64).synthesize_enu(*(torch.as_tensor(x) for x in args))
+    scale = want.abs().amax(dim=(1, 2), keepdim=True)
+    assert ((got - want).abs() <= 1e-5 * scale).all()
+
+
+def test_static_library_build_on_card_matches_host(cuda):
+    """The static library of the real-size fault geometry, built on the
+    card, against the host build: every column within 1e-4 · max|G|."""
+    from beat_tpu_torch.ffi.gflibrary import geo_construct_gf_linear
+    from beat_tpu_torch.flagship import FFI_PATCH, FFI_PLANE, discretize_sources
+    from beat_tpu_torch.heart.geodesy import los_vectors
+    from beat_tpu_torch.sources import RectangularSource
+
+    ref = RectangularSource(length=20 * FFI_PATCH, width=5 * FFI_PATCH, **FFI_PLANE)
+    fault = discretize_sources([ref], FFI_PATCH, FFI_PATCH, components=("uparr", "uperp"))
+    rng = np.random.default_rng(2)
+    coords = rng.uniform(-60e3, 60e3, (1500, 2))
+    los = los_vectors(1500, 23.0, -13.0)
+    card = geo_construct_gf_linear(fault, coords, los, components=("uparr", "uperp", "utens"),
+                                   device=cuda)
+    host = geo_construct_gf_linear(fault, coords, los, components=("uparr", "uperp", "utens"),
+                                   device="cpu")
+    for c in ("uparr", "uperp", "utens"):
+        G, H = card.gf(c).cpu(), host.gf(c)
+        assert ((G - H).abs() <= 1e-4 * H.abs().max()).all(), c
+
+
+@pytest.mark.parametrize("source", ["RectangularSource", "DCSource", "gnss", "table"])
+def test_geodetic_llk_and_grad_on_card_match_float64_host(cuda, source):
+    """The geodetic composite's llk and gradient on the card against the
+    same code in float64 on the host (the bars of ``chip_smoke.py``
+    [geo_llk]: rtol 2e-5 of |llk| plus its residual-free terms' scale;
+    the per-parameter gradient bar)."""
+    import copy
+    import math
+
+    from beat_tpu_torch.flagship import GEO_TEST_SIZE, build_geodetic_flagship
+    from beat_tpu_torch.heart.statictable import build_homogeneous_static_table
+
+    kw = {}
+    if source == "gnss":
+        kw = dict(gnss_stations=20)
+    elif source == "table":
+        kw = dict(static_table=build_homogeneous_static_table(
+            np.linspace(0.0, 80e3, 81), np.linspace(0.5e3, 20e3, 40), device=cuda))
+    problem = build_geodetic_flagship(**GEO_TEST_SIZE, device=cuda, source=(
+        source if source in ("RectangularSource", "DCSource") else "RectangularSource"), **kw)
+    comp = problem.composites["geodetic"]
+    lo, hi = problem.priors.bounds_arrays()
+    q = np.random.default_rng(5).uniform(lo + 0.01 * (hi - lo), hi - 0.01 * (hi - lo),
+                                         size=(64, lo.size))
+    logp, data = problem.make_logp_fn()
+    llk, grad = value_and_grad(logp, torch.as_tensor(q, dtype=torch.float32, device=cuda),
+                               (data,))
+    ref = copy.deepcopy(comp).to("cpu", torch.float64)
+    llk64, grad64 = value_and_grad(lambda x: ref.loglike(problem.ordering.to_point(x)),
+                                   torch.as_tensor(q))
+    point = problem.ordering.to_point(q)
+    scale = sum(abs(ds.covariance.log_pdet) + ds.samples * np.abs(
+        2.0 * point.get(comp._hypername(i, ds), 0.0) + math.log(2 * math.pi))
+        for i, ds in enumerate(comp.datasets))
+    bar = LLK_RTOL * (llk64.abs().numpy() + scale)
+    assert (np.abs(llk.double().cpu().numpy() - llk64.numpy()) <= bar).all()
+    assert_grad_close(grad.double().cpu().numpy(), grad64.numpy(), GRAD_RTOL, GRAD_RTOL)

@@ -36,6 +36,14 @@ from beat_tpu_torch.flagship import FFI_TEST_SIZE, build_ffi_flagship
 ffi = build_ffi_flagship(**FFI_TEST_SIZE, seed=1, device="cpu", outfolder=sys.argv[1] + "_ffi")
 q_tr, llk_tr = ffi.sample(SMCParams(n_chains=16, n_steps=2, seed=0))
 assert q_tr.shape[1:] == (16, ffi.ordering.size), q_tr.shape
+from beat_tpu_torch.flagship import (GEO_TEST_SIZE, STATIC_FFI_TEST_SIZE,
+                                     build_geodetic_flagship, build_static_ffi_flagship)
+geo = build_geodetic_flagship(**GEO_TEST_SIZE, device="cpu", outfolder=sys.argv[1] + "_geo")
+q_tr, llk_tr = geo.sample(SMCParams(n_chains=16, n_steps=2, seed=0))
+static = build_static_ffi_flagship(**STATIC_FFI_TEST_SIZE, device="cpu",
+                                   outfolder=sys.argv[1] + "_static")
+q_tr, llk_tr = static.sample(SMCParams(n_chains=16, n_steps=2, seed=0))
+assert q_tr.shape[1:] == (16, static.ordering.size), q_tr.shape
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
 jax_package = sorted(m for m in sys.modules if m == "beat_tpu" or m.startswith("beat_tpu."))
 assert not jax_package, jax_package
@@ -65,12 +73,15 @@ PORT_FILES = sorted((REPO / "beat_tpu_torch").rglob("*.py")) + [REPO / "chip_smo
 FFI_MODULES = ("ffi/fault.py", "ffi/gflibrary.py", "ffi/laplacian.py", "ops/eikonal.py",
                "ops/gfstack.py", "ops/rowgather.py", "models/distributer.py",
                "models/laplacian.py")
+#: the modules of the geodetic slice, which the scan must reach too
+GEO_MODULES = ("heart/geodesy.py", "heart/okada.py", "heart/corrections.py",
+               "heart/statictable.py", "models/geodetic.py", "ffi/discretization.py")
 
 
 def _importers(pattern: str) -> list:
     regex = re.compile(pattern, re.MULTILINE)
     scanned = {str(f.relative_to(REPO / "beat_tpu_torch")) for f in PORT_FILES[:-1]}
-    assert len(PORT_FILES) > 10 and scanned.issuperset(FFI_MODULES)
+    assert len(PORT_FILES) > 10 and scanned.issuperset(FFI_MODULES + GEO_MODULES)
     return [str(f.relative_to(REPO)) for f in PORT_FILES if regex.search(f.read_text())]
 
 
