@@ -64,13 +64,16 @@ def wavemap_data_from_numpy(dev: dict, *, device, table: GreensTable | None = No
 
 def seismic_gflibrary_from_numpy(data, duration_min, duration_sampling, starttime_min,
                                  starttime_sampling, component="uparr",
-                                 reference_times=None, *, device) -> SeismicGFLibrary:
+                                 reference_times=None, *, device,
+                                 dtype: torch.dtype = torch.float32) -> SeismicGFLibrary:
     """A port :class:`SeismicGFLibrary` from the JAX library's 5-D array
-    and grid metadata."""
+    and grid metadata, stored as ``dtype``: ``torch.bfloat16`` rounds the
+    float32 samples to nearest even, as the JAX package's
+    ``with_stacking_layout(dtype=jnp.bfloat16)`` does."""
     return SeismicGFLibrary(np.array(data, dtype=np.float32), duration_min,
                             duration_sampling, starttime_min, starttime_sampling,
                             component=component, reference_times=reference_times,
-                            device=device)
+                            device=device, dtype=dtype)
 
 
 def fault_geometry_from_numpy(subfaults, components=("uparr",)) -> FaultGeometry:

@@ -16,7 +16,8 @@
 //        and the XLA gather do.
 //   K4:  out[c, t, n] = sum_p slip[c,p] * data[t, p, d, s, n]   (one cell).
 //
-// Layout: data is the natural (T, P, D, S, N) float32 array.  A (d, s) cell
+// Layout: data is the natural (T, P, D, S, N) array (float32, or bfloat16
+// below).  A (d, s) cell
 // of a patch is one contiguous row of N floats.  The TPU's lane-transposed
 // (T, P, N, D*S_pad) stacking layout, its one-hot selection matmuls and its
 // 128-chain / 8-patch padding exist because the TPU has no cheap gather; none
@@ -70,6 +71,14 @@
 // hide.  tools/bench_torch_gfstack.py reads each part's share of the time
 // from builds with parts left out; PERF.md has the numbers.
 //
+// A library in bfloat16 (half the bytes; the JAX package's
+// BEAT_TPU_STACK_DTYPE=bfloat16) runs the same two variants, templated on the
+// element type: a row of 4 samples is an 8-byte load (cp.async of 8 bytes
+// into the tiles, whose shared memory halves), widened to float32 in
+// registers by a shift of its bits (exact), and summed in float32 as a
+// float32 library's rows are.  The entries bound by ctypes end in _f32 and
+// _bf16 by the library's type; the output is float32 either way.
+//
 // Both variants add a chain's products in the same order (patches ascending,
 // corners in the order above) with the same folded weights and float32 FMAs,
 // one plain store per output and no atomics: they are deterministic and equal
@@ -78,6 +87,9 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// bfloat16 storage: the upper 16 bits of a float32, so widening is a shift
+typedef uint16_t bf16_t;
 
 namespace {
 
@@ -91,8 +103,9 @@ struct Strides {
     int64_t didx_c, sidx_c, sidx_t, slips_c, rtf_c, stf_c, stf_t;
 };
 
+template <typename E>
 struct Operands {
-    const float* data;        // (T, P, D, S, N), contiguous
+    const E* data;            // (T, P, D, S, N), contiguous, float or bf16_t
     const int32_t* didx;      // [c * didx_c + p]
     const int32_t* sidx;      // [c * sidx_c + t * sidx_t + p]
     const float* slips;       // [c * slips_c + p]
@@ -122,6 +135,38 @@ template <> struct Vec<1> {
     }
 };
 
+// 4 (V = 4) or 1 samples of a library row, widened to float32: __ldg from
+// device memory (row) or a plain load from shared memory (shared)
+template <typename E, int V> struct Row;
+template <> struct Row<float, 4> {
+    static __device__ __forceinline__ float4 ldg(const float* p) {
+        return __ldg(reinterpret_cast<const float4*>(p));
+    }
+    static __device__ __forceinline__ float4 shared(const float* p) {
+        return *reinterpret_cast<const float4*>(p);
+    }
+};
+template <> struct Row<float, 1> {
+    static __device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+};
+__device__ __forceinline__ float4 widen4(const uint2 u) {
+    return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+template <> struct Row<bf16_t, 4> {
+    static __device__ __forceinline__ float4 ldg(const bf16_t* p) {
+        return widen4(__ldg(reinterpret_cast<const uint2*>(p)));
+    }
+    static __device__ __forceinline__ float4 shared(const bf16_t* p) {
+        return widen4(*reinterpret_cast<const uint2*>(p));
+    }
+};
+template <> struct Row<bf16_t, 1> {
+    static __device__ __forceinline__ float ldg(const bf16_t* p) {
+        return __uint_as_float((unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+    }
+};
+
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
     return x < lo ? lo : (x > hi ? hi : x);
 }
@@ -136,9 +181,9 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
 // between them): 13.0 ms against 15-19 ms with all four loads started at once;
 // K4 is held to 8 blocks an SM, which keeps it the faster at the launch-sized
 // shapes that stay on this variant.
-template <int CORNERS, int V>
+template <int CORNERS, int V, typename E>
 __global__ void __launch_bounds__(kMaxThreads, (CORNERS == 1 ? 8 : 1))
-gf_stack_kernel(const float* __restrict__ data,
+gf_stack_kernel(const E* __restrict__ data,
                 const int32_t* __restrict__ didx,
                 const int32_t* __restrict__ sidx,
                 const float* __restrict__ slips,
@@ -194,19 +239,19 @@ gf_stack_kernel(const float* __restrict__ data,
 #pragma unroll
             for (int cc = 0; cc < kChains; ++cc) {
                 if (cc < nc) {
-                    const float* row = data + s_off[pp][cc] + n0;
+                    const E* row = data + s_off[pp][cc] + n0;
                     if constexpr (CORNERS == 4) {
-                        const vec_t x0 = __ldg(reinterpret_cast<const vec_t*>(row));
+                        const vec_t x0 = Row<E, V>::ldg(row);
                         Vec<V>::fma(acc[cc], s_w[pp][cc][0], x0);
                         asm volatile("" ::: "memory");      // see the note above the kernel
-                        const vec_t x1 = __ldg(reinterpret_cast<const vec_t*>(row + row_s));
-                        const vec_t x2 = __ldg(reinterpret_cast<const vec_t*>(row + row_d));
-                        const vec_t x3 = __ldg(reinterpret_cast<const vec_t*>(row + row_d + row_s));
+                        const vec_t x1 = Row<E, V>::ldg(row + row_s);
+                        const vec_t x2 = Row<E, V>::ldg(row + row_d);
+                        const vec_t x3 = Row<E, V>::ldg(row + row_d + row_s);
                         Vec<V>::fma(acc[cc], s_w[pp][cc][1], x1);
                         Vec<V>::fma(acc[cc], s_w[pp][cc][2], x2);
                         Vec<V>::fma(acc[cc], s_w[pp][cc][3], x3);
                     } else {
-                        const vec_t x0 = __ldg(reinterpret_cast<const vec_t*>(row));
+                        const vec_t x0 = Row<E, V>::ldg(row);
                         Vec<V>::fma(acc[cc], s_w[pp][cc][0], x0);
                     }
                 }
@@ -223,8 +268,8 @@ gf_stack_kernel(const float* __restrict__ data,
     }
 }
 
-template <int CORNERS>
-int launch_gather(const Operands& a, bool vec4, cudaStream_t stream) {
+template <int CORNERS, typename E>
+int launch_gather(const Operands<E>& a, bool vec4, cudaStream_t stream) {
     const int columns = vec4 ? a.N / 4 : a.N;
     int threads = ((columns + 31) / 32) * 32;
     if (threads > kMaxThreads) threads = kMaxThreads;
@@ -232,11 +277,11 @@ int launch_gather(const Operands& a, bool vec4, cudaStream_t stream) {
     if (n_tiles > 65535) return (int)cudaErrorInvalidValue;
     const dim3 grid((a.C + kChains - 1) / kChains, n_tiles, a.T);
     if (vec4) {
-        gf_stack_kernel<CORNERS, 4><<<grid, threads, 0, stream>>>(
+        gf_stack_kernel<CORNERS, 4, E><<<grid, threads, 0, stream>>>(
             a.data, a.didx, a.sidx, a.slips, a.rtf, a.stf, a.out, a.C, a.T, a.P, a.D, a.S, a.N,
             a.st);
     } else {
-        gf_stack_kernel<CORNERS, 1><<<grid, threads, 0, stream>>>(
+        gf_stack_kernel<CORNERS, 1, E><<<grid, threads, 0, stream>>>(
             a.data, a.didx, a.sidx, a.slips, a.rtf, a.stf, a.out, a.C, a.T, a.P, a.D, a.S, a.N,
             a.st);
     }
@@ -258,9 +303,18 @@ int launch_gather(const Operands& a, bool vec4, cudaStream_t stream) {
 constexpr int kTiledThreads = 512;      // 16 warps, one block an SM
 constexpr int kChainsPerThread = 16;    // 16 chains x 4 samples of sums: 64 registers
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+// 4 samples of a row into shared memory: 16 bytes of float (cp.async.cg, L2
+// only), 8 bytes of bf16_t (cp.async.ca, the size .cg does not take)
+template <typename E>
+__device__ __forceinline__ void cp_async_4samples(void* smem, const void* gmem) {
     const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem) : "memory");
+    if constexpr (sizeof(E) == 4) {
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem)
+                     : "memory");
+    } else {
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst), "l"(gmem)
+                     : "memory");
+    }
 }
 __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -281,11 +335,11 @@ template <> struct Entry<1> {
 };
 
 // grid = (chain tiles, n tiles, T); kTiledThreads threads; dynamic shared
-// memory: two cell tiles of D*S x 4*LANES floats, then CT << chunk_shift
-// entries.
-template <int CORNERS, int LANES>
+// memory: two cell tiles of D*S x 4*LANES elements of E, then
+// CT << chunk_shift entries.
+template <int CORNERS, int LANES, typename E>
 __global__ void __launch_bounds__(kTiledThreads, 1)
-gf_stack_tiled_kernel(const Operands a, const int chunk_shift) {
+gf_stack_tiled_kernel(const Operands<E> a, const int chunk_shift) {
     using entry_t = typename Entry<CORNERS>::type;
     constexpr int THREADS = kTiledThreads, CPT = kChainsPerThread;
     constexpr int NT = 4 * LANES;             // samples of the n tile
@@ -296,7 +350,7 @@ gf_stack_tiled_kernel(const Operands a, const int chunk_shift) {
     const int P = a.P, S = a.S;
     const int DS = a.D * S;
     const int lo = CORNERS == 4 ? 1 : 0;
-    float* const tiles = reinterpret_cast<float*>(smem);
+    E* const tiles = reinterpret_cast<E*>(smem);
     entry_t* const ents = reinterpret_cast<entry_t*>(tiles + 2 * DS * NT);
     const int chunk_mask = (1 << chunk_shift) - 1;
 
@@ -311,10 +365,12 @@ gf_stack_tiled_kernel(const Operands a, const int chunk_shift) {
     // the cell tile of patch p into buffer buf: row r of the tile is cell r of
     // data[t, p], samples n0 .. n0 + NT
     auto copy_tile = [&](int p, int buf) {
-        const float* src = a.data + (((int64_t)t * P + p) * DS) * a.N + n0 + 4 * lane;
-        float* dst = tiles + buf * DS * NT + 4 * lane;
+        const E* src = a.data + (((int64_t)t * P + p) * DS) * a.N + n0 + 4 * lane;
+        E* dst = tiles + buf * DS * NT + 4 * lane;
         if (live) {
-            for (int r = g; r < DS; r += G) cp_async16(dst + r * NT, src + (int64_t)r * a.N);
+            for (int r = g; r < DS; r += G) {
+                cp_async_4samples<E>(dst + r * NT, src + (int64_t)r * a.N);
+            }
         }
         cp_async_commit();
     };
@@ -354,23 +410,23 @@ gf_stack_tiled_kernel(const Operands a, const int chunk_shift) {
     for (int j = 0; j < CPT; ++j) acc[j] = Vec<4>::zero();
 
     // the CORNERS rows of chain j * G + g at patch slot pp of the chunk
-    auto add_chain = [&](int j, int pp, const float* tile) {
+    auto add_chain = [&](int j, int pp, const E* tile) {
         const int cc = j * G + g;
         const entry_t e = ents[(cc << chunk_shift) + (pp ^ (cc & chunk_mask))];
         if constexpr (CORNERS == 4) {
-            const float* row = tile + __float_as_int(e.w);
-            const float4 x0 = *reinterpret_cast<const float4*>(row);
-            const float4 x1 = *reinterpret_cast<const float4*>(row + NT);
-            const float4 x2 = *reinterpret_cast<const float4*>(row + S * NT);
-            const float4 x3 = *reinterpret_cast<const float4*>(row + S * NT + NT);
+            const E* row = tile + __float_as_int(e.w);
+            const float4 x0 = Row<E, 4>::shared(row);
+            const float4 x1 = Row<E, 4>::shared(row + NT);
+            const float4 x2 = Row<E, 4>::shared(row + S * NT);
+            const float4 x3 = Row<E, 4>::shared(row + S * NT + NT);
             const float u = 1.0f - e.z;
             Vec<4>::fma(acc[j], e.x * e.z, x0);       // (d-1, s-1)
             Vec<4>::fma(acc[j], e.x * u, x1);         // (d-1, s)
             Vec<4>::fma(acc[j], e.y * e.z, x2);       // (d,   s-1)
             Vec<4>::fma(acc[j], e.y * u, x3);         // (d,   s)
         } else {
-            const float* row = tile + __float_as_int(e.y);
-            Vec<4>::fma(acc[j], e.x, *reinterpret_cast<const float4*>(row));
+            const E* row = tile + __float_as_int(e.y);
+            Vec<4>::fma(acc[j], e.x, Row<E, 4>::shared(row));
         }
     };
 
@@ -388,7 +444,7 @@ gf_stack_tiled_kernel(const Operands a, const int chunk_shift) {
             __syncthreads();
         }
         if (BEAT_ABLATE & 4) continue;
-        const float* tile = tiles + buf * DS * NT + 4 * lane;
+        const E* tile = tiles + buf * DS * NT + 4 * lane;
         // K3 on a whole chain tile runs its chains without a branch between
         // them, so the reads of one overlap the sums of the last; measured,
         // K4 (one row a chain) is faster with the branch
@@ -413,14 +469,14 @@ gf_stack_tiled_kernel(const Operands a, const int chunk_shift) {
     }
 }
 
-template <int CORNERS, int LANES>
-int launch_tiled(const Operands& a, int chunk_shift, cudaStream_t stream) {
+template <int CORNERS, int LANES, typename E>
+int launch_tiled(const Operands<E>& a, int chunk_shift, cudaStream_t stream) {
     constexpr int NT = 4 * LANES, CT = kTiledThreads / LANES * kChainsPerThread;
-    const size_t smem = (size_t)2 * a.D * a.S * NT * sizeof(float) +
+    const size_t smem = (size_t)2 * a.D * a.S * NT * sizeof(E) +
                         ((size_t)CT << chunk_shift) * sizeof(typename Entry<CORNERS>::type);
     const int n_tiles = (a.N + NT - 1) / NT;
     if (smem > kSmemPerBlock || n_tiles > 65535) return (int)cudaErrorInvalidValue;
-    auto kernel = gf_stack_tiled_kernel<CORNERS, LANES>;
+    auto kernel = gf_stack_tiled_kernel<CORNERS, LANES, E>;
     const cudaError_t rc = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (rc != cudaSuccess) return (int)rc;
@@ -430,23 +486,25 @@ int launch_tiled(const Operands& a, int chunk_shift, cudaStream_t stream) {
 }
 
 // variant 0: gather; 1: tiled with `lanes` threads along n a chain (16 or 8)
-// and 1 << chunk_shift patches of entries.  The tiled variant needs 16-byte
-// aligned rows.
-template <int CORNERS>
-int launch(const Operands& a, int variant, int lanes, int chunk_shift, cudaStream_t stream) {
+// and 1 << chunk_shift patches of entries.  The tiled variant needs rows of
+// 4-sample columns aligned to their size (16 bytes of float, 8 of bf16_t).
+template <int CORNERS, typename E>
+int launch(const Operands<E>& a, int variant, int lanes, int chunk_shift,
+           cudaStream_t stream) {
     if (a.C <= 0 || a.T <= 0 || a.N <= 0) return 0;
     if (a.P < 0 || a.D < 1 + (CORNERS == 4) || a.S < 1 + (CORNERS == 4) || a.T > 65535) {
         return (int)cudaErrorInvalidValue;
     }
-    // float4 columns need every row 16-byte aligned: N % 4 == 0 and aligned bases
-    const bool vec4 = a.N % 4 == 0 && (reinterpret_cast<uintptr_t>(a.data) % 16 == 0) &&
+    // 4-sample columns need every row aligned: N % 4 == 0 and aligned bases
+    const bool vec4 = a.N % 4 == 0 &&
+                      (reinterpret_cast<uintptr_t>(a.data) % (4 * sizeof(E)) == 0) &&
                       (reinterpret_cast<uintptr_t>(a.out) % 16 == 0);
-    if (variant == 0) return launch_gather<CORNERS>(a, vec4, stream);
+    if (variant == 0) return launch_gather<CORNERS, E>(a, vec4, stream);
     if (variant != 1 || !vec4 || chunk_shift < 0 || chunk_shift > 5 || a.P == 0) {
         return (int)cudaErrorInvalidValue;
     }
-    if (lanes == 16) return launch_tiled<CORNERS, 16>(a, chunk_shift, stream);
-    if (lanes == 8) return launch_tiled<CORNERS, 8>(a, chunk_shift, stream);
+    if (lanes == 16) return launch_tiled<CORNERS, 16, E>(a, chunk_shift, stream);
+    if (lanes == 8) return launch_tiled<CORNERS, 8, E>(a, chunk_shift, stream);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -467,8 +525,8 @@ extern "C" int beat_gf_stack_multilinear_f32(
     const float* rtf, const float* stf, float* out, int C, int T, int P, int D, int S, int N,
     int64_t didx_c, int64_t sidx_c, int64_t sidx_t, int64_t slips_c, int64_t rtf_c,
     int64_t stf_c, int64_t stf_t, int variant, int lanes, int chunk_shift, void* stream) {
-    const Operands a{data, didx, sidx, slips, rtf, stf, out, C, T, P, D, S, N,
-                     {didx_c, sidx_c, sidx_t, slips_c, rtf_c, stf_c, stf_t}};
+    const Operands<float> a{data, didx, sidx, slips, rtf, stf, out, C, T, P, D, S, N,
+                            {didx_c, sidx_c, sidx_t, slips_c, rtf_c, stf_c, stf_t}};
     return launch<4>(a, variant, lanes, chunk_shift, (cudaStream_t)stream);
 }
 
@@ -477,7 +535,28 @@ extern "C" int beat_gf_stack_nearest_f32(
     const float* data, const int32_t* didx, const int32_t* sidx, const float* slips, float* out,
     int C, int T, int P, int D, int S, int N, int64_t didx_c, int64_t sidx_c, int64_t sidx_t,
     int64_t slips_c, int variant, int lanes, int chunk_shift, void* stream) {
-    const Operands a{data, didx, sidx, slips, nullptr, nullptr, out, C, T, P, D, S, N,
-                     {didx_c, sidx_c, sidx_t, slips_c, 0, 0, 0}};
+    const Operands<float> a{data, didx, sidx, slips, nullptr, nullptr, out, C, T, P, D, S, N,
+                            {didx_c, sidx_c, sidx_t, slips_c, 0, 0, 0}};
+    return launch<1>(a, variant, lanes, chunk_shift, (cudaStream_t)stream);
+}
+
+// K3 and K4 on a bf16 library (bits of torch.bfloat16); the other operands and
+// the output as above, float32.
+extern "C" int beat_gf_stack_multilinear_bf16(
+    const uint16_t* data, const int32_t* didx, const int32_t* sidx, const float* slips,
+    const float* rtf, const float* stf, float* out, int C, int T, int P, int D, int S, int N,
+    int64_t didx_c, int64_t sidx_c, int64_t sidx_t, int64_t slips_c, int64_t rtf_c,
+    int64_t stf_c, int64_t stf_t, int variant, int lanes, int chunk_shift, void* stream) {
+    const Operands<bf16_t> a{data, didx, sidx, slips, rtf, stf, out, C, T, P, D, S, N,
+                             {didx_c, sidx_c, sidx_t, slips_c, rtf_c, stf_c, stf_t}};
+    return launch<4>(a, variant, lanes, chunk_shift, (cudaStream_t)stream);
+}
+
+extern "C" int beat_gf_stack_nearest_bf16(
+    const uint16_t* data, const int32_t* didx, const int32_t* sidx, const float* slips,
+    float* out, int C, int T, int P, int D, int S, int N, int64_t didx_c, int64_t sidx_c,
+    int64_t sidx_t, int64_t slips_c, int variant, int lanes, int chunk_shift, void* stream) {
+    const Operands<bf16_t> a{data, didx, sidx, slips, nullptr, nullptr, out, C, T, P, D, S,
+                             N, {didx_c, sidx_c, sidx_t, slips_c, 0, 0, 0}};
     return launch<1>(a, variant, lanes, chunk_shift, (cudaStream_t)stream);
 }

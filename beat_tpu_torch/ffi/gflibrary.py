@@ -21,6 +21,10 @@ source durations and rupture-onset times.
 * **Stacking** (:meth:`SeismicGFLibrary.stack_all`): the index
   quantisation of the JAX package, then the all-chain stack through
   kernels K3/K4 (:func:`beat_tpu_torch.ops.gfstack.stack_batched`).
+* **Storage type**: float32, or bfloat16 at half the memory and bytes
+  read (``dtype=``, :meth:`SeismicGFLibrary.to_dtype`; the JAX package's
+  ``BEAT_TPU_STACK_DTYPE=bfloat16``); the stack sums in float32 either
+  way.
 """
 
 from __future__ import annotations
@@ -122,12 +126,27 @@ def geo_construct_gf_linear(fault, coords, los, components=("uparr", "uperp"), n
     return GeodeticGFLibrary(gfs, component_names=list(components), device=device)
 
 
+#: the storage types of a kinematic library
+LIBRARY_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _converted(data: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``data`` in ``dtype`` on its device, converted one target at a time
+    into a preallocated tensor: the peak is the two copies (3.93 GB of
+    float32 and 1.97 GB of bfloat16 at the Laquila scale), no third."""
+    out = torch.empty(data.shape, dtype=dtype, device=data.device)
+    for t in range(data.shape[0]):
+        out[t].copy_(data[t])
+    return out
+
+
 class SeismicGFLibrary(nn.Module):
     """
     5-D kinematic library: ``data`` (ntargets, npatches, ndurations,
-    nstarttimes, nsamples) float32 is a registered buffer in its natural
-    layout (a (duration, starttime) cell is one contiguous row, which is
-    what kernels K3/K4 read); the grid metadata are Python floats.
+    nstarttimes, nsamples) is a registered buffer in its natural layout
+    (a (duration, starttime) cell is one contiguous row, which is what
+    kernels K3/K4 read), stored as ``dtype`` (float32 or bfloat16; the
+    stack sums in float32); the grid metadata are Python floats.
 
     ``stack_fn`` is the stack :meth:`stack_all` calls — K3/K4's wrapper
     :func:`~beat_tpu_torch.ops.gfstack.stack_batched`; it may be swapped
@@ -136,12 +155,16 @@ class SeismicGFLibrary(nn.Module):
 
     def __init__(self, data, duration_min: float, duration_sampling: float,
                  starttime_min: float, starttime_sampling: float, component: str = "uparr",
-                 reference_times=None, *, device):
+                 reference_times=None, *, device, dtype: torch.dtype = DTYPE):
         super().__init__()
-        data = torch.as_tensor(data, dtype=DTYPE, device=device)
+        if dtype not in LIBRARY_DTYPES:
+            raise ValueError(f"library dtype {dtype} (float32 or bfloat16)")
+        data = torch.as_tensor(data, device=device)
         if data.dim() != 5:
             raise ValueError(f"library data must be (ntargets, npatches, ndurations, "
                              f"nstarttimes, nsamples), got {tuple(data.shape)}")
+        if data.dtype != dtype:
+            data = _converted(data, dtype)
         self.register_buffer("data", data.contiguous())
         self.duration_min = float(duration_min)
         self.duration_sampling = float(duration_sampling)
@@ -157,6 +180,16 @@ class SeismicGFLibrary(nn.Module):
     ndurations = property(lambda self: self.data.shape[2])
     nstarttimes = property(lambda self: self.data.shape[3])
     nsamples = property(lambda self: self.data.shape[4])
+
+    def to_dtype(self, dtype: torch.dtype) -> "SeismicGFLibrary":
+        """A copy of the library stored as ``dtype``, built on its device
+        one target at a time; the grid and ``stack_fn`` carry over."""
+        lib = SeismicGFLibrary(
+            _converted(self.data, dtype), self.duration_min, self.duration_sampling,
+            self.starttime_min, self.starttime_sampling, component=self.component,
+            reference_times=self.reference_times, device=self.data.device, dtype=dtype)
+        lib.stack_fn = self.stack_fn
+        return lib
 
     # -- index quantisation ---------------------------------------------------
 
@@ -207,10 +240,12 @@ class SeismicGFLibrary(nn.Module):
     # -- persistence (the JAX package's .npz format) -------------------------------
 
     def save(self, dirpath: str, name: str) -> None:
+        """The JAX package's ``.npz`` format (float32 data: a bfloat16
+        library is widened exactly)."""
         os.makedirs(dirpath, exist_ok=True)
         np.savez_compressed(
             os.path.join(dirpath, f"{name}.npz"),
-            data=self.data.cpu().numpy(),
+            data=self.data.float().cpu().numpy(),
             meta=np.array([self.duration_min, self.duration_sampling,
                            self.starttime_min, self.starttime_sampling]),
             reference_times=(self.reference_times if self.reference_times is not None
@@ -309,7 +344,7 @@ def stack_all_numpy(lib: SeismicGFLibrary, durations, starttimes, slips,
                     interpolation="nearest_neighbor"):
     """Host float64 reference of one chain's stack: durations (P,),
     starttimes (T, P), slips (P,) → (T, N)."""
-    data = lib.data.cpu().numpy()
+    data = lib.data.double().cpu().numpy()
     nt, npch = lib.ntargets, lib.npatches
     out = np.zeros((nt, lib.nsamples))
     d = (np.asarray(durations) - lib.duration_min) / lib.duration_sampling

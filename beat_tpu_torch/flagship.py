@@ -160,11 +160,12 @@ def flagship_stations(n_stations: int, rng: np.random.Generator):
 
 
 def flagship_observations(table, station_east, station_north, rng: np.random.Generator,
-                          rectangle_patches: tuple | None = None) -> dict:
+                          rectangle_patches: tuple | None = None,
+                          rectangle: dict | None = None) -> dict:
     """Noisy raw traces ``{channel: (n_stations, nt)}`` of the true source
-    (the double couple, or with ``rectangle_patches`` the rectangle of
-    :data:`TRUE_RECTANGLE` on that grid), synthesized with the port's
-    forward on the table's device."""
+    (the double couple, or with ``rectangle_patches`` a rectangle on that
+    grid: ``rectangle``, by default :data:`TRUE_RECTANGLE`), synthesized
+    with the port's forward on the table's device."""
     dev = table.freqs.device
     n = len(station_east)
     comp = torch.as_tensor(np.repeat([0, 1, 2], n), device=dev)
@@ -180,7 +181,8 @@ def flagship_observations(table, station_east, station_north, rng: np.random.Gen
             spec = table.synthesize_spectra(m6, one(0.0), one(0.0), one(TRUE_DEPTH), one(0.0),
                                             one(TRUE_DURATION), st_e, st_n, comp)
         else:
-            true = dict(TRUE_RECTANGLE, east_shift=0.0, north_shift=0.0, time=0.0)
+            true = dict(dict(east_shift=0.0, north_shift=0.0, time=0.0),
+                        **(rectangle or TRUE_RECTANGLE))
             spec = finite_rectangular_spectra(table, lambda name: one(true[name]), st_e, st_n,
                                               comp, "HalfSinusoid", None,
                                               n_patches=rectangle_patches)
@@ -566,32 +568,23 @@ def static_ffi_true_slips(fault, n_strike: int, n_dip: int) -> dict:
     return {"uparr": blob, "uperp": 0.1 * blob}
 
 
-def build_static_ffi_flagship(n_strike: int, n_dip: int, n_points: int, seed: int = 0, *,
-                              device, outfolder: str = "static_ffi_run",
-                              initialization: str = "lsq") -> Problem:
-    """The static finite-fault Problem (BASELINE config 4): the fault of
-    :func:`build_ffi_flagship` (strike 135°, dip 50°, 2 km patches), two
-    InSAR scenes of ``n_points`` each over the fault's surface projection
-    ± 30 km, synthesized through the library from a smooth slip patch
-    plus correlated noise (ramps fixed and removed); sampled are
-    ``uparr`` and ``uperp`` per patch, ``h_laplacian`` and ``h_SAR``,
-    started from the NNLS solution (``initialization``).
-    ``problem.true_point`` holds the slips behind the data."""
+def static_ffi_data(ref, fault, true: dict, n_points: int, rng: np.random.Generator, *,
+                    device) -> tuple:
+    """``(datasets, library)`` of a static finite-fault problem on
+    ``fault`` (the plane ``ref``): two InSAR scenes of ``n_points`` each
+    over the fault's surface projection ± 30 km, dense around the patch of
+    the largest ``uparr``, synthesized through the library (built on
+    ``device`` for the fault's components) from the slips ``true`` plus
+    correlated noise (ramps fixed and removed)."""
     from beat_tpu_torch.ffi.gflibrary import geo_construct_gf_linear
     from beat_tpu_torch.heart.geodesy import los_vectors
-    from beat_tpu_torch.models.distributer import GeodeticDistributerComposite
 
-    dev = resolve(device)
-    rng = np.random.default_rng(seed)
-    ref = RectangularSource(length=n_strike * FFI_PATCH, width=n_dip * FFI_PATCH, **FFI_PLANE)
-    fault = discretize_sources([ref], patch_length=FFI_PATCH, patch_width=FFI_PATCH,
-                               components=("uparr", "uperp"))
+    components = tuple(fault.components)
     # the scenes in the fault's frame: along strike from the plane's
     # center, across it horizontally from the middle of its projection
     st = np.deg2rad(ref.strike)
     across_w = ref.width * np.cos(np.deg2rad(ref.dip))
     s_vec, t_vec = np.array([np.sin(st), np.cos(st)]), np.array([np.cos(st), -np.sin(st)])
-    true = static_ffi_true_slips(fault, n_strike, n_dip)
     blob_c = fault.subfaults[0].patches[int(np.argmax(true["uparr"]))].center()[:2]
     origin = np.array([ref.east_shift, ref.north_shift]) + 0.5 * across_w * t_vec
     blob_rel = blob_c - origin
@@ -604,13 +597,35 @@ def build_static_ffi_flagship(n_strike: int, n_dip: int, n_points: int, seed: in
     all_coords = np.concatenate(list(coords.values()))
     los = np.concatenate([los_vectors(len(coords[name]), GEO_SCENES[name][1],
                                       GEO_SCENES[name][0]) for name in GEO_SCENES])
-    lib = geo_construct_gf_linear(fault, all_coords, los, components=("uparr", "uperp"),
-                                  device=dev)
-    synth = sum(true[c] @ lib.gf(c).double().cpu().numpy() for c in ("uparr", "uperp"))
+    lib = geo_construct_gf_linear(fault, all_coords, los, components=components, device=device)
+    synth = sum(true[c] @ lib.gf(c).double().cpu().numpy() for c in components)
     offsets = np.cumsum([0] + [len(coords[name]) for name in GEO_SCENES])
     datasets = insar_scenes(coords, lambda c: np.zeros((len(c), 3)), rng)
     for ds, a, b in zip(datasets, offsets[:-1], offsets[1:]):
         ds.displacement = ds.displacement + synth[a:b]
+    return datasets, lib
+
+
+def build_static_ffi_flagship(n_strike: int, n_dip: int, n_points: int, seed: int = 0, *,
+                              device, outfolder: str = "static_ffi_run",
+                              initialization: str = "lsq") -> Problem:
+    """The static finite-fault Problem (BASELINE config 4): the fault of
+    :func:`build_ffi_flagship` (strike 135°, dip 50°, 2 km patches), two
+    InSAR scenes of ``n_points`` each over the fault's surface projection
+    ± 30 km, synthesized through the library from a smooth slip patch
+    plus correlated noise (ramps fixed and removed); sampled are
+    ``uparr`` and ``uperp`` per patch, ``h_laplacian`` and ``h_SAR``,
+    started from the NNLS solution (``initialization``).
+    ``problem.true_point`` holds the slips behind the data."""
+    from beat_tpu_torch.models.distributer import GeodeticDistributerComposite
+
+    dev = resolve(device)
+    rng = np.random.default_rng(seed)
+    ref = RectangularSource(length=n_strike * FFI_PATCH, width=n_dip * FFI_PATCH, **FFI_PLANE)
+    fault = discretize_sources([ref], patch_length=FFI_PATCH, patch_width=FFI_PATCH,
+                               components=("uparr", "uperp"))
+    true = static_ffi_true_slips(fault, n_strike, n_dip)
+    datasets, lib = static_ffi_data(ref, fault, true, n_points, rng, device=dev)
 
     priors = PriorSet()
     for name, (lo, hi) in STATIC_FFI_PRIORS.items():
@@ -622,3 +637,108 @@ def build_static_ffi_flagship(n_strike: int, n_dip: int, n_points: int, seed: in
     problem.true_point = dict(true, h_SAR=0.0, h_laplacian=0.0)
     return problem
 
+
+#: the trans-dimensional problem's two slip levels [m]: the central
+#: along-strike third of the fault, and the rest
+TRANSD_SLIPS = (1.5, 0.3)
+
+
+def transd_true_slips(fault, n_strike: int) -> dict:
+    """The two-level slip behind the trans-dimensional problem's data:
+    1.5 m on the patches of the central third along strike, 0.3 m
+    elsewhere (along rake)."""
+    along = fault.subfaults[0].patch_centers_local()[:, 0]
+    length = n_strike * FFI_PATCH
+    central = (along > length / 3) & (along < 2 * length / 3)
+    return {"uparr": np.where(central, *TRANSD_SLIPS)}
+
+
+def build_transd_flagship(n_strike: int, n_dip: int, n_points: int, seed: int = 0, *,
+                          device, outfolder: str = "transd_run") -> Problem:
+    """The trans-dimensional Voronoi problem on the static FFI flagship's
+    fault and scenes (:func:`static_ffi_data`): ``uparr`` only, a
+    two-level slip behind the data (:func:`transd_true_slips`).  Sample
+    it with ``problem.sample(TransDParams(...))``; the priors (``uparr``
+    per patch in ``STATIC_FFI_PRIORS``, ``h_SAR``) serve the other
+    samplers and the diagnostics.  ``problem.true_point`` holds the slips
+    behind the data."""
+    from beat_tpu_torch.models.distributer import GeodeticDistributerComposite
+
+    dev = resolve(device)
+    rng = np.random.default_rng(seed)
+    ref = RectangularSource(length=n_strike * FFI_PATCH, width=n_dip * FFI_PATCH, **FFI_PLANE)
+    fault = discretize_sources([ref], patch_length=FFI_PATCH, patch_width=FFI_PATCH,
+                               components=("uparr",))
+    true = transd_true_slips(fault, n_strike)
+    datasets, lib = static_ffi_data(ref, fault, true, n_points, rng, device=dev)
+    lo, hi = STATIC_FFI_PRIORS["uparr"]
+    priors = PriorSet().add(Parameter("uparr", [lo] * fault.npatches, [hi] * fault.npatches))
+    comp = GeodeticDistributerComposite(datasets, lib, fault, device=dev)
+    problem = Problem(priors, {"geodetic": comp}, device=dev, outfolder=outfolder)
+    problem.true_point = dict(true, h_SAR=0.0)
+    return problem
+
+
+# ---------------------------------------------------------------------------
+# The joint seismic + geodetic problem
+# ---------------------------------------------------------------------------
+#
+# BASELINE config 3: one rectangle behind both data types, the waveforms of
+# the FullMT problem's stations and table and the InSAR scenes of the
+# geodetic problem.
+
+JOINT_REAL_SIZE = dict(n_stations=10, n_distances=206, n_depths=15, nt=1024, n_points=1500)
+JOINT_TEST_SIZE = dict(n_stations=4, n_distances=11, n_depths=5, nt=128, n_points=120)
+#: the rectangle behind both data types: the published rectangle with the
+#: kinematics of the waveform problem's TRUE_RECTANGLE
+JOINT_TRUE = dict(GEO_TRUE, **{k: TRUE_RECTANGLE[k] for k in (
+    "nucleation_x", "nucleation_y", "velocity", "duration")}, time=0.0)
+#: the seismic composite's patch grid (that of the waveform problem's rectangle)
+JOINT_PATCHES = (8, 5)
+#: the source parameters only the waveforms see
+JOINT_SEISMIC_ONLY = ("nucleation_x", "nucleation_y", "velocity", "time", "duration")
+
+
+def build_joint_flagship(n_stations: int, n_distances: int, n_depths: int, nt: int,
+                         n_points: int, seed: int = 0, *, device,
+                         outfolder: str = "joint_run", table=None) -> Problem:
+    """The joint seismic + geodetic Problem (BASELINE config 3), all
+    tensors on ``device``: the geodetic problem's two InSAR scenes of
+    ``n_points`` each (:func:`build_geodetic_flagship`, the rectangle
+    ``GEO_TRUE`` plus ramps and correlated noise) and the FullMT
+    problem's stations, table and wavemaps with waveforms of the same
+    rectangle (:data:`JOINT_TRUE`, on :data:`JOINT_PATCHES`) plus 2 %
+    noise.  Sampled: the rectangle's parameters (shared by both
+    composites, ``GEO_PRIORS``), the waveform-only kinematics
+    (:data:`JOINT_SEISMIC_ONLY`, the waveform problem's priors), a ramp
+    per scene and the hyperparameters ``h_SAR``, ``h_any_P_0`` and
+    ``h_any_S_1``.  ``problem.true_point`` holds the parameters behind
+    the data."""
+    dev = resolve(device)
+    geo = build_geodetic_flagship(n_points, seed, device=dev, outfolder=outfolder)
+    rng = np.random.default_rng(seed + 1)
+    if table is None:
+        table = flagship_table(n_distances, n_depths, nt, device=dev)
+    st_e, st_n = flagship_stations(n_stations, rng)
+    raw = flagship_observations(table, st_e, st_n, rng, rectangle_patches=JOINT_PATCHES,
+                                rectangle=JOINT_TRUE)
+    wavemaps = [WaveformMapping(name=name, datasets=dsets, table=table,
+                                taper=ArrivalTaper(**TAPER), filterer=Filter(**FILTER),
+                                mapnumber=i)
+                for i, (name, dsets) in enumerate(
+                    flagship_datasets(st_e, st_n, raw).items())]
+    seis = SeismicGeometryComposite(wavemaps, [RectangularSource(**JOINT_TRUE)],
+                                    finite_patches=JOINT_PATCHES, device=dev)
+    priors = PriorSet()
+    for p in geo.source_priors.parameters.values():
+        priors.add(p)
+    for name in JOINT_SEISMIC_ONLY:
+        lo, hi = SOURCE_PRIORS["RectangularSource"][name]
+        priors.add(Parameter(name, [lo], [hi]))
+    problem = Problem(priors, {"seismic": seis, "geodetic": geo.composites["geodetic"]},
+                      device=dev, outfolder=outfolder)
+    problem.true_point = dict(geo.true_point,
+                              **{k: JOINT_TRUE[k] for k in JOINT_SEISMIC_ONLY},
+                              **{h: 0.0 for h in seis.get_hypernames()})
+    problem.observations = (st_e, st_n, raw)
+    return problem

@@ -45,6 +45,9 @@ SIGNATURES = {
         "beat_gf_stack_multilinear_f32": (_I, [_P] * 7 + [_I] * 6 + [_I64] * 7 + [_I] * 3
                                           + [_P]),
         "beat_gf_stack_nearest_f32": (_I, [_P] * 5 + [_I] * 6 + [_I64] * 4 + [_I] * 3 + [_P]),
+        "beat_gf_stack_multilinear_bf16": (_I, [_P] * 7 + [_I] * 6 + [_I64] * 7 + [_I] * 3
+                                           + [_P]),
+        "beat_gf_stack_nearest_bf16": (_I, [_P] * 5 + [_I] * 6 + [_I64] * 4 + [_I] * 3 + [_P]),
     },
     "rowgather": {
         "beat_gather_rows_f32": (_I, [_P, _P, _I, _I64, _P, _I64, _I64, _I, _P]),

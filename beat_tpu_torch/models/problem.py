@@ -1,7 +1,9 @@
 """
 Problem: priors and composites assembled into one batched
-log-likelihood, and the sampler run over it — SMC or single-stage
-Metropolis, each with any random-walk proposal, MALA or HMC — plus the
+log-likelihood, and the sampler run over it — SMC, parallel tempering or
+single-stage Metropolis, each with any random-walk proposal, MALA or
+HMC, or the trans-dimensional Voronoi sampler on a static finite-fault
+composite — plus the
 hyperparameter-only posterior (``make_hyper_logp_fn``,
 ``estimate_hypers``) and the between-stage covariance update
 (``update_weights``) (port of ``beat_tpu/models/problem.py``).
@@ -21,7 +23,9 @@ from beat_tpu_torch.distributions import hyper_normal
 from beat_tpu_torch.parameter import PriorSet
 from beat_tpu_torch.backend import SampleStage
 from beat_tpu_torch.device import DTYPE, resolve
+from beat_tpu_torch.ffi.transd import TransDParams
 from beat_tpu_torch.samplers.metropolis import MetropolisParams, metropolis_sample
+from beat_tpu_torch.samplers.pt import PTParams, pt_sample
 from beat_tpu_torch.samplers.smc import SMCParams, smc_sample
 
 logger = logging.getLogger("beat_tpu_torch.models.problem")
@@ -119,15 +123,26 @@ class Problem:
 
     def sample(self, params=None, update_weights: bool = False):
         """Run the configured sampler: ``SMCParams`` → SMC,
-        ``MetropolisParams`` → single-stage Metropolis saved as the final
-        stage.  ``update_weights`` re-estimates the data covariances at
-        each SMC stage's best sample.  Returns the final-stage
-        ``(q_trace, llk_trace)``."""
+        ``PTParams`` → parallel tempering, ``MetropolisParams`` →
+        single-stage Metropolis, each saved as the final stage;
+        ``TransDParams`` → the trans-dimensional sampler on the first
+        static distributer composite.  ``update_weights`` re-estimates the
+        data covariances at each SMC stage's best sample.  Returns the
+        final-stage ``(q_trace, llk_trace)``, PT's with its history, the
+        trans-dimensional sampler's output dict."""
         params = params or self.sampler_params
-        if not isinstance(params, (SMCParams, MetropolisParams)):
-            raise NotImplementedError(
-                f"{type(params).__name__} waits for a later port slice (ROADMAP: PT); "
-                "the port samples with SMCParams or MetropolisParams")
+        if not isinstance(params, (SMCParams, PTParams, MetropolisParams, TransDParams)):
+            raise TypeError(f"unknown sampler parameters {type(params).__name__}")
+        if isinstance(params, TransDParams):
+            from beat_tpu_torch.models.distributer import (GeodeticDistributerComposite,
+                                                           transd_sample_ffi)
+
+            comp = next((c for c in self.composites.values()
+                         if isinstance(c, GeodeticDistributerComposite)), None)
+            if comp is None:
+                raise ValueError("TransD sampling needs a geodetic distributer composite "
+                                 "(ffi mode)")
+            return transd_sample_ffi(comp, params, homepath=self.outfolder)
         lower, upper = self.priors.bounds_arrays()
         logp_fn, data = self.make_logp_fn()
         os.makedirs(self.outfolder, exist_ok=True)
@@ -142,6 +157,10 @@ class Problem:
             return smc_sample(logp_fn, lower, upper, params, device=self.device,
                               homepath=self.outfolder, ordering=self.ordering,
                               logp_args=(data,), update_weights=update_cb, start=start)
+        if isinstance(params, PTParams):
+            return pt_sample(logp_fn, lower, upper, params, device=self.device,
+                             homepath=self.outfolder, ordering=self.ordering,
+                             logp_args=(data,))
         return metropolis_sample(
             logp_fn, lower, upper, device=self.device, n_chains=params.n_chains,
             n_steps=params.n_steps, burn=params.burn, thin=params.thin,

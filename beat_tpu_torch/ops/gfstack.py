@@ -32,8 +32,12 @@ stack extrapolates, as the JAX package's does.
   (chains, T, P, N) intermediate stays bounded.
 
 The library keeps its natural (T, P, D, S, N) layout: a (d, s) cell is
-one contiguous row of N floats.  Neither op is differentiable (the JAX
-op has no VJP either).
+one contiguous row of N samples, float32 or bfloat16 (the JAX package's
+bf16 library, ``gfstack.py:71-80``).  A bfloat16 library is widened to
+float32 as it is read, by the kernels in registers and by the plain
+version before its products, and summed in float32: the output and the
+other operands are float32 either way.  Neither op is differentiable
+(the JAX op has no VJP either).
 """
 
 from __future__ import annotations
@@ -59,12 +63,19 @@ def _clamp_cells(data, didx, sidx, multilinear: bool):
     return didx.long().clamp(lo, D - 1), sidx.long().clamp(lo, S - 1)
 
 
+def sum_dtype(data: torch.Tensor) -> torch.dtype:
+    """The type a library's stack is summed and returned in: float32 for a
+    bfloat16 library, the library's own otherwise."""
+    return torch.float32 if data.dtype == torch.bfloat16 else data.dtype
+
+
 def stack_batched_reference(data: torch.Tensor, didx: torch.Tensor, sidx: torch.Tensor,
                             slips: torch.Tensor, rtf: torch.Tensor | None = None,
                             stf: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch K3 (with ``rtf``/``stf``) or K4 (without): (C, T, N).
 
-    Operands as :func:`stack_batched`; ``sidx``/``stf`` may be (C, 1, P)."""
+    Operands as :func:`stack_batched`; ``sidx``/``stf`` may be (C, 1, P).
+    The gathered rows of a bfloat16 library are widened to float32."""
     T, P, D, S, N = data.shape
     C = didx.shape[0]
     multilinear = rtf is not None
@@ -72,7 +83,8 @@ def stack_batched_reference(data: torch.Tensor, didx: torch.Tensor, sidx: torch.
     flat = data.reshape(T * P * D * S, N)
     tp = (torch.arange(T, device=data.device)[:, None] * P
           + torch.arange(P, device=data.device)[None, :])            # (T, P)
-    out = torch.empty((C, T, N), dtype=data.dtype, device=data.device)
+    out_dtype = sum_dtype(data)
+    out = torch.empty((C, T, N), dtype=out_dtype, device=data.device)
     chunk = max(1, _PLAIN_CHUNK_ELEMS // max(T * P * N, 1))
     for c0 in range(0, C, chunk):
         sl = slice(c0, c0 + chunk)
@@ -80,7 +92,7 @@ def stack_batched_reference(data: torch.Tensor, didx: torch.Tensor, sidx: torch.
         s_c = s[sl].expand(-1, T, -1)                                # (c, T, P)
 
         def cell(dd, ss):
-            return flat[((tp * D + dd) * S + ss)]                    # (c, T, P, N)
+            return flat[((tp * D + dd) * S + ss)].to(out_dtype)      # (c, T, P, N)
 
         if not multilinear:
             stacked = cell(d_c, s_c)
@@ -120,8 +132,9 @@ def _check(data, didx, sidx, slips, rtf, stf) -> None:
     if didx.dtype.is_floating_point or sidx.dtype.is_floating_point:
         raise ValueError(f"didx and sidx must be integer, got {didx.dtype}, {sidx.dtype}")
     floats = [x for x in (slips, rtf, stf) if x is not None]
-    if any(x.dtype != data.dtype for x in floats):
-        raise ValueError(f"slips, rtf and stf must share the library's dtype {data.dtype}")
+    if any(x.dtype != sum_dtype(data) for x in floats):
+        raise ValueError(f"slips, rtf and stf must be {sum_dtype(data)} for a {data.dtype} "
+                         f"library")
     if any(x.requires_grad for x in floats + [data]):
         raise NotImplementedError(
             "the GF stack is not differentiable (the JAX op has no VJP either): a backward "
@@ -134,11 +147,16 @@ def _check(data, didx, sidx, slips, rtf, stf) -> None:
     if data.device.type != "cuda":
         raise ValueError(f"K3 and K4 run on CUDA (or their plain version on the CPU), not on "
                          f"{data.device}")
-    if data.dtype != torch.float32:
-        raise ValueError(f"the CUDA kernels take float32 libraries, got {data.dtype}")
+    if data.dtype not in _ENTRIES:
+        raise ValueError(f"the CUDA kernels take float32 or bfloat16 libraries, got "
+                         f"{data.dtype}")
     if max(C, T, P, D, S, N) > 2**31 - 1:
         raise ValueError("a dimension exceeds the kernels' 32-bit sizes")
 
+
+#: the C entries of K3 and K4 by library type: (multilinear, nearest)
+_ENTRIES = {torch.float32: ("beat_gf_stack_multilinear_f32", "beat_gf_stack_nearest_f32"),
+            torch.bfloat16: ("beat_gf_stack_multilinear_bf16", "beat_gf_stack_nearest_bf16")}
 
 #: what one block of an H100 may use (``csrc/gfstack.cu`` checks the same)
 SMEM_PER_BLOCK = 232_448        # bytes of shared memory
@@ -152,7 +170,12 @@ _TILED_THREADS, _CHAINS_PER_THREAD, _TILED_LANES = 512, 16, (16, 8)
 #: patches the tile copies hide behind the sums and 1.5 reads a row are
 #: enough (K4 at D·S = 320 serves 1.6); on a short walk the first copy and
 #: fold lie open and it takes 6 (measured at the GF-stack bench shape and
-#: the small FFI problem's: ``PERF.md`` §6)
+#: the small FFI problem's: ``PERF.md`` §6).  Both are for float32 rows; a
+#: narrower sample takes proportionally more, since the gather variant's
+#: row reads through L2 shrink with it and the tiled variant's
+#: shared-memory reads do not (bfloat16 at the Laquila shape on an H100: K4 1.73 ms
+#: `gather` against 2.77 ms `tiled` at 1.6 reads a row, K3 4.60 ms `tiled`
+#: against 6.19 ms `gather` at 6.4)
 _LONG_WALK_PATCHES, _ROW_REUSE_LONG_WALK, _ROW_REUSE_SHORT_WALK = 64, 1.5, 6.0
 #: the gather variant's tile: chains a block, threads, patches of entries
 _GATHER_CHAINS, _GATHER_THREADS, _GATHER_CHUNK = 8, 128, 32
@@ -192,16 +215,20 @@ def _gather_plan(T, N, C, corners, why) -> StackPlan:
 
 @lru_cache(maxsize=256)
 def plan_stack(T: int, P: int, D: int, S: int, N: int, C: int, corners: int = 4,
-               variant: str | None = None, aligned: bool = True) -> StackPlan:
+               variant: str | None = None, aligned: bool = True,
+               elem_bytes: int = 4) -> StackPlan:
     """The variant and tile sizes of one K3 (``corners=4``) or K4
-    (``corners=1``) launch on a (T, P, D, S, N) library and C chains.
+    (``corners=1``) launch on a (T, P, D, S, N) library of
+    ``elem_bytes`` a sample (4 float32, 2 bfloat16) and C chains.
 
-    ``tiled`` needs 16-byte rows (``N % 4 == 0``, ``aligned`` bases) and
+    ``tiled`` needs rows of aligned 4-sample columns (``N % 4 == 0``,
+    ``aligned`` bases) and
     two (D·S × n tile) cell tiles plus a chunk of folded operands within
     :data:`SMEM_PER_BLOCK`; it is chosen where it pays: every staged
     cell row serves at least :data:`_ROW_REUSE_LONG_WALK` row reads of
     the chain tile over :data:`_LONG_WALK_PATCHES` patches or more, or
-    :data:`_ROW_REUSE_SHORT_WALK` over fewer.  Everything else takes
+    :data:`_ROW_REUSE_SHORT_WALK` over fewer, times ``4 / elem_bytes``.
+    Everything else takes
     ``gather``.  ``variant`` forces one (``ValueError`` where
     ``tiled`` cannot run)."""
     if variant not in (None, "tiled", "gather"):
@@ -210,7 +237,8 @@ def plan_stack(T: int, P: int, D: int, S: int, N: int, C: int, corners: int = 4,
         return _gather_plan(T, N, C, corners, "asked for")
     why = tile = None
     if N % 4 != 0 or not aligned:
-        why = "rows are not 16-byte aligned (N % 4 != 0 or an unaligned base)"
+        why = ("rows are not 16-byte (bfloat16: 8-byte) aligned (N % 4 != 0 or an "
+               "unaligned base)")
     elif min(T, P, C) < 1:
         why = "nothing to stack"
     else:
@@ -219,7 +247,7 @@ def plan_stack(T: int, P: int, D: int, S: int, N: int, C: int, corners: int = 4,
             if lanes == 16 and N <= 32:
                 continue                      # half of the n tile would be idle
             chain_tile = _TILED_THREADS // lanes * _CHAINS_PER_THREAD
-            tiles_bytes = 2 * D * S * 4 * lanes * 4
+            tiles_bytes = 2 * D * S * 4 * lanes * elem_bytes
             for chunk in (8, 4, 2, 1):
                 smem = tiles_bytes + chain_tile * chunk * entry_bytes
                 if smem <= SMEM_PER_BLOCK:
@@ -232,7 +260,8 @@ def plan_stack(T: int, P: int, D: int, S: int, N: int, C: int, corners: int = 4,
                    f"of shared memory")
     if why is None and variant is None:
         reuse = min(C, tile[1]) * corners / (D * S)
-        if reuse < (_ROW_REUSE_LONG_WALK if P >= _LONG_WALK_PATCHES else _ROW_REUSE_SHORT_WALK):
+        needed = (_ROW_REUSE_LONG_WALK if P >= _LONG_WALK_PATCHES else _ROW_REUSE_SHORT_WALK)
+        if reuse < needed * 4 / elem_bytes:
             why = (f"a staged cell row would serve {reuse:.2f} reads of the chain tile over "
                    f"{P} patches")
     if why is not None:
@@ -279,8 +308,9 @@ def _launch(data, didx, sidx, slips, rtf, stf, plan: StackPlan) -> torch.Tensor:
     T, P, D, S, N = data.shape
     C = didx.shape[0]
     tensors, strides = stack_operands(didx, sidx, slips, rtf, stf)
-    out = torch.empty((C, T, N), dtype=data.dtype, device=data.device)
-    entry = lib.beat_gf_stack_nearest_f32 if rtf is None else lib.beat_gf_stack_multilinear_f32
+    out = torch.empty((C, T, N), dtype=torch.float32, device=data.device)
+    multilinear, nearest = _ENTRIES[data.dtype]
+    entry = getattr(lib, nearest if rtf is None else multilinear)
     rc = launch(data.device, entry, data.data_ptr(), *(x.data_ptr() for x in tensors),
                 out.data_ptr(), C, T, P, D, S, N, *strides, int(plan.variant == "tiled"),
                 plan.lanes, plan.chunk_shift)
@@ -295,35 +325,42 @@ def stack_batched(data: torch.Tensor, didx: torch.Tensor, sidx: torch.Tensor,
     """K3 (with ``rtf`` and ``stf``) or K4 (without): the all-chain
     kinematic stack.
 
-    data : (T, P, D, S, N) float32, contiguous — the library.
+    data : (T, P, D, S, N) float32 or bfloat16, contiguous — the library.
     didx : (C, P) integer duration indices (ceil index for K3).
     sidx : (C, T, P) integer starttime indices, or (C, 1, P) when every
         target sees the same onsets.
-    slips : (C, P).
+    slips : (C, P) float32 (the library's type for a float64 one on the CPU).
     rtf, stf : floor-cell weights, (C, P) and shaped like ``sidx``.
     Indices are clamped to the grid; the weights are used as given.
     variant : ``None`` lets :func:`plan_stack` choose the kernel variant
         from the shapes; ``"tiled"`` or ``"gather"`` asks for one (the
         two are equal bit for bit).
 
-    Returns (C, T, N).  CPU tensors take the plain version; CUDA tensors
-    launch the kernel, and any failure raises."""
+    Returns (C, T, N) float32 (float64 for a float64 library on the CPU).
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    and any failure raises."""
     _check(data, didx, sidx, slips, rtf, stf)
     if data.device.type == "cpu":
         return stack_batched_reference(data, didx, sidx, slips, rtf, stf)
     if didx.shape[0] == 0 or data.shape[0] == 0 or data.shape[4] == 0:
         return torch.empty((didx.shape[0], data.shape[0], data.shape[4]),
-                           dtype=data.dtype, device=data.device)
+                           dtype=torch.float32, device=data.device)
     T, P, D, S, N = data.shape
     plan = plan_stack(T, P, D, S, N, didx.shape[0], corners=1 if rtf is None else 4,
-                      variant=variant, aligned=data.data_ptr() % 16 == 0)
+                      variant=variant, aligned=data.data_ptr() % 16 == 0,
+                      elem_bytes=data.element_size())
     out = _launch(data, didx, sidx, slips, rtf, stf, plan)
     if rtf is not None:
         stack_batched.launches_multilinear += 1
     else:
         stack_batched.launches_nearest += 1
+    if data.dtype == torch.bfloat16:
+        stack_batched.launches_bf16 += 1
     return out
 
 
+#: K3's and K4's launches; those on a bfloat16 library are counted in
+#: ``launches_bf16`` as well
 stack_batched.launches_multilinear = 0
 stack_batched.launches_nearest = 0
+stack_batched.launches_bf16 = 0

@@ -14,6 +14,13 @@ random walk, ``exp(1.5·(acc − target))`` toward 0.574 for MALA and
 0.651 for HMC); hard prior bounds (out-of-bounds proposals are
 evaluated clipped into the box and then rejected); finite-llk and
 finite-gradient guards; tempered accept ``log u < β·(llk' − llk) + …``.
+``β`` is a scalar or a per-chain (n,) vector (parallel tempering runs
+every replica at its own temperature in one batch); a vector enters the
+random-walk ratio as it is, and MALA's drift and ratio and HMC's kicks
+as an (n, 1) column.  A segmented sampler (parallel tempering) passes its
+global step count as ``step_offset``, so tuning fires every
+``tune_interval`` global steps even when each segment is shorter than the
+interval.
 
 The gradient-based kernels carry ``(state, grad)``: one batched
 value-and-grad per stage start, then one per MALA step and
@@ -112,6 +119,14 @@ def _retuned(state: MetropolisState, step_idx: int, tune_interval: int, target: 
     return state.scaling, state.accepted
 
 
+def _beta_pair(beta, like: torch.Tensor) -> tuple:
+    """``(β, β as a column)`` on ``like``'s device: a scalar twice, or a
+    per-chain (n,) vector and its (n, 1) column, which broadcasts against
+    (n, dim) rows."""
+    beta = torch.as_tensor(beta, dtype=like.dtype, device=like.device)
+    return beta, (beta[:, None] if beta.dim() else beta)
+
+
 def _sigma_dot(x: torch.Tensor, cov_chol: torch.Tensor) -> torch.Tensor:
     """Σ x = L (Lᵀ x) for rows of x."""
     return (x @ cov_chol) @ cov_chol.T
@@ -177,8 +192,9 @@ def mala_step(logp_fn: Callable, state: MetropolisState, grad: torch.Tensor, ste
     if u is None:
         u = torch.rand(n, generator=generator, dtype=DTYPE, device=state.q.device)
 
+    beta, beta_col = _beta_pair(beta, state.q)
     eps = scaling[:, None]
-    half = 0.5 * eps * eps * beta
+    half = 0.5 * eps * eps * beta_col
     mean_fwd = state.q + half * _sigma_dot(grad, cov_chol)
     q_prop = mean_fwd + eps * (xi @ cov_chol.T)
     in_bounds = torch.all((q_prop >= lower) & (q_prop <= upper), dim=-1)
@@ -225,8 +241,9 @@ def hmc_step(logp_fn: Callable, state: MetropolisState, grad: torch.Tensor, step
     def kinetic(p):
         return 0.5 * torch.sum((p @ cov_chol) ** 2, dim=-1)
 
+    beta, beta_col = _beta_pair(beta, state.q)
     eps = scaling[:, None]
-    kick = eps * beta
+    kick = eps * beta_col
     p0 = torch.linalg.solve_triangular(cov_chol.T, xi.T, upper=True).T
     k0 = kinetic(p0)
     # half-kick with the carried gradient, then (drift, kick) × n_leapfrog
@@ -254,12 +271,16 @@ def run_metropolis_stage(logp_fn: Callable, state: MetropolisState, beta,
                          cov_chol: torch.Tensor, lower: torch.Tensor, upper: torch.Tensor,
                          n_steps: int, generator: torch.Generator,
                          proposal_name: str = "MultivariateNormal", tune_interval: int = 100,
-                         record_every: int = 1, logp_args: tuple = (), n_leapfrog: int = 10):
+                         record_every: int = 1, logp_args: tuple = (), n_leapfrog: int = 10,
+                         tune: bool = True, step_offset: int = 0):
     """
-    Advance all chains ``n_steps`` at tempering ``beta`` with the
-    random-walk ``proposal_name``, or the gradient kernel ``"MALA"`` or
-    ``"HMC"`` (``n_leapfrog`` leapfrog steps each).  A gradient kernel
-    re-evaluates the start population's llk with its gradient.
+    Advance all chains ``n_steps`` at tempering ``beta`` (a scalar, or
+    (n,) per chain) with the random-walk ``proposal_name``, or the
+    gradient kernel ``"MALA"`` or ``"HMC"`` (``n_leapfrog`` leapfrog
+    steps each).  A gradient kernel re-evaluates the start population's
+    llk with its gradient.  The scaling retunes at every
+    ``tune_interval``-th global step ``step_offset + i`` (never with
+    ``tune=False``).
 
     Returns the final state and the thinned trace ``(q_trace (n_rec,
     n_chains, dim), llk_trace (n_rec, n_chains))`` on the device: the
@@ -282,14 +303,17 @@ def run_metropolis_stage(logp_fn: Callable, state: MetropolisState, beta,
                          device=dev)
     rec = 0
     for i in range(n_steps):
+        # the steps retune at global indices > 0 that tune_interval divides:
+        # index 0 stands for "no retune" when tuning is off
+        step = step_offset + i if tune else 0
         if proposal_name == "MALA":
-            state, grad = mala_step(logp_fn, state, grad, i, beta, cov_chol, lower, upper,
+            state, grad = mala_step(logp_fn, state, grad, step, beta, cov_chol, lower, upper,
                                     generator, tune_interval, logp_args)
         elif gradient_kernel:
-            state, grad = hmc_step(logp_fn, state, grad, i, beta, cov_chol, lower, upper,
+            state, grad = hmc_step(logp_fn, state, grad, step, beta, cov_chol, lower, upper,
                                    generator, tune_interval, logp_args, n_leapfrog)
         else:
-            state = metropolis_step(logp_fn, state, i, beta, cov_chol, lower, upper,
+            state = metropolis_step(logp_fn, state, step, beta, cov_chol, lower, upper,
                                     generator, tune_interval, logp_args, proposal=proposal)
         if (i + 1) % every == 0 or i + 1 == n_steps:
             q_tr[rec] = state.q

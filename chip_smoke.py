@@ -14,7 +14,9 @@ MALA-SMC, a covariance update and a finite RectangularSource SMC; and
 the kinematic finite-fault inversion (FFI) at the scale of
 ``examples/laquila_scale_ffi.py`` (12 targets × 500 patches × 10
 durations × 32 starttimes × 512 samples: a 3.9 GiB library on the card,
-2000 chains, 1504 dimensions).
+2000 chains, 1504 dimensions), with its options and a bf16 copy of the
+library; the geodetic modes; parallel tempering on the joint seismic +
+geodetic problem; the trans-dimensional sampler on the static FFI.
 
 1. device: name, count, ``nvidia-smi`` name and power limit;
 2. build: every kernel source under ``beat_tpu_torch/csrc/`` (K1, K2,
@@ -142,6 +144,35 @@ durations × 32 starttimes × 512 samples: a 3.9 GiB library on the card,
     static FFI to β = 1 (Mw within 0.05, variance reduction >= 0.9);
     [discretization] the resolution discretization on the card and on
     the host, equal;
+17c. slice 8: [joint_llk] the joint seismic + geodetic problem (BASELINE
+    config 3: the geodetic rectangle's two InSAR scenes and the FullMT
+    stations' waveforms of the same rectangle on 8 × 5 patches, on the
+    FullMT table) at 64 and 2000 chains: the llk equal to its composites'
+    llks evaluated alone (rtol 1e-6), the waveform composite within rtol
+    2e-5 of the plain versions and the InSAR composite within [geo_llk]'s
+    bar of float64 on the host, on 64 chains; [pt_joint]
+    ``Problem.sample(PTParams(...))`` on it (64 replicas, 16 at β = 1,
+    3000 samples, random walk): the ladder, finite llks, the temperature
+    scale moved, the mean edge exchange acceptance in [0.02, 0.98], K1c
+    launched, the median position of the second half of the β = 1 draws
+    within 500 m (depth 1 km) of the truth and the best draw's variance
+    reduction >= 0.9 per scene (after [rect_smc]); [ffi_extras] the
+    Laquila-scale kinematic llk with a station time shift per target, a
+    second wavemap in the ``spectrum`` domain and ``hp_specific``, through
+    K3, against the plain stack as [ffi_llk]; [k3_bf16], [k4_bf16] the
+    bf16 copy of the library (built on the card a target at a time: half
+    the bytes, no third copy), K3 and K4 on it against their plain version
+    on the same copy at phase 13's bar, timed in turns with the float32
+    kernels, within 0.02 · max of the float32 stack and not equal to it;
+    [ffi_llk_bf16] one llk of the FFI flagship on the bf16 library with
+    each interpolation (after [ffi_smc]); [ffi_extras]
+    ``Problem.estimate_hypers`` on the static FFI (after
+    [static_ffi_smc]); [transd_ffi] ``Problem.sample(TransDParams(...))``
+    on the static FFI fault with a two-level slip (1024 chains, 4000
+    steps): the posterior-mean slip's correlation with the truth >= 0.8,
+    mean k below k_max, acceptance in (0, 1), finite llks, the saved stage
+    loading with the per-patch ordering; and the constant-likelihood run
+    of tests/test_transd.py:40, every k level within 0.045 of uniform;
 18. a JSON line of the kernels, then ``{"ok": true, "device": ...}`` last.
 
 Phase 12 and the bench-shape half of 13 run right after phase 4, phase 5
@@ -209,6 +240,24 @@ DISCRETIZATION_PLANE = dict(depth=2e3, strike=135.0, dip=50.0, rake=-90.0, lengt
                             width=12e3)
 DISCRETIZATION_POINTS = 400
 DISCRETIZATION_SPREAD_RTOL = 1e-9
+#: [joint_llk], [pt_joint]: BASELINE config 3
+JOINT_CHECK_CHAINS = 64         # chains of the checks against the plain and float64 evaluations
+JOINT_SUM_RTOL = 1e-6           # the joint llk against its composites' llks evaluated alone
+PT_JOINT = dict(n_chains=64, n_chains_posterior=16, n_samples=3000, swap_interval=(10, 30),
+                tune_interval=100, beta_tune_interval=1500, t_scale=1.2, seed=0)
+PT_PROPOSAL = "MultivariateNormal"
+PT_POS_TOL, PT_DEPTH_TOL = 500.0, 1000.0          # median east/north and depth of the truth
+PT_SWAP_BAND = (0.02, 0.98)                       # mean edge-pair exchange acceptance
+#: [transd_ffi]: the trans-dimensional sampler on the static FFI fault, and
+#: the constant-likelihood run of tests/test_transd.py:40 with its bar
+TRANSD = dict(k_max=20, k_min=1, n_chains=1024, n_steps=4000, record_every=20, seed=0)
+TRANSD_CORR_MIN = 0.8
+TRANSD_PRIOR = dict(k_max=8, k_min=1, n_chains=96, n_steps=4000, record_every=20, seed=1)
+TRANSD_PRIOR_ATOL = 0.045
+#: [k3_bf16], [k4_bf16]: the bf16 stack against the float32 one
+#: (tests/test_gfstack_pallas.py:176-179)
+BF16_LOSS_MAX = 0.02
+ESTIMATE_HYPERS_STEPS, ESTIMATE_HYPERS_CHAINS = 2000, 20      # [ffi_extras], static FFI
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, HBM3
 FP32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
 
@@ -326,7 +375,7 @@ def stack_gate(data, slips, rtf, stf, got, ref) -> float:
     wabs = 1.0
     if rtf is not None:
         wabs = (rtf.abs() + (1 - rtf).abs())[:, None, :] * (stf.abs() + (1 - stf).abs())
-    bar = STACK_RTOL * (slips.abs()[:, None, :] * wabs).sum(-1) * data.abs().max()
+    bar = STACK_RTOL * (slips.abs()[:, None, :] * wabs).sum(-1) * data.abs().max().float()
     return float(((got - ref).abs().amax(-1) / bar).max())
 
 
@@ -353,11 +402,13 @@ def check_stack(lib, durations, starttimes, slips, interpolation: str, iters: in
     sidx, stf = lib.starttimes2idxs(starttimes, interpolation)
     multilinear = rtf is not None
     corners = 4 if multilinear else 1
-    plan = plan_stack(T, P, D, S, N, C, corners, aligned=data.data_ptr() % 16 == 0)
+    plan = plan_stack(T, P, D, S, N, C, corners, aligned=data.data_ptr() % 16 == 0,
+                      elem_bytes=data.element_size())
     variants = [plan.variant]
     try:
         variants.append(plan_stack(T, P, D, S, N, C, corners, variant={
-            "tiled": "gather", "gather": "tiled"}[plan.variant]).variant)
+            "tiled": "gather", "gather": "tiled"}[plan.variant],
+            elem_bytes=data.element_size()).variant)
     except ValueError:          # tiled cannot run at this shape
         pass
 
@@ -391,8 +442,8 @@ def check_stack(lib, durations, starttimes, slips, interpolation: str, iters: in
         touched[((tp * D + (didx.long()[:, None, :] - dd)) * S + (sidx.long() - ss))] = True
     out["cells_read"] = int(touched.sum())
     per_entry = 8 if multilinear else 4          # sidx (+ stf); didx, slips (+ rtf)
-    n_bytes = (out["cells_read"] * N * 4 + sidx.numel() * per_entry + C * P * (per_entry + 4)
-               + C * T * N * 4)
+    n_bytes = (out["cells_read"] * N * data.element_size() + sidx.numel() * per_entry
+               + C * P * (per_entry + 4) + C * T * N * 4)
     out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, 2.0 * corners * C * T * P * N)
     if not (out["worst_err_over_bar"] <= 1.0 and out["variants_equal"]):
         raise SystemExit(f"the {interpolation} GF stack disagrees with its plain version (or its "
@@ -1084,6 +1135,25 @@ def geodetic_phases(dev, workdir: str, k5_launches: dict) -> dict:
         raise SystemExit("[static_ffi_smc] beta not strictly increasing, or non-finite llks")
     if k5_launches["static_ffi_smc"] == 0:
         raise SystemExit("[static_ffi_smc] K5 was never launched")
+
+    # [ffi_extras] the hyper-only posterior of the static FFI (distributer +
+    # Laplacian): Problem.estimate_hypers rewrites both hyperparameters' bounds
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bounds = problem.estimate_hypers(n_steps=ESTIMATE_HYPERS_STEPS,
+                                     n_chains=ESTIMATE_HYPERS_CHAINS)
+    torch.cuda.synchronize()
+    hyper_s = time.perf_counter() - t0
+    finite = all(np.isfinite(lo).all() and np.isfinite(hi).all() and (lo < hi).all()
+                 for lo, hi in bounds.values())
+    out["estimate_hypers"] = r = dict(
+        case="static_ffi_estimate_hypers", steps=ESTIMATE_HYPERS_STEPS,
+        chains=ESTIMATE_HYPERS_CHAINS, seconds=f"{hyper_s:.2f}", finite=finite,
+        bounds=json.dumps({k: [round(float(np.min(lo)), 3), round(float(np.max(hi)), 3)]
+                           for k, (lo, hi) in bounds.items()}))
+    say("ffi_extras", **r)
+    if not (finite and set(bounds) == {"h_SAR", "h_laplacian"}):
+        raise SystemExit(f"[ffi_extras] estimate_hypers on the static FFI: {bounds}")
     del problem, comp, lib
     torch.cuda.empty_cache()
 
@@ -1152,6 +1222,416 @@ def geodetic_phases(dev, workdir: str, k5_launches: dict) -> dict:
     say("discretization", **r)
     if card["patches"] != host["patches"] or spread_rel > DISCRETIZATION_SPREAD_RTOL:
         raise SystemExit(f"[discretization] the card's run differs from the host's: {runs}")
+    return out
+
+
+def joint_phases(dev, table, workdir: str) -> dict:
+    """BASELINE config 3 on the FullMT table: [joint_llk] (the joint llk at
+    64 and 2000 chains, equal to its composites' llks evaluated alone, each
+    composite against its plain or float64 evaluation) and [pt_joint]
+    (parallel tempering to the PT_JOINT settings through
+    ``Problem.sample``).  Returns the phases' results with K1c's launches
+    on each; raises SystemExit at the first gate missed."""
+    import copy
+    import types
+
+    import numpy as np
+    import torch
+
+    from beat_tpu_torch.backend import SampleStage
+    from beat_tpu_torch.device import DTYPE
+    from beat_tpu_torch.flagship import JOINT_REAL_SIZE, build_joint_flagship
+    from beat_tpu_torch.ops.bilgather import (bilinear_contract, bilinear_contract_reference,
+                                              bilinear_rows, bilinear_rows_reference)
+    from beat_tpu_torch.samplers import MetropolisState, PTParams, run_metropolis_stage
+
+    out = {}
+    problem = build_joint_flagship(**JOINT_REAL_SIZE, seed=0, device=dev, table=table,
+                                   outfolder=os.path.join(workdir, "pt_joint"))
+    seis, geo = problem.composites["seismic"], problem.composites["geodetic"]
+    logp, data = problem.make_logp_fn()
+    lo, hi = problem.priors.bounds_arrays()
+    span = hi - lo
+    q_all = torch.as_tensor(np.random.default_rng(7).uniform(
+        lo + 0.01 * span, hi - 0.01 * span, size=(N_CHAINS, lo.size)), dtype=DTYPE, device=dev)
+
+    # [joint_llk] at the PT batch and at the SMC batch
+    for n in (PT_JOINT["n_chains"], N_CHAINS):
+        q = q_all[:n]
+
+        def fwd(x=q):
+            with torch.no_grad():
+                return logp(x, data)
+
+        bilinear_contract.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        llk = fwd()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        launches = bilinear_contract.launches
+        point = problem.ordering.to_point(q)
+        with torch.no_grad():
+            parts = {name: c.loglike(point, d) for (name, c), d in
+                     zip(problem.composites.items(), data)}
+        sum_err = float(((llk - sum(parts.values())).abs() / llk.abs()).max())
+        ms = cuda_ms(fwd, iters=5, warmup=1)
+        calls, kernel_ms, by_name = device_kernels(fwd)
+        r = dict(chains=n, dims=lo.size, k1c_queries=n * queries_per_chain(seis),
+                 points=geo.stack.samples, sum_max_rel_err=f"{sum_err:.3e}", llk_ms=f"{ms:.3f}",
+                 kernel_ms=fmt_ms(ms_or_none(kernel_ms)), calls=calls,
+                 peak_GB=f"{peak:.2f}", k1c_launches=launches,
+                 finite=bool(torch.isfinite(llk).all()),
+                 top=json.dumps([[k[:50], round(v, 4)] for k, v in list(by_name.items())[:5]]))
+        if n == JOINT_CHECK_CHAINS:
+            qc = q[:JOINT_CHECK_CHAINS]
+            pc = problem.ordering.to_point(qc)
+            # the seismic composite through the plain versions of K1 and K1c
+            tbl = seis.tables[0]
+            tbl.rows_fn, tbl.contract_fn = bilinear_rows_reference, bilinear_contract_reference
+            try:
+                with torch.no_grad():
+                    seis_plain = seis.loglike(pc)
+            finally:
+                tbl.rows_fn, tbl.contract_fn = bilinear_rows, bilinear_contract
+            seis_rel = float(((parts["seismic"][:JOINT_CHECK_CHAINS] - seis_plain).abs()
+                              / seis_plain.abs()).max())
+            # the geodetic composite in float64 on the host, at [geo_llk]'s bar
+            ref = copy.deepcopy(geo).to("cpu", torch.float64)
+            p64 = problem.ordering.to_point(qc.double().cpu())
+            with torch.no_grad():
+                geo64 = ref.loglike(p64)
+            scale = llk_scale(types.SimpleNamespace(composites={"geodetic": geo}), p64)
+            geo_worst = float(((parts["geodetic"][:JOINT_CHECK_CHAINS].double().cpu() - geo64)
+                               .abs() / (LLK_RTOL * (geo64.abs() + scale))).max())
+            r.update(seismic_plain_max_rel_err=f"{seis_rel:.3e}",
+                     geodetic_f64_worst_err_over_bar=f"{geo_worst:.3e}")
+            del ref
+        out[f"joint_llk_{n}"] = r
+        say("joint_llk", **r)
+        if not (sum_err <= JOINT_SUM_RTOL and r["finite"] and launches > 0):
+            raise SystemExit(f"[joint_llk] {n} chains: the joint llk is not its composites' sum "
+                             f"({sum_err}), not finite, or K1c was not launched")
+        if n == JOINT_CHECK_CHAINS and not (seis_rel <= LLK_RTOL and geo_worst <= 1.0):
+            raise SystemExit(f"[joint_llk] a composite misses its bar: seismic {seis_rel} "
+                             f"(rtol {LLK_RTOL}), geodetic worst/bar {geo_worst}")
+        del llk, parts
+        torch.cuda.empty_cache()
+    del q_all
+
+    # [pt_joint] parallel tempering on the joint problem
+    params = PTParams(**PT_JOINT, proposal_name=PT_PROPOSAL)
+    bilinear_contract.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    q_tr, llk_tr, history = problem.sample(params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = bilinear_contract.launches
+    n_post = params.n_chains_posterior
+    betas = np.asarray(history["betas"])
+    # the CUDA calls and kernel time of one PT step: a 10-step segment at
+    # the final ladder, from the final population
+    state = SampleStage(problem.outfolder, ordering=problem.ordering).load_state(-1)
+    seg = MetropolisState(
+        q=torch.as_tensor(state["population"], dtype=DTYPE, device=dev),
+        llk=torch.as_tensor(state["likelihoods"], dtype=DTYPE, device=dev),
+        scaling=torch.ones(params.n_chains, dtype=DTYPE, device=dev),
+        accepted=torch.zeros(params.n_chains, dtype=DTYPE, device=dev),
+        acc_total=torch.zeros(params.n_chains, dtype=DTYPE, device=dev))
+    cov_chol = torch.as_tensor(np.linalg.cholesky(state["cov"]), dtype=DTYPE, device=dev)
+    seg_calls, seg_kernel_ms, _ = device_kernels(lambda: run_metropolis_stage(
+        logp, seg, torch.as_tensor(betas, dtype=DTYPE, device=dev), cov_chol,
+        torch.as_tensor(lo, dtype=DTYPE, device=dev), torch.as_tensor(hi, dtype=DTYPE, device=dev),
+        n_steps=10, generator=torch.Generator(device=dev).manual_seed(0), logp_args=(data,)))
+    scales, swaps = history["scale_history"], history["swap_acceptance"]
+    kept = q_tr[q_tr.shape[0] // 2:].reshape(-1, q_tr.shape[-1])
+    median = problem.ordering.to_point(np.median(kept, axis=0))
+    true = problem.true_point
+    pos_err = {k: float(median[k]) - true[k] for k in ("east_shift", "north_shift", "depth")}
+    i_best = np.unravel_index(int(np.argmax(llk_tr)), llk_tr.shape)
+    best = problem.ordering.to_point(q_tr[i_best])
+    vr = geo.get_variance_reductions(best)
+    out["pt_joint"] = r = dict(
+        chains=params.n_chains, posterior_chains=n_post, samples=params.n_samples,
+        proposal=params.proposal_name, dims=problem.ordering.size, draws=q_tr.shape[0],
+        wall_s=f"{wall:.2f}", steps_per_s=f"{q_tr.shape[0] / wall:.1f}",
+        evals_per_s=f"{q_tr.shape[0] * params.n_chains / wall:.0f}", k1c_launches=launches,
+        betas=json.dumps([round(float(b), 5) for b in betas]),
+        t_scale_history=json.dumps([round(float(x), 4) for x in scales]),
+        swap_acceptance=json.dumps([round(float(x), 3) for x in swaps]),
+        swap_acceptance_mean=f"{float(np.mean(swaps)) if len(swaps) else float('nan'):.3f}",
+        position_err_m=json.dumps({k: round(v, 1) for k, v in pos_err.items()}),
+        variance_reduction_best=json.dumps({k: round(float(v), 4) for k, v in vr.items()}),
+        llk_best=f"{float(llk_tr[i_best]):.2f}", stage_betas=state["betas"].shape[0],
+        calls_per_step=f"{seg_calls / 10:.1f}",
+        kernel_ms_per_step=fmt_ms(ms_or_none(seg_kernel_ms / 10)),
+        peak_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    say("pt_joint", **r)
+    if not (np.all(betas[:n_post] == 1.0) and np.all(np.diff(betas[n_post - 1:]) < 0)):
+        raise SystemExit(f"[pt_joint] the ladder is not {n_post} ones and descending: {betas}")
+    if not (np.isfinite(llk_tr).all() and launches > 0):
+        raise SystemExit("[pt_joint] non-finite llks, or K1c was never launched")
+    if not (len(set(scales)) > 1 and len(swaps)
+            and PT_SWAP_BAND[0] <= float(np.mean(swaps)) <= PT_SWAP_BAND[1]):
+        raise SystemExit(f"[pt_joint] the temperature scale never moved ({scales}) or the edge "
+                         f"exchange acceptance {swaps} left {PT_SWAP_BAND}")
+    if not (abs(pos_err["east_shift"]) <= PT_POS_TOL and abs(pos_err["north_shift"]) <= PT_POS_TOL
+            and abs(pos_err["depth"]) <= PT_DEPTH_TOL and min(vr.values()) >= GEO_VR_MIN):
+        raise SystemExit(f"[pt_joint] the posterior misses the rectangle: {pos_err}, "
+                         f"variance reductions {vr}")
+    del problem, seis, geo, logp, data
+    torch.cuda.empty_cache()
+    return out
+
+
+def ffi_extra_phases(dev, problem, workdir: str) -> dict:
+    """The kinematic FFI options and the bf16 library on the Laquila-scale
+    problem ``problem`` (its library and wavemap): [ffi_extras] (the
+    2000-chain llk with a station time shift per target, a second wavemap
+    in the ``spectrum`` domain and a hyperparameter per target, through K3,
+    against the plain stack), [k3_bf16] and [k4_bf16] (K3 and K4 on the
+    bf16 copy of the library, built on the card in target chunks, against
+    the plain version on that copy, beside the float32 kernels in turns)
+    and one llk of the FFI flagship with the bf16 library.  Returns the
+    results; raises SystemExit at the first gate missed."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from beat_tpu_torch.covariance import Covariance
+    from beat_tpu_torch.device import DTYPE
+    from beat_tpu_torch.flagship import ffi_priors
+    from beat_tpu_torch.models.distributer import SeismicDistributerComposite
+    from beat_tpu_torch.models.problem import Problem
+    from beat_tpu_torch.ops.gfstack import stack_batched, stack_batched_reference
+
+    out = {}
+    comp = problem.composites["seismic"]
+    lap = problem.composites["laplacian"]
+    lib = comp.libs[0]["uparr"]
+    wmap = comp.wavemaps[0]
+    sub = comp.fault.get_subfault(0)
+
+    def problem_with(wavemaps_libs, **options):
+        c = SeismicDistributerComposite(wavemaps_libs, comp.fault,
+                                        interpolation=comp.interpolation, device=dev, **options)
+        return Problem(ffi_priors(sub.n_strike, sub.n_dip), {"seismic": c, "laplacian": lap},
+                       device=dev, outfolder=os.path.join(workdir, "ffi_extras"))
+
+    def batch(p, seed):
+        lo, hi = p.priors.bounds_arrays()
+        return torch.as_tensor(np.random.default_rng(seed).uniform(
+            lo, hi, size=(N_CHAINS, lo.size)), dtype=DTYPE, device=dev)
+
+    # [ffi_extras] time shifts on every target, hp_specific, a spectrum wavemap
+    shifted = dataclasses.replace(wmap, station_corrections=True)
+    sd = float(np.sqrt(wmap.datasets[0].covariance.data[0, 0]))
+    nfit = wmap.nsamples_win // 2 + 1
+    spec_sets = [dataclasses.replace(ds, covariance=Covariance(
+        data=np.eye(nfit) * (sd * np.sqrt(wmap.nsamples_win / 2.0)) ** 2))
+        for ds in wmap.datasets]
+    spectrum = dataclasses.replace(wmap, domain="spectrum", mapnumber=1, datasets=spec_sets)
+    xp = problem_with([(shifted, {"uparr": lib}), (spectrum, {"uparr": lib})], hp_specific=True)
+    xcomp = xp.composites["seismic"]
+    xlogp, xdata = xp.make_logp_fn()
+    q = batch(xp, 11)
+    stack_batched.launches_multilinear = 0
+    with torch.no_grad():
+        llk = xlogp(q, xdata)
+    launched = stack_batched.launches_multilinear
+    idx = torch.arange(0, N_CHAINS, max(1, N_CHAINS // FFI_PLAIN_CHAINS),
+                       device=dev)[:FFI_PLAIN_CHAINS]
+    lib.stack_fn = stack_batched_reference
+    try:
+        with torch.no_grad():
+            llk_plain = xlogp(q[idx], xdata)
+    finally:
+        lib.stack_fn = stack_batched
+    # the residual-free part of the llk: residuals of 0
+    pt = xp.ordering.to_point(q[idx])
+    llk0 = xcomp._loglike(pt, [d["data"].expand(len(idx), -1, -1) for d in xdata[0]], xdata[0])
+    llk0 = llk0 + lap.loglike({**pt, "uparr": torch.zeros_like(pt["uparr"])})
+    worst = float(((llk[idx] - llk_plain).abs()
+                   / (LLK_RTOL * (llk_plain.abs() + llk0.abs()))).max())
+
+    def fwd():
+        with torch.no_grad():
+            return xlogp(q, xdata)
+
+    ms = cuda_ms(fwd, iters=3, warmup=1)
+    calls, kernel_ms, by_name = device_kernels(fwd)
+    out["ffi_extras"] = r = dict(
+        case="kinematic", chains=N_CHAINS, dims=xp.ordering.size,
+        time_shifts=len(xcomp.get_hierarchical_names()), hypers=len(xcomp.get_hypernames()),
+        domains=json.dumps([w.domain for w in xcomp.wavemaps]), plain_chains=len(idx),
+        worst_err_over_bar=f"{worst:.3e}", k3_launches=launched, llk_ms=f"{ms:.3f}",
+        kernel_ms=fmt_ms(ms_or_none(kernel_ms)), calls=calls,
+        k3_ms=f"{sum(v for k, v in by_name.items() if 'gf_stack' in k):.4f}",
+        finite=bool(torch.isfinite(llk).all()))
+    say("ffi_extras", **r)
+    if not (worst <= 1.0 and launched > 0 and r["finite"]):
+        raise SystemExit(f"[ffi_extras] the llk with time shifts, a spectrum wavemap and "
+                         f"hp_specific disagrees with the plain stack (worst/bar {worst}), is "
+                         f"not finite, or K3 was not launched")
+    del xp, xcomp, xlogp, xdata, q, llk, llk_plain
+    torch.cuda.empty_cache()
+
+    # [k3_bf16], [k4_bf16]: the bf16 copy, built one target at a time
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    lib16 = lib.to_dtype(torch.bfloat16)
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    convert_extra = torch.cuda.max_memory_allocated() - base
+    bytes32, bytes16 = lib.data.nbytes, lib16.data.nbytes
+    gen = torch.Generator(device=dev).manual_seed(13)
+    real_in = stack_inputs(lib, N_CHAINS, (0.2, 5.5), (-0.5, 9.0), gen)
+    for key, interpolation in (("k3", "multilinear"), ("k4", "nearest_neighbor")):
+        rb = check_stack(lib16, *real_in, interpolation, iters=10)
+        didx, rtf = lib.durations2idxs(real_in[0], interpolation)
+        sidx, stf = lib.starttimes2idxs(real_in[1], interpolation)
+
+        def run(data):
+            return stack_batched(data, didx, sidx, real_in[2], rtf, stf)
+
+        s16, s32 = run(lib16.data), run(lib.data)
+        loss = float((s16 - s32).abs().max() / s32.abs().max())
+        rb["ms"], rb["float32_ms"] = time_in_turns(lambda: run(lib16.data),
+                                                   lambda: run(lib.data), 10)
+        rb.update(loss_vs_float32=loss, library_bytes=bytes16, float32_library_bytes=bytes32,
+                  convert_s=convert_s, convert_extra_GB=convert_extra / 1e9)
+        out[key + "_bf16"] = rb
+        say_stack(key + "_bf16", "real", dict(C=N_CHAINS, T=lib.ntargets, P=lib.npatches,
+                                              D=lib.ndurations, S=lib.nstarttimes,
+                                              N=lib.nsamples), rb,
+                  float32_ms=f"{rb['float32_ms']:.4f}", loss_vs_float32=f"{loss:.3e}",
+                  library_GB=f"{bytes16 / 1e9:.3f}", float32_library_GB=f"{bytes32 / 1e9:.3f}",
+                  convert_s=f"{convert_s:.3f}", convert_extra_GB=f"{convert_extra / 1e9:.3f}")
+        if not (0.0 < loss < BF16_LOSS_MAX and 2 * bytes16 == bytes32
+                and convert_extra <= bytes16 + 2**21):
+            raise SystemExit(f"[{key}_bf16] the bf16 stack is {loss} of max off the float32 "
+                             f"one, or the library is not half the bytes, or its conversion "
+                             f"took {convert_extra} bytes beside the copy")
+        del s16, s32, didx, rtf, sidx, stf
+    del real_in
+    torch.cuda.empty_cache()
+
+    # one llk of the FFI flagship with the bf16 library, with each interpolation
+    logp, data = problem.make_logp_fn()
+    for interpolation, key in (("multilinear", "k3_bf16"), ("nearest_neighbor", "k4_bf16")):
+        c16 = SeismicDistributerComposite([(wmap, {"uparr": lib16})], comp.fault,
+                                          interpolation=interpolation, device=dev)
+        bp = Problem(ffi_priors(sub.n_strike, sub.n_dip), {"seismic": c16, "laplacian": lap},
+                     device=dev, outfolder=os.path.join(workdir, "ffi_bf16"))
+        blogp, bdata = bp.make_logp_fn()
+        q = batch(bp, 4)
+        stack_batched.launches_bf16 = 0
+        with torch.no_grad():
+            llk16 = blogp(q, bdata)
+        launched16 = stack_batched.launches_bf16
+        r = dict(interpolation=interpolation, chains=N_CHAINS, bf16_launches=launched16,
+                 finite=bool(torch.isfinite(llk16).all()),
+                 llk_ms=f"{cuda_ms(lambda: blogp(q, bdata), iters=3, warmup=1):.3f}")
+        if interpolation == comp.interpolation:
+            with torch.no_grad():
+                llk32 = logp(q, data)
+            r.update(max_abs_diff_vs_float32=f"{float((llk16 - llk32).abs().max()):.3e}",
+                     median_abs_llk=f"{float(llk32.abs().median()):.3e}")
+        out[f"ffi_llk_bf16_{interpolation}"] = r
+        say("ffi_llk_bf16", **r)
+        if not (r["finite"] and launched16 > 0):
+            raise SystemExit(f"[ffi_llk_bf16] {interpolation}: non-finite llks, or the kernel "
+                             f"on the bf16 library never ran")
+        out[key]["launches"] = launched16
+        del bp, c16, blogp, bdata, q, llk16
+    del lib16
+    torch.cuda.empty_cache()
+    return out
+
+
+def transd_phases(dev, workdir: str) -> dict:
+    """[transd_ffi]: (a) ``Problem.sample(TransDParams(**TRANSD))`` on the
+    static FFI fault with a two-level slip (``build_transd_flagship``),
+    (b) the constant-likelihood run of tests/test_transd.py:40 on the
+    card.  Returns the results; raises SystemExit at the first gate
+    missed."""
+    import numpy as np
+    import torch
+
+    from beat_tpu_torch.backend import SampleStage
+    from beat_tpu_torch.ffi.transd import TransDParams, transd_sample
+    from beat_tpu_torch.flagship import STATIC_FFI_REAL_SIZE, build_transd_flagship
+    from beat_tpu_torch.models.distributer import transd_sample_ffi
+    from beat_tpu_torch.utility import Ordering
+
+    out = {}
+    problem = build_transd_flagship(**STATIC_FFI_REAL_SIZE, seed=0, device=dev,
+                                    outfolder=os.path.join(workdir, "transd"))
+    comp = problem.composites["geodetic"]
+    params = TransDParams(**TRANSD)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = problem.sample(params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = comp.fault.npatches
+    mean_slip = res["slip_trace"].reshape(-1, n).mean(axis=0)
+    true = problem.true_point["uparr"]
+    corr = float(np.corrcoef(mean_slip, true)[0, 1])
+    k_mean = float(res["k_trace"].mean())
+    trace = SampleStage(problem.outfolder,
+                        ordering=Ordering([("uparr", (n,))])).load_trace(-1)
+    calls, kernel_ms, _ = device_kernels(
+        lambda: comp.loglike({"uparr": torch.as_tensor(res["slip_trace"][-1], device=dev)}))
+    # the CUDA calls and kernel time of a step: 20 steps, the start's llk and one record
+    step_calls, step_kernel_ms, _ = device_kernels(lambda: transd_sample_ffi(
+        comp, TransDParams(**dict(TRANSD, n_steps=20, record_every=20))))
+    out["transd_ffi"] = r = dict(
+        case="static_ffi", chains=params.n_chains, steps=params.n_steps, patches=n,
+        points=comp.stack.samples, k_max=params.k_max, wall_s=f"{wall:.2f}",
+        ms_per_step=f"{1e3 * wall / params.n_steps:.3f}", correlation=f"{corr:.4f}",
+        k_mean=f"{k_mean:.2f}", accept_rate=f"{res['accept_rate']:.4f}",
+        finite=bool(np.isfinite(res["llk_trace"]).all()),
+        slip_trace_MB=f"{res['slip_trace'].nbytes / 1e6:.1f}",
+        stage_trace=json.dumps(list(trace.q_trace.shape)), llk_calls=calls,
+        llk_kernel_ms=fmt_ms(ms_or_none(kernel_ms)), calls_per_step=f"{step_calls / 20:.1f}",
+        kernel_ms_per_step=fmt_ms(ms_or_none(step_kernel_ms / 20)),
+        peak_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    say("transd_ffi", **r)
+    if not (corr >= TRANSD_CORR_MIN and k_mean < params.k_max and 0.0 < res["accept_rate"] < 1.0
+            and r["finite"] and trace.q_trace.shape == res["slip_trace"].shape):
+        raise SystemExit(f"[transd_ffi] correlation {corr}, mean k {k_mean}, acceptance "
+                         f"{res['accept_rate']} or the saved stage misses")
+    del problem, comp, res
+    torch.cuda.empty_cache()
+
+    prior = TransDParams(**TRANSD_PRIOR)
+    t0 = time.perf_counter()
+    res = transd_sample(lambda slips: torch.zeros(slips.shape[0], device=dev),
+                        patch_s=np.linspace(0, 10, 12), patch_d=np.linspace(0, 4, 12),
+                        extent_s=(0, 10), extent_d=(0, 4), value_bounds=(0, 1), params=prior,
+                        device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    freqs = np.bincount(res["k_trace"].ravel().astype(int),
+                        minlength=prior.k_max + 1)[prior.k_min:]
+    freqs = freqs / freqs.sum()
+    dev_uniform = float(np.abs(freqs - 1.0 / len(freqs)).max())
+    out["transd_prior"] = r = dict(
+        case="constant_likelihood", chains=prior.n_chains, steps=prior.n_steps,
+        wall_s=f"{wall:.2f}", k_freqs=json.dumps([round(float(f), 4) for f in freqs]),
+        max_dev_from_uniform=f"{dev_uniform:.4f}", accept_rate=f"{res['accept_rate']:.4f}")
+    say("transd_ffi", **r)
+    if not dev_uniform <= TRANSD_PRIOR_ATOL:
+        raise SystemExit(f"[transd_ffi] the constant-likelihood run misses the uniform prior on "
+                         f"k: {freqs}")
     return out
 
 
@@ -1935,6 +2415,9 @@ def main() -> int:
     del rect, rcomp, rlogp, rdata, rstates
     torch.cuda.empty_cache()
 
+    # 11f. [joint_llk], [pt_joint]: the joint seismic + geodetic problem on the same table
+    joint = joint_phases(dev, table, workdir.name)
+
 
     # the FullMT problem is done: free its table before the FFI library
     del problem, comp, table, tbl, logp, data, state, cov_chol, lo, hi
@@ -2113,6 +2596,9 @@ def main() -> int:
         raise SystemExit("FFI SMC: beta not strictly increasing, or non-finite llks")
     if ffi_launches == 0 or k5_launches["ffi_smc"] == 0:
         raise SystemExit("the FFI SMC run never launched K3 (or K5, its resampling gather)")
+
+    # 16b. [ffi_extras], [k3_bf16], [k4_bf16] on the same library and wavemap
+    extras = ffi_extra_phases(dev, problem, workdir.name)
     del problem, comp, lib, logp, data
     torch.cuda.empty_cache()
 
@@ -2129,6 +2615,7 @@ def main() -> int:
     if recover["multilinear"]["launches"][0] == 0 or k4_launches == 0:
         raise SystemExit("the small FFI runs never launched K3 (multilinear) or K4 (nearest)")
     geodetic_phases(dev, workdir.name, k5_launches)
+    transd_phases(dev, workdir.name)
     workdir.cleanup()
 
     # 18. results: launches from each kernel's main path (SMC for K1 and
@@ -2149,6 +2636,15 @@ def main() -> int:
     def by_path(key):
         return {path: counts[key] for path, counts in paths.items()}
 
+    def bf16_entry(r):
+        """K3's or K4's run on the bf16 library: ``previous_ms`` is the
+        float32 kernel's time, in turns with it."""
+        return {"launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": None, "previous_ms": r["float32_ms"], "variant": r["variant"],
+                "worst_err_over_bar": r["worst_err_over_bar"],
+                "loss_vs_float32": r["loss_vs_float32"], "library_bytes": r["library_bytes"]}
+
     def contract_entry(key, name, replaces, launches):
         main, rnd = contract["main_path"], contract["random"]
         r = main[key]
@@ -2162,6 +2658,9 @@ def main() -> int:
 
     k1c_entry = contract_entry("k1c", "bilinear_contract", "beat_tpu/ops/bilgather.py:47",
                                smc_launches["k1c_launches"])
+    k1c_entry["launches_by_path"].update(
+        joint_llk=joint[f"joint_llk_{N_CHAINS}"]["k1c_launches"],
+        pt_joint=joint["pt_joint"]["k1c_launches"])
     k1c_entry["finite_layouts"] = {k: {f: v for f, v in r.items() if f != "shape"}
                                    for k, r in layouts.items()}
     k1c_entry["finite_layout_kept"] = kept
@@ -2187,9 +2686,10 @@ def main() -> int:
          "bound_ms": real["k3"]["bound_ms"], "bound_by": real["k3"]["bound_by"],
          "library_ms": None, "variant": real["k3"]["variant"],
          "previous_ms": real["k3"]["previous_ms"], "shared_onsets": shared,
-         "bench_shape": bench["k3"],
+         "bench_shape": bench["k3"], "bf16": bf16_entry(extras["k3_bf16"]),
          "launches_by_path": {"ffi_smc": ffi_launches,
-                              "ffi_recover": recover["multilinear"]["launches"][0]}},
+                              "ffi_recover": recover["multilinear"]["launches"][0],
+                              "ffi_llk_bf16": extras["k3_bf16"]["launches"]}},
         {"name": "gf_stack_nearest", "route": "cuda",
          "source": "beat_tpu_torch/csrc/gfstack.cu", "replaces": "beat_tpu/ops/gfstack.py:218",
          "launches": k4_launches, "max_abs_err": real["k4"]["max_abs_err"],
@@ -2197,6 +2697,7 @@ def main() -> int:
          "bound_ms": real["k4"]["bound_ms"], "bound_by": real["k4"]["bound_by"],
          "library_ms": None, "variant": real["k4"]["variant"],
          "previous_ms": real["k4"]["previous_ms"], "bench_shape": bench["k4"],
+         "bf16": bf16_entry(extras["k4_bf16"]),
          "launches_by_path": {"ffi_recover_nearest_neighbor": k4_launches}},
         {"name": "gather_rows", "route": "cuda", "source": "beat_tpu_torch/csrc/rowgather.cu",
          "replaces": "beat_tpu/ops/rowgather.py:34", "launches": k5_launches["ffi_smc"],

@@ -274,9 +274,10 @@ def test_what_waits_raises_naming_the_roadmap():
         np.zeros((4, 8, 2, 2, pwmap.nsamples_win), np.float32), 0.5, 0.5, 0.0, 0.25,
         device="cpu")
     pwmap.datasets[0].covariance = Covariance(data=np.eye(pwmap.nsamples_win))
+    # what still waits: a gradient through the stack (the JAX op has none)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SeismicDistributerComposite([(pwmap, {"uparr": lib})], pfault, hp_specific=True,
-                                    device="cpu")
+        lib.stack_all(torch.ones(1, 8), torch.ones(1, 4, 8),
+                      torch.ones(1, 8, requires_grad=True), "multilinear")
     with pytest.raises(ValueError, match="library"):
         SeismicDistributerComposite([(pwmap, {"uparr": lib})],
                                     pffi.discretize_sources(

@@ -7,9 +7,12 @@ rectangle's patches as (C, K, T) and (K, C, T), a ring), the
 log-likelihoods and the gradient through the kernels against the same
 through the plain versions, and Hessians whose double backward launches
 the kernels (K1 and K2; K1c and K2c, the Laplace Hessian of the
-forward); and the geodetic slice's plain-torch forwards, static table
+forward); the geodetic slice's plain-torch forwards, static table
 and library build and its llk and gradient on the card against float64
-on the host.  They skip without a card; run them on one with
+on the host; K3 and K4 on a bfloat16 library against their plain
+version on it, and parallel tempering's exchange step and the
+trans-dimensional sampler's masked nearest-node slips on the card
+against the CPU.  They skip without a card; run them on one with
 
     python -m pytest tests -m gpu -q
 """
@@ -656,3 +659,76 @@ def test_geodetic_llk_and_grad_on_card_match_float64_host(cuda, source):
     bar = LLK_RTOL * (llk64.abs().numpy() + scale)
     assert (np.abs(llk.double().cpu().numpy() - llk64.numpy()) <= bar).all()
     assert_grad_close(grad.double().cpu().numpy(), grad64.numpy(), GRAD_RTOL, GRAD_RTOL)
+
+
+# -- the samplers' plain-torch steps and the bf16 library (slice 8) ------------------
+
+
+@pytest.mark.parametrize("variant", [None, "tiled", "gather"])
+@pytest.mark.parametrize("interpolation", ["multilinear", "nearest_neighbor"])
+@pytest.mark.parametrize("C,T,P,D,S,N", [
+    (37, 3, 11, 4, 9, 64),         # ragged chain tile, N = 64: one bf16 n tile
+    (600, 2, 9, 20, 32, 64),       # D·S = 640: the wide n tile fits in bf16
+    (2000, 4, 40, 10, 32, 512),    # the Laquila rows, N = 512
+    (5, 2, 33, 2, 2, 102)])        # N % 4 != 0: gather only, scalar loads
+def test_k3_k4_bf16_match_plain(cuda, interpolation, variant, C, T, P, D, S, N):
+    """K3 and K4 on a bfloat16 library against the plain version on the
+    same bf16 tensor (its rows widened to float32), both variants equal."""
+    gen = torch.Generator(device=cuda).manual_seed(C + N + 1)
+    lib = SeismicGFLibrary(torch.randn((T, P, D, S, N), generator=gen, device=cuda),
+                           duration_min=0.5, duration_sampling=0.5, starttime_min=0.0,
+                           starttime_sampling=0.25, device=cuda, dtype=torch.bfloat16)
+
+    def uniform(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=cuda)
+
+    durations = uniform((C, P), 0.0, 0.5 * (D + 1))
+    starttimes = uniform((C, T, P), -0.5, 0.25 * (S + 2))
+    slips = uniform((C, P), 0.0, 3.0)
+    didx, rtf = lib.durations2idxs(durations, interpolation)
+    sidx, stf = lib.starttimes2idxs(starttimes, interpolation)
+    if variant == "tiled" and N % 4 != 0:
+        with pytest.raises(ValueError, match="16-byte"):
+            stack_batched(lib.data, didx, sidx, slips, rtf, stf, variant=variant)
+        return
+    before = stack_batched.launches_bf16
+    got = stack_batched(lib.data, didx, sidx, slips, rtf, stf, variant=variant)
+    torch.cuda.synchronize()
+    assert stack_batched.launches_bf16 == before + 1 and got.dtype == torch.float32
+    ref = stack_batched_reference(lib.data, didx, sidx, slips, rtf, stf)
+    wabs = 1.0
+    if rtf is not None:
+        wabs = (rtf.abs() + (1 - rtf).abs())[:, None, :] * (stf.abs() + (1 - stf).abs())
+    bar = STACK_RTOL * (slips.abs()[:, None, :] * wabs).sum(-1) * lib.data.float().abs().max()
+    assert bool(((got - ref).abs().amax(-1) <= bar).all())
+    assert torch.equal(got, stack_batched(lib.data, didx, sidx, slips, rtf, stf,
+                                          variant="gather"))
+
+
+def test_swap_on_card_matches_cpu(cuda):
+    from beat_tpu_torch.samplers import make_betas, swap_step
+
+    rng = np.random.default_rng(0)
+    for n, parity in ((64, 0), (64, 1), (7, 1)):
+        q = torch.as_tensor(rng.normal(size=(n, 23)), dtype=torch.float32)
+        llk = torch.as_tensor(rng.normal(size=n) * 3.0, dtype=torch.float32)
+        betas = torch.as_tensor(make_betas(n, 2, 1.2), dtype=torch.float32)
+        log_u = torch.log(torch.as_tensor(rng.uniform(size=n), dtype=torch.float32))
+        want = swap_step(q, llk, betas, log_u, parity)
+        got = swap_step(q.to(cuda), llk.to(cuda), betas.to(cuda), log_u.to(cuda), parity)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+def test_masked_voronoi_slips_on_card_equal_cpu(cuda):
+    from beat_tpu_torch.ffi.transd import masked_voronoi_slips
+
+    rng = np.random.default_rng(1)
+    C, K, N = 1024, 20, 500
+    args = [torch.as_tensor(x, dtype=torch.float32) for x in (
+        rng.uniform(0, 100e3, (C, K)), rng.uniform(0, 20e3, (C, K)), rng.uniform(0, 2, (C, K)),
+        rng.uniform(size=(C, K)) < 0.5, rng.uniform(0, 100e3, N), rng.uniform(0, 20e3, N))]
+    args[3][:, 0] = 1.0
+    want = masked_voronoi_slips(*args)
+    got = masked_voronoi_slips(*(a.to(cuda) for a in args))
+    assert torch.equal(got.cpu(), want)

@@ -44,6 +44,18 @@ static = build_static_ffi_flagship(**STATIC_FFI_TEST_SIZE, device="cpu",
                                    outfolder=sys.argv[1] + "_static")
 q_tr, llk_tr = static.sample(SMCParams(n_chains=16, n_steps=2, seed=0))
 assert q_tr.shape[1:] == (16, static.ordering.size), q_tr.shape
+from beat_tpu_torch.flagship import (JOINT_TEST_SIZE, build_joint_flagship,
+                                     build_transd_flagship)
+from beat_tpu_torch.ffi.transd import TransDParams
+from beat_tpu_torch.samplers import PTParams
+joint = build_joint_flagship(**JOINT_TEST_SIZE, device="cpu", outfolder=sys.argv[1] + "_joint")
+q_tr, llk_tr, history = joint.sample(PTParams(n_chains=4, n_chains_posterior=2, n_samples=20,
+                                              swap_interval=(10, 10)))
+assert q_tr.shape == (20, 2, joint.ordering.size), q_tr.shape
+transd = build_transd_flagship(**STATIC_FFI_TEST_SIZE, device="cpu",
+                               outfolder=sys.argv[1] + "_transd")
+out = transd.sample(TransDParams(k_max=4, n_chains=8, n_steps=20, record_every=5))
+assert out["slip_trace"].shape == (2, 8, 8), out["slip_trace"].shape
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
 jax_package = sorted(m for m in sys.modules if m == "beat_tpu" or m.startswith("beat_tpu."))
 assert not jax_package, jax_package
@@ -76,12 +88,15 @@ FFI_MODULES = ("ffi/fault.py", "ffi/gflibrary.py", "ffi/laplacian.py", "ops/eiko
 #: the modules of the geodetic slice, which the scan must reach too
 GEO_MODULES = ("heart/geodesy.py", "heart/okada.py", "heart/corrections.py",
                "heart/statictable.py", "models/geodetic.py", "ffi/discretization.py")
+#: the samplers of parallel tempering and of the trans-dimensional FFI
+SAMPLER_MODULES = ("samplers/pt.py", "ops/voronoi.py", "ffi/transd.py")
 
 
 def _importers(pattern: str) -> list:
     regex = re.compile(pattern, re.MULTILINE)
     scanned = {str(f.relative_to(REPO / "beat_tpu_torch")) for f in PORT_FILES[:-1]}
-    assert len(PORT_FILES) > 10 and scanned.issuperset(FFI_MODULES + GEO_MODULES)
+    assert len(PORT_FILES) > 10 and scanned.issuperset(FFI_MODULES + GEO_MODULES
+                                                       + SAMPLER_MODULES)
     return [str(f.relative_to(REPO)) for f in PORT_FILES if regex.search(f.read_text())]
 
 
