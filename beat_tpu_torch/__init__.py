@@ -31,7 +31,10 @@ finite-fault inversion — fault discretization, the 5-D GF library built
 on the device, batched eikonal onsets, the library stack (kernels K3 and
 K4, ``csrc/gfstack.cu``), the distributer and Laplacian composites under
 the random-walk SMC.  Kernel K5 (``csrc/rowgather.cu``), the plain row
-gather, resamples the SMC population on the device.
+gather, resamples the SMC population on the device.  Slice 9 adds
+first-motion polarities (per-draw takeoffs from a table the host ray
+tracer fills) and bem mode (``bem/``: meshes on the host, the
+triangular-dislocation matrices and the solve in float64 on the device).
 """
 
 from beat_tpu_torch import device  # noqa: F401  (TF32 off at import)

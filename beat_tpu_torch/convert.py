@@ -1,8 +1,9 @@
 """
 State carried across from the JAX package: build the port's objects
 from numpy arrays of ``beat_tpu``'s, or from its host objects read by
-attribute (source templates, wavemaps and their options), so both
-packages compute the same thing on the same inputs.  Nothing here
+attribute (source templates, wavemaps and their options, BEM sources,
+boundary conditions and engine settings), so both packages compute the
+same thing on the same inputs.  Nothing here
 imports ``jax`` or ``beat_tpu``; callers pass ``jax.device_get``
 results and the JAX package's objects.
 """
@@ -165,3 +166,49 @@ def geodetic_gflibrary_from_numpy(gfs: dict, component_names=None, *,
     ``{component: (npatches, nsamples)}`` matrices."""
     return GeodeticGFLibrary({c: np.array(g, dtype=np.float32) for c, g in gfs.items()},
                              component_names=component_names, device=device)
+
+
+def polarity_targets_from_numpy(stations, azimuths_rad, takeoffs_rad, polarities,
+                                distances_m=None) -> list:
+    """Port :class:`~beat_tpu_torch.heart.polarity.PolarityTarget`\\ s
+    from the arrays of a JAX package polarity map's targets."""
+    from beat_tpu_torch.heart.polarity import PolarityTarget
+
+    n = len(stations)
+    dists = [None] * n if distances_m is None else [float(d) for d in distances_m]
+    return [PolarityTarget(station=str(stations[i]), azimuth_rad=float(azimuths_rad[i]),
+                           takeoff_rad=float(takeoffs_rad[i]), polarity=int(polarities[i]),
+                           distance_m=dists[i]) for i in range(n)]
+
+
+def takeoff_table_from_numpy(depth_grid, dist_grid, angles_rad, *, device):
+    """A port :class:`~beat_tpu_torch.heart.polarity.TakeoffTable` from a
+    JAX takeoff table's grids and angles."""
+    from beat_tpu_torch.heart.polarity import TakeoffTable
+
+    return TakeoffTable.from_numpy(np.asarray(depth_grid), np.asarray(dist_grid),
+                                   np.asarray(angles_rad), device=device)
+
+
+def bem_source_from_jax(src):
+    """The port BEM source of a JAX package BEM source (same class name,
+    dataclass fields read by attribute)."""
+    from beat_tpu_torch.bem.sources import source_catalog as bem_sources
+
+    cls = bem_sources[type(src).__name__]
+    return cls(**{f.name: getattr(src, f.name) for f in dataclasses.fields(cls)})
+
+
+def bem_engine_from_jax(engine, *, device):
+    """A port :class:`~beat_tpu_torch.bem.base.BEMEngine` with a JAX
+    engine's boundary conditions and settings."""
+    from beat_tpu_torch.bem.base import BEMEngine, BoundaryCondition
+
+    bcs = [BoundaryCondition(**{f.name: getattr(bc, f.name)
+                                for f in dataclasses.fields(BoundaryCondition)})
+           for bc in engine.boundary_conditions]
+    return BEMEngine(bcs, mesh_size=engine.mesh_size, poissons_ratio=engine.nu,
+                     shear_modulus=engine.mu,
+                     check_mesh_intersection=engine.check_mesh_intersection,
+                     medium=engine.medium, quadrature_level=engine.quadrature_level,
+                     near_quadrature_level=engine.near_quadrature_level, device=device)

@@ -46,6 +46,20 @@ def hyper_normal(residuals_fixed, slog_pdets, hyperparams, nsamples) -> torch.Te
     return -0.5 * (slog_pdets + norm + torch.exp(-2.0 * hyperparams) * residuals_fixed)
 
 
+def cumulative_normal(x, s=math.sqrt(2.0)) -> torch.Tensor:
+    return 0.5 + 0.5 * torch.special.erf(x / s)
+
+
+def polarity_llk(obs_polarities, syn_amplitudes, gamma, sigma) -> torch.Tensor:
+    """First-motion polarity log-likelihood per observation (Weber 2018
+    GJI eq. 6-7): ``obs`` in {-1, +1}, ``gamma`` the probability of a
+    wrong reading, ``sigma`` the amplitude noise scale."""
+    p_i = gamma + (1.0 - 2.0 * gamma) * cumulative_normal(syn_amplitudes / sigma)
+    p_i = torch.clamp(p_i, 1e-12, 1.0 - 1e-12)
+    return (((1.0 + obs_polarities) / 2.0) * torch.log(p_i)
+            + ((1.0 - obs_polarities) / 2.0) * torch.log(1.0 - p_i))
+
+
 def uniform_prior_logp(q, lower, upper) -> torch.Tensor:
     """Flat-box prior: 0 inside the bounds, -inf outside (only finiteness
     matters for the Metropolis accept)."""

@@ -742,3 +742,150 @@ def build_joint_flagship(n_stations: int, n_distances: int, n_depths: int, nt: i
                               **{h: 0.0 for h in seis.get_hypernames()})
     problem.observations = (st_e, st_n, raw)
     return problem
+
+
+# ---------------------------------------------------------------------------
+# First-motion polarities joint with the FullMT waveforms
+# ---------------------------------------------------------------------------
+# The FullMT problem plus two polarity maps: P first motions at
+# ``n_polarity_p`` stations and SH at ``n_polarity_sh``, over the table's
+# distance range and all azimuths, noise-free from the true double couple
+# at the true depth; takeoffs from the default crust through one
+# (depth × distance) table per phase, so every chain's sampled depth moves
+# its ray geometry.
+
+POLARITY_REAL_SIZE = dict(REAL_SIZE, n_polarity_p=60, n_polarity_sh=20, takeoff_depths=33,
+                          takeoff_distances=64)
+POLARITY_TEST_SIZE = dict(TEST_SIZE, n_polarity_p=12, n_polarity_sh=6, takeoff_depths=9,
+                          takeoff_distances=16)
+#: polarity map name: (ray phase, radiation pattern's phase)
+POLARITY_MAPS = {"any_P": "p", "any_SH": "s"}
+
+
+def polarity_targets(n_stations: int, phase: str, wavename: str, model,
+                     rng: np.random.Generator) -> tuple:
+    """``(targets, true amplitudes)`` of ``n_stations`` stations over
+    DISTANCE_RANGE and all azimuths: the first motions of the true double
+    couple at TRUE_DEPTH (takeoffs from the host ray tracer, float64)."""
+    from beat_tpu_torch.heart.polarity import PolarityTarget, radiation_weights, takeoff_vector
+    from beat_tpu_torch.heart.velocity_model import takeoff_angles
+
+    dist = rng.uniform(*DISTANCE_RANGE, n_stations)
+    az = rng.uniform(0.0, 2 * np.pi, n_stations)
+    to = takeoff_angles(model, TRUE_DEPTH, dist, phase)
+    az64, to64 = torch.as_tensor(az), torch.as_tensor(to)
+    w = radiation_weights(wavename, takeoff_vector(az64, to64), az64, to64)
+    amps = (w @ sdr_to_m6(*TRUE_SDR, 1.0).double()).numpy()
+    targets = [PolarityTarget(station=f"{wavename}{i:02d}", azimuth_rad=float(az[i]),
+                              takeoff_rad=float(to[i]), polarity=int(np.sign(amps[i])),
+                              distance_m=float(dist[i]))
+               for i in range(n_stations)]
+    return targets, amps
+
+
+def build_polarity_flagship(n_stations: int, n_distances: int, n_depths: int, nt: int,
+                            n_polarity_p: int, n_polarity_sh: int, takeoff_depths: int,
+                            takeoff_distances: int, seed: int = 0, *, device,
+                            outfolder: str = "polarity_run", table=None) -> Problem:
+    """The FullMT Problem (:func:`build_flagship`) with a polarity
+    composite beside the waveforms: maps ``any_P`` and ``any_SH``
+    (hyperparameters ``h_any_P_pol_0``, ``h_any_SH_pol_1``) with per-draw
+    takeoffs from :class:`~beat_tpu_torch.heart.polarity.TakeoffTable`\\ s
+    of ``takeoff_depths`` × ``takeoff_distances`` nodes over the GF
+    table's depth and distance ranges.  ``problem.polarity_amplitudes``
+    holds each map's true radiation amplitudes."""
+    from beat_tpu_torch.heart.polarity import build_takeoff_table
+    from beat_tpu_torch.heart.velocity_model import LayeredModel
+    from beat_tpu_torch.models.polarity import PolarityComposite, PolarityMapping
+
+    dev = resolve(device)
+    seis = build_flagship(n_stations, n_distances, n_depths, nt, seed, device=dev,
+                          outfolder=outfolder, table=table)
+    rng = np.random.default_rng(seed + 2)
+    model = LayeredModel.default_crust()
+    maps, amplitudes = [], {}
+    for i, ((wavename, phase), n) in enumerate(zip(POLARITY_MAPS.items(),
+                                                   (n_polarity_p, n_polarity_sh))):
+        targets, amplitudes[wavename] = polarity_targets(n, phase, wavename, model, rng)
+        takeoffs = build_takeoff_table(model, np.linspace(*DEPTH_RANGE, takeoff_depths),
+                                       np.linspace(*DISTANCE_RANGE, takeoff_distances),
+                                       phase, device=dev)
+        maps.append(PolarityMapping(wavename, targets, mapnumber=i, takeoff_table=takeoffs,
+                                    device=dev))
+    comp = seis.composites["seismic"]
+    pol = PolarityComposite(sources=comp.sources, maps=maps, device=dev)
+    problem = Problem(seis.source_priors, {"seismic": comp, "polarity": pol}, device=dev,
+                      outfolder=outfolder)
+    problem.observations = seis.observations
+    problem.polarity_amplitudes = amplitudes
+    return problem
+
+
+# ---------------------------------------------------------------------------
+# BEM: a pressurized sill under the geodetic problem's scenes
+# ---------------------------------------------------------------------------
+# The disk of ``examples/bem_dike.py`` (1 km radius, 3 km deep, 20 MPa of
+# normal traction) in a half space, seen by the geodetic flagship's two
+# InSAR scenes (Envisat-like geometry, quadtree-like density around the
+# source, full exponential covariances and a draw of that noise).  The
+# linear problem fixes the geometry and samples the traction; the geometry
+# problem samples the depth as well, at the engine's cheaper sampling
+# levels.
+
+BEM_REAL_SIZE = dict(n_points=1500, mesh_size=100.0, quadrature_level=2,
+                     near_quadrature_level=6)
+BEM_GEOMETRY_REAL_SIZE = dict(n_points=1500, mesh_size=300.0, quadrature_level=1,
+                              near_quadrature_level=5)
+BEM_TEST_SIZE = dict(n_points=300, mesh_size=1000.0, quadrature_level=1,
+                     near_quadrature_level=3)
+BEM_SOURCE = dict(depth=3e3, a_half_axis=1e3)
+BEM_TRUE_TRACTION = 20.0                         # [MPa]
+BEM_PRIORS = dict(normal_traction=(1.0, 60.0), depth=(1.5e3, 6e3))
+
+
+def build_bem_flagship(n_points: int, mesh_size: float, quadrature_level: int,
+                       near_quadrature_level: int, seed: int = 0, *, device,
+                       geometry: bool = False, outfolder: str = "bem_run") -> Problem:
+    """The BEM Problem, every matrix in float64 on ``device``: with
+    ``geometry=False`` the :class:`GeodeticBEMLinearComposite` of the true
+    disk, sampling ``normal_traction``; with ``geometry=True`` the
+    :class:`GeodeticBEMComposite`, sampling ``depth`` as well.  The data
+    are the two scenes' LOS of the true disk (BEM_SOURCE, BEM_TRUE_TRACTION)
+    at the engine's levels plus correlated noise.  ``problem.true_point``
+    holds the parameters behind the data."""
+    from beat_tpu_torch.bem import BEMEngine, BoundaryCondition, DiskBEMSource
+    from beat_tpu_torch.models.bem import (GeodeticBEMComposite, GeodeticBEMLinearComposite,
+                                           unit_los_responses)
+
+    dev = resolve(device)
+    rng = np.random.default_rng(seed)
+    engine = BEMEngine([BoundaryCondition("normal", [0], [0], traction=BEM_TRUE_TRACTION)],
+                       mesh_size=mesh_size, quadrature_level=quadrature_level,
+                       near_quadrature_level=near_quadrature_level, device=dev)
+    coords = {name: scatter_points(n_points, rng, GEO_HALF_BOX, GEO_HALF_BOX)
+              for name in GEO_SCENES}
+    # zero-signal scenes first (the noise draw), then the LOS of the truth
+    datasets = insar_scenes(coords, lambda c: np.zeros((len(c), 3)), rng)
+    stack_coords = np.concatenate([ds.coords for ds in datasets])
+    stack_los = np.concatenate([ds.los_vector for ds in datasets])
+    truth = [DiskBEMSource(**BEM_SOURCE)]
+    unit_los = unit_los_responses(engine, truth, stack_coords, stack_los)
+    signal = (unit_los[:, 0] * BEM_TRUE_TRACTION).cpu().numpy()
+    start = 0
+    for ds in datasets:
+        ds.displacement = ds.displacement + signal[start:start + ds.samples]
+        start += ds.samples
+    priors = PriorSet().add(Parameter("normal_traction", [BEM_PRIORS["normal_traction"][0]],
+                                      [BEM_PRIORS["normal_traction"][1]]))
+    if geometry:
+        priors.add(Parameter("depth", [BEM_PRIORS["depth"][0]], [BEM_PRIORS["depth"][1]]))
+        comp = GeodeticBEMComposite(datasets, [DiskBEMSource(**BEM_SOURCE)], engine,
+                                    device=dev)
+    else:
+        comp = GeodeticBEMLinearComposite(datasets, truth, engine, unit_los=unit_los,
+                                          device=dev)
+    problem = Problem(priors, {"geodetic": comp}, device=dev, outfolder=outfolder)
+    problem.true_point = {"normal_traction": BEM_TRUE_TRACTION,
+                          "depth": BEM_SOURCE["depth"],
+                          **{h: 0.0 for h in comp.get_hypernames()}}
+    return problem

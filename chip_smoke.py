@@ -16,7 +16,10 @@ the kinematic finite-fault inversion (FFI) at the scale of
 durations × 32 starttimes × 512 samples: a 3.9 GiB library on the card,
 2000 chains, 1504 dimensions), with its options and a bf16 copy of the
 library; the geodetic modes; parallel tempering on the joint seismic +
-geodetic problem; the trans-dimensional sampler on the static FFI.
+geodetic problem; the trans-dimensional sampler on the static FFI;
+first-motion polarities joint with the FullMT waveforms; bem mode (the
+float64 triangular-dislocation assembly on the card, the linear and the
+geometry composites).
 
 1. device: name, count, ``nvidia-smi`` name and power limit;
 2. build: every kernel source under ``beat_tpu_torch/csrc/`` (K1, K2,
@@ -173,6 +176,27 @@ geodetic problem; the trans-dimensional sampler on the static FFI.
     mean k below k_max, acceptance in (0, 1), finite llks, the saved stage
     loading with the per-patch ordering; and the constant-likelihood run
     of tests/test_transd.py:40, every k level within 0.045 of uniform;
+17d. slice 9 (no kernel of its own: K1c synthesizes the waveforms, K5
+    resamples): [polarity_llk] the FullMT problem with two polarity maps
+    (60 P and 20 SH stations, per-draw takeoffs through 33 × 64 tables of
+    the default crust): ms and CUDA calls of the 2000-chain llk of the
+    polarity composite alone and of the joint problem, the polarity llk of
+    64 chains within rtol 2e-5 of the same code in float64 on the host;
+    [polarity_smc] SMC of the joint problem to β = 1 (2000 chains, 60
+    steps): [smc]'s depth and Mw gates, and the best draw right on every
+    first motion whose true amplitude exceeds 0.1 of the largest (after
+    [pt_joint]); [bem_build] the linear BEM composite of the example's
+    disk (1 km radius, 3 km deep, meshed at 100 m, levels (2, 6)) over the
+    geodetic scenes: the interaction matrix, the displacement matrix and
+    the SVD solve timed apart with their peaks, a random 64 × 64 block of
+    each matrix within 1e-9 of the block's max of the element functions in
+    float64 on the host, the float32 unit responses within 1e-6 of the
+    host's float64 solve; [bem_smc] the traction to β = 1 within 10 %;
+    [bem_geometry] the geometry composite (depth and traction sampled,
+    300 m mesh, levels (1, 5)): the llk of a batch, a capped SMC (3 stages
+    × 10 steps, β strictly increasing, finite llks, the count of invalid
+    draws) and the −99 fill of a draw above the surface (after the
+    geodetic phases);
 18. a JSON line of the kernels, then ``{"ok": true, "device": ...}`` last.
 
 Phase 12 and the bench-shape half of 13 run right after phase 4, phase 5
@@ -258,6 +282,16 @@ TRANSD_PRIOR_ATOL = 0.045
 #: (tests/test_gfstack_pallas.py:176-179)
 BF16_LOSS_MAX = 0.02
 ESTIMATE_HYPERS_STEPS, ESTIMATE_HYPERS_CHAINS = 2000, 20      # [ffi_extras], static FFI
+#: [bem_build]: the random blocks of the matrices held against the host's
+#: float64 (rtol of the block's max, the CPU tests' bar) and the unit
+#: responses against the float64 solve on the host (float32 cast)
+BEM_BLOCK, BEM_BLOCK_RTOL, BEM_LOS_RTOL = 64, 1e-9, 1e-6
+BEM_RECOVERY = 0.1                               # tests/test_bem_inversion.py:100
+#: [bem_geometry]: chains of the llk batch and of the capped SMC (3 stages ×
+#: 10 steps).  A chain costs about 0.3 s on an H100 80GB HBM3 (1.2 M
+#: nested-jacfwd and 20 M surface triples), so 2000 chains (10 minutes an
+#: llk) do not fit the run's time limit
+BEM_GEO_CHAINS, BEM_GEO_SMC_CHAINS, BEM_GEO_STEPS, BEM_GEO_MAX_STAGES = 16, 4, 10, 4
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, HBM3
 FP32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
 
@@ -1635,6 +1669,342 @@ def transd_phases(dev, workdir: str) -> dict:
     return out
 
 
+def polarity_phases(dev, table, workdir: str, k5_launches: dict) -> dict:
+    """Slice 9's polarity paths on the FullMT table: [polarity_llk] (ms and
+    CUDA calls of a 2000-chain llk, the polarity composite alone and the
+    joint problem; the polarity llk at 64 chains against the same code in
+    float64 on the host) and [polarity_smc] (SMC of the joint problem to
+    β = 1).  Adds the SMC's K5 launches to ``k5_launches``; returns K1c's
+    launches on each path.  Raises SystemExit at the first gate missed."""
+    import numpy as np
+    import torch
+
+    from beat_tpu_torch.backend import SampleStage
+    from beat_tpu_torch.device import DTYPE
+    from beat_tpu_torch.flagship import (POLARITY_REAL_SIZE, TRUE_DEPTH, TRUE_MAGNITUDE,
+                                         build_polarity_flagship)
+    from beat_tpu_torch.models.polarity import PolarityComposite, PolarityMapping
+    from beat_tpu_torch.ops.bilgather import bilinear_contract
+    from beat_tpu_torch.ops.rowgather import gather_rows
+    from beat_tpu_torch.samplers import SMCParams
+
+    out = {}
+    t0 = time.perf_counter()
+    problem = build_polarity_flagship(**POLARITY_REAL_SIZE, seed=0, device=dev, table=table,
+                                      outfolder=os.path.join(workdir, "polarity_smc"))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    pol = problem.composites["polarity"]
+    logp, data = problem.make_logp_fn()
+    lo, hi = problem.priors.bounds_arrays()
+    span = hi - lo
+    q = torch.as_tensor(np.random.default_rng(9).uniform(
+        lo + 0.01 * span, hi - 0.01 * span, size=(N_CHAINS, lo.size)), dtype=DTYPE, device=dev)
+    point = problem.ordering.to_point(q)
+
+    def pol_fwd():
+        with torch.no_grad():
+            return pol.loglike(point, data[1])
+
+    def joint_fwd():
+        with torch.no_grad():
+            return logp(q, data)
+
+    r = {}
+    for name, fn in (("polarity", pol_fwd), ("joint", joint_fwd)):
+        bilinear_contract.launches = 0
+        llk = fn()
+        torch.cuda.synchronize()
+        launches = bilinear_contract.launches
+        calls, kernel_ms, _ = device_kernels(fn)
+        r[name] = dict(llk_ms=cuda_ms(fn, iters=10, warmup=2), calls=calls,
+                       kernel_ms=ms_or_none(kernel_ms), k1c_launches=launches,
+                       finite=bool(torch.isfinite(llk).all()))
+    # the same code in float64 on the host, on the first 64 chains
+    n = JOINT_CHECK_CHAINS
+    twin = PolarityComposite(sources=pol.sources, device="cpu", maps=[
+        PolarityMapping(m.wavename, m.targets, event_idx=m.event_idx, mapnumber=m.mapnumber,
+                        takeoff_table=m.takeoff_table.to("cpu"), device="cpu")
+        for m in pol.maps])
+    data64 = [{k: v.double() for k, v in d.items()} for d in twin.device_data()]
+    with torch.no_grad():
+        llk64 = twin.loglike({k: v[:n].double().cpu() for k, v in point.items()}, data64)
+    llk32 = pol_fwd()[:n].double().cpu()
+    rel = float(((llk32 - llk64).abs() / llk64.abs()).max())
+    say("polarity_llk", chains=N_CHAINS, dims=lo.size,
+        targets=sum(len(m.targets) for m in pol.maps),
+        takeoff_grid=tuple(pol.maps[0].takeoff_table.angles_rad.shape),
+        build_s=f"{build_s:.2f}",
+        **{f"{k}_{f}": (fmt_ms(v) if f == "kernel_ms" else
+                        f"{v:.3f}" if isinstance(v, float) else v)
+           for k, d in r.items() for f, v in d.items()},
+        host64_chains=n, host64_max_rel_err=f"{rel:.3e}")
+    if not (r["polarity"]["finite"] and r["joint"]["finite"]):
+        raise SystemExit("polarity llk: non-finite values")
+    if not rel <= LLK_RTOL:
+        raise SystemExit(f"polarity llk off float64 on the host: {rel} > {LLK_RTOL}")
+    if r["joint"]["k1c_launches"] == 0:
+        raise SystemExit("the joint polarity llk never launched K1c")
+    out["polarity_llk"] = {"k1c_launches": r["joint"]["k1c_launches"]}
+
+    # [polarity_smc] the joint problem to beta = 1: every step re-derives the takeoffs
+    bilinear_contract.launches = 0
+    gather_rows.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    q_tr, llk_tr = problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=N_STEPS, seed=0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1c = bilinear_contract.launches
+    k5_launches["polarity_smc"] = gather_rows.launches
+    state = SampleStage(problem.outfolder, ordering=problem.ordering).load_state(-1)
+    est = problem.ordering.to_point(q_tr[-1].mean(axis=0))
+    depth, mag = float(np.asarray(est["depth"])), float(np.asarray(est["magnitude"]))
+    flat_q, flat_llk = q_tr.reshape(-1, q_tr.shape[-1]), llk_tr.reshape(-1)
+    syn = pol.get_synthetics(problem.ordering.to_point(flat_q[np.argmax(flat_llk)]))
+    wrong, clear = 0, 0
+    for m in pol.maps:
+        amps = problem.polarity_amplitudes[m.wavename]
+        big = np.abs(amps) > 0.1 * np.abs(amps).max()
+        obs = np.array([t.polarity for t in m.targets])
+        wrong += int(np.sum(syn[f"{m.wavename}_pol_{m.mapnumber}"][big] != obs[big]))
+        clear += int(big.sum())
+    say("polarity_smc", chains=N_CHAINS, steps=N_STEPS, wall_s=f"{wall:.2f}",
+        stages=len(state["acceptance"]), beta=float(state["beta"]), k1c_launches=k1c,
+        k5_launches=k5_launches["polarity_smc"],
+        peak_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", depth_m=f"{depth:.1f}",
+        magnitude=f"{mag:.4f}", clear_polarities=clear, best_draw_wrong=wrong,
+        acceptance_final=f"{state['acceptance'][-1]:.3f}")
+    if not (float(state["beta"]) == 1.0 and np.isfinite(llk_tr).all()):
+        raise SystemExit("polarity SMC did not reach beta = 1 with finite llks")
+    if k1c == 0 or k5_launches["polarity_smc"] == 0:
+        raise SystemExit("the polarity SMC never launched K1c (or K5, its resampling gather)")
+    if abs(depth - TRUE_DEPTH) >= DEPTH_TOL or abs(mag - TRUE_MAGNITUDE) >= MAG_TOL:
+        raise SystemExit(f"polarity SMC posterior misses the truth: depth {depth}, Mw {mag}")
+    if wrong:
+        raise SystemExit(f"the best draw mispredicts {wrong} of {clear} clear first motions")
+    out["polarity_smc"] = {"k1c_launches": k1c}
+    return out
+
+
+def timed_peak(fn) -> tuple:
+    """``(result, seconds, peak GB above the memory held before)`` of one
+    call on the card."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return (res, time.perf_counter() - t0,
+            (torch.cuda.max_memory_allocated() - base) / 1e9)
+
+
+def bem_blocks(engine, meshes, coords, G, D, gen) -> dict:
+    """A random 64 × 64 block of the interaction matrix ``G`` and of the
+    displacement matrix ``D`` of one mesh against the same functions in
+    float64 on the host: the block's receiver and source elements as two
+    meshes of their own, the receivers' BC reading the sources.  Returns
+    max |err| / max |block| of each."""
+    import numpy as np
+    import torch
+
+    from beat_tpu_torch.bem import BoundaryCondition, tde
+    from beat_tpu_torch.bem.sources import TriangleMesh
+
+    mesh, component = meshes[0], engine.boundary_conditions[0].slip_component
+    rows = np.sort(torch.randperm(G.shape[0], generator=gen)[:BEM_BLOCK].numpy())
+    cols = np.sort(torch.randperm(G.shape[1], generator=gen)[:BEM_BLOCK].numpy())
+    sub = [TriangleMesh(mesh.vertices, mesh.faces[rows]),
+           TriangleMesh(mesh.vertices, mesh.faces[cols])]
+    bc = [BoundaryCondition(component, source_idxs=[1], receiver_idxs=[0])]
+    host = tde.interaction_matrix(sub, bc, nu=engine.nu, mu=engine.mu,
+                                  level=engine.quadrature_level,
+                                  near_level=engine.near_quadrature_level, medium=engine.medium,
+                                  device="cpu").numpy()
+    g_block = G[rows][:, cols].cpu().numpy()
+    d_rows = torch.randperm(D.shape[0], generator=gen)[:BEM_BLOCK].numpy()
+    obs, inv = np.unique(d_rows // 3, return_inverse=True)
+    dhost = tde.displacement_matrix(sub[1:], coords[obs], nu=engine.nu, mu=engine.mu,
+                                    boundary_conditions=[BoundaryCondition(component)],
+                                    medium=engine.medium, device="cpu").numpy()
+    dhost = dhost[3 * inv + d_rows % 3]
+    d_block = D[d_rows][:, cols].cpu().numpy()
+    return {"G": float(np.abs(g_block - host).max() / np.abs(host).max()),
+            "D": float(np.abs(d_block - dhost).max() / np.abs(dhost).max())}
+
+
+def bem_phases(dev, workdir: str, k5_launches: dict) -> dict:
+    """Slice 9's BEM paths: [bem_build] (the linear composite of the
+    example's disk at real size: the interaction matrix, the displacement
+    matrix and the solve timed apart, float64 blocks and the unit
+    responses against the host), [bem_smc] (the traction to β = 1) and
+    [bem_geometry] (the geometry composite's llk, a capped SMC and the −99
+    fill).  Adds the SMCs' K5 launches to ``k5_launches``.  Raises
+    SystemExit at the first gate missed."""
+    import numpy as np
+    import torch
+
+    import beat_tpu_torch.models.bem as models_bem
+    from beat_tpu_torch.backend import SampleStage
+    from beat_tpu_torch.bem import tde
+    from beat_tpu_torch.bem.base import BEMEngine, BEMResponse
+    from beat_tpu_torch.device import DTYPE
+    from beat_tpu_torch.flagship import (BEM_GEOMETRY_REAL_SIZE, BEM_REAL_SIZE,
+                                         BEM_TRUE_TRACTION, build_bem_flagship)
+    from beat_tpu_torch.ops.rowgather import gather_rows
+    from beat_tpu_torch.samplers import SMCParams
+
+    # the flagship's own assembly, its three parts timed where the linear
+    # composite's unit responses call them (models.bem.unit_los_responses)
+    parts = {}
+
+    def timed(key, fn):
+        def wrapper(*args, **kwargs):
+            res, sec, gb = timed_peak(lambda: fn(*args, **kwargs))
+            parts[key] = (res, sec, gb, args)
+            return res
+        return wrapper
+
+    saved = (BEMEngine.get_interaction_matrix, tde.displacement_matrix,
+             models_bem.lstsq_robust)
+    BEMEngine.get_interaction_matrix = timed("G", saved[0])
+    tde.displacement_matrix = timed("D", saved[1])
+    models_bem.lstsq_robust = timed("solve", saved[2])
+    try:
+        problem, build_s, _ = timed_peak(lambda: build_bem_flagship(
+            **BEM_REAL_SIZE, seed=0, device=dev, outfolder=os.path.join(workdir, "bem_smc")))
+    finally:
+        BEMEngine.get_interaction_matrix, tde.displacement_matrix = saved[:2]
+        models_bem.lstsq_robust = saved[2]
+    comp = problem.composites["geodetic"]
+    engine = comp.engine
+    meshes = engine.discretize(comp.sources)
+    (G, g_s, g_GB, _), (D, d_s, d_GB, _) = parts["G"], parts["D"]
+    _, solve_s, solve_GB, (_, neg_rhs) = parts["solve"]
+    gen = torch.Generator().manual_seed(11)
+    t0 = time.perf_counter()
+    blocks = bem_blocks(engine, meshes, comp.stack.coords, G, D, gen)
+    host_s = time.perf_counter() - t0
+    # the unit responses against the float64 solve on the host of the same matrices
+    G64, D64, rhs64 = G.cpu().numpy(), D.cpu().numpy(), neg_rhs.cpu().numpy()
+    host_los = np.einsum("nib,ni->nb", (D64 @ np.linalg.lstsq(G64, rhs64, rcond=None)[0])
+                         .reshape(-1, 3, 1), comp.stack.los)
+    los_err = float(np.abs(comp.unit_los.cpu().numpy() - host_los).max()
+                    / np.abs(host_los).max())
+    near = int(sum((np.linalg.norm(
+        (meshes[0].centroids + (0.5 * np.sqrt(meshes[0].areas))[:, None] * meshes[0].normals)
+        [:, None] - meshes[0].centroids[None], axis=2) < 2.0 * np.sqrt(meshes[0].areas)[None])
+        .ravel()))
+    K = meshes[0].ntriangles
+    triples = ((K * K - near) * 4**engine.quadrature_level
+               + near * 4**engine.near_quadrature_level)
+    say("bem_build", triangles=K, points=comp.stack.samples,
+        levels=(engine.quadrature_level, engine.near_quadrature_level), near_pairs=near,
+        stress_triples=triples, surface_triples=comp.stack.samples * K * 64,
+        build_s=f"{build_s:.2f}", interaction_s=f"{g_s:.3f}",
+        ns_per_stress_triple=f"{1e9 * g_s / triples:.1f}",
+        interaction_peak_GB=f"{g_GB:.2f}", displacement_s=f"{d_s:.3f}",
+        displacement_peak_GB=f"{d_GB:.2f}", solve_ms=f"{1e3 * solve_s:.2f}",
+        solve_peak_GB=f"{solve_GB:.3f}", block_G_err=f"{blocks['G']:.3e}",
+        block_D_err=f"{blocks['D']:.3e}", host_blocks_s=f"{host_s:.1f}",
+        unit_los_err=f"{los_err:.3e}")
+    if not (blocks["G"] <= BEM_BLOCK_RTOL and blocks["D"] <= BEM_BLOCK_RTOL):
+        raise SystemExit(f"BEM matrices off the host's float64: {blocks}")
+    if not los_err <= BEM_LOS_RTOL:
+        raise SystemExit(f"BEM unit responses off the host's float64 solve: {los_err}")
+    del G, D, G64, D64
+
+    # [bem_smc] the traction of the linear composite to beta = 1
+    gather_rows.launches = 0
+    t0 = time.perf_counter()
+    q_tr, llk_tr = problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=N_STEPS, seed=0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k5_launches["bem_smc"] = gather_rows.launches
+    state = SampleStage(problem.outfolder, ordering=problem.ordering).load_state(-1)
+    est = float(np.asarray(problem.ordering.to_point(q_tr[-1].mean(axis=0))["normal_traction"]))
+    say("bem_smc", chains=N_CHAINS, steps=N_STEPS, wall_s=f"{wall:.2f}",
+        stages=len(state["acceptance"]), beta=float(state["beta"]),
+        k5_launches=k5_launches["bem_smc"], normal_traction_MPa=f"{est:.3f}",
+        truth_MPa=BEM_TRUE_TRACTION, acceptance_final=f"{state['acceptance'][-1]:.3f}")
+    if not (float(state["beta"]) == 1.0 and np.isfinite(llk_tr).all()):
+        raise SystemExit("BEM SMC did not reach beta = 1 with finite llks")
+    if abs(est - BEM_TRUE_TRACTION) >= BEM_RECOVERY * BEM_TRUE_TRACTION:
+        raise SystemExit(f"BEM SMC traction {est} misses {BEM_TRUE_TRACTION} by 10 % or more")
+    if k5_launches["bem_smc"] == 0:
+        raise SystemExit("the BEM SMC never launched K5")
+    del problem, comp
+
+    # [bem_geometry] depth and traction sampled: host meshes, card solves
+    problem, build_s, _ = timed_peak(lambda: build_bem_flagship(
+        **BEM_GEOMETRY_REAL_SIZE, seed=0, device=dev, geometry=True,
+        outfolder=os.path.join(workdir, "bem_geometry")))
+    comp = problem.composites["geodetic"]
+    logp, data = problem.make_logp_fn()
+    lo, hi = problem.priors.bounds_arrays()
+    q = torch.as_tensor(np.random.default_rng(4).uniform(lo, hi, (BEM_GEO_CHAINS, lo.size)),
+                        dtype=DTYPE, device=dev)
+    with torch.no_grad():
+        llk, llk_s, llk_GB = timed_peak(lambda: logp(q, data))
+    # one chain's llk profiled: the device's share of the wall-clock, CUDA
+    # calls and the kernels that take the time (torch.func's intermediates)
+    def one_chain():
+        with torch.no_grad():
+            return logp(q[:1], data)
+
+    one_ms = cuda_ms(one_chain, iters=2, warmup=1)
+    calls, kernel_ms, by_name = device_kernels(one_chain)
+    breach = problem.point_to_array(dict(problem.true_point, depth=-500.0))
+    with torch.no_grad():
+        bad = comp.synthetics_los(problem.ordering.to_point(
+            torch.as_tensor(breach, dtype=DTYPE, device=dev)[None]))
+    filled = bool((bad == BEMResponse.INVALID).all())
+    gather_rows.launches = 0
+    t0 = time.perf_counter()
+    try:
+        problem.sample(SMCParams(n_chains=BEM_GEO_SMC_CHAINS, n_steps=BEM_GEO_STEPS,
+                                 max_stages=BEM_GEO_MAX_STAGES, seed=1))
+        capped = False
+    except RuntimeError as e:
+        if "did not reach beta=1" not in str(e):
+            raise
+        capped = True
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k5_launches["bem_geometry"] = gather_rows.launches
+    handler = SampleStage(problem.outfolder, ordering=problem.ordering)
+    states = [handler.load_state(st) for st in
+              (range(1, BEM_GEO_MAX_STAGES) if capped else [-1])]
+    betas = [0.0] + [float(st["beta"]) for st in states]
+    finite = all(np.isfinite(st["likelihoods"]).all() for st in states)
+    pops = np.concatenate([st["population"] for st in states])
+    invalid = sum(comp.engine.is_invalid(comp.engine.discretize(comp._apply_point_np(
+        {n: p[problem.ordering[n].slc] for n in ("depth",)}))) for p in pops)
+    say("bem_geometry", chains=BEM_GEO_CHAINS, triangles=comp.engine.discretize(
+        comp.sources)[0].ntriangles, points=comp.stack.samples,
+        levels=(comp.engine.quadrature_level, comp.engine.near_quadrature_level),
+        build_s=f"{build_s:.2f}", llk_s=f"{llk_s:.3f}",
+        llk_ms_per_chain=f"{1e3 * llk_s / BEM_GEO_CHAINS:.2f}", llk_peak_GB=f"{llk_GB:.2f}",
+        finite=bool(torch.isfinite(llk).all()), one_chain_ms=f"{one_ms:.1f}",
+        one_chain_kernel_ms=fmt_ms(ms_or_none(kernel_ms)), one_chain_calls=calls,
+        top=json.dumps([[k[:50], round(v, 2)] for k, v in list(by_name.items())[:4]]),
+        breach_filled=filled,
+        smc_chains=BEM_GEO_SMC_CHAINS, smc_steps=BEM_GEO_STEPS, smc_stages=len(states),
+        capped=capped,
+        betas=json.dumps([round(x, 6) for x in betas]), smc_finite=finite,
+        invalid_draws=invalid, smc_wall_s=f"{wall:.2f}", k5_launches=k5_launches["bem_geometry"])
+    if not (bool(torch.isfinite(llk).all()) and filled):
+        raise SystemExit("BEM geometry llk: non-finite, or a breaching draw not -99 filled")
+    if not (all(b1 > b0 for b0, b1 in zip(betas, betas[1:])) and finite):
+        raise SystemExit("BEM geometry SMC: beta not strictly increasing, or non-finite llks")
+    if k5_launches["bem_geometry"] == 0:
+        raise SystemExit("the BEM geometry SMC never launched K5")
+    return {}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2417,6 +2787,7 @@ def main() -> int:
 
     # 11f. [joint_llk], [pt_joint]: the joint seismic + geodetic problem on the same table
     joint = joint_phases(dev, table, workdir.name)
+    polarity = polarity_phases(dev, table, workdir.name, k5_launches)
 
 
     # the FullMT problem is done: free its table before the FFI library
@@ -2615,6 +2986,7 @@ def main() -> int:
     if recover["multilinear"]["launches"][0] == 0 or k4_launches == 0:
         raise SystemExit("the small FFI runs never launched K3 (multilinear) or K4 (nearest)")
     geodetic_phases(dev, workdir.name, k5_launches)
+    bem_phases(dev, workdir.name, k5_launches)
     transd_phases(dev, workdir.name)
     workdir.cleanup()
 
@@ -2660,7 +3032,9 @@ def main() -> int:
                                smc_launches["k1c_launches"])
     k1c_entry["launches_by_path"].update(
         joint_llk=joint[f"joint_llk_{N_CHAINS}"]["k1c_launches"],
-        pt_joint=joint["pt_joint"]["k1c_launches"])
+        pt_joint=joint["pt_joint"]["k1c_launches"],
+        polarity_llk=polarity["polarity_llk"]["k1c_launches"],
+        polarity_smc=polarity["polarity_smc"]["k1c_launches"])
     k1c_entry["finite_layouts"] = {k: {f: v for f, v in r.items() if f != "shape"}
                                    for k, r in layouts.items()}
     k1c_entry["finite_layout_kept"] = kept
@@ -2705,6 +3079,7 @@ def main() -> int:
          "bound_ms": k5["smc"]["bound_ms"], "bound_by": k5["smc"]["bound_by"],
          "library_ms": k5["smc"]["library_ms"], "variant": "flat", "previous_ms": None,
          "device_ms": k5["smc"]["device_ms"],
+         "library_device_ms": k5["smc"]["library_device_ms"],
          "device_kernels_per_call": k5["smc"]["device_kernels_per_call"],
          "table_shape": k5["table"],
          "launches_by_path": k5_launches}]}))

@@ -12,7 +12,11 @@ and library build and its llk and gradient on the card against float64
 on the host; K3 and K4 on a bfloat16 library against their plain
 version on it, and parallel tempering's exchange step and the
 trans-dimensional sampler's masked nearest-node slips on the card
-against the CPU.  They skip without a card; run them on one with
+against the CPU; the polarity llk (per-draw takeoffs) and the BEM
+matrices (float64) on the card against the host, and the refusal of host
+tensors by composites on the card.  They skip without a card (the check
+that nothing falls back to the CPU without one runs everywhere); run
+them on one with
 
     python -m pytest tests -m gpu -q
 """
@@ -732,3 +736,95 @@ def test_masked_voronoi_slips_on_card_equal_cpu(cuda):
     want = masked_voronoi_slips(*args)
     got = masked_voronoi_slips(*(a.to(cuda) for a in args))
     assert torch.equal(got.cpu(), want)
+
+
+# -- slice 9: polarities and BEM ----------------------------------------------------------
+
+
+def test_polarity_llk_on_card_matches_float64_host(cuda):
+    """The joint polarity flagship's polarity llk on the card (per-draw
+    takeoffs through the tables) against the same code in float64 on the
+    host, rtol 2e-5 (``chip_smoke.py`` [polarity_llk])."""
+    from beat_tpu_torch.flagship import POLARITY_TEST_SIZE, build_polarity_flagship
+    from beat_tpu_torch.models.polarity import PolarityComposite, PolarityMapping
+
+    problem = build_polarity_flagship(**POLARITY_TEST_SIZE, device=cuda)
+    pol = problem.composites["polarity"]
+    lo, hi = problem.priors.bounds_arrays()
+    q = np.random.default_rng(6).uniform(lo, hi, size=(64, lo.size))
+    point = problem.ordering.to_point(torch.as_tensor(q, dtype=torch.float32, device=cuda))
+    with torch.no_grad():
+        got = pol.loglike(point).double().cpu()
+    twin = PolarityComposite(sources=pol.sources, device="cpu", maps=[
+        PolarityMapping(m.wavename, m.targets, mapnumber=m.mapnumber,
+                        takeoff_table=m.takeoff_table.to("cpu"), device="cpu") for m in pol.maps])
+    data64 = [{k: v.double() for k, v in d.items()} for d in twin.device_data()]
+    with torch.no_grad():
+        want = twin.loglike({k: v.double().cpu() for k, v in point.items()}, data64)
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= LLK_RTOL * want.abs()).all()
+
+
+@pytest.mark.parametrize("medium", ["halfspace", "fullspace"])
+def test_bem_matrices_on_card_match_host(cuda, medium):
+    """The interaction and displacement matrices of a 1 km disk assembled
+    on the card against the same code on the host, both float64, rtol 1e-9
+    of each column's max (``tests/test_torch_bem.py``'s bar)."""
+    from beat_tpu_torch.bem import BoundaryCondition, DiskBEMSource, tde
+
+    meshes = [DiskBEMSource(a_half_axis=1e3, depth=3e3).discretize(500.0)]
+    bcs = [BoundaryCondition("normal"), BoundaryCondition("strike")]
+    coords = np.random.default_rng(3).uniform(-8e3, 8e3, (300, 2))
+    for fn, kw in ((tde.interaction_matrix, dict(level=2, near_level=5, medium=medium)),
+                   (tde.displacement_matrix, dict(coords=coords, boundary_conditions=bcs))):
+        args = (meshes,) if "coords" in kw else (meshes, bcs)
+        got = fn(*args, device=cuda, **kw)
+        assert got.dtype == torch.float64 and got.device.type == "cuda"
+        want = fn(*args, device="cpu", **kw)
+        bar = 1e-9 * want.abs().amax(dim=0, keepdim=True)
+        assert ((got.cpu() - want).abs() <= bar).all()
+
+
+def test_cuda_composites_refuse_cpu_tensors(cuda):
+    """A composite on the card given host tensors raises instead of
+    moving them; an engine on the host is refused by a composite on the
+    card."""
+    from beat_tpu_torch.flagship import (BEM_TEST_SIZE, POLARITY_TEST_SIZE, build_bem_flagship,
+                                         build_polarity_flagship)
+
+    pol = build_polarity_flagship(**POLARITY_TEST_SIZE, device=cuda).composites["polarity"]
+    host_point = {"depth": torch.full((4,), 9e3), "mnn": torch.ones(4)}
+    with pytest.raises(RuntimeError):
+        pol.loglike(host_point)
+    for geometry in (False, True):
+        problem = build_bem_flagship(**dict(BEM_TEST_SIZE, n_points=20), device=cuda,
+                                     geometry=geometry)
+        comp = problem.composites["geodetic"]
+        host = {"normal_traction": torch.full((2,), 20.0), "depth": torch.full((2,), 3e3)}
+        with pytest.raises((RuntimeError, ValueError)):
+            comp.loglike(host)
+        with pytest.raises(ValueError, match="engine on"):
+            type(comp)(comp.datasets, comp.sources, comp.engine, device="cpu")
+
+
+def test_slice9_entry_points_refuse_cuda_without_a_card(monkeypatch):
+    """Without CUDA every slice-9 entry point asked for the card raises; none
+    falls back to the CPU."""
+    from beat_tpu_torch.bem import BEMEngine, BoundaryCondition, DiskBEMSource, tde
+    from beat_tpu_torch.flagship import POLARITY_TEST_SIZE, build_polarity_flagship
+    from beat_tpu_torch.heart.polarity import TakeoffTable
+    from beat_tpu_torch.models.polarity import PolarityMapping
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mesh = [DiskBEMSource(a_half_axis=1e3, depth=3e3).discretize(1000.0)]
+    calls = [
+        lambda: BEMEngine([BoundaryCondition("normal")], device="cuda"),
+        lambda: tde.interaction_matrix(mesh, [BoundaryCondition("normal")], device="cuda"),
+        lambda: TakeoffTable.from_numpy([0.0, 1.0], [0.0, 1.0], np.zeros((2, 2)),
+                                        device="cuda"),
+        lambda: PolarityMapping("any_P", [], device="cuda"),
+        lambda: build_polarity_flagship(**POLARITY_TEST_SIZE, device="cuda"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
