@@ -21,7 +21,10 @@ natively.
 Batching: :func:`interaction_matrices` and :func:`displacement_matrices`
 evaluate every (receiver, element, quadrature point) triple of a batch of
 matrices as ``torch.func.vmap`` over flat triples, in chunks sized by
-:func:`chunk_budget`; the near field (receivers within two element sizes
+:func:`~beat_tpu_torch.device.chunk_budget` (a chunk costs about 150 ms
+of host dispatch whatever its size, some 2200 ATen calls through
+``torch.func``, so on a card only chunks of millions of triples leave the
+device the bound); the near field (receivers within two element sizes
 of a source element) is one more such batch at ``near_level``.  A batch
 holds the matrices of several meshes with one layout (one per chain of a
 geometry sampler).
@@ -36,13 +39,11 @@ import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
-from beat_tpu_torch.device import resolve
+from beat_tpu_torch.device import chunk_budget, resolve
 
 logger = logging.getLogger("beat_tpu_torch.bem.tde")
 
 FLOAT = torch.float64
-#: host memory one chunk of triples may take on the CPU
-HOST_CHUNK_BYTES = 4e9
 #: peak bytes one triple holds in the stress (nested ``jacfwd``) and the
 #: surface displacement (``jacfwd``) evaluations, for sizing the chunks
 #: (4466–4514 and 1096–1098 on an H100 80GB HBM3,
@@ -50,17 +51,6 @@ HOST_CHUNK_BYTES = 4e9
 #: stress's figure, an upper bound
 STRESS_TRIPLE_BYTES = 4608
 DISPLACEMENT_TRIPLE_BYTES = 1152
-
-
-def chunk_budget(device: torch.device) -> float:
-    """Bytes a chunk of triples may take on ``device``: a fifth of a
-    card's memory, :data:`HOST_CHUNK_BYTES` on the CPU.  A chunk costs
-    about 150 ms of host dispatch whatever its size (some 2200 ATen calls
-    through ``torch.func``), so on a card only chunks of millions of
-    triples leave the device the bound."""
-    if device.type == "cuda":
-        return torch.cuda.get_device_properties(device).total_memory / 5
-    return HOST_CHUNK_BYTES
 
 
 def kelvin_displacement(x, xi, mu=33e9, nu=0.25):

@@ -212,3 +212,32 @@ def bem_engine_from_jax(engine, *, device):
                      check_mesh_intersection=engine.check_mesh_intersection,
                      medium=engine.medium, quadrature_level=engine.quadrature_level,
                      near_quadrature_level=engine.near_quadrature_level, device=device)
+
+
+def layered_model_from_numpy(tops, vp, vs, rho, name: str = "custom", qp=None, qs=None):
+    """A port :class:`~beat_tpu_torch.heart.velocity_model.LayeredModel`
+    from a JAX package model's arrays."""
+    from beat_tpu_torch.heart.velocity_model import LayeredModel
+
+    return LayeredModel(tops=np.array(tops, dtype=np.float64), vp=np.array(vp, dtype=np.float64),
+                        vs=np.array(vs, dtype=np.float64), rho=np.array(rho, dtype=np.float64),
+                        name=str(name), qp=None if qp is None else np.array(qp, np.float64),
+                        qs=None if qs is None else np.array(qs, np.float64))
+
+
+def time_table_from_numpy(values, times, distances, depths, mu_tops, mus, lams,
+                          name: str = "viscoelastic", prony=None):
+    """A port :class:`~beat_tpu_torch.heart.viscoelastic.TimeDependentStaticGFTable`
+    from a JAX time table's arrays; ``prony`` its Prony fit read by
+    attribute (``c``, ``d``, ``a``, ``taus``, ``T``, ``max_resid``) or None."""
+    from beat_tpu_torch.heart.viscoelastic import PronyFit, TimeDependentStaticGFTable
+
+    fit = None if prony is None else PronyFit(
+        c=np.array(prony.c), d=np.array(prony.d), a=np.array(prony.a),
+        taus=np.array(prony.taus), T=float(prony.T), max_resid=float(prony.max_resid))
+    return TimeDependentStaticGFTable(
+        values=np.array(values, dtype=np.float32), times=np.array(times, dtype=np.float64),
+        distances=np.array(distances, dtype=np.float64),
+        depths=np.array(depths, dtype=np.float64), mu_tops=np.array(mu_tops, np.float64),
+        mus=np.array(mus, np.float64), lams=np.array(lams, np.float64), name=str(name),
+        prony=fit)

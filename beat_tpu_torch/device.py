@@ -36,6 +36,18 @@ def resolve(device) -> torch.device:
     return dev
 
 
+#: bytes a batch may take on the CPU (:func:`chunk_budget`)
+HOST_CHUNK_BYTES = 4e9
+
+
+def chunk_budget(device: torch.device) -> float:
+    """Bytes one batch of a chunked device computation may take: a fifth
+    of a card's memory, :data:`HOST_CHUNK_BYTES` on the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory / 5
+    return HOST_CHUNK_BYTES
+
+
 def require_cuda() -> torch.device:
     """The first CUDA device; raises when there is none (no CPU fallback)."""
     if not torch.cuda.is_available():

@@ -48,6 +48,7 @@ import torch
 from beat_tpu_torch.covariance import Covariance
 from beat_tpu_torch.device import DTYPE, resolve
 from beat_tpu_torch.ffi import discretize_sources, seis_construct_gf_linear
+from beat_tpu_torch.heart.geodesy import DatasetStack
 from beat_tpu_torch.heart.gftable import build_homogeneous_table
 from beat_tpu_torch.heart.seismic import SeismicDataset, WaveformMapping
 from beat_tpu_torch.heart.taper import ArrivalTaper, Filter
@@ -460,6 +461,19 @@ def geodetic_source_priors(source: str) -> PriorSet:
     return priors
 
 
+def geodetic_ramp_priors(priors: PriorSet) -> tuple:
+    """``(priors, true)``: the source priors plus one ramp per scene (3
+    parameters each, GEO_RAMP_PRIORS), and the parameters behind the data
+    (GEO_TRUE and GEO_RAMPS)."""
+    true = dict(GEO_TRUE)
+    for name in GEO_SCENES:
+        for key, value in zip(GEO_RAMP_PRIORS, GEO_RAMPS[name]):
+            priors.add(Parameter(f"{name}_{key}", [GEO_RAMP_PRIORS[key][0]],
+                                 [GEO_RAMP_PRIORS[key][1]]))
+            true[f"{name}_{key}"] = value
+    return priors, true
+
+
 def gnss_network(n_stations: int, rng: np.random.Generator, signal_fn) -> tuple:
     """Three GNSS component datasets (east, north, up) of ``n_stations``
     stations within ±80 km, displaced by ``signal_fn`` plus the plate
@@ -522,13 +536,7 @@ def build_geodetic_flagship(n_points: int, seed: int = 0, *, device,
 
     datasets = insar_scenes(coords, signal, rng, GEO_RAMPS)
     corrections = [RampCorrection(name) for name in GEO_SCENES]
-    priors = geodetic_source_priors(source)
-    true = dict(GEO_TRUE)
-    for name in GEO_SCENES:
-        for key, value in zip(GEO_RAMP_PRIORS, GEO_RAMPS[name]):
-            priors.add(Parameter(f"{name}_{key}", [GEO_RAMP_PRIORS[key][0]],
-                                 [GEO_RAMP_PRIORS[key][1]]))
-            true[f"{name}_{key}"] = value
+    priors, true = geodetic_ramp_priors(geodetic_source_priors(source))
     if gnss_stations:
         gnss, gnss_corr = gnss_network(gnss_stations, rng, signal)
         datasets += gnss
@@ -888,4 +896,132 @@ def build_bem_flagship(n_points: int, mesh_size: float, quadrature_level: int,
     problem.true_point = {"normal_traction": BEM_TRUE_TRACTION,
                           "depth": BEM_SOURCE["depth"],
                           **{h: 0.0 for h in comp.get_hypernames()}}
+    return problem
+
+
+# ---------------------------------------------------------------------------
+# Problems on tables built by the port's layered builders
+# ---------------------------------------------------------------------------
+# The FullMT problem on a layered waveform table (the real FullMT table's
+# grid, by the Kennett recursion on the card), and the geodetic problem's
+# two scenes acquired at two post-seismic epochs through a viscoelastic
+# table: build_gfs' geodetic grid (beat_tpu/apps/commands.py:570-575) for
+# the default crust with Maxwell viscosities below its elastic lid.
+
+LAYERED_REAL_SIZE = REAL_SIZE
+LAYERED_TEST_SIZE = dict(n_stations=4, n_distances=6, n_depths=3, nt=128)
+VISCO_REAL_SIZE = dict(n_points=1500, n_distances=40, n_depths=12)
+VISCO_TEST_SIZE = dict(n_points=120, n_distances=6, n_depths=3)
+VISCO_DISTANCES = (1e3, 120e3)
+VISCO_DEPTHS = (0.5e3, 25e3)
+#: Maxwell viscosities of the default crust's layers [Pa·s]: an elastic upper
+#: crust over a 1e19 lower crust and a 1e18 mantle
+VISCO_ETA2 = (0.0, 1e19, 1e18)
+#: scene name: acquisition epoch [days after the event]
+VISCO_EPOCH_DAYS = {"asc": 30.0, "dsc": 365.0}
+VISCO_S_PER_DECADE = 8
+
+
+def layered_earth_model():
+    """The default crust continued by ak135-f average to 660 km and
+    earth-flattened: 31 layers, all of it text in the repo."""
+    from beat_tpu_torch.heart.velocity_model import LayeredModel, join_nd_with_ak135
+
+    return LayeredModel.from_nd(join_nd_with_ak135(LayeredModel.default_crust().to_nd()),
+                                name="default_crust+ak135").earth_flattened()
+
+
+def layered_flagship_table(n_distances: int, n_depths: int, nt: int, *, device, model=None,
+                           method: str = "kennett", stats: dict | None = None, **kwargs):
+    """The FullMT problem's grid (DISTANCE_RANGE × DEPTH_RANGE, dt DT) as a
+    layered waveform table of ``model`` (:func:`layered_earth_model` by
+    default), built on ``device``; the depth grid nudged off the interfaces."""
+    from beat_tpu_torch.heart.layered_waveforms import (build_layered_waveform_table,
+                                                        nudge_depths_off_interfaces)
+
+    model = layered_earth_model() if model is None else model
+    depths = nudge_depths_off_interfaces(model, np.linspace(*DEPTH_RANGE, n_depths))
+    return build_layered_waveform_table(model, np.linspace(*DISTANCE_RANGE, n_distances),
+                                        depths, nt=nt, dt=DT, method=method, device=device,
+                                        stats=stats, **kwargs)
+
+
+def build_layered_flagship(n_stations: int, n_distances: int, n_depths: int, nt: int,
+                           seed: int = 0, *, device, outfolder: str = "layered_run",
+                           table=None, **table_kwargs) -> Problem:
+    """The FullMT problem of :func:`build_flagship` on a layered waveform
+    table (:func:`layered_flagship_table`, built on ``device`` when
+    ``table`` is None): the data synthesized through it, the windows placed
+    by its ray-traced travel times."""
+    dev = resolve(device)
+    if table is None:
+        table = layered_flagship_table(n_distances, n_depths, nt, device=dev, **table_kwargs)
+    return build_flagship(n_stations, n_distances, n_depths, nt, seed, device=dev,
+                          outfolder=outfolder, table=table)
+
+
+def visco_model() -> tuple:
+    """``(model, rheology)`` of the post-seismic problem: the default crust
+    with the Maxwell viscosities VISCO_ETA2."""
+    from beat_tpu_torch.heart.velocity_model import LayeredModel
+    from beat_tpu_torch.heart.viscoelastic import BurgersRheology
+
+    model = LayeredModel.default_crust()
+    return model, BurgersRheology(eta1=np.zeros(model.nlayers), eta2=np.asarray(VISCO_ETA2),
+                                  alpha=np.ones(model.nlayers))
+
+
+def visco_time_table(n_distances: int, n_depths: int, *, device,
+                     s_per_decade: int = VISCO_S_PER_DECADE):
+    """The viscoelastic table of the post-seismic problem
+    (:func:`visco_model`) on build_gfs' grid at the scenes' epochs."""
+    from beat_tpu_torch.heart.viscoelastic import DAY, build_viscoelastic_static_table
+
+    model, rheo = visco_model()
+    return build_viscoelastic_static_table(
+        model, rheo, np.linspace(*VISCO_DISTANCES, n_distances),
+        np.linspace(*VISCO_DEPTHS, n_depths),
+        [VISCO_EPOCH_DAYS[name] * DAY for name in GEO_SCENES], s_per_decade=s_per_decade,
+        device=device)
+
+
+def build_visco_flagship(n_points: int, n_distances: int, n_depths: int, seed: int = 0, *,
+                         device, outfolder: str = "visco_run", ttable=None,
+                         finite_patches=(4, 4)) -> Problem:
+    """The geodetic geometry problem (:func:`build_geodetic_flagship`'s
+    rectangle GEO_TRUE, scenes, ramps and priors) with the scenes acquired
+    at VISCO_EPOCH_DAYS after the event, through an
+    :class:`~beat_tpu_torch.heart.viscoelastic.EpochStaticGFTable` of the
+    time table ``ttable`` (:func:`visco_time_table` when None): the data
+    are each scene's LOS through its own epoch's slab (the rectangle as
+    ``finite_patches`` point MTs), plus its ramp and correlated noise.
+    ``problem.true_point`` holds the parameters behind the data,
+    ``problem.time_table`` the time table."""
+    from beat_tpu_torch.heart.corrections import RampCorrection
+    from beat_tpu_torch.heart.viscoelastic import epoch_table_for_datasets
+    from beat_tpu_torch.models.geodetic import GeodeticGeometryComposite
+
+    dev = resolve(device)
+    rng = np.random.default_rng(seed)
+    if ttable is None:
+        ttable = visco_time_table(n_distances, n_depths, device=dev)
+    center = (GEO_TRUE["east_shift"], GEO_TRUE["north_shift"])
+    coords = {name: scatter_points(n_points, rng, GEO_HALF_BOX, GEO_HALF_BOX) + center
+              for name in GEO_SCENES}
+    datasets = insar_scenes(coords, lambda c: np.zeros((len(c), 3)), rng, GEO_RAMPS)
+    table = epoch_table_for_datasets(ttable, datasets, VISCO_EPOCH_DAYS, device=dev)
+    truth = RectangularSource(**GEO_TRUE)
+    signal = GeodeticGeometryComposite(datasets, [truth], static_table=table,
+                                       finite_patches=finite_patches,
+                                       device=dev).synthetics_np(dict(GEO_TRUE))
+    for ds, slc in zip(datasets, DatasetStack.from_datasets(datasets).slices):
+        ds.displacement = ds.displacement + signal[slc]
+    priors, true = geodetic_ramp_priors(geodetic_source_priors("RectangularSource"))
+    comp = GeodeticGeometryComposite(datasets, [truth], static_table=table,
+                                     finite_patches=finite_patches,
+                                     corrections=[RampCorrection(n) for n in GEO_SCENES],
+                                     device=dev)
+    problem = Problem(priors, {"geodetic": comp}, device=dev, outfolder=outfolder)
+    problem.true_point = dict(true, **{h: 0.0 for h in comp.get_hypernames()})
+    problem.time_table = ttable
     return problem

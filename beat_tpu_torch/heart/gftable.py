@@ -243,6 +243,15 @@ class GreensTable(nn.Module):
 
     # -- persistence ------------------------------------------------------------
 
+    def save(self, path: str) -> None:
+        """The JAX package's ``.npz`` format (``beat_tpu/heart/gftable.py:520``):
+        either package reads it."""
+        extra = {k: v for k, v in (("tt_p", self.tt_p), ("tt_s", self.tt_s)) if v is not None}
+        np.savez_compressed(path, spectra=self.spectra.cpu().numpy(), distances=self.distances,
+                            depths=self.depths, meta=np.array([self.dt, float(self.nt), self.t0,
+                                                               self.vp, self.vs, self.rho]),
+                            **extra)
+
     @classmethod
     def load(cls, path: str, *, device) -> "GreensTable":
         """Read a table saved by ``beat_tpu``'s ``GreensTable.save`` (.npz)."""

@@ -90,16 +90,13 @@ class TakeoffTable:
 def build_takeoff_table(model, depth_grid, dist_grid, phase: str = "p", *,
                         device) -> TakeoffTable:
     """Fill a :class:`TakeoffTable` with the host ray tracer
-    (:func:`~beat_tpu_torch.heart.velocity_model.first_arrival`, float64),
-    then move it to ``device``."""
-    from beat_tpu_torch.heart.velocity_model import first_arrival
+    (:func:`~beat_tpu_torch.heart.velocity_model.takeoff_angles`, float64,
+    a row of distances a call), then move it to ``device``."""
+    from beat_tpu_torch.heart.velocity_model import takeoff_angles
 
     depth_grid = np.asarray(depth_grid, dtype=float)
     dist_grid = np.asarray(dist_grid, dtype=float)
-    ang = np.empty((depth_grid.size, dist_grid.size))
-    for i, z in enumerate(depth_grid):
-        for j, r in enumerate(dist_grid):
-            ang[i, j] = np.deg2rad(first_arrival(model, z, r, phase)[1])
+    ang = np.stack([takeoff_angles(model, z, dist_grid, phase) for z in depth_grid])
     return TakeoffTable.from_numpy(depth_grid, dist_grid, ang, device=device)
 
 

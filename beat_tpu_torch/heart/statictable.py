@@ -13,12 +13,12 @@ T) into (east, north, up).  It is batched: sources of any leading shape
 is a tensor of shape (*B) (the JAX package's gather takes one traced
 depth).
 
-:func:`build_homogeneous_static_table` builds the analytic homogeneous
-halfspace table from the port's moment-tensor Okada forward on the given
-device.  The layered builder (``build_static_table`` and its Hankel-domain
-solver) waits for the table builders of a later slice (ROADMAP: the table
-builders); a JAX-built layered table is carried across through
-:meth:`StaticGFTable.load` or :func:`beat_tpu_torch.convert.static_table_from_numpy`.
+Builders, on the given device: :func:`build_static_table`, the layered
+table from the Hankel-domain solver of
+:mod:`beat_tpu_torch.heart.layered_statics` (the psgrn analogue), and
+:func:`build_homogeneous_static_table`, the analytic homogeneous
+halfspace from the port's moment-tensor Okada forward.  A table built by
+either package is read with :meth:`StaticGFTable.load`.
 """
 
 from __future__ import annotations
@@ -33,10 +33,6 @@ from beat_tpu_torch.device import DTYPE, resolve
 from beat_tpu_torch.heart.gftable import rotate_m6_to_ray_frame
 
 logger = logging.getLogger("beat_tpu_torch.heart.statictable")
-
-#: bilinear corners as (distance offset, depth offset)
-_CORNERS = ((0, 0), (1, 0), (0, 1), (1, 1))
-
 
 def _step(grid: np.ndarray) -> float:
     return float(grid[1] - grid[0]) if grid.size > 1 else 1.0
@@ -57,12 +53,15 @@ def bilinear_cell(d_grid, z_grid, distance: torch.Tensor, depth: torch.Tensor) -
 
 
 class StaticGFTable(nn.Module):
-    """values : (6, 3, ndist, ndepth) — surface displacement per unit
+    """values : (6, 3, ndist, ndepth) float32 (numpy or a tensor) — surface displacement per unit
     elementary MT (order mnn, mee, mdd, mne, mnd, med), receiver at
     azimuth 0 (due north), components (Z up, R = +N, T = +E), a buffer.
     distances, depths : uniform grid nodes [m] (host numpy).
     mu_tops, mus, lams : the 1-D elastic profile (layer tops [m], shear
     moduli and Lamé λ [Pa]) for the moments of finite-source patches."""
+
+    #: axes before the (6, 3, nd, nz) values (the epochs of a subclass)
+    LEADING_AXES = 0
 
     def __init__(self, values, distances, depths, mu_tops=None, mus=None, lams=None,
                  name: str = "static", *, device):
@@ -84,13 +83,15 @@ class StaticGFTable(nn.Module):
         self.mus = np.asarray(mus, dtype=np.float64)
         self.lams = np.asarray(lams, dtype=np.float64)
         self.name = str(name)
-        values = torch.as_tensor(np.asarray(values, dtype=np.float32), device=dev)
+        values = torch.as_tensor(values, dtype=torch.float32, device=dev)
         nd, nz = self.distances.size, self.depths.size
-        if tuple(values.shape) != (6, 3, nd, nz):
-            raise ValueError(f"values {tuple(values.shape)}, expected (6, 3, {nd}, {nz})")
+        want = values.shape[:self.LEADING_AXES] + (6, 3, nd, nz)
+        if values.dim() != 4 + self.LEADING_AXES or tuple(values.shape) != tuple(want):
+            raise ValueError(f"values {tuple(values.shape)}, expected "
+                             f"{'(ne, ' if self.LEADING_AXES else '('}6, 3, {nd}, {nz})")
         self.register_buffer("values", values)
-        # the gather's layout: one row of 6 × 3 values per grid node
-        self.register_buffer("rows", values.permute(2, 3, 0, 1).reshape(nd * nz, 18)
+        # the gather's layout: one row of 6 × 3 values per grid node (per epoch)
+        self.register_buffer("rows", values.movedim((-2, -1), (-4, -3)).reshape(-1, 18)
                              .contiguous(), persistent=False)
         self.register_buffer("tops", torch.as_tensor(self.mu_tops, dtype=DTYPE, device=dev),
                              persistent=False)
@@ -111,24 +112,37 @@ class StaticGFTable(nn.Module):
     def lame_lambda(self, depth: torch.Tensor) -> torch.Tensor:
         return self.lam_values.to(depth.dtype)[self._layer(depth)]
 
+    def _epoch_offset(self) -> int | torch.Tensor:
+        """Each observation's offset into a source's (epochs × distances)
+        rows: 0 here (one epoch)."""
+        return 0
+
     def synthesize_enu(self, m6, east_shift, north_shift, depth, obs_east, obs_north):
         """Surface displacements (*B, N, 3 = E, N, up) of point MTs m6
-        (*B, 6) at positions (*B), observed at (N,) points."""
+        (*B, 6) at positions (*B), observed at (N,) points.
+
+        The bilinear gather runs in two steps: every source's depth blend
+        of the table, (*B, [epochs ×] distances, 18), then each
+        observation's two distance corners from it — half the rows a
+        four-corner gather of (*B, N, 18) reads."""
         de = obs_east - east_shift[..., None]
         dn = obs_north - north_shift[..., None]
         distance = torch.sqrt(de * de + dn * dn)
         azimuth = torch.atan2(de, dn)
         d0, z0, fd, fz = bilinear_cell(self.distances, self.depths, distance, depth)
         m6_ray = rotate_m6_to_ray_frame(m6[..., None, :], azimuth)         # (*B, N, 6)
-        rows = self.rows.to(m6_ray.dtype)
         nd, nz = self.distances.size, self.depths.size
+        rows = self.rows.to(m6_ray.dtype).reshape(-1, nz, 18)               # ([ne ·] nd, nz, 18)
+        z1 = torch.clamp(z0 + 1, max=nz - 1)
         fz = fz[..., None]
-        g = 0.0
-        for dd, dz in _CORNERS:
-            w = (fd if dd else 1.0 - fd) * (fz if dz else 1.0 - fz)
-            node = (torch.clamp(d0 + dd, max=nd - 1) * nz
-                    + torch.clamp(z0 + dz, max=nz - 1)[..., None])
-            g = g + w[..., None] * rows[node]                                 # (*B, N, 18)
+        per_source = rows[:, z0] * (1.0 - fz) + rows[:, z1] * fz           # ([ne·]nd, *B, 18)
+        per_source = per_source.movedim(0, -2).reshape(-1, 18)             # (*B · [ne·]nd, 18)
+        n_rows = rows.shape[0]
+        base = (torch.arange(d0[..., 0].numel(), device=d0.device)
+                .reshape(d0.shape[:-1])[..., None] * n_rows + self._epoch_offset())
+        d1 = torch.clamp(d0 + 1, max=nd - 1)
+        fd = fd[..., None]
+        g = per_source[base + d0] * (1.0 - fd) + per_source[base + d1] * fd  # (*B, N, 18)
         # the contraction over the 6 components as one elementwise product
         # and sum (an einsum here runs as a batched matrix-vector product,
         # 6 × 3 per query, at a tenth of the card's memory rate)
@@ -152,6 +166,40 @@ class StaticGFTable(nn.Module):
                        mus=z["mus"], lams=z["lams"], name=str(z["name"]), device=device)
 
 
+def static_table_values(models, distances, depths, *, device) -> torch.Tensor:
+    """(M, 6, 3, nd, nz) float64 static table values of every model (all
+    sharing their layer tops) from the layered solver
+    (:func:`~beat_tpu_torch.heart.layered_statics.elementary_mt_displacements`),
+    receivers due north: components (Z up, R = +N, T = +E)."""
+    from beat_tpu_torch.heart.layered_statics import elementary_mt_displacements
+
+    distances = np.asarray(distances, dtype=np.float64)
+    obs = np.stack([np.zeros_like(distances), distances], axis=-1)
+    u = elementary_mt_displacements(models, depths, obs, device=device)     # (M, nz, 6, nd, 3)
+    return u[..., [2, 1, 0]].permute(0, 2, 4, 3, 1)
+
+
+def build_static_table(model, distances, depths, name: str = None, *, device) -> StaticGFTable:
+    """Layered static table from the Hankel-domain solver on ``device``
+    (the psgrn-run replacement; port of ``beat_tpu``'s
+    ``build_static_table``): all depths and their six shifted
+    evaluations in one batch.  The depth grid is nudged off the layer
+    interfaces first (``nudge_depths_off_interfaces``), so no vertical
+    dipole straddles one."""
+    from beat_tpu_torch.heart.layered_waveforms import nudge_depths_off_interfaces
+
+    dev = resolve(device)
+    distances = np.asarray(distances, dtype=np.float64)
+    depths = nudge_depths_off_interfaces(model, depths)
+    vals = static_table_values([model], distances, depths, device=dev)[0]
+    logger.info("Built layered static GF table: %i dist x %i depth (%s)", distances.size,
+                depths.size, getattr(model, "name", "model"))
+    return StaticGFTable(vals, distances, depths, mu_tops=np.asarray(model.tops),
+                         mus=model.rho * model.vs**2,
+                         lams=model.rho * (model.vp**2 - 2 * model.vs**2),
+                         name=name or f"layered_{getattr(model, 'name', '')}", device=dev)
+
+
 def build_homogeneous_static_table(distances, depths, nu=0.25, shear_modulus=33e9, *,
                                    device) -> StaticGFTable:
     """The analytic homogeneous-halfspace table from the moment-tensor
@@ -170,5 +218,5 @@ def build_homogeneous_static_table(distances, depths, nu=0.25, shear_modulus=33e
     # (6, nz, nd, 3 = E, N, up) -> (6, 3 = Z, R, T, nd, nz)
     vals = torch.stack([u[..., 2], u[..., 1], u[..., 0]], dim=1).permute(0, 1, 3, 2)
     lam = 2.0 * shear_modulus * nu / (1.0 - 2.0 * nu)
-    return StaticGFTable(vals.cpu().numpy(), distances, depths, mu_tops=[0.0],
+    return StaticGFTable(vals, distances, depths, mu_tops=[0.0],
                          mus=[shear_modulus], lams=[lam], name="homogeneous", device=dev)

@@ -17,7 +17,11 @@ families through the 9-crack expansion, evaluated in
 synthetics and the likelihood are float32.  With a ``static_table``
 (:class:`~beat_tpu_torch.heart.statictable.StaticGFTable`) every source
 goes through the table instead: point MTs directly, rectangles as a
-fixed patch grid of point MTs with the local µ and λ.  A source made of
+fixed patch grid of point MTs with the local µ and λ.  An
+:class:`~beat_tpu_torch.heart.viscoelastic.EpochStaticGFTable` is such a
+table whose every observation reads its own acquisition epoch's slab
+(``heart.viscoelastic.epoch_table_for_datasets`` builds it from the
+datasets' times).  A source made of
 K point sources (the couples of a DoubleDC, the ring of a Ringfault, the
 patches of a rectangle on a table) is one more leading axis of one table
 gather.  On the halfspace the K moment-tensor expansions are summed one
@@ -269,6 +273,12 @@ class GeodeticGeometryComposite(GeodeticComposite):
             if table is not None and table.values.device != self.data.device:
                 raise ValueError(f"static table on {table.values.device}, composite on "
                                  f"{self.data.device}")
+            # an epoch table (heart.viscoelastic.EpochStaticGFTable) indexes
+            # the stacked observations: one epoch per data point
+            n_obs = getattr(table, "n_observations", None)
+            if n_obs is not None and n_obs != self.stack.samples:
+                raise ValueError(f"the epoch table indexes {n_obs} observations, the "
+                                 f"datasets hold {self.stack.samples}")
 
     def device_data(self) -> dict:
         data = super().device_data()

@@ -19,7 +19,9 @@ library; the geodetic modes; parallel tempering on the joint seismic +
 geodetic problem; the trans-dimensional sampler on the static FFI;
 first-motion polarities joint with the FullMT waveforms; bem mode (the
 float64 triangular-dislocation assembly on the card, the linear and the
-geometry composites).
+geometry composites); the table builders: a layered waveform table, a
+layered static table and a viscoelastic one built on the card, the FullMT
+SMC on the first and a post-seismic geodetic SMC on the last.
 
 1. device: name, count, ``nvidia-smi`` name and power limit;
 2. build: every kernel source under ``beat_tpu_torch/csrc/`` (K1, K2,
@@ -197,6 +199,38 @@ geometry composites).
     × 10 steps, β strictly increasing, finite llks, the count of invalid
     draws) and the −99 fill of a draw above the surface (after the
     geodetic phases);
+17e. slice 10, the table builders (no kernel of their own: their device
+    math is float64/complex128 torch; K1c and K5 run the paths through
+    their tables), last, after [transd_ffi]: [layered_build] the FullMT
+    table's grid (206 × 15 nodes, nt 1024, dt 0.5 s) as a layered waveform
+    table of the default crust joined with ak135-f and earth-flattened (31
+    layers) by the Kennett recursion on the card: its seconds, peak, depth
+    buckets and the bins recomputed on the host in ``np.clongdouble`` (and
+    their global-matrix fallbacks); two seeded depth nodes of one bucket
+    recomputed by the same code on the host CPU, every trace within 1e-7
+    of its max ([layered_host_check], after [visco_smc], so that it runs
+    beside no timed phase); the
+    ω → 0 limit at those nodes against the layered static solver (the
+    bars of tests/test_layered_waveforms.py:40-50); the port's Bessel
+    functions within 1e-12 of scipy's over the build's (r, k) ranges, and
+    ``torch.special``'s error beside them; [layered_smc] the FullMT SMC on
+    that table (2000 chains, 60 steps): [smc]'s depth and Mw gates, K1c and
+    K5 launched; [trace_store] the table's traces written as a trace store
+    at dt 0.25 s and read back at 0.5 s, within 1e-5 of the spectra's max
+    below Nyquist, and a store of the analytic full-space oracle's traces
+    (``heart/analytic.py``, no code shared with the solvers) read on the
+    card, a moment tensor synthesized through it at azimuth 122° within
+    1e-5 of the oracle's waveform; [static_build] build_gfs' geodetic grid (40 × 12) for
+    the same model: two depth nodes on the host CPU within 1e-9 of max, a
+    uniform model within 1 % of the analytic table; [visco_build] the
+    default crust with Maxwell viscosities (0, 1e19, 1e18) Pa·s at 0, 30
+    and 365 days, 8 s nodes a decade: the Prony residual ≤ 1e-3,
+    ``at_time(0)`` equal to the elastic build; [visco_smc] the geodetic
+    problem's two scenes acquired at 30 and 365 days through the epoch
+    table (each scene's synthetics of the true source equal to those
+    through its own epoch's table, and the true source's LOS at 30 and at
+    365 days differing by more than 1e-3 of max), SMC to β = 1 (2000 chains,
+    40 steps) within 300 m (depth 500 m), K5 launched;
 18. a JSON line of the kernels, then ``{"ok": true, "device": ...}`` last.
 
 Phase 12 and the bench-shape half of 13 run right after phase 4, phase 5
@@ -292,6 +326,25 @@ BEM_RECOVERY = 0.1                               # tests/test_bem_inversion.py:1
 #: nested-jacfwd and 20 M surface triples), so 2000 chains (10 minutes an
 #: llk) do not fit the run's time limit
 BEM_GEO_CHAINS, BEM_GEO_SMC_CHAINS, BEM_GEO_STEPS, BEM_GEO_MAX_STAGES = 16, 4, 10, 4
+#: [layered_build] ... [visco_smc]: the table builders (slice 10)
+LAYERED_REL_STEP = 1e-3          # the builders' dipole step (rel_step)
+LAYERED_NODE_SEED = 10           # picks the depth nodes recomputed on the host CPU
+LAYERED_HOST_RTOL = 1e-7         # card vs host CPU, per trace of max|trace|
+BESSEL_RTOL = 1e-12              # ops.bessel against scipy, of max|J|
+STATIC_LIMIT_IMAG, STATIC_LIMIT_RTOL = 2e-3, 5e-3      # tests/test_layered_waveforms.py:40-50
+#: the static side of that gate: Hankel points per half cycle, 10 × the default,
+#: which misses the deep interfaces' effect near k = 0 by a few % (PERF.md)
+STATIC_LIMIT_DENSITY = 200.0
+TRACE_STORE_RTOL = 1e-5          # the trace store's round trip, of max|spectrum|
+#: build_gfs' geodetic grid (beat_tpu/apps/commands.py:570-575)
+STATIC_GRID = dict(distances=(1e3, 120e3, 40), depths=(0.5e3, 25e3, 12))
+STATIC_HOST_RTOL = 1e-9          # card vs host CPU, of max|values|
+#: tests/test_layered_statics.py:123-138: a uniform model against the analytic table
+HOMO_STATIC = dict(vp=6000.0, vs=3500.0, rho=2700.0, distances=(2e3, 60e3, 6),
+                   depths=(4e3, 9e3))
+HOMO_STATIC_RTOL = 0.01
+PRONY_RESID_MAX = 1e-3           # the builder's own warning level (viscoelastic.py:464)
+EPOCH_SLAB_MIN = 1e-3            # the true source's LOS at the two epochs differs by more
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, HBM3
 FP32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
 
@@ -2005,6 +2058,377 @@ def bem_phases(dev, workdir: str, k5_launches: dict) -> dict:
     return {}
 
 
+def layered_node_check(card, grid: dict, plan: dict, nodes: list, model) -> dict:
+    """Depth nodes of one bucket of the layered table recomputed by the
+    same port code on the host CPU (the bucket's wavenumber grid and dipole
+    step; one Kennett solve serves them all; all distances and
+    frequencies) against the card's (6, 3, nd, len(nodes), nf, 2) spectra
+    ``card`` of those nodes, trace by trace: ``{"worst": {node: max |Δ| /
+    max|trace| over its traces}, "host_s": host seconds}``."""
+    import numpy as np
+    import torch
+
+    from beat_tpu_torch.heart.layered_waveforms import (mt_spectra_kennett_bucket,
+                                                        undamp_to_spectra)
+
+    bucket = next(b for b in plan["buckets"] if nodes[0] in b["depth_idx"])
+    t0 = time.perf_counter()
+    spec = mt_spectra_kennett_bucket(model, grid["depths"][nodes], grid["distances"],
+                                     plan["w_band"], bucket["k_grid"],
+                                     d=LAYERED_REL_STEP * bucket["zs_min"], device="cpu")
+    damped = torch.zeros(spec.shape[:-1] + (plan["freqs"].size,), dtype=spec.dtype)
+    damped[..., torch.as_tensor(np.flatnonzero(plan["in_band"]))] = spec
+    host = undamp_to_spectra(damped, grid["nt"], grid["dt"], plan["zeta"], grid["t0"])
+    host_s = time.perf_counter() - t0
+    host32 = torch.view_as_real(host).to(torch.float32).movedim(0, 3)    # as the table's
+    tr_host = torch.fft.irfft(torch.view_as_complex(host32.double()), n=grid["nt"])
+    tr_card = torch.fft.irfft(torch.view_as_complex(card.double()), n=grid["nt"])
+    peak = tr_host.abs().amax(-1)
+    err = (tr_card - tr_host).abs().amax(-1)
+    worst = torch.where(peak > 0, err / torch.where(peak > 0, peak, 1.0),
+                        torch.where(err > 0, torch.inf, 0.0))
+    return {"worst": {n: float(worst[:, :, :, i].max()) for i, n in enumerate(nodes)},
+            "host_s": host_s}
+
+
+def analytic_store_check(dev, workdir: str) -> float:
+    """The trace store against an oracle that shares no code with the
+    solvers (``heart/analytic.py``, Aki & Richards 4.29): full-space
+    elementary traces of a Gaussian moment pulse at dt/2 (3 distances × 2
+    depths), read on the card by ``greens_table_from_traces`` at dt, and a
+    moment tensor synthesized through the table at a node at azimuth 122°
+    (``point_spectra``) against the oracle's own waveform there:
+    max |Δ| / max |waveform| (tests/test_external_validation.py's
+    resampling case)."""
+    import numpy as np
+    import torch
+
+    from beat_tpu_torch.heart.analytic import fullspace_mt_displacement, gaussian_pulse
+    from beat_tpu_torch.heart.store_convert import greens_table_from_traces, write_trace_store
+
+    nt, dt, vp, vs, rho = 256, 0.1, 6000.0, 3464.0, 2700.0
+    distances, depths = np.array([25e3, 35e3, 45e3]), np.array([10e3, 12e3])
+    stf = gaussian_pulse(1.0, 8.0)
+    t_store = np.arange(2 * nt) * dt / 2
+    traces = np.zeros((6, 3, distances.size, depths.size, t_store.size))
+    for (i, d), (j, z), k in ((a, b, c) for a in enumerate(distances)
+                              for b in enumerate(depths) for c in range(6)):
+        u = fullspace_mt_displacement(np.eye(6)[k], [d, 0.0, 0.0], [0.0, 0.0, z], t_store, vp,
+                                      vs, rho, stf=stf)
+        traces[k, :, i, j] = np.stack([-u[:, 2], u[:, 0], u[:, 1]])
+    path = os.path.join(workdir, "analytic_traces.npz")
+    write_trace_store(path, traces, np.zeros((distances.size, depths.size)), distances, depths,
+                      dt / 2, vp=vp, vs=vs, rho=rho)
+    table = greens_table_from_traces(path, nt=nt, dt=dt, t0=0.0, device=dev)
+    m6 = np.array([0.3, -1.1, 0.8, 0.5, -0.2, 0.9]) * 1e17
+    d, z0, az = 35e3, 10e3, np.deg2rad(122.0)
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.float32), device=dev)
+
+    with torch.no_grad():
+        spec = table.point_spectra(f32(m6[None]), f32([0.0]), f32([0.0]), f32([z0]),
+                                   f32([d * np.sin(az)] * 3), f32([d * np.cos(az)] * 3),
+                                   torch.arange(3, device=dev))
+        got = table.to_time_domain(spec)[0].double().cpu().numpy()
+    t = np.arange(nt) * dt
+    u = fullspace_mt_displacement(m6, [d * np.cos(az), d * np.sin(az), 0.0], [0.0, 0.0, z0], t,
+                                  vp, vs, rho, stf=stf)
+    want = np.stack([-u[:, 2], u[:, 0] * np.cos(az) + u[:, 1] * np.sin(az),
+                     -u[:, 0] * np.sin(az) + u[:, 1] * np.cos(az)])
+    os.remove(path)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def table_builder_phases(dev, workdir: str, k5_launches: dict) -> dict:
+    """Slice 10's table builders on the card and the paths through their
+    tables: [layered_build] (the FullMT grid as a layered waveform table of
+    the 31-layer crust + ak135 model by the Kennett recursion; two seeded
+    depth nodes recomputed on the host CPU, the ω → 0 limit against the
+    layered static solver, the Bessel functions against scipy),
+    [layered_smc] (the FullMT SMC on it), [trace_store] (its traces written
+    as a trace store at dt 0.25 s and read back at 0.5 s), [static_build]
+    (build_gfs' geodetic grid, the same model; two depth nodes on the host
+    CPU; a homogeneous model against the analytic table), [visco_build]
+    (the default crust with Maxwell layers at the scenes' epochs) and
+    [visco_smc] (the geodetic problem's scenes at 30 and 365 days through
+    the epoch table), then [layered_host_check] (the host CPU's two nodes,
+    after the timed phases).  Adds the SMCs' K5 launches to
+    ``k5_launches``;
+    returns K1c's launches on [layered_smc].  Raises SystemExit at the
+    first gate missed."""
+    import numpy as np
+    import scipy.special
+    import torch
+
+    from beat_tpu_torch.backend import SampleStage
+    from beat_tpu_torch.flagship import (GEO_TRUE, LAYERED_REAL_SIZE, TRUE_DEPTH,
+                                         TRUE_MAGNITUDE, VISCO_EPOCH_DAYS, VISCO_REAL_SIZE,
+                                         VISCO_S_PER_DECADE, build_layered_flagship,
+                                         build_visco_flagship, layered_earth_model,
+                                         layered_flagship_table, visco_model, visco_time_table)
+    from beat_tpu_torch.heart.layered_statics import PTS_PER_HALFCYCLE, _mt_displacement
+    from beat_tpu_torch.heart.layered_waveforms import elementary_mt_spectra, kennett_plan
+    from beat_tpu_torch.heart.statictable import (build_homogeneous_static_table,
+                                                  build_static_table, static_table_values)
+    from beat_tpu_torch.heart.store_convert import greens_table_from_traces, write_trace_store
+    from beat_tpu_torch.heart.velocity_model import LayeredModel
+    from beat_tpu_torch.heart.viscoelastic import DAY, laplace_nodes
+    from beat_tpu_torch.ops.bessel import bessel_j0, bessel_j1
+    from beat_tpu_torch.ops.bilgather import bilinear_contract
+    from beat_tpu_torch.ops.rowgather import gather_rows
+    from beat_tpu_torch.samplers import SMCParams
+    from beat_tpu_torch.sources import sdr_to_m6
+
+    out = {}
+    model = layered_earth_model()
+
+    # [layered_build]
+    stats = {}
+    n_d, n_z, nt = (LAYERED_REAL_SIZE[k] for k in ("n_distances", "n_depths", "nt"))
+    (table, build_s, peak) = timed_peak(lambda: layered_flagship_table(
+        n_d, n_z, nt, device=dev, model=model, stats=stats))
+    plan = kennett_plan(model, table.distances, table.depths, table.nt, table.dt)
+    # the Bessel functions over the build's (r, k) ranges against scipy on the host
+    k_top = max(b["k_grid"][-1] for b in plan["buckets"])
+    r = np.linspace(0.0, table.distances[-1] * 1.01, 1500)
+    k = np.linspace(0.0, k_top, 1500)
+    kr_host = np.outer(r, k)
+    kr = torch.as_tensor(kr_host, device=dev)
+    bessel = {}
+    for name, ours, theirs, ref in (("j0", bessel_j0, torch.special.bessel_j0, scipy.special.j0),
+                                    ("j1", bessel_j1, torch.special.bessel_j1, scipy.special.j1)):
+        want = ref(kr_host)
+        scale = np.abs(want).max()
+        bessel[name] = (float(np.abs(ours(kr).cpu().numpy() - want).max() / scale),
+                        float(np.abs(theirs(kr).cpu().numpy() - want).max() / scale))
+    del kr
+    # two seeded depth nodes of one bucket (one host solve serves both),
+    # recomputed on the host CPU and gated at the end ([layered_host_check])
+    rng = np.random.default_rng(LAYERED_NODE_SEED)
+    shared = [b for b in plan["buckets"] if len(b["depth_idx"]) >= 2]
+    nodes = sorted(int(i) for i in rng.choice(shared[rng.integers(len(shared))]["depth_idx"],
+                                              2, replace=False))
+    grid = dict(distances=table.distances, depths=table.depths, nt=table.nt, dt=table.dt,
+                t0=table.t0)
+    card_nodes = table.spectra[:, :, :, nodes].cpu()
+    # the omega -> 0 limit of the moment-impulse response against the static solver
+    # (tests/test_layered_waveforms.py:40-50's bars), at the same nodes
+    w_c = 2 * np.pi * 1e-4 - 1e-5j
+    dists = table.distances[(table.distances >= 20e3) & (table.distances <= 80e3)][::10]
+    m6 = sdr_to_m6(35.0, 60.0, -70.0, 1e16).double().numpy()
+    static_limit = {}
+    for i in nodes:
+        zs = float(table.depths[i])
+        k_grid = (np.arange(int(np.ceil(60.0 / zs / (np.pi / (20 * dists.max()))))) + 0.5) \
+            * (np.pi / (20 * dists.max()))
+        k_grid = k_grid[k_grid < 60.0 / zs]
+        spec = elementary_mt_spectra(model, zs, dists, w_c, k_grid, device=dev).cpu().numpy()
+        dyn = np.einsum("k,kcn->cn", m6, spec * (1j * w_c))
+        obs = np.stack([np.zeros(dists.size), dists], axis=-1)
+        # the static solver at its default Hankel density (the JAX package's)
+        # and at STATIC_LIMIT_DENSITY, converged near k = 0 where the deep
+        # interfaces of this model act
+        errs = []
+        for pts in (PTS_PER_HALFCYCLE, STATIC_LIMIT_DENSITY):
+            stat = _mt_displacement(model, zs, obs, m6, 1e-3, dev, pts).cpu().numpy()
+            want = np.stack([stat[:, 2], stat[:, 1], stat[:, 0]])
+            errs.append(float(np.abs(dyn.real - want).max() / np.abs(want).max()))
+        static_limit[int(i)] = (float(np.abs(dyn.imag).max() / np.abs(dyn.real).max()),
+                                errs[1], errs[0])
+    r = dict(grid=f"{n_d}x{n_z}x{nt}", layers=model.nlayers, build_s=f"{build_s:.2f}",
+             peak_GB=f"{peak:.2f}", table_MB=f"{table.spectra.numel() * 4 / 1e6:.1f}",
+             buckets=json.dumps(stats["buckets"]), host_bins=stats.get("host_bins", 0),
+             host_bin_solves=stats.get("host_bin_solves", 0),
+             fallback_bins=stats.get("fallback_bins", 0),
+             host_bin_s=f"{stats.get('host_s', 0.0):.2f}",
+             bessel_err=json.dumps({k: f"{v[0]:.2e}" for k, v in bessel.items()}),
+             torch_special_bessel_err=json.dumps({k: f"{v[1]:.2e}" for k, v in bessel.items()}),
+             static_limit_imag_over_real=json.dumps({i: f"{v[0]:.2e}"
+                                                     for i, v in static_limit.items()}),
+             static_limit_err=json.dumps({i: f"{v[1]:.2e}" for i, v in static_limit.items()}),
+             static_limit_err_default_density=json.dumps({i: f"{v[2]:.2e}"
+                                                          for i, v in static_limit.items()}),
+             finite=bool(torch.isfinite(table.spectra).all()))
+    say("layered_build", **r)
+    if not r["finite"]:
+        raise SystemExit("[layered_build] non-finite spectra")
+    if max(v[0] for v in bessel.values()) > BESSEL_RTOL:
+        raise SystemExit(f"[layered_build] Bessel functions off scipy: {bessel}")
+    if any(v[0] >= STATIC_LIMIT_IMAG or v[1] > STATIC_LIMIT_RTOL
+           for v in static_limit.values()):
+        raise SystemExit(f"[layered_build] the omega -> 0 limit misses the static solver: "
+                         f"{static_limit}")
+
+    # [layered_smc] the FullMT inversion on the layered table
+    problem = build_layered_flagship(**LAYERED_REAL_SIZE, seed=0, device=dev, table=table,
+                                     outfolder=os.path.join(workdir, "layered_smc"))
+    bilinear_contract.launches = 0
+    gather_rows.launches = 0
+    (res, wall, peak) = timed_peak(lambda: problem.sample(
+        SMCParams(n_chains=N_CHAINS, n_steps=N_STEPS, seed=0)))
+    q_tr, llk_tr = res
+    k1c = bilinear_contract.launches
+    k5_launches["layered_smc"] = gather_rows.launches
+    state = SampleStage(problem.outfolder, ordering=problem.ordering).load_state(-1)
+    est = problem.ordering.to_point(q_tr[-1].mean(axis=0))
+    depth, mag = float(np.asarray(est["depth"])), float(np.asarray(est["magnitude"]))
+    say("layered_smc", chains=N_CHAINS, steps=N_STEPS, wall_s=f"{wall:.2f}",
+        stages=len(state["acceptance"]), beta=float(state["beta"]), k1c_launches=k1c,
+        k5_launches=k5_launches["layered_smc"], peak_GB=f"{peak:.2f}",
+        depth_m=f"{depth:.1f}", magnitude=f"{mag:.4f}",
+        acceptance_final=f"{state['acceptance'][-1]:.3f}")
+    if not (float(state["beta"]) == 1.0 and np.isfinite(llk_tr).all()):
+        raise SystemExit("[layered_smc] did not reach beta = 1 with finite llks")
+    if k1c == 0 or k5_launches["layered_smc"] == 0:
+        raise SystemExit("[layered_smc] never launched K1c (or K5, its resampling gather)")
+    if abs(depth - TRUE_DEPTH) >= DEPTH_TOL or abs(mag - TRUE_MAGNITUDE) >= MAG_TOL:
+        raise SystemExit(f"[layered_smc] posterior misses the truth: depth {depth}, Mw {mag}")
+    out["layered_smc"] = {"k1c_launches": k1c}
+    del problem
+
+    # [trace_store] the table's traces at dt 0.25 s through the interchange format
+    t0 = time.perf_counter()
+    spec = torch.view_as_complex(table.spectra.double())
+    up = torch.zeros(spec.shape[:-1] + (table.nt + 1,), dtype=spec.dtype, device=dev)
+    up[..., :spec.shape[-1]] = spec
+    traces = torch.fft.irfft(up, n=2 * table.nt) * 2.0
+    path = os.path.join(workdir, "layered_traces.npz")
+    write_trace_store(path, traces.float(), np.full((n_d, n_z), table.t0), table.distances,
+                      table.depths, dt=table.dt / 2, vp=table.vp, vs=table.vs, rho=table.rho)
+    write_s = time.perf_counter() - t0
+    del spec, up, traces
+    t0 = time.perf_counter()
+    back = greens_table_from_traces(path, nt=table.nt, dt=table.dt, t0=table.t0, device=dev)
+    read_s = time.perf_counter() - t0
+    below = slice(0, table.nf - 1)
+    err = float((back.spectra[..., below, :] - table.spectra[..., below, :]).abs().max()
+                / table.spectra.abs().max())
+    analytic_err = analytic_store_check(dev, workdir)
+    say("trace_store", traces=f"{n_d * n_z * 18}x{2 * table.nt}", dt_store=table.dt / 2,
+        write_s=f"{write_s:.2f}", read_s=f"{read_s:.2f}",
+        file_MB=f"{os.path.getsize(path) / 1e6:.1f}", max_err_over_max=f"{err:.2e}",
+        analytic_max_err_over_max=f"{analytic_err:.2e}")
+    if not err <= TRACE_STORE_RTOL:
+        raise SystemExit(f"[trace_store] the round trip misses the table: {err}")
+    if not analytic_err <= TRACE_STORE_RTOL:
+        raise SystemExit(f"[trace_store] the analytic store misses the oracle: {analytic_err}")
+    del back
+    os.remove(path)
+    del table
+    torch.cuda.empty_cache()
+
+    # [static_build] build_gfs' geodetic grid for the same 31-layer model
+    distances = np.linspace(*STATIC_GRID["distances"])
+    depths = np.linspace(*STATIC_GRID["depths"])
+    (stab, static_s, peak) = timed_peak(lambda: build_static_table(model, distances, depths,
+                                                                   device=dev))
+    snodes = sorted(int(i) for i in np.random.default_rng(LAYERED_NODE_SEED).choice(
+        depths.size, 2, replace=False))
+    t0 = time.perf_counter()
+    host = static_table_values([model], distances, stab.depths[snodes], device="cpu")[0]
+    host_s = time.perf_counter() - t0
+    card = stab.values[..., snodes].cpu()
+    static_err = float((card - host.float()).abs().max() / host.abs().max())
+    homo = LayeredModel.homogeneous(vp=HOMO_STATIC["vp"], vs=HOMO_STATIC["vs"],
+                                    rho=HOMO_STATIC["rho"])
+    mu = HOMO_STATIC["rho"] * HOMO_STATIC["vs"] ** 2
+    nu = 0.5 * (HOMO_STATIC["vp"] ** 2 - 2 * HOMO_STATIC["vs"] ** 2) / (
+        HOMO_STATIC["vp"] ** 2 - HOMO_STATIC["vs"] ** 2)
+    h_dist, h_depth = np.linspace(*HOMO_STATIC["distances"]), np.array(HOMO_STATIC["depths"])
+    t_lay = build_static_table(homo, h_dist, h_depth, device=dev).values
+    t_ref = build_homogeneous_static_table(h_dist, h_depth, nu=nu, shear_modulus=mu,
+                                           device=dev).values
+    homo_err = float((t_lay - t_ref).abs().max() / t_ref.abs().max())
+    say("static_build", grid=f"{distances.size}x{depths.size}", layers=model.nlayers,
+        build_s=f"{static_s:.2f}", peak_GB=f"{peak:.2f}",
+        host_nodes=json.dumps([float(stab.depths[i]) for i in snodes]),
+        host_s=f"{host_s:.2f}", host_max_err_over_max=f"{static_err:.2e}",
+        homogeneous_err_over_max=f"{homo_err:.2e}")
+    if not (torch.isfinite(stab.values).all() and static_err <= STATIC_HOST_RTOL):
+        raise SystemExit(f"[static_build] the card's table off the host CPU's: {static_err}")
+    if not homo_err < HOMO_STATIC_RTOL:
+        raise SystemExit(f"[static_build] the homogeneous table off the analytic one: "
+                         f"{homo_err}")
+    del stab
+
+    # [visco_build] the post-seismic table at the scenes' epochs
+    n_d, n_z = VISCO_REAL_SIZE["n_distances"], VISCO_REAL_SIZE["n_depths"]
+    (ttable, visco_s, peak) = timed_peak(lambda: visco_time_table(n_d, n_z, device=dev))
+    elastic = build_static_table(visco_model()[0], ttable.distances, ttable.depths,
+                                 device=dev).values
+    exact0 = bool(torch.equal(ttable.at_time(0.0, device=dev).values, elastic))
+    model_v, rheo = visco_model()
+    n_s = laplace_nodes(model_v, rheo, ttable.times, VISCO_S_PER_DECADE).size
+    say("visco_build", grid=f"{n_d}x{n_z}", epochs_days=json.dumps(
+        [round(t / DAY, 3) for t in ttable.times]), s_nodes=n_s,
+        prony_modes=ttable.prony.taus.size, prony_max_resid=f"{ttable.prony.max_resid:.2e}",
+        build_s=f"{visco_s:.2f}", peak_GB=f"{peak:.2f}", at_time0_equals_elastic=exact0)
+    if not ttable.prony.max_resid <= PRONY_RESID_MAX:
+        raise SystemExit(f"[visco_build] Prony residual {ttable.prony.max_resid}")
+    if not exact0:
+        raise SystemExit("[visco_build] at_time(0) differs from the elastic build")
+
+    # [visco_smc] the two scenes at their epochs through the epoch table
+    problem = build_visco_flagship(**VISCO_REAL_SIZE, seed=0, device=dev, ttable=ttable,
+                                   outfolder=os.path.join(workdir, "visco_smc"))
+    comp = problem.composites["geodetic"]
+    epochs = comp.static_table
+    table_diff = float((epochs.values[0] - epochs.values[1]).abs().max()
+                       / epochs.values.abs().max())
+    # the true source's LOS at every observation point through each scene's
+    # own single-epoch table: the epoch table must give each scene its own
+    # (routing), and the two epochs must differ (the slab is really read)
+    point = comp.batch_of_one(dict(GEO_TRUE))
+    routed = comp.synthetics_los(point)[0]
+    per_epoch = {}
+    for name, days in VISCO_EPOCH_DAYS.items():
+        comp.static_table = ttable.at_time(days * DAY, device=dev)
+        per_epoch[name] = comp.synthetics_los(point)[0]
+    comp.static_table = epochs
+    own = torch.cat([per_epoch[ds.name][slc] for ds, slc in zip(comp.datasets,
+                                                                comp.stack.slices)])
+    route_err = float((routed - own).abs().max() / routed.abs().max())
+    a, b = per_epoch.values()
+    slab_diff = float((a - b).abs().max() / a.abs().max())
+    gather_rows.launches = 0
+    (res, wall, peak) = timed_peak(lambda: problem.sample(
+        SMCParams(n_chains=N_CHAINS, n_steps=GEO_STEPS, seed=0)))
+    q_tr, llk_tr = res
+    k5_launches["visco_smc"] = gather_rows.launches
+    state = SampleStage(problem.outfolder, ordering=problem.ordering).load_state(-1)
+    mean = problem.ordering.to_point(q_tr[-1].mean(axis=0))
+    pos_err = {k: float(mean[k]) - GEO_TRUE[k] for k in ("east_shift", "north_shift", "depth")}
+    say("visco_smc", chains=N_CHAINS, steps=GEO_STEPS, dims=problem.ordering.size,
+        epochs_days=json.dumps(VISCO_EPOCH_DAYS), los_epoch_diff_over_max=f"{slab_diff:.3e}",
+        table_epoch_diff_over_max=f"{table_diff:.3e}",
+        routing_err_over_max=f"{route_err:.2e}", wall_s=f"{wall:.2f}",
+        stages=len(state["acceptance"]), beta=float(state["beta"]),
+        k5_launches=k5_launches["visco_smc"], peak_GB=f"{peak:.2f}",
+        position_err_m=json.dumps({k: round(x, 1) for k, x in pos_err.items()}))
+    if not slab_diff > EPOCH_SLAB_MIN or route_err > 1e-6:
+        raise SystemExit(f"[visco_smc] the epoch slabs are not read apart: {slab_diff}, "
+                         f"{route_err}")
+    if not (float(state["beta"]) == 1.0 and np.isfinite(llk_tr).all()):
+        raise SystemExit("[visco_smc] did not reach beta = 1 with finite llks")
+    if k5_launches["visco_smc"] == 0:
+        raise SystemExit("[visco_smc] never launched K5")
+    if not (abs(pos_err["east_shift"]) <= GEO_POS_TOL and abs(pos_err["north_shift"])
+            <= GEO_POS_TOL and abs(pos_err["depth"]) <= GEO_DEPTH_TOL):
+        raise SystemExit(f"[visco_smc] posterior mean position misses the truth: {pos_err}")
+
+    # [layered_host_check] the layered table's two nodes on the host CPU,
+    # after every timed phase, so that no timing shares the host's cores
+    done = layered_node_check(card_nodes, grid, plan, nodes, model)
+    say("layered_host_check", nodes=json.dumps({i: float(grid["depths"][i]) for i in nodes}),
+        threads=torch.get_num_threads(),
+        worst_over_trace_max=json.dumps({i: f"{w:.2e}" for i, w in done["worst"].items()}),
+        host_s=f"{done['host_s']:.2f}")
+    if max(done["worst"].values()) > LAYERED_HOST_RTOL:
+        raise SystemExit(f"[layered_host_check] the card's table off the host CPU's: {done}")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2988,6 +3412,7 @@ def main() -> int:
     geodetic_phases(dev, workdir.name, k5_launches)
     bem_phases(dev, workdir.name, k5_launches)
     transd_phases(dev, workdir.name)
+    builders = table_builder_phases(dev, workdir.name, k5_launches)
     workdir.cleanup()
 
     # 18. results: launches from each kernel's main path (SMC for K1 and
@@ -3034,7 +3459,8 @@ def main() -> int:
         joint_llk=joint[f"joint_llk_{N_CHAINS}"]["k1c_launches"],
         pt_joint=joint["pt_joint"]["k1c_launches"],
         polarity_llk=polarity["polarity_llk"]["k1c_launches"],
-        polarity_smc=polarity["polarity_smc"]["k1c_launches"])
+        polarity_smc=polarity["polarity_smc"]["k1c_launches"],
+        layered_smc=builders["layered_smc"]["k1c_launches"])
     k1c_entry["finite_layouts"] = {k: {f: v for f, v in r.items() if f != "shape"}
                                    for k, r in layouts.items()}
     k1c_entry["finite_layout_kept"] = kept

@@ -14,7 +14,9 @@ version on it, and parallel tempering's exchange step and the
 trans-dimensional sampler's masked nearest-node slips on the card
 against the CPU; the polarity llk (per-draw takeoffs) and the BEM
 matrices (float64) on the card against the host, and the refusal of host
-tensors by composites on the card.  They skip without a card (the check
+tensors by composites on the card; the table builders (Bessel functions,
+layered static values, the Kennett kernels, layered waveform tables, the
+viscoelastic table and its epoch gather) on the card against the host.  They skip without a card (the check
 that nothing falls back to the CPU without one runs everywhere); run
 them on one with
 
@@ -824,6 +826,131 @@ def test_slice9_entry_points_refuse_cuda_without_a_card(monkeypatch):
                                         device="cuda"),
         lambda: PolarityMapping("any_P", [], device="cuda"),
         lambda: build_polarity_flagship(**POLARITY_TEST_SIZE, device="cuda"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+# -- slice 10: the table builders (float64 / complex128 torch on the card) ----------
+
+#: card against the host CPU: float64 solves in another order; the static
+#: values 1e-9 of max, the float32 tables 1e-6 of max
+BUILDER_RTOL, TABLE_RTOL = 1e-9, 1e-6
+TWO_LAYERS = dict(tops=[0.0, 3e3], vp=[5500.0, 6500.0], vs=[3200.0, 3700.0],
+                  rho=[2600.0, 2800.0])
+
+
+def _two_layers():
+    from beat_tpu_torch.heart.velocity_model import LayeredModel
+
+    return LayeredModel(**TWO_LAYERS)
+
+
+def test_bessel_on_card_matches_scipy(cuda):
+    import scipy.special
+
+    from beat_tpu_torch.ops.bessel import bessel_j0, bessel_j1
+
+    x = np.concatenate([np.linspace(-40.0, 40.0, 80001), np.linspace(40.0, 2e4, 80001)])
+    for ours, ref in ((bessel_j0, scipy.special.j0), (bessel_j1, scipy.special.j1)):
+        got = ours(torch.as_tensor(x, device=cuda)).cpu().numpy()
+        want = ref(x)
+        assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+
+
+def test_layered_static_table_on_card_matches_host(cuda):
+    from beat_tpu_torch.heart.statictable import static_table_values
+    from beat_tpu_torch.heart.velocity_model import LayeredModel
+
+    model = LayeredModel.default_crust()
+    stiff = LayeredModel(tops=model.tops, vp=model.vp * 1.1, vs=model.vs, rho=model.rho)
+    args = ([model, stiff], np.linspace(1e3, 60e3, 12), np.array([2e3, 9e3, 24e3]))
+    card = static_table_values(*args, device=cuda).cpu()
+    host = static_table_values(*args, device="cpu")
+    assert (card - host).abs().max() <= BUILDER_RTOL * host.abs().max()
+
+
+def test_reflectivity_on_card_matches_host(cuda):
+    from beat_tpu_torch.heart.reflectivity import ReflectivitySolver
+
+    w = 2 * np.pi * np.linspace(0.05, 1.0, 9) - 0.01j
+    w2, k2 = (w * w)[:, None], ((np.arange(400) + 0.5) * 2e-5)[None, :]
+    card = ReflectivitySolver(_two_layers(), w2, k2, device=cuda).force_kernels(6.5e3)
+    host = ReflectivitySolver(_two_layers(), w2, k2, device="cpu").force_kernels(6.5e3)
+    for name, v in host.items():
+        err = (card[name].cpu() - v).abs().amax(dim=1)
+        assert (err <= 1e-10 * v.abs().amax(dim=1)).all(), name
+
+
+@pytest.mark.parametrize("method", ["kennett", "band"])
+def test_layered_waveform_table_on_card_matches_host(cuda, method):
+    from beat_tpu_torch.heart.layered_waveforms import build_layered_waveform_table
+
+    kw = dict(distances=np.array([30e3, 50e3, 70e3]), depths=np.array([6e3, 9e3]), nt=64,
+              dt=1.0, fmax=0.4, method=method)
+    stats = {}
+    card = build_layered_waveform_table(_two_layers(), device=cuda, stats=stats, **kw)
+    host = build_layered_waveform_table(_two_layers(), device="cpu", **kw)
+    want = host.spectra
+    assert (card.spectra.cpu() - want).abs().max() <= TABLE_RTOL * want.abs().max()
+    assert method != "kennett" or stats["host_bins"] > 0
+
+
+def test_viscoelastic_table_and_epoch_gather_on_card_match_host(cuda):
+    from beat_tpu_torch.heart.velocity_model import LayeredModel
+    from beat_tpu_torch.heart.viscoelastic import (BurgersRheology, EpochStaticGFTable,
+                                                   build_viscoelastic_static_table)
+
+    model = LayeredModel.default_crust()
+    rheo = BurgersRheology(np.zeros(3), [0.0, 1e19, 1e18], np.ones(3))
+    kw = dict(distances=np.linspace(2e3, 30e3, 3), depths=np.array([3e3, 8e3]),
+              times=[30 * 86400.0, 365 * 86400.0], s_per_decade=4)
+    card = build_viscoelastic_static_table(model, rheo, device=cuda, **kw)
+    host = build_viscoelastic_static_table(model, rheo, device="cpu", **kw)
+    scale = np.abs(host.values).max()
+    assert np.abs(card.values - host.values).max() <= 1e-5 * scale
+    obs_times = np.repeat([0.0, 30 * 86400.0, 365 * 86400.0], 5)
+    rng = np.random.default_rng(2)
+    args = [rng.normal(size=(4, 6)) * 1e16, rng.uniform(-2e3, 2e3, 4),
+            rng.uniform(-2e3, 2e3, 4), rng.uniform(3e3, 8e3, 4),
+            *rng.uniform(-25e3, 25e3, (2, obs_times.size))]
+    out = []
+    for dev in (cuda, "cpu"):
+        table = EpochStaticGFTable.from_time_table(host, obs_times, device=dev)
+        out.append(table.synthesize_enu(*(torch.as_tensor(a, dtype=torch.float32, device=dev)
+                                          for a in args)).cpu())
+    assert torch.allclose(out[0], out[1], rtol=1e-5, atol=1e-5 * float(out[1].abs().max()))
+
+
+def test_slice10_entry_points_refuse_cuda_without_a_card(monkeypatch):
+    """Without CUDA every table builder asked for the card raises; none
+    falls back to the CPU."""
+    from beat_tpu_torch.flagship import (LAYERED_TEST_SIZE, VISCO_TEST_SIZE,
+                                         build_layered_flagship, build_visco_flagship)
+    from beat_tpu_torch.heart.layered_statics import elementary_mt_surface_displacements
+    from beat_tpu_torch.heart.layered_waveforms import (build_layered_waveform_table,
+                                                        dynamic_force_kernels)
+    from beat_tpu_torch.heart.reflectivity import ReflectivitySolver
+    from beat_tpu_torch.heart.statictable import build_static_table
+    from beat_tpu_torch.heart.store_convert import greens_table_from_traces
+    from beat_tpu_torch.heart.viscoelastic import BurgersRheology, build_viscoelastic_static_table
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = _two_layers()
+    obs = np.array([[0.0, 5e3]])
+    calls = [
+        lambda: elementary_mt_surface_displacements(model, 5e3, obs, device="cuda"),
+        lambda: build_static_table(model, [5e3], [5e3], device="cuda"),
+        lambda: ReflectivitySolver(model, np.ones((1, 1)), np.ones((1, 1)), device="cuda"),
+        lambda: dynamic_force_kernels(model, 5e3, 1.0 - 0.1j, [1e-4], device="cuda"),
+        lambda: build_layered_waveform_table(model, [3e4], [6e3], nt=16, dt=1.0,
+                                             device="cuda"),
+        lambda: build_viscoelastic_static_table(model, BurgersRheology.elastic(2), [5e3],
+                                                [5e3], [86400.0], device="cuda"),
+        lambda: greens_table_from_traces("/nonexistent.npz", 16, 1.0, device="cuda"),
+        lambda: build_layered_flagship(**LAYERED_TEST_SIZE, device="cuda"),
+        lambda: build_visco_flagship(**VISCO_TEST_SIZE, device="cuda"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
