@@ -11,6 +11,10 @@ either package reads the other's runs:
 
 ``stage_-1`` is the final (β = 1) stage.  A stage is valid iff its npz
 files load and their shapes match ``meta.json``.
+
+The posterior summary of a stage — mean, sd, highest-density interval,
+bulk effective sample size and split-R̂ per variable — and the bounds a
+later run imports from it are numpy on the host, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -52,6 +56,31 @@ class StageTrace:
         self.llk_trace = llk_trace
         self.varnames = varnames or []
         self.ordering = ordering
+
+    @property
+    def n_chains(self) -> int:
+        return self.q_trace.shape[1]
+
+    @property
+    def n_records(self) -> int:
+        return self.q_trace.shape[0]
+
+    def get_values(self, varname: str, combine: bool = True, burn: int = 0, thin: int = 1):
+        """One variable's samples, (n_records·n_chains, ...) combined or
+        (n_records, n_chains, ...)."""
+        if self.ordering is None or varname not in self.ordering:
+            raise KeyError(varname)
+        spec = self.ordering[varname]
+        vals = self.q_trace[burn::thin, :, spec.slc]
+        if spec.shape == ():
+            vals = vals[..., 0]
+        if combine:
+            vals = vals.reshape((-1,) + vals.shape[2:])
+        return vals
+
+    def end_points(self):
+        """Last sample of every chain: (population (n_chains, dim), llks)."""
+        return self.q_trace[-1], self.llk_trace[-1]
 
 
 class SampleStage:
@@ -143,7 +172,129 @@ class SampleStage:
         valid = sorted(s for s in stages if s >= 0 and self.check_stage(s))
         return valid[-1] if valid else -2
 
+    def clean_directory(self, stage: int, rm_flag: bool) -> None:
+        p = self.stage_path(stage)
+        if os.path.isdir(p) and rm_flag:
+            shutil.rmtree(p)
+
     def rm_all(self) -> None:
         if os.path.isdir(self.homepath):
             shutil.rmtree(self.homepath)
         os.makedirs(self.homepath, exist_ok=True)
+
+    def concatenate_traces(self, stages=None) -> StageTrace:
+        """Traces of several stages stacked along the record axis (by
+        default every valid numbered stage, or the final one alone)."""
+        if stages is None:
+            top = self.highest_sampled_stage()
+            stages = list(range(0, top + 1)) if top >= 0 else [-1]
+        traces = [self.load_trace(s) for s in stages]
+        return StageTrace(np.concatenate([t.q_trace for t in traces], axis=0),
+                          np.concatenate([t.llk_trace for t in traces], axis=0),
+                          varnames=traces[0].varnames, ordering=self.ordering)
+
+
+# ---------------------------------------------------------------------------
+# Posterior summary
+# ---------------------------------------------------------------------------
+
+
+def hdi(samples: np.ndarray, prob: float = 0.94) -> tuple:
+    """Highest-density interval of 1-d samples."""
+    x = np.sort(np.asarray(samples).ravel())
+    n = x.size
+    m = max(1, int(np.floor(prob * n)))
+    widths = x[m:] - x[: n - m]
+    if widths.size == 0:
+        return float(x[0]), float(x[-1])
+    i = int(np.argmin(widths))
+    return float(x[i]), float(x[i + m])
+
+
+def effective_sample_size(chains: np.ndarray) -> float:
+    """Bulk ESS of (n_draws, n_chains) samples by the initial positive
+    sequence of the autocorrelations."""
+    x = np.asarray(chains, dtype=np.float64)
+    if x.ndim == 1:
+        x = x[:, None]
+    n, m = x.shape
+    if n < 4:
+        return float(n * m)
+    means = x.mean(axis=0)
+    w = x.var(axis=0, ddof=1).mean()
+    if w == 0:
+        return float(n * m)
+    acov = np.zeros((n, m))
+    for j in range(m):
+        c = x[:, j] - means[j]
+        acov[:, j] = np.correlate(c, c, mode="full")[n - 1:] / n
+    rho = 1.0 - (w - acov.mean(axis=1)) / w
+    t, s = 1, 0.0
+    while t + 1 < n:
+        pair = rho[t] + rho[t + 1]
+        if pair < 0:
+            break
+        s += pair
+        t += 2
+    tau = 1.0 + 2.0 * rho[0] if n < 3 else -1.0 + 2.0 * (rho[0] + s)
+    tau = max(tau, 1.0 / np.log10(n * m + 10))
+    return float(n * m / tau)
+
+
+def rhat(chains: np.ndarray) -> float:
+    """Gelman-Rubin split-R̂ over (n_draws, n_chains); NaN with fewer than
+    two draws per split half."""
+    x = np.asarray(chains, dtype=np.float64)
+    if x.ndim == 1 or x.shape[1] == 1:
+        half = x.reshape(-1)
+        x = np.stack([half[: half.size // 2], half[half.size // 2: 2 * (half.size // 2)]],
+                     axis=1)
+    n, m = x.shape
+    half = n // 2
+    if half < 2:
+        return float("nan")
+    splits = np.concatenate([x[:half], x[half: 2 * half]], axis=1)
+    n, m = splits.shape
+    w = splits.var(axis=0, ddof=1).mean()
+    b = n * splits.mean(axis=0).var(ddof=1)
+    if w == 0:
+        return 1.0
+    var_plus = (n - 1) / n * w + b / n
+    return float(np.sqrt(var_plus / w))
+
+
+def summarize_trace(trace: StageTrace, prob: float = 0.94) -> dict:
+    """Per-variable posterior summary (mean, sd, hdi, ess, r_hat); vector
+    variables give one entry per component, ``name[k]``."""
+    if trace.ordering is None:
+        raise ValueError("trace needs an ordering for summaries")
+    out = {}
+    for spec in trace.ordering.vmap:
+        block = trace.q_trace[:, :, spec.slc]  # (n_rec, n_chains, k)
+        for k in range(block.shape[-1]):
+            s = block[:, :, k]
+            name = spec.name if spec.shape == () else f"{spec.name}[{k}]"
+            lo, hi = hdi(s, prob)
+            out[name] = {
+                "mean": float(s.mean()),
+                "sd": float(s.std(ddof=1)),
+                f"hdi_{int(prob*100)}%_lower": lo,
+                f"hdi_{int(prob*100)}%_upper": hi,
+                "ess": effective_sample_size(s),
+                "r_hat": rhat(s),
+            }
+    return out
+
+
+def extract_bounds_from_summary(summary: dict, varname: str, shape=(), roundto: int = 2,
+                                alpha: float = 0.06) -> tuple:
+    """HDI bounds of a summarised variable, rounded outwards to
+    ``roundto`` decimals: the priors a later run imports."""
+    size = int(np.prod(shape, dtype=int)) if shape else 1
+    lows, highs = [], []
+    for k in range(size):
+        rec = summary[varname if not shape else f"{varname}[{k}]"]
+        keys = [key for key in rec if key.startswith("hdi_")]
+        lows.append(np.floor(min(rec[key] for key in keys) * 10**roundto) / 10**roundto)
+        highs.append(np.ceil(max(rec[key] for key in keys) * 10**roundto) / 10**roundto)
+    return np.array(lows), np.array(highs)

@@ -69,6 +69,26 @@ class Filter:
 
 
 @dataclass
+class BandstopFilter(Filter):
+    """Butterworth bandstop: rejects the band between the corners."""
+
+    lower_corner: float = 0.12
+    upper_corner: float = 0.25
+    order: int = 4
+
+    def response(self, nsamples: int, dt: float) -> np.ndarray:
+        from scipy import signal
+
+        nyq = 0.5 / dt
+        lo = max(self.lower_corner / nyq, 1e-6)
+        hi = min(self.upper_corner / nyq, 1.0 - 1e-6)
+        b, a = signal.butter(self.order, [lo, hi], btype="bandstop")
+        freqs = np.fft.rfftfreq(nsamples, dt)
+        _, h = signal.freqz(b, a, worN=freqs / nyq * np.pi)
+        return h.astype(np.complex64)
+
+
+@dataclass
 class FrequencyFilter:
     """Flat passband with cosine flanks, on the amplitude spectrum."""
 

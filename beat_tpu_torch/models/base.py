@@ -100,3 +100,15 @@ class Composite(nn.Module):
 
     def update_weights(self, point: dict) -> None:
         """Re-estimate data covariances at ``point`` (no-op by default)."""
+
+    # diagnostics at one point (no chain axis); a composite without data
+    # of its own (the Laplacian smoothing prior) keeps these empty defaults
+
+    def get_synthetics(self, point: dict) -> dict:
+        return {}
+
+    def get_standardized_residuals(self, point: dict) -> dict:
+        return {}
+
+    def get_variance_reductions(self, point: dict) -> dict:
+        return {}

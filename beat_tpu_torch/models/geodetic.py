@@ -261,8 +261,8 @@ class GeodeticGeometryComposite(GeodeticComposite):
             if not isinstance(src, (ExplosionSource, DoubleDCSource, RingfaultSource,
                                     RectangularSource) + MT_FAMILIES):
                 raise NotImplementedError(
-                    f"Geodetic statics for {type(src).__name__} (meshed sources wait for "
-                    "the BEM slice, ROADMAP)")
+                    f"Geodetic statics for {type(src).__name__} (use the BEM composite "
+                    "for meshed sources: models/bem.py::GeodeticBEMComposite)")
         self.nu = nu
         self.shear_modulus = shear_modulus
         self.static_table = static_table

@@ -6,7 +6,10 @@ HMC, or the trans-dimensional Voronoi sampler on a static finite-fault
 composite — plus the
 hyperparameter-only posterior (``make_hyper_logp_fn``,
 ``estimate_hypers``) and the between-stage covariance update
-(``update_weights``) (port of ``beat_tpu/models/problem.py``).
+(``update_weights``); the results of a finished run — synthetics,
+variance reductions, the posterior summary and derived samples — and
+:func:`load_model`, the problem of a project directory (port of
+``beat_tpu/models/problem.py``).
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 from beat_tpu_torch import defaults
 from beat_tpu_torch.distributions import hyper_normal
 from beat_tpu_torch.parameter import PriorSet
-from beat_tpu_torch.backend import SampleStage
+from beat_tpu_torch.backend import SampleStage, summarize_trace
 from beat_tpu_torch.device import DTYPE, resolve
 from beat_tpu_torch.ffi.transd import TransDParams
 from beat_tpu_torch.samplers.metropolis import MetropolisParams, metropolis_sample
@@ -250,3 +253,77 @@ class Problem:
     def update_weights(self, point: dict) -> None:
         for comp in self.composites.values():
             comp.update_weights(point)
+
+    def get_synthetics(self, point: dict) -> dict:
+        return {name: comp.get_synthetics(point) for name, comp in self.composites.items()}
+
+    def get_variance_reductions(self, point: dict) -> dict:
+        return {name: comp.get_variance_reductions(point)
+                for name, comp in self.composites.items()}
+
+    def summarize(self, stage: int = -1) -> dict:
+        """The posterior summary of a stage (:func:`~beat_tpu_torch.backend.summarize_trace`)."""
+        handler = SampleStage(self.outfolder, ordering=self.ordering)
+        return summarize_trace(handler.load_trace(stage))
+
+    def derived_samples(self, stage: int = -1, max_samples: int = 2000) -> dict:
+        """Derived variables of up to ``max_samples`` evenly spaced draws
+        of a stage: for moment-tensor sources the normalised MT
+        components (``<m>_derived``) and both nodal planes; for a
+        RectangularSource or a fault's slips the moment magnitude.  The
+        moment tensors are computed on the problem's device in one batch,
+        the decompositions on the host (:mod:`beat_tpu_torch.mt_utils`)."""
+        from beat_tpu_torch import mt_utils
+        from beat_tpu_torch.models.seismic import point_getter, source_m6
+        from beat_tpu_torch.sources import (MTQTSource, MTSource, RectangularSource,
+                                            moment_to_magnitude)
+
+        trace = SampleStage(self.outfolder, ordering=self.ordering).load_trace(stage)
+        flat = trace.q_trace.reshape(-1, trace.q_trace.shape[-1])
+        idx = np.linspace(0, flat.shape[0] - 1, min(max_samples, flat.shape[0])).astype(int)
+        template = fault = None
+        for comp in self.composites.values():
+            if getattr(comp, "sources", None):
+                template = comp.sources[0]
+            if hasattr(comp, "fault"):
+                fault = comp.fault
+        out: dict[str, list] = {}
+
+        def add(name, val):
+            out.setdefault(name, []).append(float(val))
+
+        m6s = None
+        if isinstance(template, (MTSource, MTQTSource)):
+            q = torch.as_tensor(flat[idx], dtype=DTYPE, device=self.device)
+            get = point_getter(template, self.ordering.to_point(q), 0, 1, q.shape[0],
+                               self.device)
+            with torch.no_grad():
+                m6s = source_m6(template, get).double().cpu().numpy()
+        for j, q in enumerate(flat[idx]):
+            point = self.ordering.to_point(q)
+            if m6s is not None:
+                m6 = m6s[j]
+                m6n = m6 / max(mt_utils.scalar_moment(m6), 1e-30)
+                for comp_name, v in zip(("mnn", "mee", "mdd", "mne", "mnd", "med"), m6n):
+                    add(f"{comp_name}_derived", v)
+                (s1, d1, r1), (s2, d2, r2) = mt_utils.both_strike_dip_rake(m6)
+                for n_, v in (("strike1", s1), ("dip1", d1), ("rake1", r1),
+                              ("strike2", s2), ("dip2", d2), ("rake2", r2)):
+                    add(n_, v)
+            if isinstance(template, RectangularSource) and "slip" in point:
+                area = point.get("length", template.length) * point.get("width", template.width)
+                m0 = 33e9 * area * abs(float(np.atleast_1d(point["slip"])[0]))
+                add("magnitude", float(moment_to_magnitude(m0)))
+            if fault is not None and "uparr" in point:
+                slips = np.sqrt(np.asarray(point["uparr"]) ** 2
+                                + np.asarray(point.get("uperp", 0.0)) ** 2)
+                add("magnitude", fault.magnitude(slips))
+        return {k: np.asarray(v) for k, v in out.items()}
+
+
+def load_model(project_dir: str, mode: str = "geometry", *, device="cuda") -> Problem:
+    """The Problem of a project directory's ``mode`` config, on
+    ``device`` (the card by default)."""
+    from beat_tpu_torch.config import load_config, problem_from_config
+
+    return problem_from_config(load_config(project_dir, mode), project_dir, device=device)

@@ -25,6 +25,7 @@ import math
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 from torch import nn
 
 from beat_tpu_torch.covariance import (Covariance, non_toeplitz_covariance,
@@ -511,6 +512,59 @@ class SeismicGeometryComposite(Composite):
                                                                    1e-30)
         return out
 
+    def seis_derivative(self, point: dict, parameter: str, wmap_idx: int = 0,
+                        mode: str = "autodiff", h: float = None,
+                        stencil_order: int = 3) -> np.ndarray:
+        """Sensitivity of one wavemap's synthetic windows to a source
+        parameter at ``point`` (no chain axis).
+
+        ``mode="autodiff"``: exact forward mode.  Each component of the
+        parameter is one chain whose tangent is that component's unit
+        vector, and one dual-tensor evaluation gives every column (the
+        table gather runs through K1c's forward-mode rule: one more K1c
+        launch on the tangents).  ``mode="fd"``: the central stencil of
+        ``stencil_order`` points (:data:`~beat_tpu_torch.utility.STENCILS`)
+        with step ``h`` (default 1e-3 · max(|value|, 1)), all shifted
+        values as chains of one evaluation.
+
+        Returns (T, nsamples_win) for a scalar parameter and, in autodiff
+        mode, one more trailing axis per parameter component otherwise (fd
+        shifts every component together)."""
+        if parameter not in point:
+            raise AttributeError(f"Parameter '{parameter}' not in point; derivatives are "
+                                 f"available for: {', '.join(sorted(point))}")
+        if mode not in ("autodiff", "fd"):
+            raise ValueError(f"mode must be 'autodiff' or 'fd', got {mode!r}")
+        device = self.wavemap0_data.device
+        base = batched_point(point, device)
+        v0 = base[parameter][0]
+        if mode == "autodiff":
+            k = max(v0.numel(), 1)
+            chains = {name: val.expand((k,) + val.shape[1:]) for name, val in base.items()}
+            tangent = torch.eye(k, dtype=DTYPE, device=device).reshape((k,) + v0.shape)
+            with torch.no_grad(), fwAD.dual_level():
+                chains[parameter] = fwAD.make_dual(chains[parameter].contiguous(), tangent)
+                jac = fwAD.unpack_dual(self.synthetics_windows(chains, wmap_idx)).tangent
+            jac = jac.cpu().numpy()                                    # (k, T, W)
+            return jac[0] if v0.dim() == 0 else np.moveaxis(jac, 0, -1).reshape(
+                jac.shape[1:] + tuple(v0.shape))
+        from beat_tpu_torch.utility import STENCILS
+
+        if h is None:
+            h = 1e-3 * max(float(v0.abs().max()), 1.0)
+        st = STENCILS[stencil_order]
+        offs = np.arange(len(st["coefficients"])) - len(st["coefficients"]) // 2
+        used = [(c, o) for c, o in zip(st["coefficients"], offs) if c != 0.0]
+        chains = {name: val.expand((len(used),) + val.shape[1:]) for name, val in base.items()}
+        chains[parameter] = torch.stack([v0 + torch.tensor(o * h, dtype=DTYPE, device=device)
+                                         for _, o in used])
+        with torch.no_grad():
+            wins = self.synthetics_windows(chains, wmap_idx).cpu().numpy()
+        acc = 0.0
+        for (c, _), win in zip(used, wins):
+            acc = acc + c * win
+        return acc / (st["denominator"] * h)
+
     def get_standardized_residuals(self, point: dict) -> dict:
         """``{mapid: (T, nsamples_fit)}`` whitened fit-space residuals."""
         with torch.no_grad():
@@ -521,3 +575,101 @@ class SeismicGeometryComposite(Composite):
             out[wmap.mapid] = np.stack([ds.covariance.chol_inverse @ res[i]
                                         for i, ds in enumerate(wmap.datasets)])
         return out
+
+
+def build_seismic_composite(seismic_config, project_dir, sources, events=None,
+                            finite_patches=None, stf_type: str = "HalfSinusoid", *, device):
+    """The composite of a project's seismic config: the traces of
+    ``<project_dir>/<datadir>/seismic_data.npz``; the GF table
+    ``gf_table.npz`` of the project if present (``gf_table.var*.npz`` its
+    earth-model ensemble), else a homogeneous table from ``gf_config``
+    (vp/vs/rho, distance and depth grids, nt, dt); each included
+    waveform config's channels, taper, filter, domain, picked arrivals
+    (``arrivals_path``), blacklist and distance range.
+
+    events : [main event, *subevents] — a wavemap with ``event_idx > 0``
+        is windowed around its own event and sees that event's source.
+    finite_patches : the RectangularSource grid."""
+    import glob
+    import os
+
+    from beat_tpu_torch.config import build_filterer
+    from beat_tpu_torch.covariance import SeismicNoiseAnalyser
+    from beat_tpu_torch.heart.geodesy import local_offset
+    from beat_tpu_torch.heart.gftable import GreensTable, build_homogeneous_table
+    from beat_tpu_torch.heart.seismic import WaveformMapping
+    from beat_tpu_torch.heart.taper import ArrivalTaper
+    from beat_tpu_torch.inputf import load_arrivals_csv, load_seismic_datasets
+
+    dev = resolve(device)
+    datasets = load_seismic_datasets(project_dir, getattr(seismic_config, "datadir", "./"))
+    table_path = os.path.join(project_dir, "gf_table.npz")
+    ensemble_tables = [GreensTable.load(p, device=dev) for p in
+                       sorted(glob.glob(os.path.join(project_dir, "gf_table.var*.npz")))]
+    if ensemble_tables:
+        logger.info("Loaded %i velocity-model variation tables (prediction covariances "
+                    "active)", len(ensemble_tables))
+    if os.path.exists(table_path):
+        table = GreensTable.load(table_path, device=dev)
+    else:
+        gfc = dict(seismic_config.gf_config or {})
+        table = build_homogeneous_table(
+            distances=np.linspace(gfc.get("distance_min", 10e3), gfc.get("distance_max", 150e3),
+                                  int(gfc.get("n_distances", 24))),
+            depths=np.linspace(gfc.get("depth_min", 1e3), gfc.get("depth_max", 30e3),
+                               int(gfc.get("n_depths", 12))),
+            nt=int(gfc.get("nt", 512)), dt=float(gfc.get("dt", 0.5)),
+            vp=float(gfc.get("vp", 6000.0)), vs=float(gfc.get("vs", 3500.0)),
+            rho=float(gfc.get("rho", 2700.0)), device=dev)
+
+    wavemaps = []
+    for mapnumber, wfc in enumerate(seismic_config.waveforms):
+        if not getattr(wfc, "include", True):
+            continue
+        selected = [ds for ds in datasets if ds.channel in wfc.channels]
+        if not selected:
+            logger.warning("Wavemap %s: no datasets for channels %s", wfc.name, wfc.channels)
+            continue
+        overrides = None
+        arrivals_path = getattr(wfc, "arrivals_path", None)
+        if arrivals_path:
+            overrides = load_arrivals_csv(arrivals_path if os.path.isabs(arrivals_path)
+                                          else os.path.join(project_dir, arrivals_path))
+        event_idx = int(getattr(wfc, "event_idx", 0))
+        event_offset = (0.0, 0.0, 0.0)
+        if events and event_idx > 0:
+            if event_idx >= len(events):
+                raise ValueError(f"wavemap {wfc.name}: event_idx {event_idx} but only "
+                                 f"{len(events)} events (main + subevents) configured")
+            main, ev = events[0], events[event_idx]
+            de, dn = local_offset(main.lat, main.lon, ev.lat, ev.lon)
+            event_offset = (de, dn, float(ev.time - main.time))
+        wmap = WaveformMapping(
+            name=wfc.name, datasets=selected, table=table,
+            taper=ArrivalTaper(wfc.arrival_taper.a, wfc.arrival_taper.b, wfc.arrival_taper.c,
+                               wfc.arrival_taper.d),
+            filterer=build_filterer(wfc.filterer), domain=wfc.domain,
+            quantity=getattr(wfc, "quantity", "displacement"),
+            station_corrections=getattr(seismic_config, "station_corrections", False),
+            arrival_overrides=overrides, event_idx=event_idx, event_offset=event_offset,
+            mapnumber=mapnumber, preprocess_data=getattr(wfc, "preprocess_data", True))
+        distances = getattr(wfc, "distances", None)
+        if wfc.blacklist or distances:
+            deg2m = 111194.9  # mean-Earth degree of arc
+            # epicentral distances from the wavemap's own event
+            wmap.station_weeding(
+                blacklist=wfc.blacklist,
+                distances=tuple(float(d) * deg2m for d in distances) if distances else None,
+                event_east=event_offset[0], event_north=event_offset[1])
+        wavemaps.append(wmap)
+    if not wavemaps:
+        raise ValueError("No wavemaps configured — check waveforms config")
+
+    ne = getattr(seismic_config, "noise_estimator", None)
+    analyser = (SeismicNoiseAnalyser(structure=ne.structure, pre_arrival_time=ne.pre_arrival_time)
+                if ne is not None else None)
+    return SeismicGeometryComposite(
+        wavemaps, sources, stf_type=stf_type,
+        hp_specific=getattr(seismic_config, "dataset_specific_residual_noise_estimation", False),
+        noise_analyser=analyser, finite_patches=finite_patches or (4, 4),
+        n_events=len(events) if events else 1, ensemble_tables=ensemble_tables, device=dev)

@@ -45,6 +45,9 @@ K1c and K2c read a row as 6 component segments of ``L = 2·nf`` floats,
 They are each other's transpose and each other's backward
 (:class:`BilinearContract`, :class:`ContractCornerDot`), as K1 and K2 are,
 so every order of derivative of the forward runs through K1c and K2c.
+Each is linear in its operand, so its forward-mode derivative (``jvp``,
+for ``torch.autograd.forward_ad`` dual tensors) is the same kernel
+applied to the operand's tangent: one more K1c (or K2c) launch.
 No (n, 6, L) tensor exists on their path.  Their queries come as
 (..., T): the kernels group the queries of one target ``t``, which tend
 to share corners in the forward's (chain, target) layout; the grouping
@@ -318,13 +321,28 @@ def _k2c(tbl, cd, z0, G) -> torch.Tensor:
     return out
 
 
+def _refuse_table_tangent(t_tbl, name: str) -> None:
+    if t_tbl is not None:
+        raise RuntimeError(f"{name} does not differentiate the GF table: the table is data "
+                           "(pass it without a tangent)")
+
+
 class BilinearContract(torch.autograd.Function):
-    """K1c with K2c as the coefficients' gradient."""
+    """K1c with K2c as the coefficients' gradient and K1c on the tangent
+    as its forward-mode derivative."""
 
     @staticmethod
     def forward(ctx, tbl, cd, z0, A):
         ctx.save_for_backward(tbl, cd, z0)
+        ctx.save_for_forward(tbl, cd, z0)
+        ctx.set_materialize_grads(False)     # operands without a tangent pass None to jvp
         return _k1c(tbl, cd, z0, A.contiguous())
+
+    @staticmethod
+    def jvp(ctx, t_tbl, t_cd, t_z0, tA):
+        _refuse_table_tangent(t_tbl, "bilinear_contract")
+        tbl, cd, z0 = ctx.saved_tensors
+        return None if tA is None else _k1c(tbl, cd, z0, tA.contiguous())
 
     @staticmethod
     def backward(ctx, g):
@@ -333,17 +351,26 @@ class BilinearContract(torch.autograd.Function):
                                "the table is data (pass it without requires_grad)")
         tbl, cd, z0 = ctx.saved_tensors
         dA = (ContractCornerDot.apply(tbl, cd, z0, g.contiguous())
-              if ctx.needs_input_grad[3] else None)
+              if ctx.needs_input_grad[3] and g is not None else None)
         return None, None, None, dA
 
 
 class ContractCornerDot(torch.autograd.Function):
-    """K2c with K1c as the cotangent's gradient (K2c is linear in ``G``)."""
+    """K2c with K1c as the cotangent's gradient (K2c is linear in ``G``)
+    and K2c on the tangent as its forward-mode derivative."""
 
     @staticmethod
     def forward(ctx, tbl, cd, z0, G):
         ctx.save_for_backward(tbl, cd, z0)
+        ctx.save_for_forward(tbl, cd, z0)
+        ctx.set_materialize_grads(False)     # operands without a tangent pass None to jvp
         return _k2c(tbl, cd, z0, G.contiguous())
+
+    @staticmethod
+    def jvp(ctx, t_tbl, t_cd, t_z0, tG):
+        _refuse_table_tangent(t_tbl, "contract_corner_dot")
+        tbl, cd, z0 = ctx.saved_tensors
+        return None if tG is None else _k2c(tbl, cd, z0, tG.contiguous())
 
     @staticmethod
     def backward(ctx, u):
@@ -351,7 +378,7 @@ class ContractCornerDot(torch.autograd.Function):
             raise RuntimeError("contract_corner_dot does not differentiate the GF table")
         tbl, cd, z0 = ctx.saved_tensors
         dG = (BilinearContract.apply(tbl, cd, z0, u.contiguous())
-              if ctx.needs_input_grad[3] else None)
+              if ctx.needs_input_grad[3] and u is not None else None)
         return None, None, None, dG
 
 
@@ -360,7 +387,8 @@ def bilinear_contract(tbl: torch.Tensor, cd: torch.Tensor, z0: torch.Tensor,
     """K1c: ``out[..., t, :] = Σ_c Σ_k A[..., t, c, k] · T_c(..., t)[k]``,
     (..., T, L) with ``L = M/6`` — the bilinear gather and the m6
     contraction in one pass, differentiable in ``A`` to every order
-    (through K2c and K1c).
+    (through K2c and K1c), in reverse mode and, for a dual ``A`` of
+    ``torch.autograd.forward_ad``, in forward mode (K1c on the tangent).
 
     tbl : (CD, NZ, M) float32 (float64 on the CPU), contiguous, M = 6·L
         with L even.

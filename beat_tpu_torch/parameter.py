@@ -40,6 +40,31 @@ class Parameter:
     def dimension(self) -> int:
         return self.lower.size
 
+    def validate_bounds(self) -> None:
+        """Check the bounds against the registry's physical bounds."""
+        phys = defaults.physical_bounds(self.name.split("_")[-1]
+                                        if self.name not in defaults.parameter_info
+                                        else self.name)
+        lo, hi = phys
+        if np.any(self.lower < lo) or np.any(self.upper > hi):
+            raise ValueError(f"Parameter '{self.name}' bounds [{self.lower}, {self.upper}] "
+                             f"exceed physical bounds {phys}")
+        if np.any(self.upper < self.lower):
+            raise ValueError(f"Parameter '{self.name}': upper < lower")
+        if np.any(self.testvalue < self.lower) or np.any(self.testvalue > self.upper):
+            raise ValueError(f"Parameter '{self.name}': testvalue outside bounds")
+
+    def to_dict(self) -> dict:
+        return {"name": self.name, "form": self.form, "lower": self.lower.tolist(),
+                "upper": self.upper.tolist(), "testvalue": self.testvalue.tolist()}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Parameter":
+        return cls(name=d["name"], lower=np.asarray(d["lower"]), upper=np.asarray(d["upper"]),
+                   testvalue=(np.asarray(d["testvalue"]) if d.get("testvalue") is not None
+                              else None),
+                   form=d.get("form", "Uniform"))
+
     @classmethod
     def from_defaults(cls, name: str, dimension: int = 1) -> "Parameter":
         lo, hi = defaults.default_bounds(name)
@@ -61,6 +86,13 @@ class PriorSet:
     def __contains__(self, name):
         return name in self.parameters
 
+    def __getitem__(self, name) -> Parameter:
+        return self.parameters[name]
+
+    @property
+    def names(self) -> list:
+        return list(self.parameters)
+
     @property
     def ordering(self) -> Ordering:
         return Ordering([(p.name, (p.dimension,) if p.dimension > 1 else ())
@@ -79,3 +111,17 @@ class PriorSet:
         """``{name: test value}``, scalars for one-element parameters."""
         return {p.name: (p.testvalue.copy() if p.dimension > 1 else float(p.testvalue[0]))
                 for p in self.parameters.values()}
+
+    def validate(self) -> None:
+        for p in self.parameters.values():
+            p.validate_bounds()
+
+    def to_dict(self) -> dict:
+        return {name: p.to_dict() for name, p in self.parameters.items()}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "PriorSet":
+        ps = cls()
+        for pd in d.values():
+            ps.add(Parameter.from_dict(pd))
+        return ps

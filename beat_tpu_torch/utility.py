@@ -1,6 +1,7 @@
 """
-Point/vector bijection, covariance PSD repair, windowed statistics and
-the elbow of a curve (copied from ``beat_tpu/utility.py``, trimmed
+Point/vector bijection, covariance PSD repair, windowed statistics, the
+elbow of a curve, the km → m conversion of a point and the
+finite-difference stencils (copied from ``beat_tpu/utility.py``, trimmed
 to what the port calls).
 
 :class:`Ordering` maps between named parameter dicts ("points") and one
@@ -45,6 +46,9 @@ class Ordering:
 
     def __getitem__(self, name) -> VarSpec:
         return self._by_name[name]
+
+    def __contains__(self, name):
+        return name in self._by_name
 
     def to_array(self, point: dict, dtype=None):
         """Map dict of named arrays -> flat vector (numpy)."""
@@ -123,3 +127,23 @@ def find_elbow(data: np.ndarray) -> int:
     rel = data - data[0]
     dists = np.linalg.norm(rel - np.outer(rel @ line, line), axis=1)
     return int(np.argmax(dists))
+
+
+def adjust_point_units(point: dict, km_vars=("east_shift", "north_shift", "depth", "length",
+                                             "width", "nucleation_strike",
+                                             "nucleation_dip")) -> dict:
+    """Convert km-valued geometry parameters to metres (the base name,
+    trailing digits and underscores stripped, is looked up)."""
+    out = {}
+    for k, v in point.items():
+        base = k.rstrip("0123456789_")
+        out[k] = np.asarray(v) * 1000.0 if base in km_vars else v
+    return out
+
+
+#: central finite-difference stencils by order: coefficients of the
+#: samples at offsets -n//2 .. n//2 steps, and the denominator
+STENCILS = {
+    3: {"coefficients": np.array([-1.0, 0.0, 1.0]), "denominator": 2.0},
+    5: {"coefficients": np.array([1.0, -8.0, 0.0, 8.0, -1.0]), "denominator": 12.0},
+}

@@ -231,6 +231,28 @@ SMC on the first and a post-seismic geodetic SMC on the last.
     through its own epoch's table, and the true source's LOS at 30 and at
     365 days differing by more than 1e-3 of max), SMC to β = 1 (2000 chains,
     40 steps) within 300 m (depth 500 m), K5 launched;
+17f. slice 11, the project and results layer (after [visco_smc], before
+    [layered_host_check]): [project] the real-size FullMT problem written
+    as a project directory by the port's writers (config, seismic data,
+    ``gf_table.npz``) and loaded with ``load_model(..., device="cuda")``:
+    its 2000-chain llk within rtol 2e-5 of the directly built problem's;
+    ``sample()`` with the project's sampler settings (2000 chains, 60
+    steps) under [smc]'s gates, K1c and K5 launched; ``summarize()``'s
+    means equal to the stage's (rtol 1e-6); ``derived_samples()`` within
+    1e-5 of the host's ``mt_utils`` on the host's m6 of the same draws
+    (angles as a share of 360°); the best draw's variance reduction over
+    all windows >= 0.9 (each wavemap's printed) and its Kagan angle to the
+    truth (printed, no gate);
+    [project_seis_derivative] ``seis_derivative`` at the best draw for
+    depth and the six MT components: K1c launched by its forward-mode
+    rule, every JVP within 1e-5 · Σ|tangent| · max|rows| per query of the
+    plain version on the same tangent, the autodiff within the 3-point
+    stencil's error bar of ``mode="fd"`` (4 × (|fd3 − fd5| + float32
+    roundoff over the step), printed); [project_modes] the geodetic
+    geometry, static FFI and linear BEM problems written as projects and
+    loaded, each 2000-chain llk within rtol 1e-6 of the direct build's
+    (the kinematic FFI project is left out on the card: its config path is
+    held on the CPU);
 18. a JSON line of the kernels, then ``{"ok": true, "device": ...}`` last.
 
 Phase 12 and the bench-shape half of 13 run right after phase 4, phase 5
@@ -345,6 +367,14 @@ HOMO_STATIC = dict(vp=6000.0, vs=3500.0, rho=2700.0, distances=(2e3, 60e3, 6),
 HOMO_STATIC_RTOL = 0.01
 PRONY_RESID_MAX = 1e-3           # the builder's own warning level (viscoelastic.py:464)
 EPOCH_SLAB_MIN = 1e-3            # the true source's LOS at the two epochs differs by more
+#: [project]: the derived samples against the host's mt_utils (normalised
+#: MT components absolute, nodal-plane angles as a share of 360°), the
+#: best draw's variance reduction over all windows, the autodiff/fd bar's factor
+#: and the other modes' projects against their direct builds
+DERIVED_TOL, VR_MIN, FD_BAR_FACTOR, PROJECT_MODES_RTOL = 1e-5, 0.9, 4.0, 1e-6
+# [project]: each wavemap's variance reduction at the best draw may fall
+# this far below the same wavemap's at the true source
+VR_TRUTH_MARGIN = 0.02
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, HBM3
 FP32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
 
@@ -2140,6 +2170,361 @@ def analytic_store_check(dev, workdir: str) -> float:
     return float(np.abs(got - want).max() / np.abs(want).max())
 
 
+def write_fullmt_project(problem, pdir: str) -> None:
+    """The FullMT flagship problem as a project directory, written by the
+    port's own writers: ``init_config`` and ``dump_config`` (the
+    flagship's priors, wavemaps, taper, filter and sampler settings),
+    ``save_seismic_datasets`` and ``GreensTable.save`` to ``gf_table.npz``."""
+    from beat_tpu_torch.config import (ArrivalTaperConfig, EventConfig, FilterConfig,
+                                       WaveformFitConfig, dump_config, init_config)
+    from beat_tpu_torch.flagship import FILTER, TAPER, TRUE_DEPTH, WAVEMAPS, flagship_datasets
+    from beat_tpu_torch.inputf import save_seismic_datasets
+
+    comp = problem.composites["seismic"]
+    cfg = init_config("fullmt", pdir, datatypes=("seismic",), source_types=("MTSource",),
+                      event=EventConfig(depth=TRUE_DEPTH))
+    set_config_priors(cfg, problem.source_priors.parameters)
+    cfg.seismic_config.waveforms = [
+        WaveformFitConfig(name=name, channels=list(channels), filterer=FilterConfig(**FILTER),
+                          arrival_taper=ArrivalTaperConfig(**TAPER))
+        for name, channels in WAVEMAPS.items()]
+    cfg.sampler_config.parameters = dict(n_chains=N_CHAINS, n_steps=N_STEPS, seed=0)
+    dump_config(cfg, pdir)
+    st_e, st_n, raw = problem.observations
+    save_seismic_datasets([ds for dsets in flagship_datasets(st_e, st_n, raw).values()
+                           for ds in dsets], pdir)
+    comp.tables[0].save(os.path.join(pdir, "gf_table.npz"))
+
+
+def set_config_priors(cfg, priors: dict, hierarchicals: dict | None = None) -> None:
+    """Replace a config's priors by ``priors`` (``{name: Parameter}`` in
+    SI, as the problems hold them), in the config's units;
+    ``hierarchicals`` go to its ``hyperparameters`` section."""
+    pc = cfg.problem_config
+    pc.priors = {}
+    for target, params in ((pc.priors, priors), (pc.hyperparameters, hierarchicals or {})):
+        for p in params.values():
+            scale = 1e-3 if p.name in pc.KM_SCALED_VARS else 1.0
+            d = p.to_dict()
+            for key in ("lower", "upper", "testvalue"):
+                d[key] = [v * scale for v in d[key]]
+            target[p.name] = d
+
+
+def same_points_llk(direct, loaded, n_chains: int, seed: int) -> tuple:
+    """The two problems' llks of the same ``n_chains`` draws from the
+    direct problem's priors (each problem's own ordering, matched by
+    name): ``(direct (C,), loaded (C,))`` as float64 numpy."""
+    import numpy as np
+    import torch
+
+    lo, hi = direct.priors.bounds_arrays()
+    q = np.random.default_rng(seed).uniform(lo, hi, (n_chains, lo.size))
+    point = direct.ordering.to_point(q)
+    missing = set(loaded.ordering.names) - set(point)
+    if missing:
+        raise SystemExit(f"[project] the loaded problem samples {sorted(missing)}, which the "
+                         "direct one does not")
+    q_loaded = np.concatenate([point[n].reshape(n_chains, -1) for n in loaded.ordering.names],
+                              axis=1)
+    out = []
+    for problem, qq in ((direct, q), (loaded, q_loaded)):
+        logp, data = problem.make_logp_fn()
+        with torch.no_grad():
+            out.append(logp(torch.as_tensor(qq, dtype=torch.float32, device=problem.device),
+                            data).double().cpu().numpy())
+    return tuple(out)
+
+
+def project_phases(dev, workdir: str, k5_launches: dict) -> dict:
+    """The project and results layer on the card ([project], after the
+    timed table builders): the real-size FullMT problem written as a
+    project directory by the port's writers and loaded with
+    ``load_model(project_dir, "geometry", device="cuda")``; its 2000-chain
+    llk against the directly built flagship's (LLK_RTOL); ``sample()``
+    with the project's sampler settings under [smc]'s gates, K1c and K5
+    counted; ``summarize()`` (posterior means equal to the stage's own),
+    ``derived_samples()`` against the host's ``mt_utils`` on the host's own
+    m6 of the same draws, the best draw's ``get_variance_reductions``
+    per wavemap against the same wavemap's at the true source (less
+    VR_TRUTH_MARGIN) and over all windows (VR_MIN), its Kagan angle to
+    the truth printed; ``seis_derivative`` at the best draw for depth and
+    the six MT components: every K1c call with a tangent launching K1c
+    exactly twice (the primal and the tangent), the JVP launches counted
+    apart from the forwards of the ``fd`` stencils and the synthetics,
+    each captured JVP within CONTRACT_RTOL per query of the plain version
+    on the same tangent, autodiff against the ``fd`` stencil within the
+    stencil's error bar.  Then [project_modes]: the geodetic geometry
+    (GEO_REAL_SIZE), the static FFI (the 50 × 10 fault) and the linear BEM
+    (the example's disk) problems written as projects and loaded, their
+    2000-chain llks within rtol 1e-6 of the direct builds.  Left out on
+    the card: the kinematic FFI project (its 3.93 GB library written and
+    read back); its config path is held on the CPU
+    (``tests/test_torch_config.py``).  Adds the SMC's K5 launches to
+    ``k5_launches``; returns K1c's launches of the SMC and of the
+    derivatives.  Raises SystemExit at the first gate missed."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.autograd.forward_ad as fwAD
+
+    from beat_tpu_torch import mt_utils
+    from beat_tpu_torch.backend import SampleStage
+    from beat_tpu_torch.config import (BEMConfig, GeodeticConfig, RampConfig, dump_config,
+                                       init_config, save_geodetic_datasets)
+    from beat_tpu_torch.flagship import (BEM_REAL_SIZE, BEM_SOURCE, GEO_REAL_SIZE, REAL_SIZE,
+                                         STATIC_FFI_REAL_SIZE, TRUE_DEPTH, TRUE_DURATION,
+                                         TRUE_MAGNITUDE, TRUE_SDR, build_bem_flagship,
+                                         build_flagship, build_geodetic_flagship,
+                                         build_static_ffi_flagship)
+    from beat_tpu_torch.models.problem import load_model
+    from beat_tpu_torch.models.seismic import M6_NAMES, point_getter, source_m6
+    from beat_tpu_torch.ops.bilgather import bilinear_contract, bilinear_contract_reference
+    from beat_tpu_torch.ops.rowgather import gather_rows
+    from beat_tpu_torch.parameter import Parameter
+    from beat_tpu_torch.sources import magnitude_to_moment, sdr_to_m6
+
+    out = {}
+    pdir = os.path.join(workdir, "project_fullmt")
+    direct = build_flagship(**REAL_SIZE, seed=0, device=dev,
+                            outfolder=os.path.join(workdir, "project_direct"))
+    t0 = time.perf_counter()
+    write_fullmt_project(direct, pdir)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    problem = load_model(pdir, "geometry", device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    llk_direct, llk_loaded = same_points_llk(direct, problem, N_CHAINS, seed=3)
+    llk_err = float((np.abs(llk_loaded - llk_direct) / np.abs(llk_direct)).max())
+    del direct
+    torch.cuda.empty_cache()
+
+    bilinear_contract.launches = 0
+    gather_rows.launches = 0
+    (res, wall, peak) = timed_peak(lambda: problem.sample())
+    q_tr, llk_tr = res
+    k1c = bilinear_contract.launches
+    k5_launches["project"] = gather_rows.launches
+    handler = SampleStage(problem.outfolder, ordering=problem.ordering)
+    state = handler.load_state(-1)
+    trace = handler.load_trace(-1)
+    est = problem.ordering.to_point(q_tr[-1].mean(axis=0))
+    depth, mag = float(np.asarray(est["depth"])), float(np.asarray(est["magnitude"]))
+
+    # the results read back: the summary's means against the stage's own
+    summary = problem.summarize(-1)
+    mean_err = max(abs(summary[name]["mean"] - float(trace.get_values(name).mean()))
+                   / max(abs(float(trace.get_values(name).mean())), 1e-30)
+                   for name in problem.ordering.names)
+    # derived samples against the host's mt_utils on the host's m6 of the same draws
+    derived = problem.derived_samples(-1)
+    flat = trace.q_trace.reshape(-1, trace.q_trace.shape[-1])
+    idx = np.linspace(0, flat.shape[0] - 1, min(2000, flat.shape[0])).astype(int)
+    host_q = torch.as_tensor(flat[idx], dtype=torch.float32)
+    template = problem.composites["seismic"].sources[0]
+    host_m6 = source_m6(template, point_getter(template, problem.ordering.to_point(host_q), 0, 1,
+                                               host_q.shape[0], host_q.device)).double().numpy()
+    derived_err = 0.0
+    for j, m6 in enumerate(host_m6):
+        m6n = m6 / max(mt_utils.scalar_moment(m6), 1e-30)
+        want = dict(zip((f"{c}_derived" for c in M6_NAMES), m6n))
+        for (s, d, r), k in zip(mt_utils.both_strike_dip_rake(m6), "12"):
+            want.update({f"strike{k}": s, f"dip{k}": d, f"rake{k}": r})
+        for name, v in want.items():
+            delta = float(derived[name][j]) - v
+            if name[:3] in ("str", "dip", "rak"):       # angles: the difference modulo 360°
+                delta = ((delta + 180.0) % 360.0 - 180.0) / 360.0
+            derived_err = max(derived_err, abs(delta))
+    best = problem.ordering.to_point(flat[int(np.argmax(trace.llk_trace.reshape(-1)))])
+    best = {k: np.asarray(v) for k, v in best.items()}
+    best_m6 = source_m6(template, point_getter(
+        template, {k: torch.as_tensor(v)[None] for k, v in best.items()}, 0, 1, 1,
+        torch.device("cpu"))).double().numpy()[0]
+    kagan = mt_utils.kagan_angle(best_m6, sdr_to_m6(*TRUE_SDR, magnitude_to_moment(
+        TRUE_MAGNITUDE)).double().numpy())
+    vrs = problem.get_variance_reductions(best)["seismic"]
+    truth = dict(zip(M6_NAMES, sdr_to_m6(*TRUE_SDR).double().numpy()), magnitude=TRUE_MAGNITUDE,
+                 depth=TRUE_DEPTH, time=0.0, duration=TRUE_DURATION, east_shift=0.0,
+                 north_shift=0.0)
+    true_point = dict(best, **{k: np.full(np.shape(best[k]), v, dtype=best[k].dtype)
+                               for k, v in truth.items() if k in best})
+    vrs_true = problem.get_variance_reductions(true_point)["seismic"]
+    synths = problem.get_synthetics(best)["seismic"]
+    obs = {w.mapid: w.data_windows for w in problem.composites["seismic"].wavemaps}
+    vr_all = 1.0 - (sum(float(((obs[k] - synths[k]) ** 2).sum()) for k in obs)
+                    / sum(float((o ** 2).sum()) for o in obs.values()))
+    say("project", chains=N_CHAINS, steps=N_STEPS, write_s=f"{write_s:.2f}",
+        load_s=f"{load_s:.2f}", llk_worst_rel_err=f"{llk_err:.2e}", wall_s=f"{wall:.2f}",
+        stages=len(state["acceptance"]), beta=float(state["beta"]), k1c_launches=k1c,
+        k5_launches=k5_launches["project"], peak_GB=f"{peak:.2f}", depth_m=f"{depth:.1f}",
+        magnitude=f"{mag:.4f}", summary_mean_worst_rel_err=f"{mean_err:.2e}",
+        derived_draws=len(idx), derived_worst_err=f"{derived_err:.2e}",
+        best_kagan_deg=f"{kagan:.2f}",
+        best_variance_reduction=f"{vr_all:.4f}",
+        best_variance_reduction_by_wavemap=json.dumps({k: round(v, 4) for k, v in vrs.items()}),
+        true_variance_reduction_by_wavemap=json.dumps({k: round(v, 4)
+                                                       for k, v in vrs_true.items()}))
+    if not llk_err <= LLK_RTOL:
+        raise SystemExit(f"[project] the loaded problem's llk is off the direct one's: {llk_err}")
+    if not (float(state["beta"]) == 1.0 and np.isfinite(llk_tr).all()):
+        raise SystemExit("[project] did not reach beta = 1 with finite llks")
+    if k1c == 0 or k5_launches["project"] == 0:
+        raise SystemExit("[project] never launched K1c (or K5, its resampling gather)")
+    if abs(depth - TRUE_DEPTH) >= DEPTH_TOL or abs(mag - TRUE_MAGNITUDE) >= MAG_TOL:
+        raise SystemExit(f"[project] posterior misses the truth: depth {depth}, Mw {mag}")
+    if not mean_err <= 1e-6:
+        raise SystemExit(f"[project] summarize()'s means are off the stage's: {mean_err}")
+    if not derived_err <= DERIVED_TOL:
+        raise SystemExit(f"[project] derived_samples() off the host's mt_utils: {derived_err}")
+    if not all(vrs[k] >= vrs_true[k] - VR_TRUTH_MARGIN for k in vrs_true):
+        raise SystemExit(f"[project] the best draw's variance reductions {vrs} fall more than "
+                         f"{VR_TRUTH_MARGIN} below the true source's {vrs_true}")
+    if not vr_all >= VR_MIN:
+        raise SystemExit(f"[project] the best draw's variance reduction: {vr_all} ({vrs})")
+    out["project"] = {"k1c_launches": k1c}
+
+    # [project_seis_derivative] at the best draw: forward mode through K1c
+    comp = problem.composites["seismic"]
+    table = comp.tables[0]
+    captured, jvp_launches = [], []
+
+    def capture(tbl, cd, z0, A):
+        before = bilinear_contract.launches
+        res = bilinear_contract(tbl, cd, z0, A)
+        tangent = fwAD.unpack_dual(A).tangent
+        if tangent is not None:
+            # the primal and the tangent: two launches of K1c, none plain
+            jvp_launches.append(bilinear_contract.launches - before)
+            captured.append((cd, z0, tangent.detach().clone(),
+                             fwAD.unpack_dual(res).tangent.detach().clone()))
+        return res
+
+    CD, NZ, _ = table.packed.shape
+    jvp_worst, fd = 0.0, {}
+    bilinear_contract.launches = 0
+    table.contract_fn = capture
+    try:
+        for name in ("depth",) + M6_NAMES:
+            J = [comp.seis_derivative(best, name, wmap_idx=w) for w in range(len(comp.wavemaps))]
+            scale = max(float(np.abs(j).max()) for j in J)
+            # the step: the default, but the 5-point stencil must not reach
+            # across a depth node of the table, where the bilinear gather kinks
+            h = 1e-3 * max(abs(float(best[name])), 1.0)
+            if name == "depth":
+                h = min(h, float(np.abs(table.depths - float(best[name])).min()) / 4.0)
+            err = {}
+            for order in (3, 5):
+                F = [comp.seis_derivative(best, name, wmap_idx=w, mode="fd", h=h,
+                                          stencil_order=order)
+                     for w in range(len(comp.wavemaps))]
+                err[order] = max(float(np.abs(f - j).max()) for f, j in zip(F, J)) / scale
+                err[f"fd{order}"] = F
+            # the bar: the 3-point stencil's truncation error, estimated
+            # against the 5-point one, plus float32 roundoff over the step
+            wmax = max(float(np.abs(w).max()) for w in comp.get_synthetics(best).values())
+            trunc = max(float(np.abs(a - b).max()) for a, b in zip(err["fd3"], err["fd5"]))
+            bar = FD_BAR_FACTOR * (trunc + 2.0 ** -23 * wmax / h) / scale
+            fd[name] = (err[3], bar)
+    finally:
+        table.contract_fn = bilinear_contract
+    k1c_all = bilinear_contract.launches
+    k1c_jvp = len(jvp_launches)             # one tangent launch per call with a tangent
+    for cd, z0, tA, got in captured:
+        cdc, z0c = cd.clamp(0, CD - 2), z0.clamp(0, NZ - 2)
+        ref = bilinear_contract_reference(table.packed, cdc, z0c, tA)
+        rows = torch.stack([table.packed[cdc, z0c], table.packed[cdc, z0c + 1],
+                            table.packed[cdc + 1, z0c], table.packed[cdc + 1, z0c + 1]], dim=-2)
+        bar = CONTRACT_RTOL * tA.abs().sum((-2, -1)) * rows.abs().amax((-2, -1))
+        jvp_worst = max(jvp_worst, float(((got - ref).abs().amax(-1) / bar).max()))
+    say("project_seis_derivative", parameters=json.dumps(["depth", *M6_NAMES]),
+        k1c_launches=k1c_all, k1c_jvp_launches=k1c_jvp,
+        k1c_forward_launches=k1c_all - k1c_jvp, jvps_checked=len(captured),
+        jvp_worst_err_over_bar=f"{jvp_worst:.3e}",
+        fd3_vs_autodiff=json.dumps({k: f"{v[0]:.2e}" for k, v in fd.items()}),
+        fd_bar=json.dumps({k: f"{v[1]:.2e}" for k, v in fd.items()}))
+    if not captured or any(n != 2 for n in jvp_launches):
+        raise SystemExit(f"[project_seis_derivative] a call with a tangent did not launch K1c "
+                         f"for its primal and its tangent: {jvp_launches}")
+    if not jvp_worst <= 1.0:
+        raise SystemExit(f"[project_seis_derivative] K1c's JVP off the plain version's: "
+                         f"{jvp_worst}")
+    if not all(e <= b for e, b in fd.values()):
+        raise SystemExit(f"[project_seis_derivative] autodiff and fd disagree: {fd}")
+    out["project_seis_derivative"] = {"k1c_launches": k1c_all, "k1c_jvp_launches": k1c_jvp}
+    del problem, comp, table, captured
+    torch.cuda.empty_cache()
+
+    # [project_modes] the other modes as projects, by llk only
+    modes = {}
+    geo = build_geodetic_flagship(**GEO_REAL_SIZE, seed=0, device=dev,
+                                  outfolder=os.path.join(workdir, "geo_direct"))
+    gdir = os.path.join(workdir, "project_geodetic")
+    cfg = init_config("geo", gdir, datatypes=("geodetic",), source_types=("RectangularSource",))
+    cfg.geodetic_config = GeodeticConfig()
+    cfg.geodetic_config.corrections.ramps = RampConfig(enabled=True)
+    ramps = {n: p for n, p in geo.priors.parameters.items()
+             if n.endswith(("_ramp", "_offset"))}
+    set_config_priors(cfg, {n: p for n, p in geo.source_priors.parameters.items()
+                            if n not in ramps}, ramps)
+    dump_config(cfg, gdir)
+    save_geodetic_datasets(geo.composites["geodetic"].datasets, gdir)
+    modes["geodetic"] = (geo, gdir, "geometry")
+
+    static = build_static_ffi_flagship(**STATIC_FFI_REAL_SIZE, device=dev,
+                                       outfolder=os.path.join(workdir, "static_direct"))
+    sdir = os.path.join(workdir, "project_static_ffi")
+    cfg = init_config("sffi", sdir, mode="ffi", datatypes=("geodetic",))
+    set_config_priors(cfg, {n: Parameter(n, [p.lower.min()], [p.upper.max()])
+                            for n, p in static.source_priors.parameters.items()})
+    dump_config(cfg, sdir)
+    scomp = static.composites["geodetic"]
+    save_geodetic_datasets(scomp.datasets, sdir)
+    gfdir = os.path.join(sdir, "ffi", "linear_gfs")
+    os.makedirs(gfdir, exist_ok=True)
+    with open(os.path.join(gfdir, "fault_geometry.pkl"), "wb") as f:
+        pickle.dump(scomp.fault, f)
+    scomp.gflibrary.save(os.path.join(gfdir, "geodetic_gfs.npz"))
+    modes["static_ffi"] = (static, sdir, "ffi")
+
+    bem = build_bem_flagship(**BEM_REAL_SIZE, device=dev,
+                             outfolder=os.path.join(workdir, "bem_direct"))
+    bdir = os.path.join(workdir, "project_bem")
+    cfg = init_config("bem", bdir, mode="bem", source_types=("DiskBEMSource",))
+    cfg.bem_config = BEMConfig(mesh_size=BEM_REAL_SIZE["mesh_size"] / 1e3,
+                               quadrature_level=BEM_REAL_SIZE["quadrature_level"],
+                               near_quadrature_level=BEM_REAL_SIZE["near_quadrature_level"])
+    fixed = dict(east_shift=0.0, north_shift=0.0, depth=BEM_SOURCE["depth"],
+                 a_half_axis=BEM_SOURCE["a_half_axis"], b_half_axis=BEM_SOURCE["a_half_axis"],
+                 strike=0.0, dip=0.0, plunge=0.0)
+    set_config_priors(cfg, dict({n: Parameter(n, [v], [v]) for n, v in fixed.items()},
+                                **bem.source_priors.parameters))
+    dump_config(cfg, bdir)
+    save_geodetic_datasets(bem.composites["geodetic"].datasets, bdir)
+    modes["bem_linear"] = (bem, bdir, "bem")
+
+    for key, (direct, mdir, mode) in modes.items():
+        t0 = time.perf_counter()
+        loaded = load_model(mdir, mode, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        a, b = same_points_llk(direct, loaded, N_CHAINS, seed=4)
+        modes[key] = {"load_s": round(load_s, 2),
+                      "worst_rel_err": float((np.abs(b - a) / np.abs(a)).max()),
+                      "composite": type(loaded.composites["geodetic"]).__name__,
+                      "finite": bool(np.isfinite(b).all())}
+        del loaded
+    say("project_modes", chains=N_CHAINS, modes=json.dumps(modes))
+    for key, r in modes.items():
+        if not (r["finite"] and r["worst_rel_err"] <= PROJECT_MODES_RTOL):
+            raise SystemExit(f"[project_modes] {key}: the project's llk is off the direct "
+                             f"build's: {r}")
+    del geo, static, bem
+    torch.cuda.empty_cache()
+    return out
+
+
 def table_builder_phases(dev, workdir: str, k5_launches: dict) -> dict:
     """Slice 10's table builders on the card and the paths through their
     tables: [layered_build] (the FullMT grid as a layered waveform table of
@@ -2152,10 +2537,10 @@ def table_builder_phases(dev, workdir: str, k5_launches: dict) -> dict:
     CPU; a homogeneous model against the analytic table), [visco_build]
     (the default crust with Maxwell layers at the scenes' epochs) and
     [visco_smc] (the geodetic problem's scenes at 30 and 365 days through
-    the epoch table), then [layered_host_check] (the host CPU's two nodes,
-    after the timed phases).  Adds the SMCs' K5 launches to
-    ``k5_launches``;
-    returns K1c's launches on [layered_smc].  Raises SystemExit at the
+    the epoch table), then the project phases (:func:`project_phases`)
+    and [layered_host_check] (the host CPU's two nodes, after the timed
+    phases).  Adds the SMCs' K5 launches to ``k5_launches``;
+    returns K1c's launches on [layered_smc] and the project phases.  Raises SystemExit at the
     first gate missed."""
     import numpy as np
     import scipy.special
@@ -2416,6 +2801,9 @@ def table_builder_phases(dev, workdir: str, k5_launches: dict) -> dict:
     if not (abs(pos_err["east_shift"]) <= GEO_POS_TOL and abs(pos_err["north_shift"])
             <= GEO_POS_TOL and abs(pos_err["depth"]) <= GEO_DEPTH_TOL):
         raise SystemExit(f"[visco_smc] posterior mean position misses the truth: {pos_err}")
+
+    # [project], [project_seis_derivative], [project_modes]
+    out.update(project_phases(dev, workdir, k5_launches))
 
     # [layered_host_check] the layered table's two nodes on the host CPU,
     # after every timed phase, so that no timing shares the host's cores
@@ -3460,7 +3848,10 @@ def main() -> int:
         pt_joint=joint["pt_joint"]["k1c_launches"],
         polarity_llk=polarity["polarity_llk"]["k1c_launches"],
         polarity_smc=polarity["polarity_smc"]["k1c_launches"],
-        layered_smc=builders["layered_smc"]["k1c_launches"])
+        layered_smc=builders["layered_smc"]["k1c_launches"],
+        project=builders["project"]["k1c_launches"],
+        project_seis_derivative=builders["project_seis_derivative"]["k1c_launches"],
+        project_seis_derivative_jvp=builders["project_seis_derivative"]["k1c_jvp_launches"])
     k1c_entry["finite_layouts"] = {k: {f: v for f, v in r.items() if f != "shape"}
                                    for k, r in layouts.items()}
     k1c_entry["finite_layout_kept"] = kept

@@ -16,7 +16,9 @@ against the CPU; the polarity llk (per-draw takeoffs) and the BEM
 matrices (float64) on the card against the host, and the refusal of host
 tensors by composites on the card; the table builders (Bessel functions,
 layered static values, the Kennett kernels, layered waveform tables, the
-viscoelastic table and its epoch gather) on the card against the host.  They skip without a card (the check
+viscoelastic table and its epoch gather) on the card against the host;
+K1c's forward-mode rule against the plain version's JVP, ``seis_derivative``
+on the card against the CPU, and a project loaded and sampled on the card.  They skip without a card (the check
 that nothing falls back to the CPU without one runs everywhere); run
 them on one with
 
@@ -955,3 +957,84 @@ def test_slice10_entry_points_refuse_cuda_without_a_card(monkeypatch):
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+# ---------------------------------------------------------------------------
+# slice 11: K1c's forward-mode rule, seis_derivative and projects on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("CD,NZ,nf,C,T", CONTRACT_SHAPES)
+def test_slice11_k1c_jvp_matches_the_plain_jvp(cuda, CD, NZ, nf, C, T):
+    """The tangent of K1c's output for a dual ``A`` is K1c on the tangent
+    (one more launch), per query within the forward's bar of the plain
+    version's JVP on the same tangent; the primal is the forward."""
+    import torch.autograd.forward_ad as fwAD
+
+    gen = torch.Generator(device=cuda).manual_seed(C * T + nf + 2)
+    tbl = torch.randn((CD, NZ, 12 * nf), generator=gen, device=cuda)
+    cd, z0 = _contract_queries("three_cells", CD, NZ, C, T, gen, cuda)
+    A = torch.randn(cd.shape + (4, 6), generator=gen, device=cuda)
+    tA = torch.randn(cd.shape + (4, 6), generator=gen, device=cuda)
+    before = bilinear_contract.launches
+    with fwAD.dual_level():
+        primal, tangent = fwAD.unpack_dual(bilinear_contract(tbl, cd, z0, fwAD.make_dual(A, tA)))
+    torch.cuda.synchronize()
+    assert bilinear_contract.launches == before + 2
+    assert torch.equal(primal, bilinear_contract(tbl, cd, z0, A))
+    cd, z0 = cd.clamp(max=CD - 2), z0.clamp(max=NZ - 2)
+    ref = bilinear_contract_reference(tbl, cd, z0, tA)
+    rows = corner_rows_reference(tbl, cd.reshape(-1), z0.reshape(-1))
+    bar = CONTRACT_RTOL * tA.abs().sum((-2, -1)).reshape(-1) * rows.abs().amax(dim=(1, 2))
+    assert bool(((tangent - ref).abs().amax(-1).reshape(-1) <= bar).all())
+
+
+@pytest.mark.parametrize("parameter", ["depth", "mnn", "magnitude"])
+def test_slice11_seis_derivative_on_card_matches_the_cpu(cuda, parameter):
+    """``seis_derivative`` by forward mode through K1c on the card against
+    the same problem on the CPU (the plain versions), within 1e-4 of
+    max|J|; the card's launches K1c for the primal and the tangent."""
+    point = dict(mnn=0.3, mee=-0.2, mdd=0.5, mne=0.1, mnd=-0.3, med=0.2, magnitude=5.8,
+                 depth=8.3e3, time=0.1, duration=1.5)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        comp = build_flagship(**TEST_SIZE, seed=5, device=dev).composites["seismic"]
+        before = bilinear_contract.launches
+        out[dev.type] = comp.seis_derivative(point, parameter)
+        if dev.type == "cuda":
+            assert bilinear_contract.launches == before + 2
+    scale = np.abs(out["cpu"]).max()
+    assert scale > 0
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0, atol=1e-4 * scale)
+
+
+def test_slice11_project_loads_and_samples_on_card(cuda, tmp_path):
+    """A project written by the port loads on the card (the default
+    device), samples through K1c and K5 and reads its results back."""
+    from beat_tpu_torch.config import (ArrivalTaperConfig, FilterConfig, WaveformFitConfig,
+                                       dump_config, init_config)
+    from beat_tpu_torch.flagship import FILTER, TAPER, WAVEMAPS, flagship_datasets
+    from beat_tpu_torch.inputf import save_seismic_datasets
+    from beat_tpu_torch.models.problem import load_model
+    from beat_tpu_torch.samplers import SMCParams
+
+    direct = build_flagship(**TEST_SIZE, seed=5, device=cuda)
+    pdir = str(tmp_path)
+    cfg = init_config("p", pdir, datatypes=("seismic",), source_types=("MTSource",))
+    for name in ("east_shift", "north_shift"):
+        del cfg.problem_config.priors[name]
+    cfg.seismic_config.waveforms = [
+        WaveformFitConfig(name=n, channels=list(ch), filterer=FilterConfig(**FILTER),
+                          arrival_taper=ArrivalTaperConfig(**TAPER)) for n, ch in WAVEMAPS.items()]
+    dump_config(cfg, pdir)
+    save_seismic_datasets([d for ds in flagship_datasets(*direct.observations).values()
+                           for d in ds], pdir)
+    direct.composites["seismic"].tables[0].save(f"{pdir}/gf_table.npz")
+    problem = load_model(pdir)
+    assert problem.device.type == "cuda"
+    before = bilinear_contract.launches, gather_rows.launches
+    q_tr, llk_tr = problem.sample(SMCParams(n_chains=64, n_steps=5, seed=0))
+    assert bilinear_contract.launches > before[0] and gather_rows.launches > before[1]
+    assert np.isfinite(llk_tr).all()
+    assert set(problem.summarize(-1)) == set(problem.ordering.names)
+    assert problem.derived_samples(-1, max_samples=10)["strike1"].shape == (10,)

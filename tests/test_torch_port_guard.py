@@ -169,6 +169,100 @@ def test_stage_files_cross_read(tmp_path, writer, reader):
     np.testing.assert_array_equal(got["population"], state["population"])
 
 
+PROJECT_LIFECYCLE = """
+import sys
+from beat_tpu_torch.backend import SampleStage
+from beat_tpu_torch.ffi.fault import FaultGeometry
+from beat_tpu_torch.models.problem import load_model
+from beat_tpu_torch.samplers import SMCParams
+for pdir, mode, derived in ((sys.argv[1], "geometry", "strike1"), (sys.argv[2], "ffi",
+                                                                   "magnitude")):
+    problem = load_model(pdir, mode, device="cpu")
+    try:
+        problem.sample(SMCParams(n_chains=16, n_steps=2, max_stages=2, seed=0))
+    except RuntimeError as e:              # the stage cap ends the run
+        assert "did not reach beta=1" in str(e), e
+    stage = SampleStage(problem.outfolder, ordering=problem.ordering).highest_sampled_stage()
+    assert stage >= 0, stage
+    summary = problem.summarize(stage)
+    assert all(any(k.split("[")[0] == name for k in summary)
+               for name in problem.ordering.names), sorted(summary)
+    values = problem.derived_samples(stage, max_samples=8)[derived]
+    assert values.shape == (8,), values.shape
+    if mode == "ffi":
+        assert isinstance(problem.composites["geodetic"].fault, FaultGeometry)
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+jax_package = sorted(m for m in sys.modules if m == "beat_tpu" or m.startswith("beat_tpu."))
+assert not jax_package, jax_package
+print("OK")
+"""
+
+
+def test_project_lifecycle_runs_without_importing_jax(tmp_path):
+    """Projects the JAX package wrote (a moment-tensor waveform project and
+    a static FFI one with its pickled fault) loaded, sampled, summarized
+    and their derived samples computed by the port, with neither ``jax``
+    nor ``beat_tpu`` imported."""
+    from test_torch_config import seismic_project, static_ffi_project
+
+    seismic, ffi = str(tmp_path / "seismic"), str(tmp_path / "ffi")
+    seismic_project(seismic, source="MTSource")
+    static_ffi_project(ffi)
+    proc = subprocess.run([sys.executable, "-c", PROJECT_LIFECYCLE, seismic, ffi],
+                          cwd=tmp_path, env=_env(), capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("OK")
+
+
+class _Reduces:
+    """Pickles as a call of ``fn(*args)``."""
+
+    def __init__(self, fn, *args):
+        self.fn, self.args = fn, args
+
+    def __reduce__(self):
+        return self.fn, self.args
+
+
+@pytest.mark.parametrize("protocol", [2, 4, 5])
+def test_fault_reader_refuses_classes_outside_its_allow_list(tmp_path, protocol):
+    """``fault_geometry.pkl`` is read by an unpickler that maps the JAX
+    package's fault classes to the port's, passes the names of numpy's
+    array and scalar reconstruction and refuses any other name — numpy's
+    own loaders and builtins callables too."""
+    import builtins
+    import pickle
+
+    import beat_tpu.sources
+    import beat_tpu_torch.config
+    from beat_tpu.ffi import discretize_sources
+    from beat_tpu_torch.ffi.fault import FaultGeometry, SubfaultGrid
+    from beat_tpu_torch.sources import RectangularSource
+
+    path = tmp_path / "fault_geometry.pkl"
+    ref = beat_tpu.sources.RectangularSource(depth=2e3, strike=20.0, dip=70.0, length=4e3,
+                                             width=2e3)
+    with open(path, "wb") as f:
+        pickle.dump(discretize_sources([ref], 2e3, 2e3), f, protocol=protocol)
+    fault = beat_tpu_torch.config.load_fault_geometry(str(path))
+    assert isinstance(fault, FaultGeometry) and isinstance(fault.subfaults[0], SubfaultGrid)
+    assert isinstance(fault.subfaults[0].plane, RectangularSource) and fault.npatches == 2
+    arrays = {"a": np.arange(6.0).reshape(2, 3), "s": np.float32(1.5)}
+    with open(path, "wb") as f:
+        pickle.dump(arrays, f, protocol=protocol)
+    back = beat_tpu_torch.config.load_fault_geometry(str(path))
+    np.testing.assert_array_equal(back["a"], arrays["a"])
+    assert back["s"] == arrays["s"] and back["s"].dtype == np.float32
+    np.save(tmp_path / "inner.npy", np.array([{"x": 1}], dtype=object))
+    for obj in (beat_tpu.sources.DCSource(), {"fault": beat_tpu.sources.MTSource()},
+                os.getcwd, _Reduces(np.load, str(tmp_path / "inner.npy"), None, True),
+                _Reduces(builtins.eval, "1 + 1"), _Reduces(builtins.exec, "pass")):
+        with open(path, "wb") as f:
+            pickle.dump(obj, f, protocol=protocol)
+        with pytest.raises(pickle.UnpicklingError, match="not a fault class"):
+            beat_tpu_torch.config.load_fault_geometry(str(path))
+
+
 def test_chip_smoke_fails_without_cuda(tmp_path):
     proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], cwd=tmp_path,
                           env=_env(), capture_output=True, text=True, timeout=300)
