@@ -172,26 +172,10 @@ class SampleStage:
         valid = sorted(s for s in stages if s >= 0 and self.check_stage(s))
         return valid[-1] if valid else -2
 
-    def clean_directory(self, stage: int, rm_flag: bool) -> None:
-        p = self.stage_path(stage)
-        if os.path.isdir(p) and rm_flag:
-            shutil.rmtree(p)
-
     def rm_all(self) -> None:
         if os.path.isdir(self.homepath):
             shutil.rmtree(self.homepath)
         os.makedirs(self.homepath, exist_ok=True)
-
-    def concatenate_traces(self, stages=None) -> StageTrace:
-        """Traces of several stages stacked along the record axis (by
-        default every valid numbered stage, or the final one alone)."""
-        if stages is None:
-            top = self.highest_sampled_stage()
-            stages = list(range(0, top + 1)) if top >= 0 else [-1]
-        traces = [self.load_trace(s) for s in stages]
-        return StageTrace(np.concatenate([t.q_trace for t in traces], axis=0),
-                          np.concatenate([t.llk_trace for t in traces], axis=0),
-                          varnames=traces[0].varnames, ordering=self.ordering)
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,9 @@ from beat_tpu_torch.sources import moment_to_magnitude
 
 logger = logging.getLogger("beat_tpu_torch.bem.base")
 
+#: column of each slip component in a (ntriangles, 3) slip array
+slip_comp_to_idx = {"strike": 0, "dip": 1, "normal": 2}
+
 
 def lstsq_robust(G: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Minimum-norm least-squares solution of ``G x = b`` by SVD, the

@@ -1244,6 +1244,28 @@ def load_fault_geometry(path: str):
         return FaultUnpickler(f).load()
 
 
+class _FaultPickler(pickle._Pickler):
+    """Writes a fault geometry under the JAX package's names of its
+    classes (``beat_tpu.ffi.fault.FaultGeometry``, ...), so that the JAX
+    package's plain ``pickle.load`` and :class:`FaultUnpickler` both read
+    it; the names are written as they are, without importing the JAX
+    package.  Protocol 2: a class is one ``GLOBAL`` opcode."""
+
+    def save_global(self, obj, name=None):
+        for (module, cls_name), cls in _fault_classes().items():
+            if cls is obj and module.split(".")[0] == "beat_tpu":
+                self.write(pickle.GLOBAL + f"{module}\n{cls_name}\n".encode("utf-8"))
+                self.memoize(obj)
+                return
+        super().save_global(obj, name)
+
+
+def save_fault_geometry(fault, path: str) -> None:
+    """Write ``fault_geometry.pkl`` (``build_gfs`` in ffi mode)."""
+    with open(path, "wb") as f:
+        _FaultPickler(f, protocol=2).dump(fault)
+
+
 def _ffi_problem_from_config(config: BEATconfig, project_dir: str, *, device):
     """ffi mode: the fault geometry and the linear GF libraries of
     ``build_gfs`` under ``ffi/linear_gfs``, the static (geodetic) and

@@ -5,14 +5,12 @@ Default prior bounds of every sampleable parameter name (copied from
 Every name maps to a ``Bounds(physical_bounds, default_bounds, unit)``
 record; :func:`default_bounds` seeds ``Parameter.from_defaults``.  Names
 outside the registry (the noise hyperparameters ``h_<wavemap>``) take the
-``hypers`` record.  :func:`load_user_defaults` merges the overrides a
-user keeps in ``~/.beat_tpu/defaults.yaml``.
+``hypers`` record.
 """
 
 from __future__ import annotations
 
 import math
-import os
 from dataclasses import dataclass
 
 SQRT2 = math.sqrt(2.0)
@@ -153,23 +151,3 @@ def default_bounds(varname: str) -> tuple:
 
 def physical_bounds(varname: str) -> tuple:
     return parameter_info[hypername(varname)].physical_bounds
-
-
-DEFAULTS_PATH = os.path.expanduser("~/.beat_tpu/defaults.yaml")
-
-
-def load_user_defaults(path: str = DEFAULTS_PATH) -> dict:
-    """The registry with a user file's bound overrides merged over it:
-    ``{name: {physical_bounds, default_bounds, unit}}`` in YAML."""
-    merged = dict(parameter_info)
-    if os.path.exists(path):
-        import yaml
-
-        with open(path) as f:
-            user = yaml.safe_load(f) or {}
-        for name, rec in user.items():
-            merged[name] = Bounds(
-                tuple(rec.get("physical_bounds", physical_bounds(name))),
-                tuple(rec.get("default_bounds", default_bounds(name))),
-                rec.get("unit", parameter_info[name].unit if name in parameter_info else u_hyp))
-    return merged

@@ -60,16 +60,6 @@ def polarity_llk(obs_polarities, syn_amplitudes, gamma, sigma) -> torch.Tensor:
             + ((1.0 - obs_polarities) / 2.0) * torch.log(1.0 - p_i))
 
 
-def vonmises_fisher_logpdf(x, mu, kappa) -> torch.Tensor:
-    """Von Mises-Fisher log-density on S²: unit vectors ``x`` (..., 3)
-    about the mean direction ``mu`` (3,) with concentration ``kappa`` > 0.
-    Returns (...)."""
-    kappa = torch.as_tensor(kappa, dtype=x.dtype, device=x.device)
-    norm = (torch.log(kappa) - math.log(2.0 * math.pi) - kappa
-            - torch.log1p(-torch.exp(-2.0 * kappa)))
-    return norm + kappa * torch.sum(x * mu, dim=-1)
-
-
 def uniform_prior_logp(q, lower, upper) -> torch.Tensor:
     """Flat-box prior: 0 inside the bounds, -inf outside (only finiteness
     matters for the Metropolis accept)."""

@@ -41,6 +41,7 @@ import torch
 from beat_tpu_torch.backend import SampleStage
 from beat_tpu_torch.covariance import init_proposal_covariance
 from beat_tpu_torch.device import DTYPE, resolve
+from beat_tpu_torch.profiling import timings
 from beat_tpu_torch.samplers.metropolis import init_metropolis_state, run_metropolis_stage
 
 logger = logging.getLogger("beat_tpu_torch.pt")
@@ -215,6 +216,7 @@ def pt_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: P
             logger.info("PT retune: swap acceptance %.3f -> t_scale %.4f", acc_rate, t_scale)
 
     q_trace, llk_trace = post_q.cpu().numpy(), post_llk.cpu().numpy()
+    timings.add("pt_sampling", time.perf_counter() - t0, n_evals=params.n_samples * n)
     logger.info("PT: %i segments, %i steps in %.2f s", len(seg_lens), n_draws,
                 time.perf_counter() - t0)
     history = {"scale_history": np.asarray(scale_history),

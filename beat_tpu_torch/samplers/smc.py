@@ -17,6 +17,7 @@ format, so the JAX package's tools read them.
 from __future__ import annotations
 
 import logging
+import os
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Callable
@@ -28,6 +29,7 @@ from beat_tpu_torch.backend import SampleStage
 from beat_tpu_torch.covariance import init_proposal_covariance
 from beat_tpu_torch.device import DTYPE, resolve
 from beat_tpu_torch.ops.rowgather import gather_rows
+from beat_tpu_torch.profiling import TimingRegistry, stage_timer, timings, torch_trace
 from beat_tpu_torch.samplers.metropolis import (MetropolisState, init_metropolis_state,
                                                 run_metropolis_stage)
 from beat_tpu_torch.utility import ensure_cov_psd
@@ -195,6 +197,7 @@ def smc_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: 
     # overlapping the compressed npz writes with the next stage's device
     # work (as the JAX package does); every write is joined before return
     saver = ThreadPoolExecutor(max_workers=1, thread_name_prefix="smc_stage_saver")
+    timings_mark = len(timings.records)   # this run's records only (per-stage timings)
     saves = []
     acceptance = []
     try:
@@ -227,15 +230,18 @@ def smc_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: 
                 accepted=torch.zeros(n, dtype=DTYPE, device=dev),
                 acc_total=torch.zeros(n, dtype=DTYPE, device=dev))
             cov_chol = torch.as_tensor(np.linalg.cholesky(cov), dtype=DTYPE, device=dev)
-            final, (q_tr, llk_tr) = run_metropolis_stage(
-                logp_fn, state, new_beta, cov_chol, lo, hi, n_steps=n_steps, generator=gen,
-                proposal_name=params.proposal_name, tune_interval=params.tune_interval,
-                record_every=params.buffer_thinning, logp_args=logp_args,
-                n_leapfrog=params.n_leapfrog)
-            # one device->host fetch per stage
-            q_dev, llk_dev = final.q, final.llk
-            population = final.q.double().cpu().numpy()
-            likelihoods = final.llk.double().cpu().numpy()
+            with stage_timer(f"smc_stage_{-1 if final_stage else stage}",
+                             n_evals=n_steps * params.n_chains,
+                             beta=round(float(new_beta), 6)), torch_trace():
+                final, (q_tr, llk_tr) = run_metropolis_stage(
+                    logp_fn, state, new_beta, cov_chol, lo, hi, n_steps=n_steps, generator=gen,
+                    proposal_name=params.proposal_name, tune_interval=params.tune_interval,
+                    record_every=params.buffer_thinning, logp_args=logp_args,
+                    n_leapfrog=params.n_leapfrog)
+                # one device->host fetch per stage (it ends the stage's timing)
+                q_dev, llk_dev = final.q, final.llk
+                population = final.q.double().cpu().numpy()
+                likelihoods = final.llk.double().cpu().numpy()
             acc_rate = float(final.acc_total.mean().item() / n_steps)
             q_host, llk_host = q_tr.cpu().numpy(), llk_tr.cpu().numpy()
             acceptance.append(acc_rate)
@@ -257,6 +263,9 @@ def smc_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: 
             if final_stage:
                 for f in saves:
                     f.result()
+                if handler is not None:
+                    TimingRegistry(records=timings.records[timings_mark:]).dump(
+                        os.path.join(homepath, "timings.json"))
                 return q_host, llk_host
             if update_weights is not None:
                 new_args = update_weights(population[int(np.argmax(likelihoods))])

@@ -250,6 +250,12 @@ class RectangularSource(BaseSource):
                        "nucleation_x", "nucleation_y")
 
     @property
+    def dipvector(self) -> np.ndarray:
+        """Unit vector down-dip (ENU, z negative down)."""
+        st, di = np.deg2rad(self.strike), np.deg2rad(self.dip)
+        return np.array([np.cos(di) * np.cos(st), -np.cos(di) * np.sin(st), -np.sin(di)])
+
+    @property
     def strikevector(self) -> np.ndarray:
         st = np.deg2rad(self.strike)
         return np.array([np.sin(st), np.cos(st), 0.0])
@@ -426,6 +432,16 @@ source_catalog = {
     "DoubleDCSource": DoubleDCSource,
     "RingfaultSource": RingfaultSource,
 }
+
+
+def half_sinusoid_stf(t, duration) -> torch.Tensor:
+    """The half-sinusoid source-time function of unit area,
+    ``sin(π t / d) · π / (2 d)`` on [0, d], 0 elsewhere; ``t`` and
+    ``duration`` broadcast (d floored at 1e-6 s)."""
+    t = torch.as_tensor(t)
+    d = torch.clamp(torch.as_tensor(duration, dtype=t.dtype, device=t.device), min=1e-6)
+    return torch.where((t >= 0) & (t <= d), torch.sin(math.pi * t / d) * math.pi / (2.0 * d),
+                       torch.zeros((), dtype=t.dtype, device=t.device))
 
 
 def rectangular_patch_grid(strike, dip, length, width, east_shift, north_shift, depth,

@@ -78,9 +78,10 @@ SMC on the first and a post-seismic geodetic SMC on the last.
     max|data|, for the variant ``plan_stack`` chose and for the other
     one where it can run, which must also equal each other bit for bit;
     the chosen variant's time and ``previous_ms``, the ``gather``
-    variant's, in turns; plain time and bound (no single PyTorch call
-    computes the stack; at the bench shape a dense ``bmm`` over the
-    scattered corner weights is timed as a second yardstick).  On the
+    variant's, in turns; plain time and bound; the library yardstick, a
+    dense ``bmm`` over the scattered corner weights (four corners for K3,
+    one for K4), alone and with its scatter, at the bench shape and on the
+    real library (15.4 GB of weights: the kernels line's ``library_ms``).  On the
     real library also K3 with the onsets shared by the targets, (C, 1, P)
     operands as the main path passes them, which must allocate the
     output and nothing else, and K3 with all chains on one cell and on
@@ -253,7 +254,18 @@ SMC on the first and a post-seismic geodetic SMC on the last.
     loaded, each 2000-chain llk within rtol 1e-6 of the direct build's
     (the kinematic FFI project is left out on the card: its config path is
     held on the CPU);
-18. a JSON line of the kernels, then ``{"ok": true, "device": ...}`` last.
+17g. slice 12, the command line (after [project_modes], before
+    [layered_host_check]): [cli] ``beat_tpu_torch.apps.cli.main`` driven in
+    this process on the real-size FullMT problem, ``BEAT_TPU_PLATFORM``
+    unset (the card): ``init``, the config and data by the port's writers,
+    ``build_gfs`` (the table built on the card), ``check --what
+    geometry``, ``sample`` under [smc]'s gates, ``summarize`` (the means of
+    ``summary.txt`` equal to the stage's), ``export``, ``map`` under
+    [map]'s gates and, when matplotlib imports, ``plot``; each command's
+    seconds and K1c, K2c and K5 launches, none of ``jax`` or ``beat_tpu``
+    imported;
+18. [done] the script's seconds, a JSON line of the kernels, then
+    ``{"ok": true, "device": ...}`` last.
 
 Phase 12 and the bench-shape half of 13 run right after phase 4, phase 5
 after them (the profiler's device records of launch-sized calls go
@@ -583,36 +595,47 @@ def say_stack(key: str, shape: str, dims: dict, r: dict, **extra) -> None:
         share_of_bound=f"{r['bound_ms'] / r['ms']:.3f}", why=json.dumps(r["why"]), **extra)
 
 
-def dense_bmm_ms(lib, durations, starttimes, slips) -> tuple:
-    """The multilinear stack as one dense ``torch.bmm`` over the scattered
-    corner weights, (T, C, P·D·S) @ (T, P·D·S, N): a yardstick, not a path
-    of the port.  Returns (ms of the bmm alone, ms with the scatter that
-    builds the weights, max |err| against the plain version)."""
+def dense_bmm_ms(lib, durations, starttimes, slips, interpolation: str = "multilinear"
+                 ) -> tuple:
+    """The GF stack as one dense ``torch.bmm`` over the scattered corner
+    weights, (T, C, P·D·S) @ (T, P·D·S, N): the library yardstick of K3
+    (``multilinear``: four corners a patch) and K4 (``nearest_neighbor``:
+    one), not a path of the port.  The cells are clamped as the plain
+    version clamps them.  Returns (ms of the bmm alone, ms with the scatter
+    that builds the weights, max |err| against the plain version)."""
     import torch
 
-    from beat_tpu_torch.ops.gfstack import stack_batched_reference
+    from beat_tpu_torch.ops.gfstack import _clamp_cells, stack_batched_reference
 
     data = lib.data
     T, P, D, S, N = data.shape
     C = durations.shape[0]
-    didx, rtf = lib.durations2idxs(durations, "multilinear")
-    sidx, stf = lib.starttimes2idxs(starttimes, "multilinear")
-    d, s, rf = didx.long()[:, None, :], sidx.long(), rtf[:, None, :]
+    didx, rtf = lib.durations2idxs(durations, interpolation)
+    sidx, stf = lib.starttimes2idxs(starttimes, interpolation)
+    d, s = _clamp_cells(data, didx, sidx, rtf is not None)
+    d = d[:, None, :]
     p = torch.arange(P, device=data.device)
     flat = data.reshape(T, P * D * S, N)
+    if rtf is None:
+        corners = ((0, 0, torch.ones_like(slips)[:, None, :]),)
+    else:
+        rf = rtf[:, None, :]
+        corners = ((1, 1, rf * stf), (1, 0, rf * (1 - stf)), (0, 1, (1 - rf) * stf),
+                   (0, 0, (1 - rf) * (1 - stf)))
 
     def weights():
         w = torch.zeros((C, T, P * D * S), dtype=data.dtype, device=data.device)
-        for dd, ss, wc in ((1, 1, rf * stf), (1, 0, rf * (1 - stf)), (0, 1, (1 - rf) * stf),
-                           (0, 0, (1 - rf) * (1 - stf))):
-            w.scatter_add_(2, (p * D + (d - dd)) * S + (s - ss), wc * slips[:, None, :])
+        for dd, ss, wc in corners:
+            idx = ((p * D + (d - dd)) * S + (s - ss)).expand(C, T, P)
+            w.scatter_add_(2, idx, (wc * slips[:, None, :]).expand(C, T, P))
         return w.transpose(0, 1).contiguous()
 
     w = weights()
     got = torch.bmm(w, flat).transpose(0, 1)
     err = float((got - stack_batched_reference(data, didx, sidx, slips, rtf, stf)).abs().max())
-    return (cuda_ms(lambda: torch.bmm(w, flat), iters=20),
-            cuda_ms(lambda: torch.bmm(weights(), flat), iters=20), err)
+    del got
+    return (cuda_ms(lambda: torch.bmm(w, flat), iters=10),
+            cuda_ms(lambda: torch.bmm(weights(), flat), iters=10), err)
 
 
 def unfused_point_spectra(table):
@@ -2525,6 +2548,144 @@ def project_phases(dev, workdir: str, k5_launches: dict) -> dict:
     return out
 
 
+def cli_phases(dev, workdir: str, k5_launches: dict) -> dict:
+    """[cli] the port's command line driven in this process
+    (``beat_tpu_torch.apps.cli.main``, so that the launch counters can be
+    read) on the real-size FullMT problem, ``BEAT_TPU_PLATFORM`` unset: the
+    card.  ``init`` a geometry project, its config (the flagship's priors,
+    wavemaps, taper, filter, GF grid and sampler settings) and data written
+    by the port's writers, ``build_gfs`` (the homogeneous table built on the
+    card), ``check --what geometry`` (a forward at the test point),
+    ``sample`` under [smc]'s gates (β = 1, depth within DEPTH_TOL and Mw
+    within MAG_TOL of the truth), ``summarize`` (the means of
+    ``summary.txt`` equal to the last stage's, rtol 1e-6), ``export``,
+    ``map`` (32 restarts × 150 steps) under [map]'s gates and, when
+    matplotlib imports, ``plot`` of the geometry plots.  Each command's
+    seconds and its K1c, K2c and K5 launches are printed; K1c must run in
+    ``sample``, ``map`` and ``export``, K2c in ``map`` and K5 in
+    ``sample``; neither ``jax`` nor ``beat_tpu`` may be imported.  Adds the
+    SMC's K5 launches to ``k5_launches``; returns the launches by
+    command."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import numpy as np
+    import torch
+
+    from beat_tpu_torch.apps.cli import main as cli_main
+    from beat_tpu_torch.backend import SampleStage
+    from beat_tpu_torch.config import (ArrivalTaperConfig, FilterConfig, WaveformFitConfig,
+                                       dump_config, load_config)
+    from beat_tpu_torch.flagship import (DEPTH_RANGE, DISTANCE_RANGE, DT, FILTER, REAL_SIZE,
+                                         TAPER, TRUE_DEPTH, TRUE_MAGNITUDE, WAVEMAPS,
+                                         build_flagship, flagship_datasets)
+    from beat_tpu_torch.inputf import save_seismic_datasets
+    from beat_tpu_torch.ops.bilgather import bilinear_contract, contract_corner_dot
+    from beat_tpu_torch.ops.rowgather import gather_rows
+
+    pdir = os.path.join(workdir, "cli_fullmt")
+    seconds, launches = {}, {}
+
+    def run(name, *argv):
+        bilinear_contract.launches = contract_corner_dot.launches = gather_rows.launches = 0
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc = cli_main(list(argv))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        seconds[name] = round(time.perf_counter() - t0, 2)
+        launches[name] = {"k1c": bilinear_contract.launches, "k2c": contract_corner_dot.launches,
+                          "k5": gather_rows.launches}
+        if rc != 0:
+            print(log.getvalue()[-3000:])
+            raise SystemExit(f"[cli] {name} exited {rc}")
+        return log.getvalue()
+
+    run("init", "init", "fullmt", pdir, "--datatypes", "seismic", "--source_types", "MTSource")
+    # the project's config and data, by the port's writers
+    direct = build_flagship(**REAL_SIZE, seed=0, device=dev,
+                            outfolder=os.path.join(workdir, "cli_direct"))
+    cfg = load_config(pdir)
+    cfg.event.depth = TRUE_DEPTH
+    set_config_priors(cfg, direct.source_priors.parameters)
+    cfg.seismic_config.waveforms = [
+        WaveformFitConfig(name=name, channels=list(channels), filterer=FilterConfig(**FILTER),
+                          arrival_taper=ArrivalTaperConfig(**TAPER))
+        for name, channels in WAVEMAPS.items()]
+    cfg.seismic_config.gf_config = dict(
+        distance_min=DISTANCE_RANGE[0], distance_max=DISTANCE_RANGE[1],
+        n_distances=REAL_SIZE["n_distances"], depth_min=DEPTH_RANGE[0],
+        depth_max=DEPTH_RANGE[1], n_depths=REAL_SIZE["n_depths"], nt=REAL_SIZE["nt"], dt=DT,
+        t0=0.0, vp=6000.0, vs=3500.0, rho=2700.0, earth_model="homogeneous")
+    cfg.sampler_config.parameters = dict(n_chains=N_CHAINS, n_steps=N_STEPS, seed=0)
+    dump_config(cfg, pdir)
+    st_e, st_n, raw = direct.observations
+    save_seismic_datasets([ds for dsets in flagship_datasets(st_e, st_n, raw).values()
+                           for ds in dsets], pdir)
+    del direct
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    run("build_gfs", "build_gfs", pdir, "--mode", "geometry", "--datatypes", "seismic")
+    run("check", "check", pdir, "--what", "geometry")
+    run("sample", "sample", pdir)
+    k5_launches["cli_sample"] = launches["sample"]["k5"]
+    handler = SampleStage(os.path.join(pdir, "geometry"))
+    state, trace = handler.load_state(-1), handler.load_trace(-1)
+    names = trace.varnames
+    last = trace.q_trace[-1].mean(axis=0)
+    depth = float(last[names.index("depth")])
+    mag = float(last[names.index("magnitude")])
+    run("summarize", "summarize", pdir)
+    with open(os.path.join(pdir, "geometry", "summary.txt")) as f:
+        summary = json.load(f)
+    flat = trace.q_trace.reshape(-1, trace.q_trace.shape[-1])
+    mean_err = max(abs(summary[n]["mean"] - float(flat[:, i].mean()))
+                   / max(abs(float(flat[:, i].mean())), 1e-30)
+                   for i, n in enumerate(names) if n in summary)
+    run("export", "export", pdir)
+    with np.load(os.path.join(pdir, "geometry", "export.npz")) as z:
+        export_finite = all(np.isfinite(z[k]).all() for k in z.files)
+    run("map", "map", pdir)
+    with open(os.path.join(pdir, "geometry", "map.json")) as f:
+        est = json.load(f)
+    map_depth, map_mag = est["point"]["depth"][0], est["point"]["magnitude"][0]
+    plot = "not_run (no matplotlib)"
+    if importlib.util.find_spec("matplotlib") is not None:
+        out = run("plot", "plot", pdir, "stage_posteriors,waveform_fits,hudson,fuzzy_beachball")
+        plot = json.dumps(sorted(os.listdir(os.path.join(pdir, "geometry", "figures"))))
+        if "skipped" in out:
+            print(out[-3000:])
+            raise SystemExit("[cli] plot skipped a plot")
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "beat_tpu"))
+    say("cli", chains=N_CHAINS, steps=N_STEPS, seconds=json.dumps(seconds),
+        total_s=f"{sum(seconds.values()):.2f}", launches=json.dumps(launches),
+        beta=float(state["beta"]), stages=len(state["acceptance"]), depth_m=f"{depth:.1f}",
+        magnitude=f"{mag:.4f}", summary_mean_worst_rel_err=f"{mean_err:.2e}",
+        export_finite=export_finite, map_depth_m=f"{map_depth:.1f}",
+        map_magnitude=f"{map_mag:.4f}", plot=plot, foreign_modules=json.dumps(foreign))
+    if not (float(state["beta"]) == 1.0 and np.isfinite(trace.llk_trace).all()):
+        raise SystemExit("[cli] sample did not reach beta = 1 with finite llks")
+    if abs(depth - TRUE_DEPTH) >= DEPTH_TOL or abs(mag - TRUE_MAGNITUDE) >= MAG_TOL:
+        raise SystemExit(f"[cli] posterior misses the truth: depth {depth}, Mw {mag}")
+    if not mean_err <= 1e-6:
+        raise SystemExit(f"[cli] summary.txt's means are off the stage's: {mean_err}")
+    if not export_finite:
+        raise SystemExit("[cli] export wrote non-finite synthetics or residuals")
+    if abs(map_depth - TRUE_DEPTH) >= MAP_DEPTH_TOL or abs(map_mag - TRUE_MAGNITUDE) >= MAP_MAG_TOL:
+        raise SystemExit(f"[cli] MAP misses the truth: depth {map_depth}, Mw {map_mag}")
+    if not (launches["sample"]["k1c"] and launches["sample"]["k5"] and launches["map"]["k1c"]
+            and launches["map"]["k2c"] and launches["export"]["k1c"]):
+        raise SystemExit(f"[cli] a command did not launch its kernels: {launches}")
+    if foreign:
+        raise SystemExit(f"[cli] imported the JAX side: {foreign}")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"cli": launches}
+
+
 def table_builder_phases(dev, workdir: str, k5_launches: dict) -> dict:
     """Slice 10's table builders on the card and the paths through their
     tables: [layered_build] (the FullMT grid as a layered waveform table of
@@ -2804,6 +2965,8 @@ def table_builder_phases(dev, workdir: str, k5_launches: dict) -> dict:
 
     # [project], [project_seis_derivative], [project_modes]
     out.update(project_phases(dev, workdir, k5_launches))
+    # [cli] the command line from init to plot
+    out.update(cli_phases(dev, workdir, k5_launches))
 
     # [layered_host_check] the layered table's two nodes on the host CPU,
     # after every timed phase, so that no timing shares the host's cores
@@ -2818,6 +2981,7 @@ def table_builder_phases(dev, workdir: str, k5_launches: dict) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import numpy as np
     import torch
 
@@ -3637,6 +3801,17 @@ def main() -> int:
     for key, interpolation in (("k3", "multilinear"), ("k4", "nearest_neighbor")):
         real[key] = r = check_stack(lib, *real_in, interpolation, iters=10)
         say_stack(key, "real", real_dims, r)
+    # their library yardstick on the real library: one dense bmm over the
+    # scattered corner weights, (T, C, P·D·S) floats (15.4 GB) beside the library
+    for key, interpolation in (("k3", "multilinear"), ("k4", "nearest_neighbor")):
+        bmm_ms, bmm_scatter_ms, bmm_err = dense_bmm_ms(lib, *real_in, interpolation)
+        real[key].update(library_ms=bmm_ms, library_with_scatter_ms=bmm_scatter_ms,
+                         library_max_abs_err=bmm_err)
+        say(key, shape="real_dense_bmm", dense_bmm_ms=f"{bmm_ms:.4f}",
+            dense_bmm_with_scatter_ms=f"{bmm_scatter_ms:.4f}",
+            dense_bmm_max_abs_err=f"{bmm_err:.3e}",
+            weights_GB=f"{N_CHAINS * lib.ntargets * lib.npatches * lib.ndurations * lib.nstarttimes * 4 / 1e9:.2f}")
+        torch.cuda.empty_cache()
 
     # K3 as the main path calls it: the onsets shared by the targets, (C, 1, P)
     # operands; the call may allocate its output and nothing else
@@ -3851,11 +4026,17 @@ def main() -> int:
         layered_smc=builders["layered_smc"]["k1c_launches"],
         project=builders["project"]["k1c_launches"],
         project_seis_derivative=builders["project_seis_derivative"]["k1c_launches"],
-        project_seis_derivative_jvp=builders["project_seis_derivative"]["k1c_jvp_launches"])
+        project_seis_derivative_jvp=builders["project_seis_derivative"]["k1c_jvp_launches"],
+        **{f"cli_{cmd}": n["k1c"] for cmd, n in builders["cli"].items()})
+    k2c_entry = contract_entry("k2c", "contract_corner_dot", "beat_tpu/ops/bilgather.py:154",
+                               mala_launches["k2c_launches"])
+    k2c_entry["launches_by_path"].update(
+        {f"cli_{cmd}": n["k2c"] for cmd, n in builders["cli"].items()})
     k1c_entry["finite_layouts"] = {k: {f: v for f, v in r.items() if f != "shape"}
                                    for k, r in layouts.items()}
     k1c_entry["finite_layout_kept"] = kept
 
+    say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [
         {"name": "bilinear_rows", "route": "cuda", "source": "beat_tpu_torch/csrc/bilgather.cu",
          "replaces": "beat_tpu/ops/bilgather.py:47", "launches": smc_launches["k1_launches"],
@@ -3868,14 +4049,15 @@ def main() -> int:
          "bound_by": k2_by, "library_ms": k2_lib_ms, "launches_by_path": by_path("k2_launches"),
          "unfused_yardstick_launches": gather_launches[1]},
         k1c_entry,
-        contract_entry("k2c", "contract_corner_dot", "beat_tpu/ops/bilgather.py:154",
-                       mala_launches["k2c_launches"]),
+        k2c_entry,
         {"name": "gf_stack_multilinear", "route": "cuda",
          "source": "beat_tpu_torch/csrc/gfstack.cu", "replaces": "beat_tpu/ops/gfstack.py:241",
          "launches": ffi_launches, "max_abs_err": real["k3"]["max_abs_err"],
          "ms": real["k3"]["ms"], "plain_ms": real["k3"]["plain_ms"],
          "bound_ms": real["k3"]["bound_ms"], "bound_by": real["k3"]["bound_by"],
-         "library_ms": None, "variant": real["k3"]["variant"],
+         "library_ms": real["k3"]["library_ms"],
+         "library_with_scatter_ms": real["k3"]["library_with_scatter_ms"],
+         "variant": real["k3"]["variant"],
          "previous_ms": real["k3"]["previous_ms"], "shared_onsets": shared,
          "bench_shape": bench["k3"], "bf16": bf16_entry(extras["k3_bf16"]),
          "launches_by_path": {"ffi_smc": ffi_launches,
@@ -3886,7 +4068,9 @@ def main() -> int:
          "launches": k4_launches, "max_abs_err": real["k4"]["max_abs_err"],
          "ms": real["k4"]["ms"], "plain_ms": real["k4"]["plain_ms"],
          "bound_ms": real["k4"]["bound_ms"], "bound_by": real["k4"]["bound_by"],
-         "library_ms": None, "variant": real["k4"]["variant"],
+         "library_ms": real["k4"]["library_ms"],
+         "library_with_scatter_ms": real["k4"]["library_with_scatter_ms"],
+         "variant": real["k4"]["variant"],
          "previous_ms": real["k4"]["previous_ms"], "bench_shape": bench["k4"],
          "bf16": bf16_entry(extras["k4_bf16"]),
          "launches_by_path": {"ffi_recover_nearest_neighbor": k4_launches}},

@@ -9,7 +9,7 @@ the same ``Problem`` in both packages, with equal log-likelihoods; a
 config written by either package loads in the other (its format stamp);
 ``import_results_as_priors`` and ``clone_config_to_mode`` write the same
 configs; the filters, the
-parameter records, the user defaults, the unit conversion, the seismic
+parameter records, the unit conversion, the seismic
 data files and the store conversion (through a stub ``pyrocko.gf``)
 against the JAX package's; the BEM source refused by the geometry
 composite with the message that names the BEM composite.
@@ -446,22 +446,6 @@ def test_parameter_records_as_the_jax_package_keeps_them():
             with pytest.raises(ValueError):
                 cls.from_dict(bad).validate_bounds()
     Parameter.from_dict(dict(name="h_any_P_0", lower=[-1.0], upper=[1.0])).validate_bounds()
-
-
-def test_user_defaults_merge_as_in_the_jax_package(tmp_path):
-    from beat_tpu import defaults as jdefaults
-    from beat_tpu_torch import defaults
-
-    path = str(tmp_path / "defaults.yaml")
-    with open(path, "w") as f:
-        yaml.safe_dump({"depth": {"default_bounds": [1.0, 9.0]},
-                        "h_custom": {"physical_bounds": [-5.0, 5.0], "unit": "[x]"}}, f)
-    got, want = defaults.load_user_defaults(path), jdefaults.load_user_defaults(path)
-    assert got.keys() == want.keys()
-    for name in want:
-        for key in ("physical_bounds", "default_bounds", "unit"):
-            assert getattr(got[name], key) == getattr(want[name], key), (name, key)
-    assert defaults.load_user_defaults(str(tmp_path / "none.yaml")) == defaults.parameter_info
 
 
 def test_adjust_point_units_and_stencils_as_in_the_jax_package():

@@ -299,15 +299,45 @@ def test_laplace_hessian_on_card_launches_the_pair_and_no_plain_version(cuda, mo
     assert not plain and np.isfinite(lap["log_evidence"]) and lap["curvature_ok"]
 
 
-def _kernel_ops(fn):
-    """Names of the device operations one call of ``fn`` makes (profiler)."""
-    from torch.profiler import ProfilerActivity, profile
+KERNEL_OPS = """
+import json, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+{setup}
+{call}                                  # builds the kernel and warms up
+torch.cuda.synchronize()
+before = {counter}
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    {call}
+    torch.cuda.synchronize()
+ops = [e.key for e in prof.key_averages()
+       if e.device_type == torch.autograd.DeviceType.CUDA for _ in range(e.count)]
+print(json.dumps({{"ops": ops, "launches": {counter} - before}}))
+"""
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.key for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA for _ in range(e.count)]
+
+def _kernel_ops(setup: str, call: str, counter: str) -> list:
+    """Names of the device operations one ``call`` makes, read by the
+    first ``torch.profiler`` session of a fresh process (a later session
+    in one process can record no device event at all).  ``setup`` makes
+    the inputs; ``counter`` is the wrapper's launch counter, which must
+    count exactly one launch of the profiled call.  A profile without a
+    device record fails: it cannot tell how many kernels ran."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    code = KERNEL_OPS.format(setup=setup, call=call, counter=counter)
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["launches"] == 1, out
+    assert out["ops"], "the profile holds no device record: the kernel count is unknown"
+    return out["ops"]
 
 
 @pytest.mark.parametrize("variant", [None, "tiled", "gather"])
@@ -391,7 +421,17 @@ def test_k3_main_path_call_is_one_kernel_and_one_allocation(cuda):
     out = stack_batched(data, didx, sidx, slips, rtf, stf)
     torch.cuda.synchronize()
     assert torch.cuda.max_memory_allocated() - base <= out.numel() * 4 + 2**21
-    ops = _kernel_ops(lambda: stack_batched(data, didx, sidx, slips, rtf, stf))
+    ops = _kernel_ops(f"""
+from beat_tpu_torch.ops.gfstack import stack_batched
+gen = torch.Generator(device="cuda").manual_seed(0)
+C, T, P, D, S, N = {(C, T, P, D, S, N)}
+data = torch.randn((T, P, D, S, N), generator=gen, device="cuda")
+didx = torch.randint(1, D, (C, P), generator=gen, device="cuda", dtype=torch.int32)
+sidx = torch.randint(1, S, (C, 1, P), generator=gen, device="cuda", dtype=torch.int32)
+slips = torch.rand((C, 3 * P + 4), generator=gen, device="cuda")[:, P:2 * P]
+rtf = torch.rand((C, P), generator=gen, device="cuda")
+stf = torch.rand((C, 1, P), generator=gen, device="cuda")
+""", "stack_batched(data, didx, sidx, slips, rtf, stf)", "stack_batched.launches_multilinear")
     assert len(ops) == 1 and "gf_stack" in ops[0]
 
 
@@ -430,10 +470,11 @@ def test_k5_matches_plain(cuda, R, M, n, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
 def test_k5_call_is_one_kernel(cuda, dtype):
-    tbl = torch.randn((2000, 1504), device=cuda)
-    idx = torch.randint(0, 2000, (2000,), device=cuda).to(dtype)
-    gather_rows(tbl, idx)
-    ops = _kernel_ops(lambda: gather_rows(tbl, idx))
+    ops = _kernel_ops(f"""
+from beat_tpu_torch.ops.rowgather import gather_rows
+tbl = torch.randn((2000, 1504), device="cuda")
+idx = torch.randint(0, 2000, (2000,), device="cuda").to({dtype})
+""", "gather_rows(tbl, idx)", "gather_rows.launches")
     assert len(ops) == 1 and "gather_rows_kernel" in ops[0]
 
 

@@ -90,13 +90,19 @@ GEO_MODULES = ("heart/geodesy.py", "heart/okada.py", "heart/corrections.py",
                "heart/statictable.py", "models/geodetic.py", "ffi/discretization.py")
 #: the samplers of parallel tempering and of the trans-dimensional FFI
 SAMPLER_MODULES = ("samplers/pt.py", "ops/voronoi.py", "ffi/transd.py")
+#: the command line, the importers, the timers and the plots
+CLI_MODULES = ("apps/cli.py", "apps/commands.py", "apps/completion.py", "apps/beatdown.py",
+               "info.py", "profiling.py", "upgrade.py", "inputf.py", "interop.py",
+               "plotting/__init__.py", "plotting/common.py", "plotting/colormap.py",
+               "plotting/marginals.py", "plotting/seismic.py", "plotting/geodetic.py",
+               "plotting/mt.py", "plotting/ffi.py", "plotting/bem.py")
 
 
 def _importers(pattern: str) -> list:
     regex = re.compile(pattern, re.MULTILINE)
     scanned = {str(f.relative_to(REPO / "beat_tpu_torch")) for f in PORT_FILES[:-1]}
     assert len(PORT_FILES) > 10 and scanned.issuperset(FFI_MODULES + GEO_MODULES
-                                                       + SAMPLER_MODULES)
+                                                       + SAMPLER_MODULES + CLI_MODULES)
     return [str(f.relative_to(REPO)) for f in PORT_FILES if regex.search(f.read_text())]
 
 

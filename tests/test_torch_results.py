@@ -2,7 +2,7 @@
 The port's results layer against the JAX package's: the stage readers
 and the posterior summary (``beat_tpu_torch.backend``) on stage files
 written once by each package; the moment-tensor utilities
-(``beat_tpu_torch.mt_utils``) and the von Mises-Fisher density;
+(``beat_tpu_torch.mt_utils``);
 ``Problem.derived_samples``, ``summarize``, ``get_synthetics`` and
 ``get_variance_reductions`` of projects loaded by both packages;
 ``seis_derivative`` by forward mode (through K1c's forward-mode rule)
@@ -15,7 +15,6 @@ reference cases of ``tests/test_backend.py`` and
 import math
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -33,7 +32,6 @@ from beat_tpu_torch.models.problem import load_model
 from beat_tpu_torch.ops import bilgather
 from test_torch_common import spy
 from test_torch_config import jax_projects, seismic_project  # noqa: F401  (fixture)
-from test_torch_okada import jax_x64
 
 #: the stage readers and summaries are the same numpy code: equal to 1e-12
 RESULTS_RTOL = 1e-12
@@ -70,9 +68,7 @@ def _results(package, utility, homepath) -> dict:
     trace = handler.load_trace(-1)
     out = {"x": trace.get_values("x"), "x_split": trace.get_values("x", combine=False),
            "x_burn": trace.get_values("x", burn=2, thin=3), "depth": trace.get_values("depth"),
-           "end": trace.end_points(), "all": handler.concatenate_traces().q_trace,
-           "some": handler.concatenate_traces([1, 0]).llk_trace,
-           "n": (trace.n_chains, trace.n_records)}
+           "end": trace.end_points(), "n": (trace.n_chains, trace.n_records)}
     block = trace.q_trace[:, :, 3]
     out["hdi"] = package.hdi(block, 0.9)
     out["ess"] = package.effective_sample_size(block)
@@ -104,8 +100,6 @@ def test_results_functions_equal_on_the_same_stage_files(tmp_path, writer):
     got = _results(pbackend, putility, str(tmp_path))
     want = _results(jbackend, jutility, str(tmp_path))
     _assert_same(got, want)
-    assert got["all"].shape == (9, 6, 4)            # a final stage: it alone
-    assert got["some"].shape == (18, 6)             # stages 1 and 0 along the records
     np.testing.assert_array_equal(got["end"][0], qs[2][-1])
     assert math.isnan(got["rhat"][2])
 
@@ -157,18 +151,8 @@ def test_backend_final_stage_priority_and_clean_directory(tmp_path):
     handler.save_stage(0, {"q": q, "llk": np.zeros((2, 4))}, {"beta": 0.1})
     handler.save_stage(-1, {"q": q, "llk": np.zeros((2, 4))}, {"beta": 1.0})
     assert handler.highest_sampled_stage() == -1
-    handler.clean_directory(-1, rm_flag=False)
-    assert handler.highest_sampled_stage() == -1
-    handler.clean_directory(-1, rm_flag=True)
-    assert handler.highest_sampled_stage() == 0
-
-
-def test_backend_concatenate(tmp_path):
-    handler, _ = _handler(tmp_path)
-    q = np.zeros((2, 4, 3), dtype=np.float32)
-    for s in range(3):
-        handler.save_stage(s, {"q": q + s, "llk": np.zeros((2, 4))}, {"beta": 0.1 * s})
-    assert handler.concatenate_traces([0, 1, 2]).q_trace.shape == (6, 4, 3)
+    handler.rm_all()
+    assert handler.highest_sampled_stage() == -2
 
 
 def test_summary_hdi_of_normal():
@@ -199,7 +183,7 @@ def test_summarize_and_extract_bounds():
 
 
 # ---------------------------------------------------------------------------
-# moment-tensor utilities and the von Mises-Fisher density
+# moment-tensor utilities
 # ---------------------------------------------------------------------------
 
 
@@ -273,33 +257,6 @@ def test_mt_kagan_angle_cases():
         y = _sdr_m6(*rng.uniform([0, 10, -180], [360, 90, 180]))
         np.testing.assert_allclose(pmt.kagan_angle(x, y), pmt.kagan_angle(y, x), atol=1e-6)
         assert 0.0 <= pmt.kagan_angle(x, y) <= 120.0 + 1e-9
-
-
-def test_vonmises_fisher_logpdf_equals_the_jax_package():
-    from beat_tpu.distributions import vonmises_fisher_logpdf as jax_vmf
-    from beat_tpu_torch.distributions import vonmises_fisher_logpdf
-
-    rng = np.random.default_rng(8)
-    x = rng.normal(size=(5, 7, 3))
-    x /= np.linalg.norm(x, axis=-1, keepdims=True)
-    mu = np.array([0.0, 0.6, 0.8])
-    for kappa in (0.5, 3.0, 40.0):
-        with jax_x64():
-            want = np.asarray(jax_vmf(jnp.asarray(x), jnp.asarray(mu), kappa))
-        got = vonmises_fisher_logpdf(torch.as_tensor(x), torch.as_tensor(mu), kappa).numpy()
-        np.testing.assert_allclose(got, want, rtol=1e-12)
-    # a density on the sphere: its integral is 1
-    th, ph = np.meshgrid(np.linspace(0, np.pi, 401), np.linspace(0, 2 * np.pi, 801),
-                         indexing="ij")
-    pts = np.stack([np.sin(th) * np.cos(ph), np.sin(th) * np.sin(ph), np.cos(th)], -1)
-    dens = np.exp(vonmises_fisher_logpdf(torch.as_tensor(pts), torch.as_tensor(mu), 3.0).numpy())
-    area = np.trapezoid(np.trapezoid(dens * np.sin(th), ph[0], axis=1), th[:, 0])
-    assert abs(area - 1.0) < 1e-3
-
-
-# ---------------------------------------------------------------------------
-# results of loaded projects
-# ---------------------------------------------------------------------------
 
 
 @pytest.fixture(scope="module")
