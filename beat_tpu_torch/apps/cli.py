@@ -11,6 +11,11 @@ The device is resolved once, from ``BEAT_TPU_PLATFORM``: unset (or
 ``cuda``) means the card, ``cpu`` the CPU; any other value is refused.
 Without a card and without ``BEAT_TPU_PLATFORM=cpu`` a command exits 1
 with the device's error: nothing falls back to the CPU.
+
+Under ``torchrun --nproc_per_node N`` (``WORLD_SIZE > 1``) the process
+joins the process group first, so rank r resolves ``cuda`` to its own
+card ``cuda:r`` (gloo ranks on the CPU with ``BEAT_TPU_PLATFORM=cpu``),
+and ``sample`` shards the chains over the ranks.
 """
 
 from __future__ import annotations
@@ -31,16 +36,21 @@ SUBCOMMANDS = [
 PLATFORMS = ("cuda", "cpu")
 
 
-def platform_device():
-    """The device ``BEAT_TPU_PLATFORM`` names (``cuda`` when unset),
-    resolved: raises when it names a card and there is none."""
-    from beat_tpu_torch.device import resolve
-
+def platform_name() -> str:
+    """The device type ``BEAT_TPU_PLATFORM`` names (``cuda`` when unset)."""
     platform = os.environ.get("BEAT_TPU_PLATFORM", "") or "cuda"
     if platform not in PLATFORMS:
         raise ValueError(f"BEAT_TPU_PLATFORM={platform!r} is not one of "
                          f"{sorted(PLATFORMS)}")
-    return resolve(platform)
+    return platform
+
+
+def platform_device():
+    """The device ``BEAT_TPU_PLATFORM`` names, resolved: raises when it
+    names a card and there is none."""
+    from beat_tpu_torch.device import resolve
+
+    return resolve(platform_name())
 
 
 class _VersionAction(argparse.Action):
@@ -94,7 +104,24 @@ def main(argv=None) -> int:
     if handler is None:
         parser.error(f"subcommand {args.command} not yet implemented")
     logging.basicConfig(level=logging.INFO)
+    # under torchrun, join the process group before the device is resolved
+    joined = args.command != "completions" and int(os.environ.get("WORLD_SIZE", "1")) > 1
     try:
+        return _run(handler, args, joined)
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
+
+
+def _run(handler, args, join: bool) -> int:
+    try:
+        if join:
+            from beat_tpu_torch.parallel import init_distributed
+
+            init_distributed(device=platform_name())
         if args.command != "completions":
             args.device = platform_device()
     except (RuntimeError, ValueError) as e:

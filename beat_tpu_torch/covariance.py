@@ -79,6 +79,27 @@ def exponential_data_covariance(n: int, dt: float, tzero: float) -> np.ndarray:
     return np.exp(-np.abs(idx[:, None] - idx[None, :]) * dt / tzero)
 
 
+def identity_data_covariance(n: int, dt: float = 0.0, tzero: float = 0.0) -> np.ndarray:
+    return np.eye(n)
+
+
+def ones_data_covariance(n: int, dt: float = 0.0, tzero: float = 0.0) -> np.ndarray:
+    return np.ones((n, n)) + np.eye(n) * 1e-6
+
+
+#: the a-priori data-covariance structures by noise-structure name
+#: (``beat_tpu/covariance.py:117-123``); the residual-based ones start
+#: from the identity
+noise_structure_catalog = {
+    "exponential": exponential_data_covariance,
+    "identity": identity_data_covariance,
+    "import": identity_data_covariance,
+    "ones": ones_data_covariance,
+    "variance": identity_data_covariance,
+    "non-toeplitz": identity_data_covariance,
+}
+
+
 def autocovariance(data: np.ndarray) -> np.ndarray:
     """Biased sample autocovariance of a 1-d series."""
     n = data.size
@@ -203,6 +224,18 @@ def init_proposal_covariance(priors_lower: np.ndarray, priors_upper: np.ndarray,
     widths = (priors_upper - priors_lower) / scale
     widths = np.where(widths <= 0, 1e-12, widths)
     return np.diag((widths / 6.0) ** 2)
+
+
+def calc_sample_covariance(population: np.ndarray, likelihoods: np.ndarray,
+                           beta: float, prev_beta: float = 0.0) -> np.ndarray:
+    """Tempered importance-weighted sample covariance of a population,
+    PSD-repaired: weights ``exp((β − β_prev)·(llk − max llk))``."""
+    weights = np.exp((beta - prev_beta) * (likelihoods - likelihoods.max()))
+    cov = np.cov(population, aweights=weights / weights.sum(), rowvar=False, bias=False)
+    cov = ensure_cov_psd(np.atleast_2d(cov))
+    if np.isnan(cov).any() or np.isinf(cov).any():
+        raise ValueError("Sample covariance contains NaN/Inf")
+    return cov
 
 
 def prediction_covariance_from_ensemble(predictions: np.ndarray) -> np.ndarray:

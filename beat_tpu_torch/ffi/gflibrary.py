@@ -191,6 +191,20 @@ class SeismicGFLibrary(nn.Module):
         lib.stack_fn = self.stack_fn
         return lib
 
+    def target_block(self, targets: slice) -> "SeismicGFLibrary":
+        """The library of the targets in ``targets``, with its own copy of
+        that block of the data, so a rank that keeps it and drops the
+        whole holds only its block; the grid metadata and ``stack_fn``
+        carry over (:func:`beat_tpu_torch.parallel.target_sharding`)."""
+        lib = SeismicGFLibrary(
+            self.data[targets].clone(), self.duration_min, self.duration_sampling,
+            self.starttime_min, self.starttime_sampling, component=self.component,
+            reference_times=(None if self.reference_times is None
+                             else self.reference_times[targets]),
+            device=self.data.device, dtype=self.data.dtype)
+        lib.stack_fn = self.stack_fn
+        return lib
+
     # -- index quantisation ---------------------------------------------------
 
     @staticmethod

@@ -249,6 +249,48 @@ def build_flagship(n_stations: int, n_distances: int, n_depths: int, nt: int,
     return problem
 
 
+def write_fullmt_project(problem, pdir: str, sampler_parameters: dict) -> None:
+    """The FullMT flagship problem as a project directory, written by the
+    port's own writers: ``init_config`` and ``dump_config`` (the
+    flagship's priors, wavemaps, taper, filter and ``sampler_parameters``),
+    ``save_seismic_datasets`` and ``GreensTable.save`` to ``gf_table.npz``;
+    ``models.problem.load_model(pdir)`` loads it."""
+    import os
+
+    from beat_tpu_torch.config import (ArrivalTaperConfig, EventConfig, FilterConfig,
+                                       WaveformFitConfig, dump_config, init_config)
+    from beat_tpu_torch.inputf import save_seismic_datasets
+
+    cfg = init_config("fullmt", pdir, datatypes=("seismic",), source_types=("MTSource",),
+                      event=EventConfig(depth=TRUE_DEPTH))
+    set_config_priors(cfg, problem.source_priors.parameters)
+    cfg.seismic_config.waveforms = [
+        WaveformFitConfig(name=name, channels=list(channels), filterer=FilterConfig(**FILTER),
+                          arrival_taper=ArrivalTaperConfig(**TAPER))
+        for name, channels in WAVEMAPS.items()]
+    cfg.sampler_config.parameters = dict(sampler_parameters)
+    dump_config(cfg, pdir)
+    st_e, st_n, raw = problem.observations
+    save_seismic_datasets([ds for dsets in flagship_datasets(st_e, st_n, raw).values()
+                           for ds in dsets], pdir)
+    problem.composites["seismic"].tables[0].save(os.path.join(pdir, "gf_table.npz"))
+
+
+def set_config_priors(cfg, priors: dict, hierarchicals: dict | None = None) -> None:
+    """Replace a config's priors by ``priors`` (``{name: Parameter}`` in
+    SI, as the problems hold them), in the config's units;
+    ``hierarchicals`` go to its ``hyperparameters`` section."""
+    pc = cfg.problem_config
+    pc.priors = {}
+    for target, params in ((pc.priors, priors), (pc.hyperparameters, hierarchicals or {})):
+        for p in params.values():
+            scale = 1e-3 if p.name in pc.KM_SCALED_VARS else 1.0
+            d = p.to_dict()
+            for key in ("lower", "upper", "testvalue"):
+                d[key] = [v * scale for v in d[key]]
+            target[p.name] = d
+
+
 # ---------------------------------------------------------------------------
 # The kinematic FFI problem
 # ---------------------------------------------------------------------------

@@ -20,8 +20,9 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from beat_tpu_torch import defaults
+from beat_tpu_torch import defaults, parallel
 from beat_tpu_torch.distributions import hyper_normal
 from beat_tpu_torch.parameter import PriorSet
 from beat_tpu_torch.backend import SampleStage, summarize_trace
@@ -149,6 +150,8 @@ class Problem:
         lower, upper = self.priors.bounds_arrays()
         logp_fn, data = self.make_logp_fn()
         os.makedirs(self.outfolder, exist_ok=True)
+        mesh = (self._auto_mesh(params.n_chains)
+                if isinstance(params, (SMCParams, PTParams)) else None)
         if isinstance(params, SMCParams):
             update_cb = None
             if update_weights:
@@ -159,17 +162,38 @@ class Problem:
                      if self.initialization == "lsq" else None)
             return smc_sample(logp_fn, lower, upper, params, device=self.device,
                               homepath=self.outfolder, ordering=self.ordering,
-                              logp_args=(data,), update_weights=update_cb, start=start)
+                              logp_args=(data,), update_weights=update_cb, start=start,
+                              mesh=mesh)
         if isinstance(params, PTParams):
             return pt_sample(logp_fn, lower, upper, params, device=self.device,
                              homepath=self.outfolder, ordering=self.ordering,
-                             logp_args=(data,))
+                             logp_args=(data,), mesh=mesh)
+        handler = SampleStage(self.outfolder, ordering=self.ordering)
         return metropolis_sample(
             logp_fn, lower, upper, device=self.device, n_chains=params.n_chains,
             n_steps=params.n_steps, burn=params.burn, thin=params.thin,
             proposal_name=params.proposal_name, tune_interval=params.tune_interval,
-            seed=params.seed, stage_handler=SampleStage(self.outfolder, ordering=self.ordering),
+            seed=params.seed, stage_handler=handler if parallel.is_io_process() else None,
             logp_args=(data,), n_leapfrog=params.n_leapfrog)
+
+    def _auto_mesh(self, n_chains: int):
+        """The chain mesh over every rank when more than one exists and
+        the chain count divides evenly (``torchrun`` engages it with no
+        code change; one rank stays meshless).  With ``WORLD_SIZE > 1`` in
+        the environment and no process group yet, this joins it on the
+        problem's device type; call ``parallel.init_distributed()`` before
+        building the problem instead, so each rank builds on its own card."""
+        if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            parallel.init_distributed(device=self.device.type)
+        n_ranks = parallel.n_ranks()
+        if n_ranks <= 1:
+            return None
+        if n_chains % n_ranks:
+            logger.warning("%i chains do not divide %i ranks — running unsharded (pad "
+                           "n_chains for chain parallelism)", n_chains, n_ranks)
+            return None
+        logger.info("Chain-sharding %i chains over %i ranks", n_chains, n_ranks)
+        return parallel.make_chain_mesh()
 
     def _lsq_start(self, n_chains: int, lower, upper, seed: int = 0) -> np.ndarray:
         """Start population (n_chains, dim): the slip components jittered

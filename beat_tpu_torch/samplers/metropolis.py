@@ -22,6 +22,12 @@ global step count as ``step_offset``, so tuning fires every
 ``tune_interval`` global steps even when each segment is shorter than the
 interval.
 
+A state may hold a block of a larger population (one rank's chains,
+:mod:`beat_tpu_torch.parallel`): ``block = (first global row, global
+chain count)``.  Every random draw is then made for the whole population
+from the same generator and the block's rows are kept, so a block steps
+exactly as its rows of the one-process run would.
+
 The gradient-based kernels carry ``(state, grad)``: one batched
 value-and-grad per stage start, then one per MALA step and
 ``n_leapfrog`` per HMC step.  The chains are independent, so the
@@ -127,6 +133,30 @@ def _beta_pair(beta, like: torch.Tensor) -> tuple:
     return beta, (beta[:, None] if beta.dim() else beta)
 
 
+def _block_rows(block, n: int) -> tuple:
+    """``(rows, n_all)``: the global rows of a state of ``n`` chains and
+    the population size the draws are made for (``block = (first row,
+    n_all)``; None: the state is the whole population)."""
+    if block is None:
+        return slice(None), n
+    start, n_all = block
+    return slice(start, start + n), n_all
+
+
+def _draw_pair(generator, state, block, noise):
+    """The (n, dim) standard normals and (n,) uniforms of a gradient
+    step, drawn for the whole population (or taken from ``noise``, given
+    for the whole population) and cut to the block's rows."""
+    rows, n_all = _block_rows(block, state.q.shape[0])
+    xi, u = noise if noise is not None else (None, None)
+    if xi is None:
+        xi = torch.randn((n_all,) + tuple(state.q.shape[1:]), generator=generator,
+                         dtype=state.q.dtype, device=state.q.device)
+    if u is None:
+        u = torch.rand(n_all, generator=generator, dtype=DTYPE, device=state.q.device)
+    return xi[rows], u[rows]
+
+
 def _sigma_dot(x: torch.Tensor, cov_chol: torch.Tensor) -> torch.Tensor:
     """Σ x = L (Lᵀ x) for rows of x."""
     return (x @ cov_chol) @ cov_chol.T
@@ -145,31 +175,34 @@ def _accepted_state(state, scaling, accepted, accept, q_eval, llk_prop):
 def metropolis_step(logp_fn: Callable, state: MetropolisState, step_idx: int, beta,
                     cov_chol: torch.Tensor, lower: torch.Tensor, upper: torch.Tensor,
                     generator: torch.Generator, tune_interval: int = 100,
-                    logp_args: tuple = (), proposal=None, noise=None) -> MetropolisState:
+                    logp_args: tuple = (), proposal=None, noise=None,
+                    block=None) -> MetropolisState:
     """One lockstep random-walk transition of all chains at global step
     ``step_idx``.
 
     ``noise = (z, u)`` injects the proposal's standard-normal draws
     (n, dim) and the accept uniforms (n,) instead of drawing them from
     ``generator`` (torch cannot reproduce JAX's threefry bits, so tests
-    feed both packages the same numbers)."""
+    feed both packages the same numbers).  ``block``: the state's rows of
+    a larger population (module docstring); ``noise`` is then the whole
+    population's."""
     proposal = proposal or choose_proposal("MultivariateNormal")
-    n = state.q.shape[0]
+    rows, n_all = _block_rows(block, state.q.shape[0])
     scaling, accepted = state.scaling, state.accepted
     if step_idx > 0 and step_idx % tune_interval == 0:
         scaling = tune_scale(scaling, accepted / tune_interval)
         accepted = torch.zeros_like(accepted)
 
     z, u = noise if noise is not None else (None, None)
-    q_prop = state.q + proposal(generator, n, cov_chol, z) * scaling[:, None]
+    q_prop = state.q + proposal(generator, n_all, cov_chol, z)[rows] * scaling[:, None]
     in_bounds = torch.all((q_prop >= lower) & (q_prop <= upper), dim=-1)
     # evaluate clipped into the box; out-of-bounds results are rejected
     llk_prop = logp_fn(torch.clamp(q_prop, lower, upper), *logp_args)
 
     if u is None:
-        u = torch.rand(n, generator=generator, dtype=DTYPE, device=state.q.device)
+        u = torch.rand(n_all, generator=generator, dtype=DTYPE, device=state.q.device)
     log_ratio = beta * (llk_prop - state.llk)
-    accept = in_bounds & torch.isfinite(llk_prop) & (torch.log(u) < log_ratio)
+    accept = in_bounds & torch.isfinite(llk_prop) & (torch.log(u[rows]) < log_ratio)
     return _accepted_state(state, scaling, accepted, accept, q_prop, llk_prop)
 
 
@@ -177,20 +210,14 @@ def metropolis_step(logp_fn: Callable, state: MetropolisState, step_idx: int, be
 def mala_step(logp_fn: Callable, state: MetropolisState, grad: torch.Tensor, step_idx: int,
               beta, cov_chol: torch.Tensor, lower: torch.Tensor, upper: torch.Tensor,
               generator: torch.Generator, tune_interval: int = 100, logp_args: tuple = (),
-              noise=None):
+              noise=None, block=None):
     """One lockstep MALA transition (``metropolis.py:165-242``): drift
     ``(ε²/2)·Σ·β∇llk`` plus ``ε·L·ξ`` noise, with the asymmetric-proposal
     correction.  ``grad`` is ∇llk at ``state.q``; returns the new
     ``(state, grad)``.  ``noise = (xi, u)`` injects the (n, dim) normal
-    and (n,) uniform draws."""
-    n = state.q.shape[0]
+    and (n,) uniform draws; ``block`` as for :func:`metropolis_step`."""
     scaling, accepted = _retuned(state, step_idx, tune_interval, MALA_TARGET_ACC)
-    xi, u = noise if noise is not None else (None, None)
-    if xi is None:
-        xi = torch.randn(state.q.shape, generator=generator, dtype=state.q.dtype,
-                         device=state.q.device)
-    if u is None:
-        u = torch.rand(n, generator=generator, dtype=DTYPE, device=state.q.device)
+    xi, u = _draw_pair(generator, state, block, noise)
 
     beta, beta_col = _beta_pair(beta, state.q)
     eps = scaling[:, None]
@@ -220,23 +247,18 @@ def mala_step(logp_fn: Callable, state: MetropolisState, grad: torch.Tensor, ste
 def hmc_step(logp_fn: Callable, state: MetropolisState, grad: torch.Tensor, step_idx: int,
              beta, cov_chol: torch.Tensor, lower: torch.Tensor, upper: torch.Tensor,
              generator: torch.Generator, tune_interval: int = 100, logp_args: tuple = (),
-             n_leapfrog: int = 10, noise=None):
+             n_leapfrog: int = 10, noise=None, block=None):
     """One lockstep HMC transition (``metropolis.py:249-346``):
     ``n_leapfrog`` leapfrog steps of the tempered Hamiltonian with
     kinetic energy ``½ pᵀ Σ p`` (momenta ``p = L⁻ᵀ ξ ~ N(0, Σ⁻¹)``).  The
     carried gradient is the first half-kick, so a transition costs
     ``n_leapfrog`` value-and-grads.  ``noise = (xi, u)`` injects the
-    momentum normals and the accept uniforms."""
+    momentum normals and the accept uniforms; ``block`` as for
+    :func:`metropolis_step`."""
     if n_leapfrog < 1:
         raise ValueError(f"HMC needs n_leapfrog >= 1, got {n_leapfrog}")
-    n = state.q.shape[0]
     scaling, accepted = _retuned(state, step_idx, tune_interval, HMC_TARGET_ACC)
-    xi, u = noise if noise is not None else (None, None)
-    if xi is None:
-        xi = torch.randn(state.q.shape, generator=generator, dtype=state.q.dtype,
-                         device=state.q.device)
-    if u is None:
-        u = torch.rand(n, generator=generator, dtype=DTYPE, device=state.q.device)
+    xi, u = _draw_pair(generator, state, block, noise)
 
     def kinetic(p):
         return 0.5 * torch.sum((p @ cov_chol) ** 2, dim=-1)
@@ -272,7 +294,7 @@ def run_metropolis_stage(logp_fn: Callable, state: MetropolisState, beta,
                          n_steps: int, generator: torch.Generator,
                          proposal_name: str = "MultivariateNormal", tune_interval: int = 100,
                          record_every: int = 1, logp_args: tuple = (), n_leapfrog: int = 10,
-                         tune: bool = True, step_offset: int = 0):
+                         tune: bool = True, step_offset: int = 0, block=None):
     """
     Advance all chains ``n_steps`` at tempering ``beta`` (a scalar, or
     (n,) per chain) with the random-walk ``proposal_name``, or the
@@ -280,7 +302,9 @@ def run_metropolis_stage(logp_fn: Callable, state: MetropolisState, beta,
     steps each).  A gradient kernel re-evaluates the start population's
     llk with its gradient.  The scaling retunes at every
     ``tune_interval``-th global step ``step_offset + i`` (never with
-    ``tune=False``).
+    ``tune=False``).  ``block = (first global row, global chain count)``
+    when ``state`` holds one rank's chains of a larger population: the
+    draws are the whole population's, cut to these rows.
 
     Returns the final state and the thinned trace ``(q_trace (n_rec,
     n_chains, dim), llk_trace (n_rec, n_chains))`` on the device: the
@@ -308,13 +332,15 @@ def run_metropolis_stage(logp_fn: Callable, state: MetropolisState, beta,
         step = step_offset + i if tune else 0
         if proposal_name == "MALA":
             state, grad = mala_step(logp_fn, state, grad, step, beta, cov_chol, lower, upper,
-                                    generator, tune_interval, logp_args)
+                                    generator, tune_interval, logp_args, block=block)
         elif gradient_kernel:
             state, grad = hmc_step(logp_fn, state, grad, step, beta, cov_chol, lower, upper,
-                                   generator, tune_interval, logp_args, n_leapfrog)
+                                   generator, tune_interval, logp_args, n_leapfrog,
+                                   block=block)
         else:
             state = metropolis_step(logp_fn, state, step, beta, cov_chol, lower, upper,
-                                    generator, tune_interval, logp_args, proposal=proposal)
+                                    generator, tune_interval, logp_args, proposal=proposal,
+                                    block=block)
         if (i + 1) % every == 0 or i + 1 == n_steps:
             q_tr[rec] = state.q
             llk_tr[rec] = state.llk

@@ -26,6 +26,12 @@ Nothing inside the segment loop waits for the device: the exchange
 counters accumulate on the device and are read only at a retune, and
 every β = 1 draw of every segment goes into a device buffer fetched
 once at the end.
+
+With a ``mesh`` (:mod:`beat_tpu_torch.parallel`) the ladder is sharded
+over the ``chains`` axis: each rank runs its replicas' segments (drawing
+for the whole ladder and keeping its rows), the segment's draws are
+gathered, and every rank applies the same exchange on the same uniforms
+to the whole ladder and keeps its rows.  Only rank 0 writes.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import torch
 from beat_tpu_torch.backend import SampleStage
 from beat_tpu_torch.covariance import init_proposal_covariance
 from beat_tpu_torch.device import DTYPE, resolve
+from beat_tpu_torch.parallel import CHAIN_AXIS, all_gather, axis_size, chain_block, is_io_process
 from beat_tpu_torch.profiling import timings
 from beat_tpu_torch.samplers.metropolis import init_metropolis_state, run_metropolis_stage
 
@@ -124,7 +131,7 @@ def segment_lengths(params: PTParams, rng: np.random.Generator) -> list:
 
 def pt_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: PTParams, *,
               device, homepath: str | None = None, ordering=None,
-              start: np.ndarray | None = None, logp_args: tuple = ()):
+              start: np.ndarray | None = None, logp_args: tuple = (), mesh=None):
     """
     Run parallel tempering.
 
@@ -132,6 +139,9 @@ def pt_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: P
         log-likelihood on ``device``.
     start : optional (n_chains, dim) start population; default uniform
         over the box from ``default_rng(params.seed)``.
+    mesh : optional ``DeviceMesh`` whose ``chains`` axis shards the
+        temperature ladder over ranks; ``n_chains`` must be a multiple of
+        its size.  Every rank returns the whole result; rank 0 writes.
 
     Returns ``(q_trace (n_draws, n_post, dim), llk_trace (n_draws,
     n_post), history)`` as numpy: every β = 1 draw of every segment, and
@@ -148,6 +158,12 @@ def pt_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: P
     n, n_post = params.n_chains, params.n_chains_posterior
     if not 1 <= n_post < n:
         raise ValueError(f"need 1 <= n_chains_posterior < n_chains, got {n_post}, {n}")
+    n_shards = axis_size(mesh, CHAIN_AXIS)
+    if mesh is not None and n % n_shards:
+        raise ValueError(f"n_chains={n} must be a multiple of the mesh size {n_shards} "
+                         "for temperature-axis sharding")
+    rows = chain_block(mesh, n)
+    block = None if mesh is None else (rows.start, n)
     rng = np.random.default_rng(params.seed)
     gen = torch.Generator(device=dev).manual_seed(params.seed)
     t_scale = params.t_scale
@@ -160,8 +176,8 @@ def pt_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: P
     lo = torch.as_tensor(lower64, dtype=DTYPE, device=dev)
     hi = torch.as_tensor(upper64, dtype=DTYPE, device=dev)
     with torch.no_grad():
-        state = init_metropolis_state(logp_fn, torch.as_tensor(start, dtype=DTYPE, device=dev),
-                                      logp_args)
+        state = init_metropolis_state(
+            logp_fn, torch.as_tensor(start, dtype=DTYPE, device=dev)[rows], logp_args)
     seg_lens = segment_lengths(params, rng)
     n_draws = sum(seg_lens)
     post_q = torch.empty((n_draws, n_post, dim), dtype=DTYPE, device=dev)
@@ -180,23 +196,26 @@ def pt_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: P
     t0 = time.perf_counter()
     for seg_len in seg_lens:
         state, (q_tr, llk_tr) = run_metropolis_stage(
-            logp_fn, state, betas_dev, cov_chol, lo, hi, n_steps=seg_len, generator=gen,
+            logp_fn, state, betas_dev[rows], cov_chol, lo, hi, n_steps=seg_len, generator=gen,
             proposal_name=params.proposal_name, tune_interval=params.tune_interval,
             record_every=1, logp_args=logp_args, n_leapfrog=params.n_leapfrog,
-            step_offset=global_step)
-        rows = slice(global_step, global_step + seg_len)
+            step_offset=global_step, block=block)
+        # the whole ladder's draws; the last is the segment's final state
+        q_tr = all_gather(q_tr, mesh, CHAIN_AXIS, 1)
+        llk_tr = all_gather(llk_tr, mesh, CHAIN_AXIS, 1)
+        draws = slice(global_step, global_step + seg_len)
         global_step += seg_len
-        post_q[rows] = q_tr[:, :n_post]
-        post_llk[rows] = llk_tr[:, :n_post]
+        post_q[draws] = q_tr[:, :n_post]
+        post_llk[draws] = llk_tr[:, :n_post]
         if params.record_worker_chains:
-            worker_q[rows] = q_tr[:, n_post:]
-            worker_llk[rows] = llk_tr[:, n_post:]
+            worker_q[draws] = q_tr[:, n_post:]
+            worker_llk[draws] = llk_tr[:, n_post:]
 
         log_u = torch.log(torch.rand(n, generator=gen, dtype=DTYPE, device=dev))
-        q_new, llk_new, accepted, proposed = swap_step(state.q, state.llk, betas_dev, log_u,
+        q_all, llk_all, accepted, proposed = swap_step(q_tr[-1], llk_tr[-1], betas_dev, log_u,
                                                        parity)
         parity ^= 1
-        state = state._replace(q=q_new, llk=llk_new)
+        state = state._replace(q=q_all[rows], llk=llk_all[rows])
         swaps_accepted += accepted[edge]
         swaps_proposed += proposed[edge]
         samples_since_tune += seg_len * n_post
@@ -221,9 +240,9 @@ def pt_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: P
                 time.perf_counter() - t0)
     history = {"scale_history": np.asarray(scale_history),
                "swap_acceptance": np.asarray(swap_acc_history), "betas": betas}
-    if homepath is not None:
-        state_extra = {"beta": 1.0, "cov": cov, "population": state.q.cpu().numpy(),
-                       "likelihoods": state.llk.cpu().numpy(), "betas": betas,
+    if homepath is not None and is_io_process():
+        state_extra = {"beta": 1.0, "cov": cov, "population": q_all.cpu().numpy(),
+                       "likelihoods": llk_all.cpu().numpy(), "betas": betas,
                        "scale_history": history["scale_history"],
                        "swap_acceptance": history["swap_acceptance"]}
         if params.record_worker_chains:

@@ -12,6 +12,14 @@ next stage is gathered on the device from that state (the row gather,
 kernel K5), not uploaded again.  Stage checkpoints go through
 the port's copy of the JAX package's ``SampleStage``, in the same file
 format, so the JAX package's tools read them.
+
+With a ``mesh`` (:mod:`beat_tpu_torch.parallel`) every rank runs the
+host loop with the same numpy generator, so β, the weights, the
+covariance and the resampling indexes agree; each rank advances its
+block of chains (drawing for the whole population and keeping its rows),
+the population and its llks are gathered over the ``chains`` axis after
+every stage, and each rank gathers its own resampled rows from them with
+K5.  Only rank 0 writes.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from beat_tpu_torch.backend import SampleStage
 from beat_tpu_torch.covariance import init_proposal_covariance
 from beat_tpu_torch.device import DTYPE, resolve
 from beat_tpu_torch.ops.rowgather import gather_rows
+from beat_tpu_torch.parallel import CHAIN_AXIS, all_gather, axis_size, chain_block, is_io_process
 from beat_tpu_torch.profiling import TimingRegistry, stage_timer, timings, torch_trace
 from beat_tpu_torch.samplers.metropolis import (MetropolisState, init_metropolis_state,
                                                 run_metropolis_stage)
@@ -105,7 +114,7 @@ class SMCParams:
 def smc_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: SMCParams,
                *, device, homepath: str | None = None, ordering=None,
                logp_args: tuple = (), update_weights: Callable | None = None,
-               start: np.ndarray | None = None):
+               start: np.ndarray | None = None, mesh=None):
     """
     Run the full SMC sampler.
 
@@ -121,9 +130,17 @@ def smc_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: 
     start : optional (n_chains, dim) initial population of a fresh run
         (e.g. jittered around a least-squares solution); default a
         uniform draw from the prior.
+    mesh : optional ``DeviceMesh`` whose ``chains`` axis shards the
+        chains over ranks (:func:`beat_tpu_torch.parallel.make_chain_mesh`);
+        ``n_chains`` must be a multiple of its size.  Every rank returns
+        the whole trace; only rank 0 writes stage files.
 
     Returns the final-stage (β = 1) trace ``(q_trace, llk_trace)`` as numpy.
     """
+    n_shards = axis_size(mesh, CHAIN_AXIS)
+    if mesh is not None and params.n_chains % n_shards:
+        raise ValueError(f"n_chains={params.n_chains} must be a multiple of the mesh size "
+                         f"{n_shards} for chain sharding (see pad_chains)")
     dev = resolve(device)
     lower64 = np.asarray(lower, dtype=np.float64)
     upper64 = np.asarray(upper, dtype=np.float64)
@@ -132,7 +149,14 @@ def smc_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: 
     hi = torch.as_tensor(upper64, dtype=DTYPE, device=dev)
     rng = np.random.default_rng(params.seed)
     gen = torch.Generator(device=dev).manual_seed(params.seed)
-    handler = SampleStage(homepath, ordering=ordering) if homepath else None
+    # every rank reads a resumed state; rank 0 alone writes
+    reader = SampleStage(homepath, ordering=ordering) if homepath else None
+    handler = reader if is_io_process() else None
+    rows = chain_block(mesh, params.n_chains)
+    block = None if mesh is None else (rows.start, params.n_chains)
+
+    def gather(x, dim=0):
+        return all_gather(x, mesh, CHAIN_AXIS, dim)
 
     # ---- resume ----
     stage = params.stage
@@ -142,14 +166,14 @@ def smc_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: 
     log_evidence = 0.0
     if handler is not None and stage == 0 and params.rm_flag:
         handler.rm_all()
-    if handler is not None and stage != 0:
-        top = handler.highest_sampled_stage()
+    if reader is not None and stage != 0:
+        top = reader.highest_sampled_stage()
         if top == -1:
             logger.info("Found complete final stage — nothing to do")
-            tr = handler.load_trace(-1)
+            tr = reader.load_trace(-1)
             return tr.q_trace, tr.llk_trace
         if top >= 0:
-            st = handler.load_state(top)
+            st = reader.load_state(top)
             beta = float(st["beta"])
             cov = np.asarray(st["cov"])
             population = np.asarray(st["population"])
@@ -175,12 +199,10 @@ def smc_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: 
         if np.any(population < lower64) or np.any(population > upper64):
             raise ValueError("Start population outside prior bounds — chains "
                              "could never re-enter the support")
+        q_dev = torch.as_tensor(population, dtype=DTYPE, device=dev)
         with torch.no_grad():
-            state0 = init_metropolis_state(
-                logp_fn, torch.as_tensor(population, dtype=DTYPE, device=dev),
-                logp_args=logp_args)
-        q_dev, llk_dev = state0.q, state0.llk
-        likelihoods = state0.llk.double().cpu().numpy()
+            llk_dev = gather(init_metropolis_state(logp_fn, q_dev[rows], logp_args=logp_args).llk)
+        likelihoods = llk_dev.double().cpu().numpy()
         if not np.isfinite(likelihoods).all():
             raise ValueError("NaN/Inf in initial likelihood evaluation — "
                              "invalid model or start outside prior bounds")
@@ -222,8 +244,8 @@ def smc_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: 
             logger.info("Stage %i: beta %.6f -> %.6f, %i steps x %i chains",
                         stage, old_beta, new_beta, n_steps, params.n_chains)
 
-            n = params.n_chains
-            idx_dev = torch.as_tensor(resampling_idx, device=dev)
+            n = rows.stop - rows.start
+            idx_dev = torch.as_tensor(resampling_idx, device=dev)[rows]
             state = MetropolisState(
                 q=gather_rows(q_dev, idx_dev), llk=llk_dev[idx_dev],
                 scaling=torch.ones(n, dtype=DTYPE, device=dev),
@@ -237,13 +259,14 @@ def smc_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: 
                     logp_fn, state, new_beta, cov_chol, lo, hi, n_steps=n_steps, generator=gen,
                     proposal_name=params.proposal_name, tune_interval=params.tune_interval,
                     record_every=params.buffer_thinning, logp_args=logp_args,
-                    n_leapfrog=params.n_leapfrog)
-                # one device->host fetch per stage (it ends the stage's timing)
-                q_dev, llk_dev = final.q, final.llk
-                population = final.q.double().cpu().numpy()
-                likelihoods = final.llk.double().cpu().numpy()
-            acc_rate = float(final.acc_total.mean().item() / n_steps)
-            q_host, llk_host = q_tr.cpu().numpy(), llk_tr.cpu().numpy()
+                    n_leapfrog=params.n_leapfrog, block=block)
+                # the whole population on every rank, then one device->host
+                # fetch per stage (it ends the stage's timing)
+                q_dev, llk_dev = gather(final.q), gather(final.llk)
+                population = q_dev.double().cpu().numpy()
+                likelihoods = llk_dev.double().cpu().numpy()
+            acc_rate = float(gather(final.acc_total).mean().item() / n_steps)
+            q_host, llk_host = gather(q_tr, 1).cpu().numpy(), gather(llk_tr, 1).cpu().numpy()
             acceptance.append(acc_rate)
             beta = new_beta
             logger.info("Stage %i done: acceptance %.3f, max llk %.2f, "
@@ -272,7 +295,7 @@ def smc_sample(logp_fn: Callable, lower: np.ndarray, upper: np.ndarray, params: 
                 if new_args is not None:
                     logp_args = tuple(new_args)
                 with torch.no_grad():
-                    llk_dev = logp_fn(q_dev, *logp_args)
+                    llk_dev = gather(logp_fn(q_dev[rows], *logp_args))
                 likelihoods = llk_dev.double().cpu().numpy()
             stage += 1
         for f in saves:

@@ -434,14 +434,44 @@ source_catalog = {
 }
 
 
-def half_sinusoid_stf(t, duration) -> torch.Tensor:
-    """The half-sinusoid source-time function of unit area,
-    ``sin(π t / d) · π / (2 d)`` on [0, d], 0 elsewhere; ``t`` and
-    ``duration`` broadcast (d floored at 1e-6 s)."""
+def _stf_args(t, duration) -> tuple:
     t = torch.as_tensor(t)
     d = torch.clamp(torch.as_tensor(duration, dtype=t.dtype, device=t.device), min=1e-6)
+    return t, d, torch.zeros((), dtype=t.dtype, device=t.device)
+
+
+def boxcar_stf(t, duration) -> torch.Tensor:
+    """The boxcar source-time function of unit area, ``1 / d`` on
+    [0, d], 0 elsewhere; ``t`` and ``duration`` broadcast (d floored at
+    1e-6 s, as for every STF here)."""
+    t, d, zero = _stf_args(t, duration)
+    return torch.where((t >= 0) & (t <= d), 1.0 / d, zero)
+
+
+def triangular_stf(t, duration, peak_ratio: float = 0.5) -> torch.Tensor:
+    """The triangular source-time function of unit area, rising to its
+    peak at ``peak_ratio · d`` and falling to 0 at ``d``."""
+    t, d, zero = _stf_args(t, duration)
+    tp = peak_ratio * d
+    up = torch.where((t >= 0) & (t < tp), t / torch.clamp(tp, min=1e-6), zero)
+    down = torch.where((t >= tp) & (t <= d), (d - t) / torch.clamp(d - tp, min=1e-6), zero)
+    return (up + down) * 2.0 / d
+
+
+def half_sinusoid_stf(t, duration) -> torch.Tensor:
+    """The half-sinusoid source-time function of unit area,
+    ``sin(π t / d) · π / (2 d)`` on [0, d], 0 elsewhere."""
+    t, d, zero = _stf_args(t, duration)
     return torch.where((t >= 0) & (t <= d), torch.sin(math.pi * t / d) * math.pi / (2.0 * d),
-                       torch.zeros((), dtype=t.dtype, device=t.device))
+                       zero)
+
+
+#: the source-time functions by name (``beat_tpu/sources.py:543-547``)
+stf_catalog = {
+    "Boxcar": boxcar_stf,
+    "Triangular": triangular_stf,
+    "HalfSinusoid": half_sinusoid_stf,
+}
 
 
 def rectangular_patch_grid(strike, dip, length, width, east_shift, north_shift, depth,

@@ -122,6 +122,14 @@ SMC on the first and a post-seismic geodetic SMC on the last.
     llk is the difference of llk0 and the whitened misfit and passes
     through 0, so a bar on |llk| alone is ill-posed); its time, the
     eikonal solve's time and kernel launches within it;
+15b. the runtime (slice 13): [parallel_ffi_llk] the library split by
+    targets on a ``make_gf_mesh(2, 2)`` of 4 ranks started here (spawn),
+    sharing the card over gloo (NCCL refuses two ranks on one device):
+    each rank holds 6 of the 12 targets, a block copied from [ffi_build]'s
+    library and handed over by CUDA IPC, and 1000 of phase 15's 2000
+    chains; K3 on its block, the partial llks summed over ``targets``:
+    within phase 15's bar of the one-process llk of the seismic composite
+    through K3, K3 launched on every rank, each rank's peak memory;
 16. [ffi_smc] ``Problem.sample(SMCParams(n_chains=2000, n_steps=20,
     max_stages=4, seed=1))`` as the example runs it: the stage cap ends
     it (the one expected exception); β strictly increasing, finite llks,
@@ -169,9 +177,11 @@ SMC on the first and a post-seismic geodetic SMC on the last.
     bf16 copy of the library (built on the card a target at a time: half
     the bytes, no third copy), K3 and K4 on it against their plain version
     on the same copy at phase 13's bar, timed in turns with the float32
-    kernels, within 0.02 · max of the float32 stack and not equal to it;
-    [ffi_llk_bf16] one llk of the FFI flagship on the bf16 library with
-    each interpolation (after [ffi_smc]); [ffi_extras]
+    kernels, within 0.02 · max of the float32 stack and not equal to it,
+    and the dense ``bmm`` yardstick on it (bf16 operands, float32
+    accumulation) as their ``library_ms``; [ffi_llk_bf16] one llk of the
+    FFI flagship on the bf16 library with each interpolation (after
+    [ffi_smc]); [ffi_extras]
     ``Problem.estimate_hypers`` on the static FFI (after
     [static_ffi_smc]); [transd_ffi] ``Problem.sample(TransDParams(...))``
     on the static FFI fault with a two-level slip (1024 chains, 4000
@@ -264,6 +274,19 @@ SMC on the first and a post-seismic geodetic SMC on the last.
     [map]'s gates and, when matplotlib imports, ``plot``; each command's
     seconds and K1c, K2c and K5 launches, none of ``jax`` or ``beat_tpu``
     imported;
+17h. slice 13, the runtime (last, after [layered_host_check]):
+    [parallel_smc] [project]'s FullMT project sampled by 2 ranks started
+    here, sharing the card over gloo, through ``load_model`` and
+    ``Problem.sample()`` (``_auto_mesh`` shards the 2000 chains, 1000 a
+    rank): [smc]'s depth and Mw gates, the first population's llks per
+    chain within rtol 2e-5 of [project]'s one-process run, the stage files
+    written by rank 0 alone and read back through ``load_model``, K1c and
+    K5 launched on each rank (each rank's counts printed), its seconds
+    beside [smc]'s (ranks sharing one card: overhead, not a speed-up);
+    [parallel_nccl] one rank over NCCL on ``make_chain_mesh(1)``: the
+    capped SMC (stage 0 and one stage of 2000 chains × 60 steps) equal to
+    the meshless run of the same seed (q atol 1e-6, llk atol 1e-5); a
+    rank that fails, or ranks still running after 240 s, end the script;
 18. [done] the script's seconds, a JSON line of the kernels, then
     ``{"ok": true, "device": ...}`` last.
 
@@ -387,6 +410,11 @@ DERIVED_TOL, VR_MIN, FD_BAR_FACTOR, PROJECT_MODES_RTOL = 1e-5, 0.9, 4.0, 1e-6
 # [project]: each wavemap's variance reduction at the best draw may fall
 # this far below the same wavemap's at the true source
 VR_TRUTH_MARGIN = 0.02
+#: [parallel_smc]: ranks sharing the card over gloo; [parallel_ffi_llk]: the
+#: (chains, targets) mesh; a phase's ranks are killed after the deadline
+PARALLEL_SMC_RANKS, PARALLEL_FFI_MESH, PARALLEL_DEADLINE_S = 2, (2, 2), 240.0
+#: [parallel_nccl]: the mesh run against the meshless one (tests/test_parallel.py:91-92)
+PARALLEL_Q_ATOL, PARALLEL_LLK_ATOL = 1e-6, 1e-5
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, HBM3
 FP32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
 
@@ -590,7 +618,8 @@ def say_stack(key: str, shape: str, dims: dict, r: dict, **extra) -> None:
                   previous_device_ms=fmt_ms(r["previous_device_ms"]))
     if "tiled_ms" in r:
         fields["tiled_ms"] = f"{r['tiled_ms']:.4f}"
-    say(key, shape=shape, **dims, **fields, plain_ms=f"{r['plain_ms']:.4f}", library_ms="none",
+    library_ms = "none" if r.get("library_ms") is None else f"{r['library_ms']:.4f}"
+    say(key, shape=shape, **dims, **fields, plain_ms=f"{r['plain_ms']:.4f}", library_ms=library_ms,
         cells_read=r["cells_read"], bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"],
         share_of_bound=f"{r['bound_ms'] / r['ms']:.3f}", why=json.dumps(r["why"]), **extra)
 
@@ -600,7 +629,8 @@ def dense_bmm_ms(lib, durations, starttimes, slips, interpolation: str = "multil
     """The GF stack as one dense ``torch.bmm`` over the scattered corner
     weights, (T, C, P·D·S) @ (T, P·D·S, N): the library yardstick of K3
     (``multilinear``: four corners a patch) and K4 (``nearest_neighbor``:
-    one), not a path of the port.  The cells are clamped as the plain
+    one), not a path of the port; on a bf16 library the weights are bf16
+    too (a corner's weight is written once, never summed).  The cells are clamped as the plain
     version clamps them.  Returns (ms of the bmm alone, ms with the scatter
     that builds the weights, max |err| against the plain version)."""
     import torch
@@ -627,7 +657,7 @@ def dense_bmm_ms(lib, durations, starttimes, slips, interpolation: str = "multil
         w = torch.zeros((C, T, P * D * S), dtype=data.dtype, device=data.device)
         for dd, ss, wc in corners:
             idx = ((p * D + (d - dd)) * S + (s - ss)).expand(C, T, P)
-            w.scatter_add_(2, idx, (wc * slips[:, None, :]).expand(C, T, P))
+            w.scatter_add_(2, idx, (wc * slips[:, None, :]).to(data.dtype).expand(C, T, P))
         return w.transpose(0, 1).contiguous()
 
     w = weights()
@@ -1644,21 +1674,36 @@ def ffi_extra_phases(dev, problem, workdir: str) -> dict:
         loss = float((s16 - s32).abs().max() / s32.abs().max())
         rb["ms"], rb["float32_ms"] = time_in_turns(lambda: run(lib16.data),
                                                    lambda: run(lib.data), 10)
+        del s16, s32
+        torch.cuda.empty_cache()
+        # the library yardstick on the bf16 library: bf16 operands, float32
+        # accumulation (reduced-precision reductions off)
+        reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        try:
+            bmm_ms, bmm_scatter_ms, bmm_err = dense_bmm_ms(lib16, *real_in, interpolation)
+        finally:
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+        torch.cuda.empty_cache()
         rb.update(loss_vs_float32=loss, library_bytes=bytes16, float32_library_bytes=bytes32,
-                  convert_s=convert_s, convert_extra_GB=convert_extra / 1e9)
+                  convert_s=convert_s, convert_extra_GB=convert_extra / 1e9,
+                  library_ms=bmm_ms, library_with_scatter_ms=bmm_scatter_ms,
+                  library_max_abs_err=bmm_err)
         out[key + "_bf16"] = rb
         say_stack(key + "_bf16", "real", dict(C=N_CHAINS, T=lib.ntargets, P=lib.npatches,
                                               D=lib.ndurations, S=lib.nstarttimes,
                                               N=lib.nsamples), rb,
                   float32_ms=f"{rb['float32_ms']:.4f}", loss_vs_float32=f"{loss:.3e}",
                   library_GB=f"{bytes16 / 1e9:.3f}", float32_library_GB=f"{bytes32 / 1e9:.3f}",
-                  convert_s=f"{convert_s:.3f}", convert_extra_GB=f"{convert_extra / 1e9:.3f}")
+                  convert_s=f"{convert_s:.3f}", convert_extra_GB=f"{convert_extra / 1e9:.3f}",
+                  library_with_scatter_ms=f"{bmm_scatter_ms:.4f}",
+                  library_max_abs_err=f"{bmm_err:.3e}")
         if not (0.0 < loss < BF16_LOSS_MAX and 2 * bytes16 == bytes32
                 and convert_extra <= bytes16 + 2**21):
             raise SystemExit(f"[{key}_bf16] the bf16 stack is {loss} of max off the float32 "
                              f"one, or the library is not half the bytes, or its conversion "
                              f"took {convert_extra} bytes beside the copy")
-        del s16, s32, didx, rtf, sidx, stf
+        del didx, rtf, sidx, stf
     del real_in
     torch.cuda.empty_cache()
 
@@ -2193,47 +2238,6 @@ def analytic_store_check(dev, workdir: str) -> float:
     return float(np.abs(got - want).max() / np.abs(want).max())
 
 
-def write_fullmt_project(problem, pdir: str) -> None:
-    """The FullMT flagship problem as a project directory, written by the
-    port's own writers: ``init_config`` and ``dump_config`` (the
-    flagship's priors, wavemaps, taper, filter and sampler settings),
-    ``save_seismic_datasets`` and ``GreensTable.save`` to ``gf_table.npz``."""
-    from beat_tpu_torch.config import (ArrivalTaperConfig, EventConfig, FilterConfig,
-                                       WaveformFitConfig, dump_config, init_config)
-    from beat_tpu_torch.flagship import FILTER, TAPER, TRUE_DEPTH, WAVEMAPS, flagship_datasets
-    from beat_tpu_torch.inputf import save_seismic_datasets
-
-    comp = problem.composites["seismic"]
-    cfg = init_config("fullmt", pdir, datatypes=("seismic",), source_types=("MTSource",),
-                      event=EventConfig(depth=TRUE_DEPTH))
-    set_config_priors(cfg, problem.source_priors.parameters)
-    cfg.seismic_config.waveforms = [
-        WaveformFitConfig(name=name, channels=list(channels), filterer=FilterConfig(**FILTER),
-                          arrival_taper=ArrivalTaperConfig(**TAPER))
-        for name, channels in WAVEMAPS.items()]
-    cfg.sampler_config.parameters = dict(n_chains=N_CHAINS, n_steps=N_STEPS, seed=0)
-    dump_config(cfg, pdir)
-    st_e, st_n, raw = problem.observations
-    save_seismic_datasets([ds for dsets in flagship_datasets(st_e, st_n, raw).values()
-                           for ds in dsets], pdir)
-    comp.tables[0].save(os.path.join(pdir, "gf_table.npz"))
-
-
-def set_config_priors(cfg, priors: dict, hierarchicals: dict | None = None) -> None:
-    """Replace a config's priors by ``priors`` (``{name: Parameter}`` in
-    SI, as the problems hold them), in the config's units;
-    ``hierarchicals`` go to its ``hyperparameters`` section."""
-    pc = cfg.problem_config
-    pc.priors = {}
-    for target, params in ((pc.priors, priors), (pc.hyperparameters, hierarchicals or {})):
-        for p in params.values():
-            scale = 1e-3 if p.name in pc.KM_SCALED_VARS else 1.0
-            d = p.to_dict()
-            for key in ("lower", "upper", "testvalue"):
-                d[key] = [v * scale for v in d[key]]
-            target[p.name] = d
-
-
 def same_points_llk(direct, loaded, n_chains: int, seed: int) -> tuple:
     """The two problems' llks of the same ``n_chains`` draws from the
     direct problem's priors (each problem's own ordering, matched by
@@ -2300,7 +2304,8 @@ def project_phases(dev, workdir: str, k5_launches: dict) -> dict:
                                          STATIC_FFI_REAL_SIZE, TRUE_DEPTH, TRUE_DURATION,
                                          TRUE_MAGNITUDE, TRUE_SDR, build_bem_flagship,
                                          build_flagship, build_geodetic_flagship,
-                                         build_static_ffi_flagship)
+                                         build_static_ffi_flagship, set_config_priors,
+                                         write_fullmt_project)
     from beat_tpu_torch.models.problem import load_model
     from beat_tpu_torch.models.seismic import M6_NAMES, point_getter, source_m6
     from beat_tpu_torch.ops.bilgather import bilinear_contract, bilinear_contract_reference
@@ -2313,7 +2318,7 @@ def project_phases(dev, workdir: str, k5_launches: dict) -> dict:
     direct = build_flagship(**REAL_SIZE, seed=0, device=dev,
                             outfolder=os.path.join(workdir, "project_direct"))
     t0 = time.perf_counter()
-    write_fullmt_project(direct, pdir)
+    write_fullmt_project(direct, pdir, dict(n_chains=N_CHAINS, n_steps=N_STEPS, seed=0))
     write_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     problem = load_model(pdir, "geometry", device=dev)
@@ -2579,7 +2584,8 @@ def cli_phases(dev, workdir: str, k5_launches: dict) -> dict:
                                        dump_config, load_config)
     from beat_tpu_torch.flagship import (DEPTH_RANGE, DISTANCE_RANGE, DT, FILTER, REAL_SIZE,
                                          TAPER, TRUE_DEPTH, TRUE_MAGNITUDE, WAVEMAPS,
-                                         build_flagship, flagship_datasets)
+                                         build_flagship, flagship_datasets,
+                                         set_config_priors)
     from beat_tpu_torch.inputf import save_seismic_datasets
     from beat_tpu_torch.ops.bilgather import bilinear_contract, contract_corner_dot
     from beat_tpu_torch.ops.rowgather import gather_rows
@@ -2684,6 +2690,425 @@ def cli_phases(dev, workdir: str, k5_launches: dict) -> dict:
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return {"cli": launches}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(phase: str, fn, n_ranks: int, args: tuple, deadline: float) -> float:
+    """Start ``fn(rank, n_ranks, port, *args)`` in ``n_ranks`` spawned
+    processes (CUDA tensors among ``args`` reach them by CUDA IPC) and join
+    them; returns the seconds from the start to the last exit.  A rank
+    that raises or exits non-zero ends the others and the script; ranks
+    still running after ``deadline`` seconds are killed, and so is the
+    script.  Stops every process it started."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(fn, args=(n_ranks, _free_port()) + tuple(args), nprocs=n_ranks,
+                             join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.perf_counter() - t0 > deadline:
+                raise SystemExit(f"[{phase}] ranks still running after the {deadline} s "
+                                 "deadline: killed")
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+        raise SystemExit(f"[{phase}] a rank failed:\n{e}") from None
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    return time.perf_counter() - t0
+
+
+def join_group(rank: int, n_ranks: int, port: int, device_type: str, backend: str) -> None:
+    """A rank of this script joins its phase's process group (on card 0:
+    the ranks of a phase share the one card), with its share of the
+    host's cores for the host work."""
+    from datetime import timedelta
+
+    import torch
+
+    from beat_tpu_torch.parallel import init_distributed
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // n_ranks))
+
+    init_distributed(f"tcp://localhost:{port}", n_ranks, rank, local_rank=0,
+                     device=device_type, backend=backend,
+                     timeout=timedelta(seconds=PARALLEL_DEADLINE_S))
+
+
+def rank_timed(fn, device_type: str) -> tuple:
+    """``(fn(), seconds, this process's peak GB on the card)`` (peak 0 on
+    the CPU, where the phases are rehearsed)."""
+    import torch
+
+    cuda = device_type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = fn()
+    if cuda:
+        torch.cuda.synchronize()
+    return (res, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0)
+
+
+def write_rank(resdir: str, rank: int, result: dict) -> None:
+    with open(os.path.join(resdir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def read_ranks(resdir: str, n_ranks: int) -> list:
+    out = []
+    for r in range(n_ranks):
+        with open(os.path.join(resdir, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def parallel_smc_rank(rank: int, n_ranks: int, port: int, device_type: str, pdir: str,
+                      resdir: str) -> None:
+    """A rank of [parallel_smc]: gloo on the shared card; loads the FullMT
+    project and runs ``Problem.sample()``, which shards the chains over the
+    ranks (``_auto_mesh``); writes its counts, seconds and stage writes."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from beat_tpu_torch.backend import SampleStage
+    from beat_tpu_torch.models.problem import load_model
+    from beat_tpu_torch.ops.bilgather import bilinear_contract
+    from beat_tpu_torch.ops.rowgather import gather_rows
+
+    join_group(rank, n_ranks, port, device_type, "gloo")
+    try:
+        t0 = time.perf_counter()
+        problem = load_model(pdir, "geometry", device=device_type)
+        load_s = time.perf_counter() - t0
+        mesh = problem._auto_mesh(problem.sampler_params.n_chains)
+        saves = []
+        save_stage = SampleStage.save_stage
+
+        def counted(self, stage, *a, **k):
+            saves.append(stage)
+            return save_stage(self, stage, *a, **k)
+
+        SampleStage.save_stage = counted
+        bilinear_contract.launches = gather_rows.launches = 0
+        (q_tr, llk_tr), wall, peak = rank_timed(problem.sample, device_type)
+        result = dict(rank=rank, mesh_size=mesh.size(), device=str(problem.device),
+                      load_s=load_s, wall_s=wall, k1c_launches=bilinear_contract.launches,
+                      k5_launches=gather_rows.launches, saves=saves,
+                      chains=int(q_tr.shape[1]), finite=bool(np.isfinite(llk_tr).all()),
+                      q_mean=q_tr[-1].mean(axis=0).tolist(), peak_GB=peak)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    write_rank(resdir, rank, result)
+
+
+def parallel_nccl_rank(rank: int, n_ranks: int, port: int, device_type: str, pdir: str,
+                       resdir: str, n_chains: int, n_steps: int) -> None:
+    """The one rank of [parallel_nccl]: NCCL on the card (gloo on the
+    CPU), a capped FullMT SMC (stage 0 and one stage) meshless and on
+    ``make_chain_mesh(1)``, both from the same seed; writes the stage
+    files' differences."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from beat_tpu_torch.backend import SampleStage
+    from beat_tpu_torch.models.problem import load_model
+    from beat_tpu_torch.ops.bilgather import bilinear_contract
+    from beat_tpu_torch.ops.rowgather import gather_rows
+    from beat_tpu_torch.parallel import make_chain_mesh
+    from beat_tpu_torch.samplers import SMCParams, smc_sample
+
+    join_group(rank, n_ranks, port, device_type, "nccl" if device_type == "cuda" else "gloo")
+    try:
+        backend = dist.get_backend()
+        problem = load_model(pdir, "geometry", device=device_type)
+        logp, data = problem.make_logp_fn()
+        lower, upper = problem.priors.bounds_arrays()
+        params = SMCParams(n_chains=n_chains, n_steps=n_steps, max_stages=2, seed=0)
+        runs = {}
+        for key, mesh in (("meshless", None), ("mesh", make_chain_mesh(1))):
+            home = os.path.join(resdir, key)
+            bilinear_contract.launches = gather_rows.launches = 0
+
+            def capped():
+                try:
+                    smc_sample(logp, lower, upper, params, device=problem.device,
+                               homepath=home, ordering=problem.ordering, logp_args=(data,),
+                               mesh=mesh)
+                except RuntimeError as e:
+                    if "did not reach beta=1" not in str(e):
+                        raise
+
+            _, wall, _ = rank_timed(capped, device_type)
+            handler = SampleStage(home, ordering=problem.ordering)
+            st = handler.load_state(handler.highest_sampled_stage())
+            runs[key] = (np.asarray(st["population"]), np.asarray(st["likelihoods"]), wall,
+                         bilinear_contract.launches, gather_rows.launches, float(st["beta"]))
+        (q0, l0, wall0, *_), (q1, l1, wall1, k1c, k5, beta) = runs["meshless"], runs["mesh"]
+        nccl = torch.cuda.nccl.version() if device_type == "cuda" else ()
+        result = dict(backend=backend, nccl=".".join(map(str, nccl)),
+                      max_abs_dq=float(np.abs(q1 - q0).max()),
+                      max_abs_dllk=float(np.abs(l1 - l0).max()), beta=beta,
+                      meshless_s=wall0, mesh_s=wall1, k1c_launches=k1c, k5_launches=k5)
+    finally:
+        dist.destroy_process_group()
+    write_rank(resdir, rank, result)
+
+
+def ffi_partial_llk(lib, durations, starttimes, slips, hyper, data, weights, slog_pdets,
+                    nsamples, interpolation: str = "multilinear"):
+    """The kinematic FFI data llk of a block of targets for a block of
+    chains: ``SeismicDistributerComposite._loglike`` of one time-domain
+    wavemap without time shifts, on the block."""
+    from beat_tpu_torch.distributions import multivariate_normal_chol_batched
+
+    synth = lib.stack_all(durations, starttimes[:, None, :], slips, interpolation)
+    return multivariate_normal_chol_batched(data - synth, weights, slog_pdets, hyper,
+                                            nsamples).sum(-1)
+
+
+def parallel_ffi_rank(rank: int, n_ranks: int, port: int, device_type: str, blocks: list,
+                      grid: dict, inputs: tuple, interpolation: str, resdir: str) -> None:
+    """A rank of [parallel_ffi_llk]: gloo on the shared card, a
+    ``make_gf_mesh(2, 2)``; this rank's block of targets (by CUDA IPC from
+    the parent) and of chains; K3 on the block, the partial llks summed
+    over ``targets``, the chains gathered."""
+    import functools
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from beat_tpu_torch.ffi import SeismicGFLibrary
+    from beat_tpu_torch.ops.gfstack import stack_batched
+    from beat_tpu_torch.parallel import (CHAIN_AXIS, TARGET_AXIS, all_gather, axis_index,
+                                         make_gf_mesh, sharded_gf_logp)
+
+    join_group(rank, n_ranks, port, device_type, "gloo")
+    try:
+        mesh = make_gf_mesh(*PARALLEL_FFI_MESH)
+        t = axis_index(mesh, TARGET_AXIS)
+        lib = SeismicGFLibrary(blocks[t], **grid, device=blocks[t].device)
+        llk_fn = sharded_gf_logp(
+            mesh, functools.partial(ffi_partial_llk, interpolation=interpolation),
+            in_specs=(None, ("chains",), ("chains",), ("chains",), ("chains", "targets"),
+                      ("targets",), ("targets",), ("targets",), ("targets",)))
+        stack_batched.launches_multilinear = stack_batched.launches_nearest = 0
+        with torch.no_grad():
+            llk, first_s, peak = rank_timed(lambda: llk_fn(lib, *inputs), device_type)
+            launches = (stack_batched.launches_multilinear, stack_batched.launches_nearest)
+            llk_all = all_gather(llk, mesh, CHAIN_AXIS)
+            # a second call, warm: the first one pays the rank's CUDA and
+            # cuBLAS start-up
+            _, seconds, _ = rank_timed(lambda: llk_fn(lib, *inputs), device_type)
+        result = dict(rank=rank, coords=[axis_index(mesh, CHAIN_AXIS), t],
+                      targets=lib.ntargets, local_chains=int(llk.shape[0]),
+                      block_bytes=blocks[t].untyped_storage().nbytes(),
+                      lib_is_the_block=lib.data.data_ptr() == blocks[t].data_ptr(),
+                      k3_launches=launches[0], k4_launches=launches[1], first_s=first_s,
+                      seconds=seconds, peak_GB=peak)
+        if rank == 0:
+            np.save(os.path.join(resdir, "llk.npy"), llk_all.double().cpu().numpy())
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    write_rank(resdir, rank, result)
+
+
+def parallel_smc_phases(dev, workdir: str, k5_launches: dict, smc_wall: float) -> dict:
+    """[parallel_smc] the [project] FullMT project's ``sample()`` (2000
+    chains, 60 steps, seed 0) in PARALLEL_SMC_RANKS ranks sharing the
+    card over gloo, through ``Problem.sample()`` (``_auto_mesh`` shards
+    the chains): [smc]'s depth and Mw gates; the first population's llks
+    per chain within LLK_RTOL of [project]'s one-process run of the same
+    population; the stage files written by rank 0 alone (every stage
+    once) and read back through ``load_model``; K1c and K5 launched on
+    every rank; every rank's result equal to the files'.  [parallel_nccl]
+    one rank over NCCL on ``make_chain_mesh(1)``: a capped SMC (stage 0
+    and one stage) equal to the meshless run of the same seed in the same
+    process (PARALLEL_Q_ATOL, PARALLEL_LLK_ATOL).  The seconds are those of
+    ranks sharing one card, printed beside [smc]'s ``smc_wall``: overhead,
+    not a speed-up.  Adds the ranks' K5
+    launches to ``k5_launches``; returns the ranks' K1c launches.  Raises
+    SystemExit at the first gate missed."""
+    import shutil
+
+    import numpy as np
+
+    from beat_tpu_torch.backend import SampleStage
+    from beat_tpu_torch.flagship import TRUE_DEPTH, TRUE_MAGNITUDE
+    from beat_tpu_torch.models.problem import load_model
+
+    pdir = os.path.join(workdir, "project_fullmt")
+    ppdir = os.path.join(workdir, "parallel_project")
+    shutil.copytree(pdir, ppdir, ignore=shutil.ignore_patterns("geometry"))
+    resdir = os.path.join(workdir, "parallel_smc")
+    os.makedirs(resdir)
+    n = PARALLEL_SMC_RANKS
+    phase_s = run_ranks("parallel_smc", parallel_smc_rank, n, (dev.type, ppdir, resdir),
+                        PARALLEL_DEADLINE_S)
+    ranks = read_ranks(resdir, n)
+    loaded = load_model(ppdir, "geometry", device=dev)
+    handler = SampleStage(loaded.outfolder, ordering=loaded.ordering)
+    llk_two = np.asarray(handler.load_state(0)["likelihoods"])
+    llk_one = np.asarray(SampleStage(os.path.join(pdir, "geometry"), ordering=loaded.ordering)
+                         .load_state(0)["likelihoods"])
+    llk_err = float((np.abs(llk_two - llk_one) / np.abs(llk_one)).max())
+    state = handler.load_state(-1)
+    trace = handler.load_trace(-1)
+    summary = loaded.summarize(-1)
+    q_mean = trace.q_trace[-1].mean(axis=0)
+    est = loaded.ordering.to_point(q_mean)
+    depth, mag = float(np.asarray(est["depth"])), float(np.asarray(est["magnitude"]))
+    stages = len(state["acceptance"])
+    say("parallel_smc", ranks=n, backend="gloo", one_card_shared=True, chains=N_CHAINS,
+        chains_per_rank=N_CHAINS // n, steps=N_STEPS, stages=stages, beta=float(state["beta"]),
+        wall_s_by_rank=json.dumps([round(r["wall_s"], 2) for r in ranks]),
+        phase_s=f"{phase_s:.2f}", one_process_smc_s=f"{smc_wall:.2f}",
+        seconds_are="overhead_of_ranks_sharing_one_card_not_a_speedup",
+        load_s_by_rank=json.dumps([round(r["load_s"], 2) for r in ranks]),
+        k1c_launches_by_rank=json.dumps([r["k1c_launches"] for r in ranks]),
+        k5_launches_by_rank=json.dumps([r["k5_launches"] for r in ranks]),
+        stage_writes_by_rank=json.dumps([len(r["saves"]) for r in ranks]),
+        peak_GB_by_rank=json.dumps([round(r["peak_GB"], 2) for r in ranks]),
+        stage0_llk_worst_rel_err=f"{llk_err:.2e}", depth_m=f"{depth:.1f}",
+        magnitude=f"{mag:.4f}", summary_parameters=len(summary))
+    for r in ranks:
+        k5_launches[f"parallel_smc_rank{r['rank']}"] = r["k5_launches"]
+        if not (r["mesh_size"] == n and r["chains"] == N_CHAINS and r["finite"]
+                and r["device"] == str(dev)):
+            raise SystemExit(f"[parallel_smc] rank {r['rank']} did not shard {N_CHAINS} chains "
+                             f"over {n} ranks on the card to finite llks: {r}")
+        if r["k1c_launches"] == 0 or r["k5_launches"] == 0:
+            raise SystemExit(f"[parallel_smc] rank {r['rank']} never launched K1c or K5")
+        if not np.allclose(r["q_mean"], q_mean, rtol=1e-6, atol=0.0):
+            raise SystemExit(f"[parallel_smc] rank {r['rank']}'s trace is not the files'")
+    if not (ranks[0]["saves"][0] == 0 and ranks[0]["saves"][-1] == -1
+            and len(ranks[0]["saves"]) == stages + 1
+            and all(r["saves"] == [] for r in ranks[1:])):
+        raise SystemExit(f"[parallel_smc] the stage files were not written once, by rank 0: "
+                         f"{[r['saves'] for r in ranks]}")
+    if not llk_err <= LLK_RTOL:
+        raise SystemExit(f"[parallel_smc] the first population's llks are {llk_err} off the "
+                         "one-process run's")
+    if float(state["beta"]) != 1.0:
+        raise SystemExit("[parallel_smc] did not reach beta = 1")
+    if abs(depth - TRUE_DEPTH) >= DEPTH_TOL or abs(mag - TRUE_MAGNITUDE) >= MAG_TOL:
+        raise SystemExit(f"[parallel_smc] posterior misses the truth: depth {depth}, Mw {mag}")
+
+    resdir = os.path.join(workdir, "parallel_nccl")
+    os.makedirs(resdir)
+    phase_s = run_ranks("parallel_nccl", parallel_nccl_rank, 1,
+                        (dev.type, ppdir, resdir, N_CHAINS, N_STEPS), PARALLEL_DEADLINE_S)
+    (r,) = read_ranks(resdir, 1)
+    say("parallel_nccl", ranks=1, backend=r["backend"], nccl=r["nccl"], chains=N_CHAINS,
+        steps=N_STEPS, stages_run=1, max_abs_dq=f"{r['max_abs_dq']:.3e}",
+        max_abs_dllk=f"{r['max_abs_dllk']:.3e}", meshless_s=f"{r['meshless_s']:.2f}",
+        mesh_s=f"{r['mesh_s']:.2f}", phase_s=f"{phase_s:.2f}",
+        k1c_launches=r["k1c_launches"], k5_launches=r["k5_launches"])
+    k5_launches["parallel_nccl"] = r["k5_launches"]
+    if (r["backend"] != ("nccl" if dev.type == "cuda" else "gloo") or r["k1c_launches"] == 0
+            or r["k5_launches"] == 0):
+        raise SystemExit(f"[parallel_nccl] not NCCL, or K1c/K5 never launched: {r}")
+    if not (r["max_abs_dq"] <= PARALLEL_Q_ATOL and r["max_abs_dllk"] <= PARALLEL_LLK_ATOL):
+        raise SystemExit(f"[parallel_nccl] the mesh run is off the meshless one: {r}")
+    return {"parallel_smc": {"k1c_launches": [r["k1c_launches"] for r in ranks]},
+            "parallel_nccl": {"k1c_launches": r["k1c_launches"]}}
+
+
+def parallel_ffi_phase(dev, problem, q, workdir: str) -> dict:
+    """[parallel_ffi_llk] the Laquila-scale library split by targets on a
+    ``make_gf_mesh(2, 2)`` of 4 ranks sharing the card over gloo: each
+    rank holds 6 of the 12 targets (a block copied from [ffi_build]'s
+    library here and handed over by CUDA IPC, not built again) and 1000
+    of the 2000 chains ``q``; K3 on its block, the partial llks summed
+    over ``targets``.  Gates: the gathered llk within [ffi_llk]'s bar,
+    LLK_RTOL · (|llk| + |llk0|), of the one-process llk of the seismic
+    composite through K3; K3 launched on every rank; every rank's library
+    its block alone.  Returns the ranks' K3 launches."""
+    import numpy as np
+    import torch
+
+    from beat_tpu_torch.ops.gfstack import stack_batched
+
+    comp = problem.composites["seismic"]
+    lib, wmap = comp.libs[0]["uparr"], comp.wavemaps[0]
+    if (comp.interpolation != "multilinear" or wmap.domain != "time"
+            or wmap.time_shift_names() or len(comp.wavemaps) != 1):
+        raise SystemExit("[parallel_ffi_llk] expects one time-domain wavemap, multilinear, "
+                         "without time shifts")
+    n_chain, n_target = PARALLEL_FFI_MESH
+    n = n_chain * n_target
+    per = lib.ntargets // n_target
+    dd = comp.device_data()[0]
+    point = problem.ordering.to_point(q)
+    with torch.no_grad():
+        starttimes = comp.point2starttimes(point)
+        hyper = comp._hyper_vector(point, wmap, q.shape[0], dev).contiguous()
+        before = stack_batched.launches_multilinear
+        llk_one = comp.loglike(point).double().cpu().numpy()
+        one_k3 = stack_batched.launches_multilinear - before
+        one_ms = (cuda_ms(lambda: comp.loglike(point), iters=3, warmup=1)
+                  if dev.type == "cuda" else float("nan"))
+    llk0 = (-0.5 * (dd["slog_pdets"].sum() + (dd["nsamples"] * (
+        2.0 * hyper + math.log(2.0 * math.pi))).sum(-1))).double().cpu().numpy()
+    blocks = [lib.target_block(slice(i * per, (i + 1) * per)).data for i in range(n_target)]
+    grid = dict(duration_min=lib.duration_min, duration_sampling=lib.duration_sampling,
+                starttime_min=lib.starttime_min, starttime_sampling=lib.starttime_sampling)
+    inputs = (point["durations"], starttimes, point["uparr"], hyper, dd["data"], dd["weights"],
+              dd["slog_pdets"], dd["nsamples"])
+    resdir = os.path.join(workdir, "parallel_ffi_llk")
+    os.makedirs(resdir)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    phase_s = run_ranks("parallel_ffi_llk", parallel_ffi_rank, n,
+                        (dev.type, blocks, grid, inputs, comp.interpolation, resdir),
+                        PARALLEL_DEADLINE_S)
+    ranks = read_ranks(resdir, n)
+    llk = np.load(os.path.join(resdir, "llk.npy"))
+    worst = float((np.abs(llk - llk_one) / (LLK_RTOL * (np.abs(llk_one) + np.abs(llk0)))).max())
+    say("parallel_ffi_llk", ranks=n, mesh=f"{n_chain}x{n_target}", backend="gloo",
+        one_card_shared=True, chains=q.shape[0], targets=lib.ntargets,
+        targets_per_rank=json.dumps([r["targets"] for r in ranks]),
+        chains_per_rank=json.dumps([r["local_chains"] for r in ranks]),
+        block_GB=f"{blocks[0].nbytes / 1e9:.3f}", library_GB=f"{lib.data.nbytes / 1e9:.3f}",
+        blocks_from="parent_library_by_cuda_ipc",
+        k3_launches_by_rank=json.dumps([r["k3_launches"] for r in ranks]),
+        one_process_k3_launches=one_k3,
+        own_peak_GB_by_rank=json.dumps([round(r["peak_GB"], 3) for r in ranks]),
+        first_call_s_by_rank=json.dumps([round(r["first_s"], 3) for r in ranks]),
+        warm_ms_by_rank=json.dumps([round(1e3 * r["seconds"], 2) for r in ranks]),
+        one_process_ms=f"{one_ms:.2f}",
+        phase_s=f"{phase_s:.2f}", worst_err_over_bar=f"{worst:.3e}",
+        max_rel_err=f"{float((np.abs(llk - llk_one) / np.abs(llk_one)).max()):.3e}")
+    for r in ranks:
+        if not (r["targets"] == per and r["block_bytes"] == lib.data.nbytes // n_target
+                and r["lib_is_the_block"] and r["local_chains"] == q.shape[0] // n_chain):
+            raise SystemExit(f"[parallel_ffi_llk] rank {r['rank']} did not hold its block "
+                             f"alone: {r}")
+        if r["k3_launches"] == 0:
+            raise SystemExit(f"[parallel_ffi_llk] rank {r['rank']} never launched K3")
+    if not (np.isfinite(llk).all() and worst <= 1.0):
+        raise SystemExit(f"[parallel_ffi_llk] the all-reduced llk is off the one-process "
+                         f"llk: {worst} of the bar")
+    del blocks, inputs
+    if dev.type == "cuda":
+        torch.cuda.ipc_collect()     # the blocks the ranks mapped
+        torch.cuda.empty_cache()
+    return {"k3_launches": [r["k3_launches"] for r in ranks]}
 
 
 def table_builder_phases(dev, workdir: str, k5_launches: dict) -> dict:
@@ -3363,6 +3788,7 @@ def main() -> int:
     q_tr, llk_tr = problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=N_STEPS, seed=0))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    smc_wall = wall
     smc_launches = bilinear_launches()
     k5_launches = {"smc": gather_rows.launches}
     state = SampleStage(problem.outfolder, ordering=problem.ordering).load_state(-1)
@@ -3896,8 +4322,12 @@ def main() -> int:
         top=json.dumps([[k[:60], round(v, 4)] for k, v in list(by_name.items())[:6]]))
     if not (worst <= 1.0 and launched > 0 and torch.isfinite(llk).all()):
         raise SystemExit("FFI llk parity failed (or K3 was not launched)")
-    del llk, llk_plain, q, point, diff
+    del llk, llk_plain, point, diff
     torch.cuda.empty_cache()
+
+    # 15b. [parallel_ffi_llk] the library split by targets over 4 ranks
+    parallel_ffi = parallel_ffi_phase(dev, problem, q, workdir.name)
+    del q
 
     # 16. the slice-3 main path: random-walk SMC at 2000 chains and 1504
     # dimensions, ended by the stage cap as the example runs it; the stage
@@ -3976,6 +4406,9 @@ def main() -> int:
     bem_phases(dev, workdir.name, k5_launches)
     transd_phases(dev, workdir.name)
     builders = table_builder_phases(dev, workdir.name, k5_launches)
+    # [parallel_smc], [parallel_nccl] the runtime: [project]'s FullMT project
+    # sampled by ranks
+    runtime = parallel_smc_phases(dev, workdir.name, k5_launches, smc_wall)
     workdir.cleanup()
 
     # 18. results: launches from each kernel's main path (SMC for K1 and
@@ -4001,7 +4434,9 @@ def main() -> int:
         float32 kernel's time, in turns with it."""
         return {"launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": None, "previous_ms": r["float32_ms"], "variant": r["variant"],
+                "library_ms": r["library_ms"],
+                "library_with_scatter_ms": r["library_with_scatter_ms"],
+                "previous_ms": r["float32_ms"], "variant": r["variant"],
                 "worst_err_over_bar": r["worst_err_over_bar"],
                 "loss_vs_float32": r["loss_vs_float32"], "library_bytes": r["library_bytes"]}
 
@@ -4028,6 +4463,10 @@ def main() -> int:
         project_seis_derivative=builders["project_seis_derivative"]["k1c_launches"],
         project_seis_derivative_jvp=builders["project_seis_derivative"]["k1c_jvp_launches"],
         **{f"cli_{cmd}": n["k1c"] for cmd, n in builders["cli"].items()})
+    k1c_entry["launches_by_path"].update(
+        {f"parallel_smc_rank{r}": n
+         for r, n in enumerate(runtime["parallel_smc"]["k1c_launches"])},
+        parallel_nccl=runtime["parallel_nccl"]["k1c_launches"])
     k2c_entry = contract_entry("k2c", "contract_corner_dot", "beat_tpu/ops/bilgather.py:154",
                                mala_launches["k2c_launches"])
     k2c_entry["launches_by_path"].update(
@@ -4062,7 +4501,9 @@ def main() -> int:
          "bench_shape": bench["k3"], "bf16": bf16_entry(extras["k3_bf16"]),
          "launches_by_path": {"ffi_smc": ffi_launches,
                               "ffi_recover": recover["multilinear"]["launches"][0],
-                              "ffi_llk_bf16": extras["k3_bf16"]["launches"]}},
+                              "ffi_llk_bf16": extras["k3_bf16"]["launches"],
+                              **{f"parallel_ffi_llk_rank{r}": n
+                                 for r, n in enumerate(parallel_ffi["k3_launches"])}}},
         {"name": "gf_stack_nearest", "route": "cuda",
          "source": "beat_tpu_torch/csrc/gfstack.cu", "replaces": "beat_tpu/ops/gfstack.py:218",
          "launches": k4_launches, "max_abs_err": real["k4"]["max_abs_err"],

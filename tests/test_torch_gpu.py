@@ -18,7 +18,8 @@ tensors by composites on the card; the table builders (Bessel functions,
 layered static values, the Kennett kernels, layered waveform tables, the
 viscoelastic table and its epoch gather) on the card against the host;
 K1c's forward-mode rule against the plain version's JVP, ``seis_derivative``
-on the card against the CPU, and a project loaded and sampled on the card.  They skip without a card (the check
+on the card against the CPU, and a project loaded and sampled on the card;
+two gloo ranks sharing the card, each its block of chains through K1c.  They skip without a card (the check
 that nothing falls back to the CPU without one runs everywhere); run
 them on one with
 
@@ -1079,3 +1080,21 @@ def test_slice11_project_loads_and_samples_on_card(cuda, tmp_path):
     assert np.isfinite(llk_tr).all()
     assert set(problem.summarize(-1)) == set(problem.ordering.names)
     assert problem.derived_samples(-1, max_samples=10)["strike1"].shape == (10,)
+
+
+def test_two_gloo_ranks_on_the_card_equal_one_process(cuda, tmp_path):
+    """Two ranks share the card over gloo (NCCL refuses two ranks on one
+    device): each evaluates its block of the test-size FullMT llk through
+    K1c, and the gathered llk, carried by gloo's collectives from CUDA
+    tensors, equals the one-process llk."""
+    import torch_parallel_ranks as ranks
+
+    results = ranks.launch(2, ("gpu_llk",), tmp_path, device="cuda", backend="gloo",
+                           deadline=300.0)
+    logp, data, q = ranks.gpu_llk_inputs(cuda)
+    with torch.no_grad():
+        want = logp(q, data).cpu().numpy()
+    for r in results:
+        assert r["gpu_device"] == "cuda:0" and r["gpu_k1c_launches"] > 0
+        assert r["imported_jax"] == []
+        np.testing.assert_allclose(r["gpu_llk"], want, rtol=LLK_RTOL)

@@ -90,6 +90,8 @@ GEO_MODULES = ("heart/geodesy.py", "heart/okada.py", "heart/corrections.py",
                "heart/statictable.py", "models/geodetic.py", "ffi/discretization.py")
 #: the samplers of parallel tempering and of the trans-dimensional FFI
 SAMPLER_MODULES = ("samplers/pt.py", "ops/voronoi.py", "ffi/transd.py")
+#: the runtime: chains and targets sharded over ranks
+RUNTIME_MODULES = ("parallel.py",)
 #: the command line, the importers, the timers and the plots
 CLI_MODULES = ("apps/cli.py", "apps/commands.py", "apps/completion.py", "apps/beatdown.py",
                "info.py", "profiling.py", "upgrade.py", "inputf.py", "interop.py",
@@ -102,7 +104,8 @@ def _importers(pattern: str) -> list:
     regex = re.compile(pattern, re.MULTILINE)
     scanned = {str(f.relative_to(REPO / "beat_tpu_torch")) for f in PORT_FILES[:-1]}
     assert len(PORT_FILES) > 10 and scanned.issuperset(FFI_MODULES + GEO_MODULES
-                                                       + SAMPLER_MODULES + CLI_MODULES)
+                                                       + SAMPLER_MODULES + CLI_MODULES
+                                                       + RUNTIME_MODULES)
     return [str(f.relative_to(REPO)) for f in PORT_FILES if regex.search(f.read_text())]
 
 
@@ -118,6 +121,14 @@ def test_no_port_file_imports_the_jax_package():
                      re.MULTILINE) is None
     assert re.search(pattern, "x = 1\n    from beat_tpu.backend import SampleStage",
                      re.MULTILINE) is not None
+
+
+def test_rank_program_imports_neither_jax_nor_the_jax_package():
+    """The ranks of the multi-process tests run the port alone."""
+    text = (REPO / "tests" / "torch_parallel_ranks.py").read_text()
+    for pattern in (r"^\s*(import jax|from jax)\b",
+                    r"^\s*(import beat_tpu|from beat_tpu)(\.|\s|,|$)"):
+        assert re.search(pattern, text, re.MULTILINE) is None, pattern
 
 
 _C_TYPES = {"int": "c_int", "int64_t": "c_int64", "void*": "c_void_p"}
