@@ -34,7 +34,8 @@
 // to about 60 % of that time at 2000 chains.  What a kernel really has to
 // move is C*T*P*CORNERS rows to the threads that sum them, 25 times the
 // library at 2000 chains (98 GB at the Laquila shape).  Two variants, chosen
-// by ops/gfstack.py::plan_stack from the shapes:
+// by ops/gfstack.py::plan_stack from the shapes (a bf16 library has a third,
+// `mma`, below):
 //
 // `gather` (gf_stack_kernel): one block per (target, 8 chains, n tile); a
 // thread keeps 8 sums of V samples in registers and pulls every row straight
@@ -72,19 +73,60 @@
 // from builds with parts left out; PERF.md has the numbers.
 //
 // A library in bfloat16 (half the bytes; the JAX package's
-// BEAT_TPU_STACK_DTYPE=bfloat16) runs the same two variants, templated on the
-// element type: a row of 4 samples is an 8-byte load (cp.async of 8 bytes
-// into the tiles, whose shared memory halves), widened to float32 in
-// registers by a shift of its bits (exact), and summed in float32 as a
-// float32 library's rows are.  The entries bound by ctypes end in _f32 and
-// _bf16 by the library's type; the output is float32 either way.
+// BEAT_TPU_STACK_DTYPE=bfloat16) runs K3 on a third variant, `mma`
+// (gf_stack_mma_kernel), where its shapes allow it (ops/gfstack.py::plan_stack;
+// `tiled` and `gather` run on bf16 too, templated on the element type: a row
+// of 4 samples is an 8-byte load, widened to float32 in registers by a shift
+// of its bits).  What bounds `tiled` on bf16 is not bytes: halving them bought
+// 18 % (5.62 -> 4.60 ms at the Laquila shape, H100), since every chain still
+// issues its own shared-memory reads of its 4 rows, widens each sample and
+// sums it with a CUDA-core FMA.  `mma` moves the sums to the tensor cores.
+// The stack at patch p is A_p (chains x cells) @ B_p (cells x n), A_p with 4
+// nonzeros a row; with the samples as the product's M and 8 chains as its N,
+// mma.sync.m16n8k16 takes the 4 corner rows of each of the 8 chains as its K,
+// straight from the staged cell tile by ldmatrix.trans with a row address per
+// lane: the gather of the staged rows costs nothing beside the load.  The
+// chains' weights are the B fragment, built in registers (each lane holds the
+// weights of one chain of the 8 at 2 k positions, zeros elsewhere).  The block
+// is the tiled one's (512 threads, a (target, 64 samples, 512 chains) tile
+// walking the patches, the cell tile of the next patch copied by cp.async
+// while this one is summed, the folded operands of a chunk of patches in
+// shared memory); a warp keeps 4 groups x 4 m16 tiles of (16 x 8) float32 sums
+// in registers over all patches and stores each output once.  A phase of
+// ldmatrix (8 rows x 16 bytes) conflicts on random cells unless the rows are
+// placed for it: chunk c of the row of cell (d, s) lies at chunk c ^ (2 (s &
+// 1) + 4 (d & 1)), so a chain's 4 corners fill the 4 even (or the 4 odd)
+// chunks, and the second chain of each 8-row phase reads the other half of
+// its m16 tile (its sums' rows are then swapped, m <-> m ^ 8, in the store):
+// every phase is conflict-free whatever the cells.  The weights (slip * rf *
+// sf ...) are not exact in bf16 (one rounding is 2^-9 relative), so each is
+// split into bf16 hi + lo and the tile goes through two products into the
+// same float32 sums: |w - hi - lo| <= 2^-18 |w|, the JAX kernel's x3 scheme
+// (beat_tpu/ops/gfstack.py:134-152) with the library's own lo term zero,
+// since its rows are exact in bf16.  The tensor cores do 8 times the useful
+// products (a chain uses 4 of the 32 rows of its group), and twice that for
+// hi + lo.  What bounds it is the products: at the Laquila shape on an H100
+// a build without the ldmatrix loads of the row gathers (each (chain, corner)
+// row read once, C*T*P*4 rows as in `tiled`, now at 16 bytes a lane) takes
+// as long as the whole, 3.9 ms, one without the products 3.0; the tile
+// copies add 0.7 ms and the fold 0.2 (builds with parts left out,
+// tools/bench_torch_stack_bf16.py --ablate; PERF.md).  K4 has no
+// `mma` body: one built on m16n8k8 with a diagonal B lost to `gather` at the
+// Laquila shape (2.25 against 1.70 ms; PERF.md), the copies of the cell tiles
+// costing more than one row a chain read straight from the library.  A
+// non-finite library sample reaches the other chains of its group through
+// their zero weights (0 * inf); libraries are finite.
 //
-// Both variants add a chain's products in the same order (patches ascending,
-// corners in the order above) with the same folded weights and float32 FMAs,
-// one plain store per output and no atomics: they are deterministic and equal
-// bit for bit.  Ragged tiles (C, P, N not multiples of the tile sizes) are
-// masked in the kernels.
+// `tiled` and `gather` add a chain's products in the same order (patches
+// ascending, corners in the order above) with the same folded weights and
+// float32 FMAs, one plain store per output and no atomics: they are
+// deterministic and equal bit for bit.  `mma` adds in another order (the
+// tensor cores' own within a product, hi then lo, patches ascending) with one
+// plain store per output: it is deterministic (equal to itself from call to
+// call) and within the stack's bar of the others, not equal to them.  Ragged
+// tiles (C, P, N not multiples of the tile sizes) are masked in the kernels.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -291,9 +333,11 @@ int launch_gather(const Operands<E>& a, bool vec4, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 // tiled
 
-// Measurement builds only (tools/bench_torch_gfstack.py): -DBEAT_ABLATE=n
-// leaves parts of the tiled kernel out (1: the fold of the entries after the
-// first chunk, 2: the tile copies after the first two, 4: the sums), so that
+// Measurement builds only (tools/bench_torch_gfstack.py,
+// tools/bench_torch_stack_bf16.py): -DBEAT_ABLATE=n leaves parts of the tiled
+// and mma kernels out (1: the fold of the entries after the first chunk, 2:
+// the tile copies after the first two, 4: the sums; mma only, 8: the tensor
+// core products, 16: the ldmatrix loads), so that
 // each part's share of the time can be read on a machine where no kernel
 // profiler runs.  Such a build computes nothing of use.
 #ifndef BEAT_ABLATE
@@ -334,6 +378,51 @@ template <> struct Entry<1> {
     static __device__ __forceinline__ float2 zero() { return make_float2(0.f, 0.f); }
 };
 
+// The entries of patches p0 .. p0 + chunk for the CT chains from c0 (nc of
+// them live; nc >= 1), folded by THREADS threads (this one `tid`) from the
+// operands: entry (cc, pp) lies at
+// cc * chunk + (pp ^ (cc % chunk)).  Consecutive threads read consecutive
+// patches of one chain (whole 32-byte sectors at a chunk of 8) and write one
+// line of shared memory; two neighbouring chains read at one patch fall into
+// different banks.  Entries beyond the chains or the patches are zero: weight
+// 0 on row code 0.  row_code(d - lo, s - lo) is the variant's code of the first
+// corner's row (its offset in the tile, or its index).
+// UNROLL entries at a time have their loads in flight together.
+template <int CORNERS, int THREADS, int CT, int UNROLL = 1, typename E, typename RowCode>
+__device__ __forceinline__ void fold_chunk(const Operands<E>& a, int t, int c0, int nc, int p0,
+                                           int chunk_shift, typename Entry<CORNERS>::type* ents,
+                                           RowCode row_code, int tid) {
+    const int chunk_mask = (1 << chunk_shift) - 1;
+    const int lo = CORNERS == 4 ? 1 : 0;
+    auto one = [&](int i) {
+        const int cc = i >> chunk_shift, pp = i & chunk_mask;
+        const bool ok = cc < nc && p0 + pp < a.P;
+        // a masked entry loads (c0, p0), which exists, and is zeroed below:
+        // the loads stand clear of any branch
+        const int64_t c = c0 + (ok ? cc : 0);
+        const int p = p0 + (ok ? pp : 0);
+        const int d = clampi(__ldg(a.didx + c * a.st.didx_c + p), lo, a.D - 1);
+        const int s = clampi(__ldg(a.sidx + c * a.st.sidx_c + t * a.st.sidx_t + p), lo, a.S - 1);
+        const float w = __ldg(a.slips + c * a.st.slips_c + p);
+        const float off = __int_as_float(row_code(d - lo, s - lo));
+        typename Entry<CORNERS>::type e;
+        if constexpr (CORNERS == 4) {
+            const float rf = __ldg(a.rtf + c * a.st.rtf_c + p);
+            const float sf = __ldg(a.stf + c * a.st.stf_c + t * a.st.stf_t + p);
+            e = make_float4(w * rf, w * (1.0f - rf), sf, off);
+        } else {
+            e = make_float2(w, off);
+        }
+        ents[(cc << chunk_shift) + (pp ^ (cc & chunk_mask))] = ok ? e : Entry<CORNERS>::zero();
+    };
+    if constexpr (UNROLL == 1) {
+        for (int i = tid; i < (CT << chunk_shift); i += THREADS) one(i);
+    } else {
+#pragma unroll UNROLL
+        for (int i = tid; i < (CT << chunk_shift); i += THREADS) one(i);
+    }
+}
+
 // grid = (chain tiles, n tiles, T); kTiledThreads threads; dynamic shared
 // memory: two cell tiles of D*S x 4*LANES elements of E, then
 // CT << chunk_shift entries.
@@ -349,7 +438,6 @@ gf_stack_tiled_kernel(const Operands<E> a, const int chunk_shift) {
 
     const int P = a.P, S = a.S;
     const int DS = a.D * S;
-    const int lo = CORNERS == 4 ? 1 : 0;
     E* const tiles = reinterpret_cast<E*>(smem);
     entry_t* const ents = reinterpret_cast<entry_t*>(tiles + 2 * DS * NT);
     const int chunk_mask = (1 << chunk_shift) - 1;
@@ -375,34 +463,10 @@ gf_stack_tiled_kernel(const Operands<E> a, const int chunk_shift) {
         cp_async_commit();
     };
 
-    // the entries of patches p0 .. p0 + chunk: entry (cc, pp) lies at
-    // cc * chunk + (pp ^ (cc % chunk)).  Consecutive threads read consecutive
-    // patches of one chain (whole 32-byte sectors at a chunk of 8) and write
-    // one line of shared memory; two neighbouring chains read at one patch
-    // fall into different banks.  Entries beyond the chains or the patches are
-    // zero: weight 0 on row 0.
-    auto fold_chunk = [&](int p0) {
-        for (int i = threadIdx.x; i < (CT << chunk_shift); i += THREADS) {
-            const int cc = i >> chunk_shift, pp = i & chunk_mask;
-            const bool ok = cc < nc && p0 + pp < P;
-            // a masked entry loads (c0, p0), which exists, and is zeroed below:
-            // the loads stand clear of any branch
-            const int64_t c = c0 + (ok ? cc : 0);
-            const int p = p0 + (ok ? pp : 0);
-            const int d = clampi(__ldg(a.didx + c * a.st.didx_c + p), lo, a.D - 1);
-            const int s = clampi(__ldg(a.sidx + c * a.st.sidx_c + t * a.st.sidx_t + p), lo, S - 1);
-            const float w = __ldg(a.slips + c * a.st.slips_c + p);
-            const float off = __int_as_float(((d - lo) * S + (s - lo)) * NT);
-            entry_t e;
-            if constexpr (CORNERS == 4) {
-                const float rf = __ldg(a.rtf + c * a.st.rtf_c + p);
-                const float sf = __ldg(a.stf + c * a.st.stf_c + t * a.st.stf_t + p);
-                e = make_float4(w * rf, w * (1.0f - rf), sf, off);
-            } else {
-                e = make_float2(w, off);
-            }
-            ents[(cc << chunk_shift) + (pp ^ (cc & chunk_mask))] = ok ? e : Entry<CORNERS>::zero();
-        }
+    auto fold = [&](int p0) {
+        fold_chunk<CORNERS, THREADS, CT>(a, t, c0, nc, p0, chunk_shift, ents,
+                                         [&](int d, int s) { return (d * S + s) * NT; },
+                                         threadIdx.x);
     };
 
     float4 acc[CPT];
@@ -440,7 +504,7 @@ gf_stack_tiled_kernel(const Operands<E> a, const int chunk_shift) {
             copy_tile(p + 1, buf ^ 1);        // lands while patch p is summed
         }
         if (pp == 0 && !((BEAT_ABLATE & 1) && p > 0)) {
-            fold_chunk(p);
+            fold(p);
             __syncthreads();
         }
         if (BEAT_ABLATE & 4) continue;
@@ -485,9 +549,258 @@ int launch_tiled(const Operands<E>& a, int chunk_shift, cudaStream_t stream) {
     return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// mma (K3 on bf16 libraries)
+
+constexpr int kMmaThreads = 512;        // 16 warps, one block an SM
+constexpr int kMmaNT = 64;              // samples of the n tile: a tile row is 128 bytes, 8 chunks
+constexpr int kMmaTiles = kMmaNT / 16;  // m16 tiles along the n tile
+constexpr int kMmaGroups = 4;           // 8-chain groups of a warp: 4 x 4 tiles x 4 sums = 64 registers
+constexpr int kMmaCT = kMmaThreads / 32 * kMmaGroups * 8;     // 512 chains a block
+constexpr int kMmaRowBytes = kMmaNT * 2;
+
+__device__ __forceinline__ void cp_async_16(unsigned dst, const void* gmem) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem) : "memory");
+}
+
+// four 8 x 8 b16 matrices, transposed: lanes 8j .. 8j + 7 give the addresses
+// of matrix j's 8 rows (16 bytes each); lane l receives rows 2 (l % 4) and
+// 2 (l % 4) + 1 of column l / 4 of each
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], unsigned addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr)
+                 : "memory");
+}
+
+// d += A (16 x 16, bf16) @ B (16 x 8, bf16), float32 sums
+__device__ __forceinline__ void mma_k16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                        unsigned b1) {
+    asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+                 "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// w0, w1 as bf16 hi + lo pairs (round to nearest, |w - hi - lo| <= 2^-18 |w|):
+// w0 in the low 16 bits of each, w1 in the high
+__device__ __forceinline__ void split_bf16x2(float w0, float w1, unsigned& hi, unsigned& lo) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(w0, w1);
+    hi = *reinterpret_cast<const unsigned*>(&h);
+    const __nv_bfloat162 l = __floats2bfloat162_rn(w0 - __uint_as_float(hi << 16),
+                                                   w1 - __uint_as_float(hi & 0xffff0000u));
+    lo = *reinterpret_cast<const unsigned*>(&l);
+}
+
+// grid = (chain tiles, n tiles, T); kMmaThreads threads; dynamic shared
+// memory: two cell tiles of D*S rows x kMmaNT bf16 samples, then
+// kMmaCT << chunk_shift entries.  Warp w sums the 8-chain groups 4 w .. 4 w + 3
+// of the chain tile over the whole n tile.
+//
+// At patch p a group's K is its 8 chains' 32 corner rows, two k16 steps h of
+// 4 chains each, k = 4 (chain - 4 h) + corner (corners in the order (d-1,
+// s-1), (d-1, s), (d, s-1), (d, s)).  The entry's row code is (r << 3) | f
+// with r the first corner's row (d-1) S + (s-1) and f = 2 ((s-1) & 1) + 4
+// ((d-1) & 1) its chunk swizzle; corner k & 3 lies at row r + (k & 1) + (k >>
+// 1 & 1) S with swizzle f ^ 2 (k & 3).
+__global__ void __launch_bounds__(kMmaThreads, 1)
+gf_stack_mma_kernel(const Operands<bf16_t> a, const int chunk_shift) {
+    using entry_t = Entry<4>::type;
+    constexpr int THREADS = kMmaThreads, NT = kMmaNT, MT = kMmaTiles, GR = kMmaGroups;
+    constexpr int CT = kMmaCT, RB = kMmaRowBytes;
+    extern __shared__ __align__(16) unsigned char smem[];
+
+    const int P = a.P, S = a.S, N = a.N;
+    const int DS = a.D * S;
+    entry_t* const ents = reinterpret_cast<entry_t*>(smem + 2 * DS * RB);
+    const int chunk_mask = (1 << chunk_shift) - 1;
+    const unsigned tiles = (unsigned)__cvta_generic_to_shared(smem);
+
+    const int c0 = blockIdx.x * CT;
+    const int n0 = blockIdx.y * NT;
+    const int t = blockIdx.z;
+    const int nc = min(CT, a.C - c0);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, q = lane & 3;    // the fragments' groupID, thread in group
+
+    // the cell tile of patch p into buffer buf: chunk c (samples n0 + 8c ..
+    // n0 + 8c + 7) of row r (cell (d, s) of data[t, p]) at chunk c ^ (2 (s &
+    // 1) + 4 (d & 1)).  This thread copies chunk c = threadIdx.x % 8 of rows
+    // r0, r0 + 64, ... (r0 = threadIdx.x / 8), (d, s) stepped without a
+    // division.  Chunks beyond N are never copied; they are zeroed once below,
+    // since a product mixes the samples of a tile's rows (0 * NaN is NaN).
+    constexpr int ROWS = THREADS / 8;         // rows a pass of the block copies
+    const int copy_c = threadIdx.x & 7, copy_r0 = threadIdx.x >> 3;
+    const bool copy_live = n0 + 8 * copy_c < N;
+    const int copy_d0 = copy_r0 / S, copy_s0 = copy_r0 - copy_d0 * S;
+    const int step_d = ROWS / S, step_s = ROWS - step_d * S;
+    auto copy_tile = [&](int p, int buf) {
+        if (copy_live) {
+            const bf16_t* src = a.data + ((int64_t)t * P + p) * DS * N + n0 + 8 * copy_c;
+            const unsigned dst = tiles + buf * DS * RB;
+            int d = copy_d0, sc = copy_s0;
+            for (int r = copy_r0; r < DS; r += ROWS) {
+                const int f = 2 * (sc & 1) + 4 * (d & 1);
+                cp_async_16(dst + r * RB + ((copy_c ^ f) << 4), src + (int64_t)r * N);
+                d += step_d;
+                sc += step_s;
+                if (sc >= S) {
+                    sc -= S;
+                    ++d;
+                }
+            }
+        }
+        cp_async_commit();
+    };
+
+    auto fold = [&](int p0) {
+        fold_chunk<4, THREADS, CT, 4>(
+            a, t, c0, nc, p0, chunk_shift, ents,
+            [&](int d, int s) { return ((d * S + s) << 3) | (2 * (s & 1) + 4 * (d & 1)); },
+            threadIdx.x);
+    };
+
+    float acc[GR][MT][4];
+#pragma unroll
+    for (int gr = 0; gr < GR; ++gr)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int v = 0; v < 4; ++v) acc[gr][mt][v] = 0.0f;
+
+    // this lane's B values (k = 2q, 2q+1 of half `slot & 1` of step `slot >>
+    // 1`) are chain g's when g = 4 h + 2 half + (q >> 1), so at most one slot
+    // of the four holds weights: slot g >> 1, where g & 1 == q >> 1.  This
+    // lane's A row address serves k = (lane & 7) + 8 (lane >> 4) of each step:
+    // chain 4 h + a_chain, corner lane & 3, read at the half (lane >> 3 & 1) ^
+    // (lane >> 2 & 1) of the m16 tile.
+    const int b_slot = (g & 1) == (q >> 1) ? g >> 1 : -1;
+    const unsigned a_chain = ((lane >> 2) & 1) + 2 * (lane >> 4);
+    const unsigned corner = lane & 3;
+    const unsigned a_offset =
+        ((corner & 1) + (corner >> 1) * S) * RB + ((((lane >> 3) & 1) ^ ((lane >> 2) & 1)) << 4);
+    const unsigned a_flip = 2u * corner;
+
+    if (n0 + NT > N) {
+        for (int i = threadIdx.x; i < 2 * DS * 8; i += THREADS) {
+            if (n0 + 8 * (i & 7) >= N) {
+                const int r = (i >> 3) % DS, d = r / S;
+                const int f = 2 * ((r - d * S) & 1) + 4 * (d & 1);
+                *reinterpret_cast<uint4*>(smem + (i >> 3) * RB + (((i & 7) ^ f) << 4)) =
+                    make_uint4(0u, 0u, 0u, 0u);
+            }
+        }
+    }
+    copy_tile(0, 0);
+    // the buffer of patch p, carried from patch to patch: computed as p & 1
+    // the same loop took 3 % longer at the Laquila shape (3.99 against 3.88
+    // ms in turns, H100; tools/bench_torch_stack_bf16.py)
+    int buf = 0;
+    for (int p = 0; p < P; ++p) {
+        const int pp = p & chunk_mask;
+        cp_async_wait_all();                  // this thread's share of tile p has landed
+        __syncthreads();                      // tile p is whole; patch p - 1 is summed by all
+        if (p + 1 < P && !((BEAT_ABLATE & 2) && p > 0)) {
+            copy_tile(p + 1, buf ^ 1);        // lands while patch p is summed
+        }
+        if (pp == 0 && !((BEAT_ABLATE & 1) && p > 0)) {
+            fold(p);
+            __syncthreads();
+        }
+        const unsigned tile = tiles + buf * DS * RB;
+        buf ^= 1;
+        if (BEAT_ABLATE & 4) continue;
+        // first every group's operands: its B fragments (hi, lo) and this
+        // lane's A row addresses; then the products, a group at a time, its
+        // ldmatrix loads ahead of its mma
+        unsigned bh[GR], bl[GR], base[GR][2], f[GR][2];
+#pragma unroll
+        for (int gr = 0; gr < GR; ++gr) {
+            const int cc = (warp * GR + gr) * 8 + g;
+            const entry_t e = ents[(cc << chunk_shift) + (pp ^ (cc & chunk_mask))];
+            // chain g's weights at corners 2 (q & 1), 2 (q & 1) + 1
+            const float wa = (q & 1) ? e.y : e.x;
+            split_bf16x2(wa * e.z, wa * (1.0f - e.z), bh[gr], bl[gr]);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const unsigned m =
+                    __shfl_sync(0xffffffffu, __float_as_uint(e.w), 4 * (4 * h + a_chain));
+                f[gr][h] = (m & 7u) ^ a_flip;
+                base[gr][h] = tile + (m >> 3) * RB + a_offset;
+            }
+        }
+#pragma unroll
+        for (int gr = 0; gr < GR; ++gr) {
+            if ((warp * GR + gr) * 8 >= nc) continue;     // the same for the whole warp
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                unsigned A[MT][4];
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt) {
+                    if (!(BEAT_ABLATE & 16)) {
+                        ldmatrix_x4_trans(A[mt], base[gr][h] + (((2u * mt) ^ f[gr][h]) << 4));
+                    } else {
+                        A[mt][0] = A[mt][1] = A[mt][2] = A[mt][3] = base[gr][h] + mt;
+                    }
+                }
+                const bool s0 = b_slot == 2 * h, s1 = b_slot == 2 * h + 1;
+#pragma unroll
+                for (int hl = 0; hl < 2; ++hl) {
+                    const unsigned b = hl ? bl[gr] : bh[gr];
+#pragma unroll
+                    for (int mt = 0; mt < MT; ++mt) {
+                        if (BEAT_ABLATE & 8) {
+                            acc[gr][mt][0] +=
+                                __uint_as_float(A[mt][0] ^ A[mt][1] ^ A[mt][2] ^ A[mt][3]);
+                        } else {
+                            mma_k16(acc[gr][mt], A[mt], s0 ? b : 0u, s1 ? b : 0u);
+                        }
+                    }
+                }
+            }
+        }
+    }
+
+    // the sums: this lane holds rows g, g + 8 of columns 2q, 2q + 1 of each
+    // group's m16 tiles; row m of an odd chain is sample m ^ 8 of its tile
+#pragma unroll
+    for (int gr = 0; gr < GR; ++gr) {
+        const int cb = (warp * GR + gr) * 8;
+#pragma unroll
+        for (int col = 0; col < 2; ++col) {
+            const int cc = cb + 2 * q + col;
+            if (cc >= nc) continue;
+            float* o = a.out + ((int64_t)(c0 + cc) * a.T + t) * N + n0;
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+                for (int half = 0; half < 2; ++half) {
+                    const int n = 16 * mt + 8 * (half ^ col) + g;
+                    if (n0 + n < N) o[n] = acc[gr][mt][2 * half + col];
+                }
+            }
+        }
+    }
+}
+
+int launch_mma(const Operands<bf16_t>& a, int chunk_shift, cudaStream_t stream) {
+    const size_t smem = (size_t)2 * a.D * a.S * kMmaRowBytes +
+                        ((size_t)kMmaCT << chunk_shift) * sizeof(Entry<4>::type);
+    const int n_tiles = (a.N + kMmaNT - 1) / kMmaNT;
+    if (smem > kSmemPerBlock || n_tiles > 65535) return (int)cudaErrorInvalidValue;
+    const cudaError_t rc = cudaFuncSetAttribute(
+        gf_stack_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc != cudaSuccess) return (int)rc;
+    const dim3 grid((a.C + kMmaCT - 1) / kMmaCT, n_tiles, a.T);
+    gf_stack_mma_kernel<<<grid, kMmaThreads, smem, stream>>>(a, chunk_shift);
+    return (int)cudaGetLastError();
+}
+
 // variant 0: gather; 1: tiled with `lanes` threads along n a chain (16 or 8)
-// and 1 << chunk_shift patches of entries.  The tiled variant needs rows of
-// 4-sample columns aligned to their size (16 bytes of float, 8 of bf16_t).
+// and 1 << chunk_shift patches of entries; 2: mma (K3 on bf16 only) with 1 <<
+// chunk_shift patches of entries.  The tiled variant needs rows of 4-sample
+// columns aligned to their size (16 bytes of float, 8 of bf16_t), mma rows of
+// 8-sample chunks on 16-byte boundaries (N % 8 == 0).
 template <int CORNERS, typename E>
 int launch(const Operands<E>& a, int variant, int lanes, int chunk_shift,
            cudaStream_t stream) {
@@ -500,7 +813,17 @@ int launch(const Operands<E>& a, int variant, int lanes, int chunk_shift,
                       (reinterpret_cast<uintptr_t>(a.data) % (4 * sizeof(E)) == 0) &&
                       (reinterpret_cast<uintptr_t>(a.out) % 16 == 0);
     if (variant == 0) return launch_gather<CORNERS, E>(a, vec4, stream);
-    if (variant != 1 || !vec4 || chunk_shift < 0 || chunk_shift > 5 || a.P == 0) {
+    if (chunk_shift < 0 || chunk_shift > 5 || a.P == 0) return (int)cudaErrorInvalidValue;
+    if (variant == 2) {
+        // mma: K3, bf16 rows of 8-sample chunks on 16-byte boundaries
+        if constexpr (CORNERS == 4 && sizeof(E) == 2) {
+            if (a.N % 8 == 0 && reinterpret_cast<uintptr_t>(a.data) % 16 == 0) {
+                return launch_mma(a, chunk_shift, stream);
+            }
+        }
+        return (int)cudaErrorInvalidValue;
+    }
+    if (variant != 1 || !vec4) {
         return (int)cudaErrorInvalidValue;
     }
     if (lanes == 16) return launch_tiled<CORNERS, 16, E>(a, chunk_shift, stream);

@@ -22,9 +22,10 @@ source durations and rupture-onset times.
   quantisation of the JAX package, then the all-chain stack through
   kernels K3/K4 (:func:`beat_tpu_torch.ops.gfstack.stack_batched`).
 * **Storage type**: float32, or bfloat16 at half the memory and bytes
-  read (``dtype=``, :meth:`SeismicGFLibrary.to_dtype`; the JAX package's
-  ``BEAT_TPU_STACK_DTYPE=bfloat16``); the stack sums in float32 either
-  way.
+  read (``dtype=``, :meth:`SeismicGFLibrary.to_dtype`; the seismic
+  distributer composite stores its libraries so under
+  ``BEAT_TPU_STACK_DTYPE=bfloat16``, as the JAX package's does); the
+  stack sums in float32 either way.
 """
 
 from __future__ import annotations

@@ -33,6 +33,7 @@ keeps the libraries in bfloat16 (half the memory), summed in float32.
 from __future__ import annotations
 
 import logging
+import os
 
 import numpy as np
 import torch
@@ -108,7 +109,12 @@ class SeismicDistributerComposite(Composite):
 
     library_dtype : the libraries' storage type; a library in another
         type is converted on its device (``SeismicGFLibrary.to_dtype``).
-        ``None`` keeps each as it comes."""
+        ``None`` reads ``BEAT_TPU_STACK_DTYPE`` as the JAX composite does:
+        ``bfloat16`` stores every library in bfloat16 (half the memory; the
+        stack sums in float32), any other value or none keeps each as it
+        comes.  An explicit type wins over the variable.  The JAX package's ``BEAT_TPU_STACK_KEEP_DATA`` has no
+        counterpart: the port keeps one layout, the natural (T, P, D, S, N)
+        array the kernels read, so there is no second copy to drop."""
 
     name = "seismic"
 
@@ -120,6 +126,8 @@ class SeismicDistributerComposite(Composite):
         dev = resolve(device)
         if interpolation not in INTERPOLATIONS:
             raise NotImplementedError(f"Interpolation {interpolation}")
+        if library_dtype is None and os.environ.get("BEAT_TPU_STACK_DTYPE") == "bfloat16":
+            library_dtype = torch.bfloat16    # beat_tpu/models/distributer.py:185-188
         self.wavemaps = [wmap for wmap, _ in wavemaps_libs]
         self.fault = fault
         self.slip_varnames = list(slip_varnames)

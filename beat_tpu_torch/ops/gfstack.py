@@ -22,7 +22,9 @@ stack extrapolates, as the JAX package's does.
   count K3's and K4's launches.
 * :func:`plan_stack` picks the kernel variant and its tile sizes from the
   shapes: ``tiled`` (the cell tile of a patch in shared memory, serving a
-  whole chain tile) or ``gather`` (rows straight from the library).
+  whole chain tile), ``gather`` (rows straight from the library) or, on a
+  bfloat16 library, ``mma`` (the tiled block with its sums on the tensor
+  cores).  ``.launches_mma`` counts the launches of ``mma``.
 * :func:`stack_operands` hands the operands to the kernel as they come:
   ``(C, 1, P)`` onsets go with a target stride of 0, nothing is expanded
   or copied.
@@ -33,15 +35,17 @@ stack extrapolates, as the JAX package's does.
 
 The library keeps its natural (T, P, D, S, N) layout: a (d, s) cell is
 one contiguous row of N samples, float32 or bfloat16 (the JAX package's
-bf16 library, ``gfstack.py:71-80``).  A bfloat16 library is widened to
-float32 as it is read, by the kernels in registers and by the plain
-version before its products, and summed in float32: the output and the
-other operands are float32 either way.  Neither op is differentiable
-(the JAX op has no VJP either).
+bf16 library, ``gfstack.py:71-80``).  A bfloat16 library is summed in
+float32: ``tiled`` and ``gather`` widen its samples in registers, ``mma``
+multiplies them on the tensor cores by each weight split into bfloat16 hi
++ lo (within 2⁻¹⁸ of the weight), the plain version widens them before its
+products; the output and the other operands are float32 either way.
+Neither op is differentiable (the JAX op has no VJP either).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from functools import lru_cache
 
@@ -170,22 +174,42 @@ _TILED_THREADS, _CHAINS_PER_THREAD, _TILED_LANES = 512, 16, (16, 8)
 #: patches the tile copies hide behind the sums and 1.5 reads a row are
 #: enough (K4 at D·S = 320 serves 1.6); on a short walk the first copy and
 #: fold lie open and it takes 6 (measured at the GF-stack bench shape and
-#: the small FFI problem's: ``PERF.md`` §6).  Both are for float32 rows; a
-#: narrower sample takes proportionally more, since the gather variant's
-#: row reads through L2 shrink with it and the tiled variant's
-#: shared-memory reads do not (bfloat16 at the Laquila shape on an H100: K4 1.73 ms
-#: `gather` against 2.77 ms `tiled` at 1.6 reads a row, K3 4.60 ms `tiled`
-#: against 6.19 ms `gather` at 6.4)
+#: the small FFI problem's: ``PERF.md`` §6).  Both are for float32 rows.
+#: K4 on bfloat16 rows takes twice as many, since the gather variant's row
+#: reads through L2 halve and the tiled variant's shared-memory reads do
+#: not (at the Laquila shape on an H100: 1.69-1.73 ms ``gather`` against
+#: 2.71-2.77 ms ``tiled`` at 1.6 reads a row).  K3 on bfloat16 rows is
+#: planned by :data:`_BF16_K3_REUSE` instead.
 _LONG_WALK_PATCHES, _ROW_REUSE_LONG_WALK, _ROW_REUSE_SHORT_WALK = 64, 1.5, 6.0
 #: the gather variant's tile: chains a block, threads, patches of entries
 _GATHER_CHAINS, _GATHER_THREADS, _GATHER_CHUNK = 8, 128, 32
+#: the mma variant's block (``kMmaThreads``, ``kMmaNT``, ``kMmaCT``): its
+#: n tile is 64 samples (8 chunks of 8, a 128-byte row of the cell tile),
+#: its chain tile 512 chains, 64 float32 sums a thread, two cell tiles
+_MMA_THREADS, _MMA_N_TILE, _MMA_CHAINS = 512, 64, 512
+#: K3 on a bfloat16 library: ``mma`` (where it can run) from 3 reads a
+#: staged cell row, else ``tiled`` from 1.5, on a long walk or a short one;
+#: ``gather`` below.  Measured on an H100 (NVIDIA H100 80GB HBM3, 700 W;
+#: ``tools/bench_torch_stack_bf16.py``, the variants in turns; ``PERF.md``
+#: §6), ms of ``mma`` / ``tiled`` / ``gather`` at (T, P, D, S, N) and C
+#: chains (reads a row): the Laquila shape (12, 500, 10, 32, 512), 2000
+#: (6.4): 3.90 / 4.51 / 6.30; the same library, 256 (3.2): 1.02 / 1.07 /
+#: 1.42; 192 (2.4): 1.02 / 0.95 / 1.49; 128 (1.6): 0.92 / 0.83 / 1.57;
+#: (12, 80, 10, 32, 512), 128 (1.6): 0.152 / 0.140 / 0.256; the short walk
+#: (12, 40, 10, 32, 512), 2000 (6.4): 0.326 / 0.364 / 0.479; 512 (6.4):
+#: 0.115 / 0.127 / 0.140; 256 (3.2): 0.090 / 0.093 / 0.122; 128 (1.6):
+#: 0.079 / 0.079 / 0.131; (4, 40, 10, 32, 512), 2000: 0.110 / 0.125 / 0.226;
+#: (12, 40, 5, 32, 512), 2000 (12.8): 0.304 / 0.344 / 0.444.  At a grid of
+#: two blocks the three lie within 10 % and the rule is not the fastest:
+#: (2, 11, 4, 9, 64), 37 (4.1): 0.059 / 0.054 / 0.056
+_BF16_K3_REUSE = {"mma": 3.0, "tiled": 1.5}
 
 
 @dataclass(frozen=True)
 class StackPlan:
     """How one K3/K4 launch is cut, chosen from the shapes alone."""
 
-    variant: str                # "tiled" or "gather"
+    variant: str                # "tiled", "gather" or "mma"
     why: str                    # the reason for the variant
     threads: int                # threads of a block
     lanes: int                  # threads along n that serve one chain (tiled; else 0)
@@ -193,7 +217,7 @@ class StackPlan:
     n_tile: int                 # samples of a block
     chain_tile: int             # chains of a block
     patch_chunk: int            # patches whose folded operands are staged at a time
-    stages: int                 # cell-tile buffers in shared memory (tiled; else 0)
+    stages: int                 # cell-tile buffers in shared memory (tiled, mma; else 0)
     smem_bytes: int             # shared memory of a block
     sum_registers: int          # registers a thread spends on its sums
     grid: tuple                 # (chain tiles, n tiles, targets)
@@ -213,6 +237,27 @@ def _gather_plan(T, N, C, corners, why) -> StackPlan:
         _GATHER_CHAINS * vec, (-(-C // _GATHER_CHAINS), -(-columns // threads), T))
 
 
+def _mma_plan(T, P, D, S, N, C, corners, aligned, elem_bytes) -> tuple:
+    """``(plan, None)`` of the mma variant, or ``(None, why)`` where it
+    cannot run."""
+    if corners != 4:
+        return None, "mma runs K3 only (K4's lost to gather: PERF.md §6)"
+    if elem_bytes != 2:
+        return None, "mma runs on bfloat16 libraries only"
+    if N % 8 != 0 or not aligned:
+        return None, "mma needs rows of 8-sample chunks on 16-byte boundaries (N % 8 != 0)"
+    if min(T, P, C) < 1:
+        return None, "nothing to stack"
+    for chunk in (8, 4, 2, 1):
+        smem = 2 * D * S * _MMA_N_TILE * 2 + _MMA_CHAINS * chunk * 16
+        if smem <= SMEM_PER_BLOCK:
+            return StackPlan(
+                "mma", "", _MMA_THREADS, 0, 8, _MMA_N_TILE, _MMA_CHAINS, chunk, 2, smem, 64,
+                (-(-C // _MMA_CHAINS), -(-N // _MMA_N_TILE), T)), None
+    return None, (f"two bf16 cell tiles of D·S = {D * S} rows do not fit {SMEM_PER_BLOCK} "
+                  f"bytes of shared memory")
+
+
 @lru_cache(maxsize=256)
 def plan_stack(T: int, P: int, D: int, S: int, N: int, C: int, corners: int = 4,
                variant: str | None = None, aligned: bool = True,
@@ -227,14 +272,29 @@ def plan_stack(T: int, P: int, D: int, S: int, N: int, C: int, corners: int = 4,
     :data:`SMEM_PER_BLOCK`; it is chosen where it pays: every staged
     cell row serves at least :data:`_ROW_REUSE_LONG_WALK` row reads of
     the chain tile over :data:`_LONG_WALK_PATCHES` patches or more, or
-    :data:`_ROW_REUSE_SHORT_WALK` over fewer, times ``4 / elem_bytes``.
+    :data:`_ROW_REUSE_SHORT_WALK` over fewer, times ``4 / elem_bytes``
+    for K4 (K3 on bfloat16 rows: :data:`_BF16_K3_REUSE`).
+    ``mma`` runs K3 on bfloat16 libraries only, with ``N % 8 == 0``,
+    aligned bases and its two cell tiles within the same budget, and is
+    chosen by :data:`_BF16_K3_REUSE`.
     Everything else takes
     ``gather``.  ``variant`` forces one (``ValueError`` where
-    ``tiled`` cannot run)."""
-    if variant not in (None, "tiled", "gather"):
+    ``tiled`` or ``mma`` cannot run)."""
+    if variant not in (None, "tiled", "gather", "mma"):
         raise ValueError(f"unknown variant {variant!r}")
     if variant == "gather":
         return _gather_plan(T, N, C, corners, "asked for")
+    if variant == "mma" or (variant is None and elem_bytes == 2 and corners == 4):
+        mma, why = _mma_plan(T, P, D, S, N, C, corners, aligned, elem_bytes)
+        if variant == "mma":
+            if mma is None:
+                raise ValueError(f"the mma variant cannot run here: {why}")
+            return dataclasses.replace(mma, why="asked for")
+        reuse = min(C, _MMA_CHAINS) * corners / (D * S)
+        if mma is not None and reuse >= _BF16_K3_REUSE["mma"]:
+            return dataclasses.replace(
+                mma, why=f"bf16 library; a staged cell row serves {reuse:.2f} reads of the "
+                         f"chain tile over {P} patches")
     why = tile = None
     if N % 4 != 0 or not aligned:
         why = ("rows are not 16-byte (bfloat16: 8-byte) aligned (N % 4 != 0 or an "
@@ -260,8 +320,12 @@ def plan_stack(T: int, P: int, D: int, S: int, N: int, C: int, corners: int = 4,
                    f"of shared memory")
     if why is None and variant is None:
         reuse = min(C, tile[1]) * corners / (D * S)
-        needed = (_ROW_REUSE_LONG_WALK if P >= _LONG_WALK_PATCHES else _ROW_REUSE_SHORT_WALK)
-        if reuse < needed * 4 / elem_bytes:
+        if corners == 4 and elem_bytes == 2:
+            needed = _BF16_K3_REUSE["tiled"]
+        else:
+            needed = ((_ROW_REUSE_LONG_WALK if P >= _LONG_WALK_PATCHES
+                       else _ROW_REUSE_SHORT_WALK) * 4 / elem_bytes)
+        if reuse < needed:
             why = (f"a staged cell row would serve {reuse:.2f} reads of the chain tile over "
                    f"{P} patches")
     if why is not None:
@@ -273,6 +337,29 @@ def plan_stack(T: int, P: int, D: int, S: int, N: int, C: int, corners: int = 4,
         "tiled", "asked for" if variant else "cell tiles fit and are reused", _TILED_THREADS,
         lanes, _CHAINS_PER_THREAD, 4 * lanes, chain_tile, chunk, 2, smem,
         4 * _CHAINS_PER_THREAD, (-(-C // chain_tile), -(-N // (4 * lanes)), T))
+
+
+def group_cells(didx: torch.Tensor, sidx: torch.Tensor, group: int = 8) -> dict:
+    """How many distinct cells the ``mma`` variant's groups of ``group``
+    chains read at one (target, patch) of K3: the mean and max over the
+    operands' whole groups beside the ``4 · group`` rows a group's
+    product takes.  Compacting a group's rows to its distinct cells would
+    save the difference; ``didx`` (C, P), ``sidx`` (C, T or 1, P) clamped
+    to the grid as the kernel clamps them (:func:`_clamp_cells`)."""
+    C, T, P = sidx.shape[0], sidx.shape[1], didx.shape[1]
+    d = didx.long()[:, None, :].expand(C, T, P)
+    s = sidx.long().expand(C, T, P)
+    wide = 2 * int(s.abs().max()) + 4             # a cell's code: d · wide + s, distinct
+    cells = torch.stack([(d - dd) * wide + (s - ss)
+                         for dd, ss in ((1, 1), (1, 0), (0, 1), (0, 0))], -1)
+    whole = C // group * group
+    if whole == 0:
+        return {"rows": 4 * group, "mean": float("nan"), "max": 0}
+    cells = cells[:whole].reshape(whole // group, group, T, P, 4)
+    srt = cells.permute(0, 2, 3, 1, 4).reshape(-1, 4 * group).sort(-1).values
+    distinct = 1 + (srt[:, 1:] != srt[:, :-1]).sum(-1)
+    return {"rows": 4 * group, "mean": float(distinct.float().mean()),
+            "max": int(distinct.max())}
 
 
 def stack_operands(didx, sidx, slips, rtf=None, stf=None) -> tuple:
@@ -302,6 +389,10 @@ def stack_operands(didx, sidx, slips, rtf=None, stf=None) -> tuple:
              rtf.stride(0), stf.stride(0), t_stride(stf)))
 
 
+#: the C entries' ``variant`` argument
+_VARIANT_CODES = {"gather": 0, "tiled": 1, "mma": 2}
+
+
 def _launch(data, didx, sidx, slips, rtf, stf, plan: StackPlan) -> torch.Tensor:
     """One K3 or K4 launch on checked operands, on the current stream."""
     lib, _ = load("gfstack")
@@ -312,7 +403,7 @@ def _launch(data, didx, sidx, slips, rtf, stf, plan: StackPlan) -> torch.Tensor:
     multilinear, nearest = _ENTRIES[data.dtype]
     entry = getattr(lib, nearest if rtf is None else multilinear)
     rc = launch(data.device, entry, data.data_ptr(), *(x.data_ptr() for x in tensors),
-                out.data_ptr(), C, T, P, D, S, N, *strides, int(plan.variant == "tiled"),
+                out.data_ptr(), C, T, P, D, S, N, *strides, _VARIANT_CODES[plan.variant],
                 plan.lanes, plan.chunk_shift)
     if rc != 0:
         raise RuntimeError(f"GF stack kernel launch failed ({plan.variant}): cudaError {rc}")
@@ -333,8 +424,9 @@ def stack_batched(data: torch.Tensor, didx: torch.Tensor, sidx: torch.Tensor,
     rtf, stf : floor-cell weights, (C, P) and shaped like ``sidx``.
     Indices are clamped to the grid; the weights are used as given.
     variant : ``None`` lets :func:`plan_stack` choose the kernel variant
-        from the shapes; ``"tiled"`` or ``"gather"`` asks for one (the
-        two are equal bit for bit).
+        from the shapes; ``"tiled"``, ``"gather"`` or (bfloat16 libraries)
+        ``"mma"`` asks for one (``tiled`` and ``gather`` are equal bit for
+        bit; ``mma`` sums in another order, deterministically).
 
     Returns (C, T, N) float32 (float64 for a float64 library on the CPU).
     CPU tensors take the plain version; CUDA tensors launch the kernel,
@@ -356,11 +448,14 @@ def stack_batched(data: torch.Tensor, didx: torch.Tensor, sidx: torch.Tensor,
         stack_batched.launches_nearest += 1
     if data.dtype == torch.bfloat16:
         stack_batched.launches_bf16 += 1
+    if plan.variant == "mma":
+        stack_batched.launches_mma += 1
     return out
 
 
 #: K3's and K4's launches; those on a bfloat16 library are counted in
-#: ``launches_bf16`` as well
+#: ``launches_bf16`` as well, those of the mma variant in ``launches_mma``
 stack_batched.launches_multilinear = 0
 stack_batched.launches_nearest = 0
 stack_batched.launches_bf16 = 0
+stack_batched.launches_mma = 0

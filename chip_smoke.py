@@ -75,10 +75,12 @@ SMC on the first and a post-seismic geodetic SMC on the last.
     ``tools/bench_gfstack.py``) and, after [ffi_build], on the real
     library with durations and starttimes on and beyond the grid; per
     (chain, target) |err| <= 1e-5 · Σ_p |slip_p| · Σ_corners |w| ·
-    max|data|, for the variant ``plan_stack`` chose and for the other
-    one where it can run, which must also equal each other bit for bit;
-    the chosen variant's time and ``previous_ms``, the ``gather``
-    variant's, in turns; plain time and bound; the library yardstick, a
+    max|data|, for the variant ``plan_stack`` chose and for every other
+    one that can run (``tiled`` and ``gather``, which must equal each
+    other bit for bit; ``mma`` for K3 on a bf16 library), each equal to itself
+    on a second call; every variant's time in turns, the chosen one's as
+    ``ms`` and the ``gather`` variant's as ``previous_ms``; plain time
+    and bound; the library yardstick, a
     dense ``bmm`` over the scattered corner weights (four corners for K3,
     one for K4), alone and with its scatter, at the bench shape and on the
     real library (15.4 GB of weights: the kernels line's ``library_ms``).  On the
@@ -176,12 +178,20 @@ SMC on the first and a post-seismic geodetic SMC on the last.
     K3, against the plain stack as [ffi_llk]; [k3_bf16], [k4_bf16] the
     bf16 copy of the library (built on the card a target at a time: half
     the bytes, no third copy), K3 and K4 on it against their plain version
-    on the same copy at phase 13's bar, timed in turns with the float32
-    kernels, within 0.02 · max of the float32 stack and not equal to it,
-    and the dense ``bmm`` yardstick on it (bf16 operands, float32
-    accumulation) as their ``library_ms``; [ffi_llk_bf16] one llk of the
-    FFI flagship on the bf16 library with each interpolation (after
-    [ffi_smc]); [ffi_extras]
+    on the same copy at phase 13's bar in every variant (K3's ``mma``,
+    the tensor-core one, ``tiled``, ``gather``: their times in turns, the
+    distinct cells of each 8-chain group's rows), the planned one timed in
+    turns with the float32 kernels, within 0.02 · max of the float32
+    stack and not equal to it, and the dense ``bmm`` yardstick on it (bf16
+    operands, float32 accumulation) as their ``library_ms``; their bound
+    counts the operations at the tensor cores' bf16 rate; [ffi_llk_bf16]
+    one llk of the FFI flagship on the bf16 library with each
+    interpolation (after [ffi_smc]); [ffi_smc_bf16] the multilinear one
+    through [ffi_smc]'s capped SMC (2000 chains × 20 steps, stage cap 4):
+    β strictly increasing, finite llks, K3 on the bf16 library at every
+    step in the planned variant and no float32 K3 or K4 launch, the
+    distinct cells of each 8-chain group in each stage's population;
+    [ffi_extras]
     ``Problem.estimate_hypers`` on the static FFI (after
     [static_ffi_smc]); [transd_ffi] ``Problem.sample(TransDParams(...))``
     on the static FFI fault with a two-level slip (1024 chains, 4000
@@ -417,6 +427,7 @@ PARALLEL_SMC_RANKS, PARALLEL_FFI_MESH, PARALLEL_DEADLINE_S = 2, (2, 2), 240.0
 PARALLEL_Q_ATOL, PARALLEL_LLK_ATOL = 1e-6, 1e-5
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, HBM3
 FP32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12       # H100 SXM, bf16 on the tensor cores (dense)
 
 
 def say(phase: str, **fields) -> None:
@@ -447,10 +458,11 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, n_flops: float) -> tuple:
+def bound_ms(n_bytes: float, n_flops: float, flops_per_s: float = FP32_FLOPS_PER_S) -> tuple:
     """The least time the card could take for the work: ``(ms, "bytes" or
-    "operations")``, whichever bounds it."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOPS_PER_S
+    "operations")``, whichever bounds it; the operations at
+    ``flops_per_s`` (float32 outside the tensor cores unless said)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / flops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -536,21 +548,37 @@ def stack_gate(data, slips, rtf, stf, got, ref) -> float:
     return float(((got - ref).abs().amax(-1) / bar).max())
 
 
+def times_in_turns(fns: dict, iters: int) -> dict:
+    """Mean CUDA-event milliseconds of each of ``fns`` timed in turns
+    a, b, c, ..., c, b, a."""
+    times = {k: [] for k in fns}
+    for k in list(fns) + list(fns)[::-1]:
+        times[k].append(cuda_ms(fns[k], iters=iters))
+    return {k: sum(v) / len(v) for k, v in times.items()}
+
+
 def time_in_turns(fn_a, fn_b, iters: int) -> tuple:
     """Mean CUDA-event milliseconds of ``fn_a`` and ``fn_b`` timed a, b, b, a."""
-    a1, b1 = cuda_ms(fn_a, iters=iters), cuda_ms(fn_b, iters=iters)
-    b2, a2 = cuda_ms(fn_b, iters=iters), cuda_ms(fn_a, iters=iters)
-    return 0.5 * (a1 + a2), 0.5 * (b1 + b2)
+    t = times_in_turns({"a": fn_a, "b": fn_b}, iters)
+    return t["a"], t["b"]
+
+
+#: the GF stack's kernel variants, in the order they are tried beside the plan's
+STACK_VARIANTS = ("mma", "tiled", "gather")
 
 
 def check_stack(lib, durations, starttimes, slips, interpolation: str, iters: int) -> dict:
     """One GF-stack kernel (K3 for multilinear, K4 for nearest neighbour)
     against its plain version on the same inputs: the variant the plan
-    chose and the other one where it can run; their times in turns, the
-    plain time and the bound.  Raises SystemExit when they disagree."""
+    chose and every other one that can run here (``mma``: K3 on a bf16
+    library only); their times in turns, the plain time and the bound.
+    ``tiled`` and ``gather`` must be equal bit for bit, every variant
+    equal to itself on a second call.  Raises SystemExit when a check
+    fails."""
     import torch
 
-    from beat_tpu_torch.ops.gfstack import plan_stack, stack_batched, stack_batched_reference
+    from beat_tpu_torch.ops.gfstack import (_clamp_cells, group_cells, plan_stack,
+                                            stack_batched, stack_batched_reference)
 
     data = lib.data
     T, P, D, S, N = data.shape
@@ -559,34 +587,42 @@ def check_stack(lib, durations, starttimes, slips, interpolation: str, iters: in
     sidx, stf = lib.starttimes2idxs(starttimes, interpolation)
     multilinear = rtf is not None
     corners = 4 if multilinear else 1
+    bf16 = data.dtype == torch.bfloat16
     plan = plan_stack(T, P, D, S, N, C, corners, aligned=data.data_ptr() % 16 == 0,
                       elem_bytes=data.element_size())
     variants = [plan.variant]
-    try:
-        variants.append(plan_stack(T, P, D, S, N, C, corners, variant={
-            "tiled": "gather", "gather": "tiled"}[plan.variant],
-            elem_bytes=data.element_size()).variant)
-    except ValueError:          # tiled cannot run at this shape
-        pass
+    for v in STACK_VARIANTS:
+        if v == plan.variant:
+            continue
+        try:
+            plan_stack(T, P, D, S, N, C, corners, variant=v, elem_bytes=data.element_size())
+            variants.append(v)
+        except ValueError:      # tiled or mma cannot run here
+            pass
 
     def run(variant):
         return stack_batched(data, didx, sidx, slips, rtf, stf, variant=variant)
 
     ref = stack_batched_reference(data, didx, sidx, slips, rtf, stf)
     got = {v: run(v) for v in variants}
+    deterministic = {v: bool(torch.equal(run(v), got[v])) for v in variants}
     torch.cuda.synchronize()
-    out = {"variant": plan.variant, "why": plan.why, "max_ref": float(ref.abs().max()),
-           "max_abs_err": max(float((g - ref).abs().max()) for g in got.values()),
-           "worst_err_over_bar": max(stack_gate(data, slips, rtf, stf, g, ref)
-                                     for g in got.values()),
-           "variants_equal": all(torch.equal(g, got[plan.variant]) for g in got.values())}
+    errs = {v: float((g - ref).abs().max()) for v, g in got.items()}
+    over = {v: stack_gate(data, slips, rtf, stf, g, ref) for v, g in got.items()}
+    out = {"variant": plan.variant, "why": plan.why, "variants": variants,
+           "max_ref": float(ref.abs().max()), "max_abs_err": errs[plan.variant],
+           "worst_err_over_bar": max(over.values()),
+           "variants_err_over_bar": over, "variants_max_abs_err": errs,
+           "deterministic": all(deterministic.values()),
+           "variants_equal": ("tiled" not in got or "gather" not in got
+                              or bool(torch.equal(got["tiled"], got["gather"])))}
     del got, ref
     torch.cuda.empty_cache()
-    # the chosen variant and the gather variant (the kernel before the tiled one) in turns
-    out["ms"], out["previous_ms"] = time_in_turns(lambda: run(plan.variant),
-                                                  lambda: run("gather"), iters)
-    if plan.variant == "gather" and "tiled" in variants:
-        out["tiled_ms"] = cuda_ms(lambda: run("tiled"), iters=iters)
+    # every variant in turns; ``previous_ms`` is the gather variant (the
+    # kernel before the tiled one)
+    times = times_in_turns({v: (lambda v=v: run(v)) for v in variants}, iters)
+    out["variants_ms"] = times
+    out["ms"], out["previous_ms"] = times[plan.variant], times["gather"]
     out["device_ms"] = ms_or_none(device_kernels(lambda: run(plan.variant))[1])
     out["previous_device_ms"] = ms_or_none(device_kernels(lambda: run("gather"))[1])
     out["plain_ms"] = cuda_ms(
@@ -601,11 +637,18 @@ def check_stack(lib, durations, starttimes, slips, interpolation: str, iters: in
     per_entry = 8 if multilinear else 4          # sidx (+ stf); didx, slips (+ rtf)
     n_bytes = (out["cells_read"] * N * data.element_size() + sidx.numel() * per_entry
                + C * P * (per_entry + 4) + C * T * N * 4)
-    out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, 2.0 * corners * C * T * P * N)
-    if not (out["worst_err_over_bar"] <= 1.0 and out["variants_equal"]):
-        raise SystemExit(f"the {interpolation} GF stack disagrees with its plain version (or its "
-                         f"variants with each other): worst err/bar {out['worst_err_over_bar']}, "
-                         f"variants equal {out['variants_equal']}")
+    # a bf16 library's products fit the tensor cores (bf16 operands, float32
+    # sums), a float32 library's the CUDA cores
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        n_bytes, 2.0 * corners * C * T * P * N, BF16_FLOPS_PER_S if bf16 else FP32_FLOPS_PER_S)
+    if "mma" in variants:
+        out["group_cells"] = group_cells(*_clamp_cells(data, didx, sidx, True))
+    if not (out["worst_err_over_bar"] <= 1.0 and out["variants_equal"]
+            and out["deterministic"]):
+        raise SystemExit(f"the {interpolation} GF stack disagrees with its plain version (or "
+                         f"tiled with gather, or a variant with itself on a second call): err/bar "
+                         f"{over}, tiled == gather {out['variants_equal']}, deterministic "
+                         f"{deterministic}")
     return out
 
 
@@ -613,11 +656,15 @@ def say_stack(key: str, shape: str, dims: dict, r: dict, **extra) -> None:
     fields = dict(variant=r["variant"], max_abs_err=f"{r['max_abs_err']:.3e}",
                   max_ref=f"{r['max_ref']:.3e}",
                   worst_err_over_bar=f"{r['worst_err_over_bar']:.3e}",
-                  variants_equal=r["variants_equal"], ms=f"{r['ms']:.4f}",
+                  variants_equal=r["variants_equal"], deterministic=r["deterministic"],
+                  ms=f"{r['ms']:.4f}",
                   previous_ms=f"{r['previous_ms']:.4f}", device_ms=fmt_ms(r["device_ms"]),
                   previous_device_ms=fmt_ms(r["previous_device_ms"]))
-    if "tiled_ms" in r:
-        fields["tiled_ms"] = f"{r['tiled_ms']:.4f}"
+    fields.update({f"{v}_ms": f"{t:.4f}" for v, t in r["variants_ms"].items()})
+    fields["err_over_bar"] = json.dumps({v: float(f"{e:.3e}")
+                                         for v, e in r["variants_err_over_bar"].items()})
+    if "group_cells" in r:
+        fields["group_cells"] = json.dumps(r["group_cells"])
     library_ms = "none" if r.get("library_ms") is None else f"{r['library_ms']:.4f}"
     say(key, shape=shape, **dims, **fields, plain_ms=f"{r['plain_ms']:.4f}", library_ms=library_ms,
         cells_read=r["cells_read"], bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"],
@@ -1713,14 +1760,15 @@ def ffi_extra_phases(dev, problem, workdir: str) -> dict:
         c16 = SeismicDistributerComposite([(wmap, {"uparr": lib16})], comp.fault,
                                           interpolation=interpolation, device=dev)
         bp = Problem(ffi_priors(sub.n_strike, sub.n_dip), {"seismic": c16, "laplacian": lap},
-                     device=dev, outfolder=os.path.join(workdir, "ffi_bf16"))
+                     device=dev, outfolder=os.path.join(workdir, f"ffi_bf16_{interpolation}"))
         blogp, bdata = bp.make_logp_fn()
         q = batch(bp, 4)
-        stack_batched.launches_bf16 = 0
+        stack_batched.launches_bf16 = stack_batched.launches_mma = 0
         with torch.no_grad():
             llk16 = blogp(q, bdata)
         launched16 = stack_batched.launches_bf16
         r = dict(interpolation=interpolation, chains=N_CHAINS, bf16_launches=launched16,
+                 mma_launches=stack_batched.launches_mma,
                  finite=bool(torch.isfinite(llk16).all()),
                  llk_ms=f"{cuda_ms(lambda: blogp(q, bdata), iters=3, warmup=1):.3f}")
         if interpolation == comp.interpolation:
@@ -1734,10 +1782,87 @@ def ffi_extra_phases(dev, problem, workdir: str) -> dict:
             raise SystemExit(f"[ffi_llk_bf16] {interpolation}: non-finite llks, or the kernel "
                              f"on the bf16 library never ran")
         out[key]["launches"] = launched16
+        out[key]["mma_launches"] = r["mma_launches"]
+        if interpolation == "multilinear":
+            out["ffi_smc_bf16"] = ffi_smc_bf16(bp)
         del bp, c16, blogp, bdata, q, llk16
     del lib16
     torch.cuda.empty_cache()
     return out
+
+
+def ffi_smc_bf16(problem) -> dict:
+    """[ffi_smc_bf16]: the kinematic FFI problem on the bf16 library
+    (multilinear) through [ffi_smc]'s capped SMC (``N_CHAINS`` chains ×
+    ``FFI_STEPS`` steps, stage cap ``FFI_MAX_STAGES``): β strictly
+    increasing, finite llks, K3 on the bf16 library launched at every
+    step and no float32 K3 (nor K4) launch.  Also the distinct cells of
+    the mma variant's 8-chain groups in the population of each stage (a
+    diagnostic: what compacting a group's rows would save as the
+    population concentrates).  Returns its launches and seconds; raises
+    SystemExit at a gate missed."""
+    import numpy as np
+    import torch
+
+    from beat_tpu_torch.backend import SampleStage
+    from beat_tpu_torch.ops.gfstack import _clamp_cells, group_cells, plan_stack, stack_batched
+    from beat_tpu_torch.samplers import SMCParams
+
+    lib = problem.composites["seismic"].libs[0]["uparr"]
+    cells = []                # group_cells of each K3 call's operands, in order
+
+    def stack_and_count_cells(data, didx, sidx, slips, rtf, stf):
+        cells.append(group_cells(*_clamp_cells(data, didx, sidx, True)))
+        return stack_batched(data, didx, sidx, slips, rtf, stf)
+
+    counters = ("launches_multilinear", "launches_nearest", "launches_bf16", "launches_mma")
+    for c in counters:
+        setattr(stack_batched, c, 0)
+    lib.stack_fn = stack_and_count_cells
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=FFI_STEPS,
+                                 max_stages=FFI_MAX_STAGES, seed=1))
+        capped = False
+    except RuntimeError as e:
+        if "did not reach beta=1" not in str(e):
+            raise
+        capped = True
+    finally:
+        lib.stack_fn = stack_batched
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # the first call evaluates the prior draws, then FFI_STEPS calls a stage
+    by_stage = [("prior", cells[:1])] + [
+        (f"stage_{i}", cells[1 + i * FFI_STEPS:1 + (i + 1) * FFI_STEPS])
+        for i in range(-(-(len(cells) - 1) // FFI_STEPS))]
+    group_cells_by_stage = [
+        {"population": name, "rows": part[0]["rows"],
+         "mean": round(sum(c["mean"] for c in part) / len(part), 3),
+         "max": max(c["max"] for c in part)} for name, part in by_stage if part]
+    k3, k4, bf16, mma = (getattr(stack_batched, c) for c in counters)
+    handler = SampleStage(problem.outfolder, ordering=problem.ordering)
+    stages = list(range(1, FFI_MAX_STAGES)) if capped else [-1]
+    states = [handler.load_state(st) for st in stages]
+    betas = [0.0] + [float(st["beta"]) for st in states]
+    finite = all(np.isfinite(st["likelihoods"]).all() for st in states)
+    r = dict(chains=N_CHAINS, steps=FFI_STEPS, dims=problem.ordering.size, wall_s=wall,
+             stages_run=len(states), capped=capped, betas=[round(b, 6) for b in betas],
+             finite=finite, k3_launches=k3, k3_bf16_launches=bf16, k4_launches=k4,
+             mma_launches=mma, group_cells_by_stage=group_cells_by_stage,
+             acceptance=[round(float(a), 3) for a in states[-1]["acceptance"]])
+    say("ffi_smc_bf16", **{k: (json.dumps(v) if isinstance(v, list) else
+                               f"{v:.2f}" if isinstance(v, float) else v) for k, v in r.items()})
+    if not (all(b1 > b0 for b0, b1 in zip(betas, betas[1:])) and finite):
+        raise SystemExit("[ffi_smc_bf16] beta not strictly increasing, or non-finite llks")
+    planned = plan_stack(*lib.data.shape, N_CHAINS, 4, elem_bytes=2).variant
+    if not (bf16 == k3 and k4 == 0 and bf16 >= len(states) * FFI_STEPS
+            and mma == (bf16 if planned == "mma" else 0)):
+        raise SystemExit(f"[ffi_smc_bf16] K3 on the bf16 library launched {bf16} times "
+                         f"({mma} mma, planned {planned}) in {len(states)} stages of {FFI_STEPS} "
+                         f"steps, with {k3 - bf16} float32 K3 and {k4} K4 launches")
+    return r
 
 
 def transd_phases(dev, workdir: str) -> dict:
@@ -4429,16 +4554,22 @@ def main() -> int:
     def by_path(key):
         return {path: counts[key] for path, counts in paths.items()}
 
-    def bf16_entry(r):
-        """K3's or K4's run on the bf16 library: ``previous_ms`` is the
-        float32 kernel's time, in turns with it."""
-        return {"launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": r["library_ms"],
+    def bf16_entry(r, name, replaces, launches, launches_by_path):
+        """K3's or K4's entry on the bf16 library: the variant the plan
+        chose there (K3: ``mma``; K4: ``gather``) with every variant's time
+        in turns; ``previous_ms`` is the float32 kernel's time, in turns
+        with it."""
+        return {"name": name, "route": "cuda", "source": "beat_tpu_torch/csrc/gfstack.cu",
+                "replaces": replaces, "launches": launches, "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                 "library_with_scatter_ms": r["library_with_scatter_ms"],
                 "previous_ms": r["float32_ms"], "variant": r["variant"],
+                "variants_ms": r["variants_ms"], "variants_max_abs_err": r["variants_max_abs_err"],
                 "worst_err_over_bar": r["worst_err_over_bar"],
-                "loss_vs_float32": r["loss_vs_float32"], "library_bytes": r["library_bytes"]}
+                "group_cells": r.get("group_cells"),
+                "loss_vs_float32": r["loss_vs_float32"], "library_bytes": r["library_bytes"],
+                "launches_by_path": launches_by_path}
 
     def contract_entry(key, name, replaces, launches):
         main, rnd = contract["main_path"], contract["random"]
@@ -4498,12 +4629,17 @@ def main() -> int:
          "library_with_scatter_ms": real["k3"]["library_with_scatter_ms"],
          "variant": real["k3"]["variant"],
          "previous_ms": real["k3"]["previous_ms"], "shared_onsets": shared,
-         "bench_shape": bench["k3"], "bf16": bf16_entry(extras["k3_bf16"]),
+         "bench_shape": bench["k3"],
          "launches_by_path": {"ffi_smc": ffi_launches,
                               "ffi_recover": recover["multilinear"]["launches"][0],
-                              "ffi_llk_bf16": extras["k3_bf16"]["launches"],
                               **{f"parallel_ffi_llk_rank{r}": n
                                  for r, n in enumerate(parallel_ffi["k3_launches"])}}},
+        bf16_entry(extras["k3_bf16"], "gf_stack_multilinear_bf16", "beat_tpu/ops/gfstack.py:241",
+                   extras["ffi_smc_bf16"]["k3_bf16_launches"],
+                   {"ffi_smc_bf16": extras["ffi_smc_bf16"]["k3_bf16_launches"],
+                    "ffi_smc_bf16_mma": extras["ffi_smc_bf16"]["mma_launches"],
+                    "ffi_llk_bf16": extras["k3_bf16"]["launches"],
+                    "ffi_llk_bf16_mma": extras["k3_bf16"]["mma_launches"]}),
         {"name": "gf_stack_nearest", "route": "cuda",
          "source": "beat_tpu_torch/csrc/gfstack.cu", "replaces": "beat_tpu/ops/gfstack.py:218",
          "launches": k4_launches, "max_abs_err": real["k4"]["max_abs_err"],
@@ -4513,8 +4649,10 @@ def main() -> int:
          "library_with_scatter_ms": real["k4"]["library_with_scatter_ms"],
          "variant": real["k4"]["variant"],
          "previous_ms": real["k4"]["previous_ms"], "bench_shape": bench["k4"],
-         "bf16": bf16_entry(extras["k4_bf16"]),
          "launches_by_path": {"ffi_recover_nearest_neighbor": k4_launches}},
+        bf16_entry(extras["k4_bf16"], "gf_stack_nearest_bf16", "beat_tpu/ops/gfstack.py:218",
+                   extras["k4_bf16"]["launches"],
+                   {"ffi_llk_bf16": extras["k4_bf16"]["launches"]}),
         {"name": "gather_rows", "route": "cuda", "source": "beat_tpu_torch/csrc/rowgather.cu",
          "replaces": "beat_tpu/ops/rowgather.py:34", "launches": k5_launches["ffi_smc"],
          "max_abs_err": 0.0, "ms": k5["smc"]["ms"], "plain_ms": k5["smc"]["plain_ms"],

@@ -255,11 +255,42 @@ def test_composite_with_bf16_library():
 
 
 def test_bf16_plan_at_the_laquila_shape():
-    """A bf16 row halves the gather variant's reads, not the tiled one's:
-    at the Laquila shape K3 stays tiled (6.4 reads a staged row) and K4
-    (1.6) takes gather; the tiles take half the shared memory."""
+    """On a bf16 library at the Laquila shape K3 takes the tensor-core
+    variant (6.4 reads a staged row), K4 keeps ``gather`` (it has no
+    ``mma``; ``gather`` measured faster than ``tiled``); where ``mma``
+    cannot run (N % 8 != 0) K3 stays ``tiled``; float32 libraries are
+    unchanged."""
     laquila = (12, 500, 10, 32, 512)
     k3, k4 = (plan_stack(*laquila, 2000, corners, elem_bytes=2) for corners in (4, 1))
-    assert (k3.variant, k4.variant) == ("tiled", "gather")
+    assert (k3.variant, k4.variant) == ("mma", "gather")
+    assert (k3.n_tile, k3.chain_tile, k3.stages) == (64, 512, 2)
     assert k3.smem_bytes == 2 * 320 * 64 * 2 + 512 * 8 * 16
-    assert plan_stack(*laquila, 2000, 1).variant == "tiled"          # float32: unchanged
+    assert plan_stack(12, 500, 10, 32, 508, 2000, 4, elem_bytes=2).variant == "tiled"
+    assert plan_stack(*laquila, 2000, 4).variant == "tiled"          # float32: unchanged
+    assert plan_stack(*laquila, 2000, 1).variant == "tiled"
+
+
+def test_mma_plan_rule():
+    """``mma`` runs K3 on bf16 libraries only, with 8-sample chunks; K3 on
+    bf16 takes it from 3 reads a staged row, ``tiled`` from 1.5 and
+    ``gather`` below, on either walk (the measured shapes of the rule's
+    comment); asked for K4, ``mma`` refuses, and K4 on bf16 rows takes
+    twice the float32 reads for ``tiled``."""
+    assert plan_stack(2, 11, 4, 9, 64, 12, 4, elem_bytes=2).variant == "gather"     # 1.3 reads
+    assert plan_stack(2, 11, 4, 9, 64, 20, 4, elem_bytes=2).variant == "tiled"      # 2.2
+    assert plan_stack(2, 11, 4, 9, 64, 37, 4, elem_bytes=2).variant == "mma"        # 4.1
+    for P, C, variant in ((500, 2000, "mma"), (500, 256, "mma"), (500, 192, "tiled"),
+                          (500, 128, "tiled"), (80, 128, "tiled"), (40, 2000, "mma"),
+                          (40, 512, "mma"), (40, 256, "mma"), (40, 128, "tiled")):
+        assert plan_stack(12, P, 10, 32, 512, C, 4, elem_bytes=2).variant == variant
+    assert plan_stack(12, 40, 5, 32, 512, 2000, 4, elem_bytes=2).variant == "mma"
+    with pytest.raises(ValueError, match="K3 only"):
+        plan_stack(12, 500, 10, 32, 512, 2000, 1, variant="mma", elem_bytes=2)
+    assert plan_stack(12, 500, 10, 32, 512, 512, 1, elem_bytes=2).variant == "gather"
+    assert plan_stack(12, 500, 10, 32, 512, 512, 1).variant == "tiled"
+    with pytest.raises(ValueError, match="bfloat16 libraries only"):
+        plan_stack(12, 500, 10, 32, 512, 2000, 4, variant="mma")
+    with pytest.raises(ValueError, match="16-byte"):
+        plan_stack(2, 11, 4, 9, 100, 37, 4, variant="mma", elem_bytes=2)
+    with pytest.raises(ValueError, match="do not fit"):
+        plan_stack(2, 11, 40, 32, 64, 37, 4, variant="mma", elem_bytes=2)

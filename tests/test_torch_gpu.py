@@ -714,17 +714,11 @@ def test_geodetic_llk_and_grad_on_card_match_float64_host(cuda, source):
 # -- the samplers' plain-torch steps and the bf16 library (slice 8) ------------------
 
 
-@pytest.mark.parametrize("variant", [None, "tiled", "gather"])
-@pytest.mark.parametrize("interpolation", ["multilinear", "nearest_neighbor"])
-@pytest.mark.parametrize("C,T,P,D,S,N", [
-    (37, 3, 11, 4, 9, 64),         # ragged chain tile, N = 64: one bf16 n tile
-    (600, 2, 9, 20, 32, 64),       # D·S = 640: the wide n tile fits in bf16
-    (2000, 4, 40, 10, 32, 512),    # the Laquila rows, N = 512
-    (5, 2, 33, 2, 2, 102)])        # N % 4 != 0: gather only, scalar loads
-def test_k3_k4_bf16_match_plain(cuda, interpolation, variant, C, T, P, D, S, N):
-    """K3 and K4 on a bfloat16 library against the plain version on the
-    same bf16 tensor (its rows widened to float32), both variants equal."""
-    gen = torch.Generator(device=cuda).manual_seed(C + N + 1)
+def _bf16_case(cuda, C, T, P, D, S, N, interpolation, seed, spread=False):
+    """A random bf16 library and the operands of one K3/K4 call: onsets on
+    the grids and beyond them, or (``spread``) chains stepped over every
+    (duration, starttime) cell, so a group's rows cover the whole grid."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
     lib = SeismicGFLibrary(torch.randn((T, P, D, S, N), generator=gen, device=cuda),
                            duration_min=0.5, duration_sampling=0.5, starttime_min=0.0,
                            starttime_sampling=0.25, device=cuda, dtype=torch.bfloat16)
@@ -732,27 +726,105 @@ def test_k3_k4_bf16_match_plain(cuda, interpolation, variant, C, T, P, D, S, N):
     def uniform(shape, lo, hi):
         return lo + (hi - lo) * torch.rand(shape, generator=gen, device=cuda)
 
-    durations = uniform((C, P), 0.0, 0.5 * (D + 1))
-    starttimes = uniform((C, T, P), -0.5, 0.25 * (S + 2))
+    if spread:
+        cell = (torch.arange(C, device=cuda)[:, None] * 7 + torch.arange(P, device=cuda)[None, :]
+                * 3) % (D * S)
+        durations = 0.5 + 0.5 * (cell // S).float() + uniform((C, P), 0.0, 0.5)
+        starttimes = (0.25 * (cell % S).float() + uniform((C, P), 0.0, 0.25))[:, None, :]
+        starttimes = starttimes.expand(C, T, P).contiguous()
+    else:
+        durations = uniform((C, P), 0.0, 0.5 * (D + 1))
+        starttimes = uniform((C, T, P), -0.5, 0.25 * (S + 2))
     slips = uniform((C, P), 0.0, 3.0)
     didx, rtf = lib.durations2idxs(durations, interpolation)
     sidx, stf = lib.starttimes2idxs(starttimes, interpolation)
-    if variant == "tiled" and N % 4 != 0:
-        with pytest.raises(ValueError, match="16-byte"):
-            stack_batched(lib.data, didx, sidx, slips, rtf, stf, variant=variant)
-        return
-    before = stack_batched.launches_bf16
-    got = stack_batched(lib.data, didx, sidx, slips, rtf, stf, variant=variant)
-    torch.cuda.synchronize()
-    assert stack_batched.launches_bf16 == before + 1 and got.dtype == torch.float32
-    ref = stack_batched_reference(lib.data, didx, sidx, slips, rtf, stf)
+    return lib.data, didx, sidx, slips, rtf, stf
+
+
+def _stack_bar(data, slips, rtf, stf):
     wabs = 1.0
     if rtf is not None:
         wabs = (rtf.abs() + (1 - rtf).abs())[:, None, :] * (stf.abs() + (1 - stf).abs())
-    bar = STACK_RTOL * (slips.abs()[:, None, :] * wabs).sum(-1) * lib.data.float().abs().max()
-    assert bool(((got - ref).abs().amax(-1) <= bar).all())
-    assert torch.equal(got, stack_batched(lib.data, didx, sidx, slips, rtf, stf,
-                                          variant="gather"))
+    return STACK_RTOL * (slips.abs()[:, None, :] * wabs).sum(-1) * data.float().abs().max()
+
+
+@pytest.mark.parametrize("variant", [None, "tiled", "gather", "mma"])
+@pytest.mark.parametrize("interpolation", ["multilinear", "nearest_neighbor"])
+@pytest.mark.parametrize("C,T,P,D,S,N", [
+    (37, 3, 11, 4, 9, 64),         # ragged chain tile, N = 64: one bf16 n tile
+    (600, 2, 9, 20, 32, 64),       # D·S = 640: the wide n tile fits in bf16
+    (2000, 4, 40, 10, 32, 512),    # the Laquila rows, N = 512
+    (5, 2, 33, 2, 2, 102),         # N % 4 != 0: gather only, scalar loads
+    (1030, 2, 13, 3, 5, 40)])      # mma: three chain tiles, the last ragged; a ragged n tile
+def test_k3_k4_bf16_match_plain(cuda, interpolation, variant, C, T, P, D, S, N):
+    """K3 and K4 on a bfloat16 library against the plain version on the
+    same bf16 tensor (its rows widened to float32); ``tiled`` and
+    ``gather`` equal bit for bit, ``mma`` (K3 only) equal to itself on a
+    second call."""
+    data, didx, sidx, slips, rtf, stf = _bf16_case(cuda, C, T, P, D, S, N, interpolation,
+                                                   C + N + 1)
+    if variant == "mma" and rtf is None:
+        with pytest.raises(ValueError, match="K3 only"):
+            stack_batched(data, didx, sidx, slips, rtf, stf, variant=variant)
+        return
+    if (variant == "tiled" and N % 4 != 0) or (variant == "mma" and N % 8 != 0):
+        with pytest.raises(ValueError, match="16-byte"):
+            stack_batched(data, didx, sidx, slips, rtf, stf, variant=variant)
+        return
+    before = stack_batched.launches_bf16
+    got = stack_batched(data, didx, sidx, slips, rtf, stf, variant=variant)
+    torch.cuda.synchronize()
+    assert stack_batched.launches_bf16 == before + 1 and got.dtype == torch.float32
+    ref = stack_batched_reference(data, didx, sidx, slips, rtf, stf)
+    assert bool(((got - ref).abs().amax(-1) <= _stack_bar(data, slips, rtf, stf)).all())
+    again = stack_batched(data, didx, sidx, slips, rtf, stf, variant=variant)
+    assert torch.equal(got, again)
+    T_, P_, D_, S_, N_ = data.shape
+    chosen = plan_stack(T_, P_, D_, S_, N_, C, 4 if rtf is not None else 1, variant=variant,
+                        elem_bytes=2).variant
+    if chosen != "mma":
+        assert torch.equal(got, stack_batched(data, didx, sidx, slips, rtf, stf,
+                                              variant="gather"))
+
+
+@pytest.mark.parametrize("C,T,P,D,S,N", [
+    (520, 2, 7, 10, 32, 512),      # the chains cover every cell of the grid at each patch
+    (9, 1, 70, 4, 5, 8)])          # one chunk of samples, a long walk, one group + 1 chain
+def test_k3_bf16_mma_spread_over_every_cell(cuda, C, T, P, D, S, N):
+    """K3's mma variant where the chains' cells cover the whole grid (its
+    32 rows a group from all over the tile, every phase of the row gather
+    at its most scattered) and on ragged chain and n tiles, at the
+    stack's bar; one launch, counted once, equal on a second call."""
+    data, didx, sidx, slips, rtf, stf = _bf16_case(cuda, C, T, P, D, S, N, "multilinear",
+                                                   C + P, spread=True)
+    counts = stack_batched.launches_mma, stack_batched.launches_bf16
+    got = stack_batched(data, didx, sidx, slips, rtf, stf, variant="mma")
+    torch.cuda.synchronize()
+    assert (stack_batched.launches_mma, stack_batched.launches_bf16) == (counts[0] + 1,
+                                                                         counts[1] + 1)
+    ref = stack_batched_reference(data, didx, sidx, slips, rtf, stf)
+    assert bool(((got - ref).abs().amax(-1) <= _stack_bar(data, slips, rtf, stf)).all())
+    assert torch.equal(got, stack_batched(data, didx, sidx, slips, rtf, stf, variant="mma"))
+
+
+def test_k3_bf16_mma_call_is_one_kernel(cuda):
+    """K3 on a bf16 library at the Laquila rows takes the mma variant by
+    the plan: one device operation, one launch counted."""
+    ops = _kernel_ops("""
+from beat_tpu_torch.ffi import SeismicGFLibrary
+from beat_tpu_torch.ops.gfstack import stack_batched
+gen = torch.Generator(device="cuda").manual_seed(3)
+C, T, P, D, S, N = 2000, 2, 70, 10, 32, 512
+lib = SeismicGFLibrary(torch.randn((T, P, D, S, N), generator=gen, device="cuda"),
+                       duration_min=0.5, duration_sampling=0.5, starttime_min=0.0,
+                       starttime_sampling=0.25, device="cuda", dtype=torch.bfloat16)
+didx, rtf = lib.durations2idxs(0.5 + 4.5 * torch.rand((C, P), generator=gen, device="cuda"),
+                               "multilinear")
+sidx, stf = lib.starttimes2idxs(7.75 * torch.rand((C, 1, P), generator=gen, device="cuda"),
+                                "multilinear")
+slips = torch.rand((C, P), generator=gen, device="cuda")
+""", "stack_batched(lib.data, didx, sidx, slips, rtf, stf)", "stack_batched.launches_mma")
+    assert len(ops) == 1 and "gf_stack_mma" in ops[0]
 
 
 def test_swap_on_card_matches_cpu(cuda):
