@@ -860,33 +860,40 @@ def register_sample(sub):
     p.add_argument("--hypers", action="store_true", help="sample hyperparameters only")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a profiler trace (Chrome trace format) to DIR and "
-                        "print per-stage timings after sampling")
+                        "print per-stage timings and the program's spans after sampling")
     p.set_defaults(handler=_cmd_sample)
 
 
 def _cmd_sample(args):
+    from beat_tpu_torch import profiling
     from beat_tpu_torch.models import load_model
 
-    if getattr(args, "profile", None):
-        os.environ["BEAT_TPU_PROFILE_DIR"] = args.profile
-    problem = load_model(args.project_dir, args.mode, device=args.device)
-    if args.hypers:
-        problem.estimate_hypers()
-    else:
-        # between-stage covariance re-estimation when any composite uses a
-        # residual-based noise model or an earth-model uncertainty
-        # ensemble (reference 'update' hook, smc.py:492)
-        update = any(
-            getattr(getattr(c, "noise_analyser", None), "structure", "")
-            == "non-toeplitz"
-            or getattr(c, "ensemble_tables", None)
-            or getattr(c, "ensemble_nus", None)
-            for c in problem.composites.values())
-        problem.sample(update_weights=update)
-    if getattr(args, "profile", None):
-        from beat_tpu_torch.profiling import timings
-
-        print(timings.summary())
+    profile = getattr(args, "profile", None)
+    if profile:
+        os.environ["BEAT_TPU_PROFILE_DIR"] = profile
+        spans_before = profiling.enable_spans()
+        profiling.reset_spans()
+    try:
+        problem = load_model(args.project_dir, args.mode, device=args.device)
+        if args.hypers:
+            problem.estimate_hypers()
+        else:
+            # between-stage covariance re-estimation when any composite uses a
+            # residual-based noise model or an earth-model uncertainty
+            # ensemble (reference 'update' hook, smc.py:492)
+            update = any(
+                getattr(getattr(c, "noise_analyser", None), "structure", "")
+                == "non-toeplitz"
+                or getattr(c, "ensemble_tables", None)
+                or getattr(c, "ensemble_nus", None)
+                for c in problem.composites.values())
+            problem.sample(update_weights=update)
+    finally:
+        if profile:
+            profiling.enable_spans(spans_before)
+    if profile:
+        print(profiling.timings.summary())
+        print(profiling.span_summary())
     return 0
 
 

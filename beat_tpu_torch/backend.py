@@ -27,6 +27,8 @@ import tempfile
 
 import numpy as np
 
+from beat_tpu_torch.profiling import count, span
+
 logger = logging.getLogger("beat_tpu_torch.backend")
 
 
@@ -110,17 +112,20 @@ class SampleStage:
         state: json-serialisable scalars + numpy arrays (split here)."""
         arrays = {k: np.asarray(v) for k, v in state.items() if isinstance(v, np.ndarray)}
         scalars = {k: v for k, v in state.items() if not isinstance(v, np.ndarray)}
-        _atomic_save(self._trace_file(stage), q=np.asarray(trace["q"], dtype=np.float32),
-                     llk=np.asarray(trace["llk"], dtype=np.float32))
-        _atomic_save(self._state_file(stage), **arrays)
-        meta = {
-            "scalars": scalars,
-            "shape_q": list(np.asarray(trace["q"]).shape),
-            "shape_llk": list(np.asarray(trace["llk"]).shape),
-            "varnames": list(self.ordering.names) if self.ordering is not None else [],
-        }
-        with open(self._meta_file(stage), "w") as f:
-            json.dump(meta, f, indent=1)
+        traced = {"q": np.asarray(trace["q"], dtype=np.float32),
+                  "llk": np.asarray(trace["llk"], dtype=np.float32)}
+        with span("stage.write", stage=stage):
+            count("stage.bytes", sum(a.nbytes for a in (*traced.values(), *arrays.values())))
+            _atomic_save(self._trace_file(stage), **traced)
+            _atomic_save(self._state_file(stage), **arrays)
+            meta = {
+                "scalars": scalars,
+                "shape_q": list(np.asarray(trace["q"]).shape),
+                "shape_llk": list(np.asarray(trace["llk"]).shape),
+                "varnames": list(self.ordering.names) if self.ordering is not None else [],
+            }
+            with open(self._meta_file(stage), "w") as f:
+                json.dump(meta, f, indent=1)
         logger.info("Saved stage %i to %s", stage, self.stage_path(stage))
 
     def load_trace(self, stage: int) -> StageTrace:

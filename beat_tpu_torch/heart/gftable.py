@@ -32,6 +32,7 @@ from beat_tpu_torch.device import DTYPE, resolve
 from beat_tpu_torch.heart.taper import stf_spectrum_pair
 from beat_tpu_torch.ops.bilgather import bilinear_contract, bilinear_rows, pack_table
 from beat_tpu_torch.ops.cplx import cexp, cmul, irfft_basis, irfft_pair
+from beat_tpu_torch.profiling import span
 
 logger = logging.getLogger("beat_tpu_torch.heart.gftable")
 
@@ -192,17 +193,19 @@ class GreensTable(nn.Module):
         K2c, and the autograd of the outer product (a matmul: two in the
         backward) turns K2c's (..., T, 4, 6) into the weights' and the
         moment tensor's cotangents.  No (..., T, 6, nf, 2) rows are made."""
-        de = station_east - east_shift[..., None]
-        dn = station_north - north_shift[..., None]
-        distance = torch.sqrt(de**2 + dn**2)
-        azimuth = torch.atan2(de, dn)
-        cd, z0, w4 = self._corner_queries(distance, depth, comp_idx)
-        m6_ray = rotate_m6_to_ray_frame(m6[..., None, :], azimuth)   # (..., T, 6)
-        dt = self.packed.dtype
-        A = w4.to(dt)[..., :, None] @ m6_ray.to(dt)[..., None, :]
+        with span("fullmt.queries"):
+            de = station_east - east_shift[..., None]
+            dn = station_north - north_shift[..., None]
+            distance = torch.sqrt(de**2 + dn**2)
+            azimuth = torch.atan2(de, dn)
+            cd, z0, w4 = self._corner_queries(distance, depth, comp_idx)
+            m6_ray = rotate_m6_to_ray_frame(m6[..., None, :], azimuth)   # (..., T, 6)
+            dt = self.packed.dtype
+            A = w4.to(dt)[..., :, None] @ m6_ray.to(dt)[..., None, :]
         spec = self.contract_fn(self.packed, cd, z0, A).reshape(cd.shape + (self.nf, 2))
         if filter_response is not None:
-            spec = cmul(spec, filter_response)
+            with span("fullmt.filter"):
+                spec = cmul(spec, filter_response)
         return spec
 
     def synthesize_spectra(self, m6, east_shift, north_shift, depth, time_shift,
@@ -213,10 +216,11 @@ class GreensTable(nn.Module):
         traces starting at ``t0``."""
         spec = self.point_spectra(m6, east_shift, north_shift, depth, station_east,
                                   station_north, comp_idx, filter_response)
-        w = 2.0 * math.pi * self.freqs
-        phasor = cexp(-w * time_shift[..., None])
-        stf = stf_spectrum_pair(self.freqs, duration, stf_type)
-        return cmul(spec, cmul(phasor, stf)[..., None, :, :])
+        with span("fullmt.phasors"):
+            w = 2.0 * math.pi * self.freqs
+            phasor = cexp(-w * time_shift[..., None])
+            stf = stf_spectrum_pair(self.freqs, duration, stf_type)
+            return cmul(spec, cmul(phasor, stf)[..., None, :, :])
 
     def to_time_domain(self, spec: torch.Tensor) -> torch.Tensor:
         """Full-length traces from (…, nf, 2) pair spectra."""

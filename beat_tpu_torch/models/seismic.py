@@ -35,6 +35,7 @@ from beat_tpu_torch.distributions import multivariate_normal_chol_batched
 from beat_tpu_torch.heart.taper import stf_spectrum_pair
 from beat_tpu_torch.models.base import Composite, wavemap_hyper_terms
 from beat_tpu_torch.ops.cplx import amplitude_spectrum, cexp, cmul, from_np_complex
+from beat_tpu_torch.profiling import span
 from beat_tpu_torch.sources import (SQRT2, CLVDSource, DCSource, DoubleDCSource,
                                     ExplosionSource, MTQTSource, MTSource, RectangularSource,
                                     RingfaultSource, magnitude_to_moment, matrix_to_m6,
@@ -394,11 +395,14 @@ class SeismicGeometryComposite(Composite):
             for w, d, spec in zip(w_idxs, devs, torch.split(spec_total, sizes, dim=-3)):
                 wmap = self.wavemaps[w]
                 if wmap.station_corrections:
-                    shifts = torch.stack([point[n].reshape(n_chains)
-                                          for n in wmap.time_shift_names()], dim=-1)
-                    spec = cmul(spec, cexp(-2.0 * math.pi * table.freqs * shifts[..., None]))
-                out[w] = table.synthesize_windows_fused(spec, d["win_basis_c"],
-                                                        d["win_basis_s"])
+                    with span("fullmt.phasors"):
+                        shifts = torch.stack([point[n].reshape(n_chains)
+                                              for n in wmap.time_shift_names()], dim=-1)
+                        spec = cmul(spec, cexp(-2.0 * math.pi * table.freqs
+                                               * shifts[..., None]))
+                with span("fullmt.idft"):
+                    out[w] = table.synthesize_windows_fused(spec, d["win_basis_c"],
+                                                            d["win_basis_s"])
         return out
 
     def synthetics_fit_all(self, point: dict, data=None) -> list:
@@ -425,12 +429,13 @@ class SeismicGeometryComposite(Composite):
     def _loglike(self, point: dict, synths: list, data: list) -> torch.Tensor:
         ref = next(iter(point.values()))
         total = 0.0
-        for w_idx, synth in enumerate(synths):
-            dev, wmap = data[w_idx], self.wavemaps[w_idx]
-            llks = multivariate_normal_chol_batched(
-                dev["data"] - synth, dev["weights"], dev["slog_pdets"],
-                self._hyper_vector(point, wmap, ref.shape[0], ref.device), dev["nsamples"])
-            total = total + torch.sum(llks, dim=-1)
+        with span("fullmt.misfit"):
+            for w_idx, synth in enumerate(synths):
+                dev, wmap = data[w_idx], self.wavemaps[w_idx]
+                llks = multivariate_normal_chol_batched(
+                    dev["data"] - synth, dev["weights"], dev["slog_pdets"],
+                    self._hyper_vector(point, wmap, ref.shape[0], ref.device), dev["nsamples"])
+                total = total + torch.sum(llks, dim=-1)
         return total
 
     def loglike(self, point: dict, data=None) -> torch.Tensor:

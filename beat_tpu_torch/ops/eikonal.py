@@ -28,6 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from beat_tpu_torch.profiling import count, span
+
 _INIT_TIME = 1e8
 _EPSILON = 0.1
 #: iterations between two host reads of ``active.any()``
@@ -71,22 +73,27 @@ def eikonal_rupture_times(slowness: torch.Tensor, patch_size: float,
     if max_iter is None:
         max_iter = 4 * (n_dip + n_strike) + 16
 
-    fh = slowness * patch_size
-    nuc_mask = torch.zeros_like(slowness, dtype=torch.bool)
-    nuc_mask[torch.arange(n_chains, device=slowness.device),
-             nuc_dip_idx.long(), nuc_strike_idx.long()] = True
-    times = torch.where(nuc_mask, 0.0, torch.full_like(slowness, _INIT_TIME))
-    active = torch.ones(n_chains, dtype=torch.bool, device=slowness.device)
+    with span("eikonal.solve"):
+        fh = slowness * patch_size
+        nuc_mask = torch.zeros_like(slowness, dtype=torch.bool)
+        nuc_mask[torch.arange(n_chains, device=slowness.device),
+                 nuc_dip_idx.long(), nuc_strike_idx.long()] = True
+        times = torch.where(nuc_mask, 0.0, torch.full_like(slowness, _INIT_TIME))
+        active = torch.ones(n_chains, dtype=torch.bool, device=slowness.device)
 
-    for it in range(max_iter):
-        if it and it % CHECK_EVERY == 0 and not bool(active.any()):
-            break
-        new = _upwind_update(times, fh)
-        new = torch.where(nuc_mask, 0.0, new)
-        new = torch.where(active[:, None, None], new, times)
-        # a frozen chain's change is 0, so it stays frozen
-        active = torch.sum((new - times) ** 2, dim=(1, 2)) > epsilon
-        times = new
+        iterations = 0      # run, the masked no-ops up to the next check included
+        for it in range(max_iter):
+            if it and it % CHECK_EVERY == 0 and not bool(active.any()):
+                break
+            new = _upwind_update(times, fh)
+            new = torch.where(nuc_mask, 0.0, new)
+            new = torch.where(active[:, None, None], new, times)
+            # a frozen chain's change is 0, so it stays frozen
+            active = torch.sum((new - times) ** 2, dim=(1, 2)) > epsilon
+            times = new
+            iterations += 1
+        count("eikonal.solves")
+        count("eikonal.iterations", iterations)
     return times
 
 

@@ -1,17 +1,29 @@
 """
-Structured profiling: per-stage timing registry and torch profiler hooks
-(port of ``beat_tpu/profiling.py``).
+Structured profiling: the per-stage timing registry, the program's spans
+and counters, and torch profiler hooks (port of ``beat_tpu/profiling.py``,
+with the spans added).
 
 * :class:`TimingRegistry` / :func:`stage_timer` — the samplers record
   each stage's wall-clock and evaluation count; ``timings.report()``
   gives a structured dict (also written beside the stages as
-  ``timings.json`` when sampling with a homepath).
-* :func:`time_method` — decorator recording call durations.
+  ``timings.json`` when sampling with a homepath).  A stage timer given
+  a ``span_name`` records the same interval as that span too.
+* :func:`span` / :func:`count` — named intervals and integer counters
+  where the work happens (the SMC stage, the stage files, the Metropolis
+  step, the FullMT forward, the eikonal).  Off by default: ``span``
+  then returns one shared no-op object and ``count`` returns at once.
+  :func:`enable_spans` turns them on; each span then records its name,
+  start and end (``time.perf_counter_ns``), its parent on its thread, its
+  thread and the inversion it belongs to, and, opened inside a profiled
+  block, enters ``torch.profiler.record_function(name)``, so the block's
+  trace shows it beside the CUDA records.  :func:`carry` runs a function on another
+  thread as part of the current inversion.  Records stay in memory until
+  :func:`reset_spans`; :func:`span_snapshot` returns them with the
+  counters and per name the count, total and self seconds, and
+  :func:`span_summary` prints that table.
 * :func:`torch_trace` — a ``torch.profiler`` trace around a block,
   written as a Chrome trace (``trace_<ns>.json``) into ``logdir``; activated
   for sampling runs by ``BEAT_TPU_PROFILE_DIR`` or ``sample --profile``.
-* :func:`annotate` — a named region of such a trace
-  (``torch.profiler.record_function``).
 * :func:`slope_time` / :func:`time_per_sample` — seconds per evaluation
   of a chain-batched logp by the two-length slope method, with CUDA
   events on the card.  ``time_per_sample`` passes the data to the logp
@@ -21,12 +33,16 @@ Structured profiling: per-stage timing registry and torch profiler hooks
 from __future__ import annotations
 
 import contextlib
-import functools
+import itertools
 import json
 import logging
 import os
+import threading
 import time
+from collections import defaultdict
 from dataclasses import dataclass, field
+
+import torch
 
 logger = logging.getLogger("beat_tpu_torch.profiling")
 
@@ -92,28 +108,214 @@ class TimingRegistry:
 timings = TimingRegistry()
 
 
+# ---------------------------------------------------------------------------
+# spans and counters
+# ---------------------------------------------------------------------------
+
+#: whether spans and counters record (:func:`enable_spans`)
+_on = False
+_lock = threading.Lock()
+_local = threading.local()      # .stack: open spans of the thread; .inversion: carried id
+_ids = itertools.count(1)
+_records: list = []
+_counters: dict = {}
+
+
+class _NoSpan:
+    """What :func:`span` returns while spans are off: one shared object
+    that records nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return None
+
+
+_NO_SPAN = _NoSpan()
+
+
+class Span:
+    """One recorded interval (see :func:`span`)."""
+
+    __slots__ = ("name", "attrs", "root", "id", "parent", "thread", "inversion",
+                 "start_ns", "end_ns", "_region")
+
+    def __init__(self, name: str, attrs: dict, root: bool = False):
+        self.name, self.attrs, self.root = name, attrs, root
+        self.start_ns = self.end_ns = None
+
+    def open(self, t_ns: int) -> "Span":
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        top = stack[-1] if stack else None
+        self.id = next(_ids)
+        self.parent = top.id if top is not None else None
+        self.thread = threading.get_ident()
+        if self.root:
+            self.inversion = self.id
+        else:
+            self.inversion = top.inversion if top is not None else getattr(_local, "inversion",
+                                                                           None)
+        # a profile records a region only if it was recording when the region
+        # opened; entering one outside a profile costs ~14 us and records nothing
+        if torch._C._autograd._profiler_enabled():
+            self._region = torch.profiler.record_function(self.name)
+            self._region.__enter__()
+        else:
+            self._region = None
+        stack.append(self)
+        self.start_ns = t_ns
+        return self
+
+    def close(self, t_ns: int) -> None:
+        self.end_ns = t_ns
+        _local.stack.pop()
+        if self._region is not None:
+            self._region.__exit__(None, None, None)
+            self._region = None
+        with _lock:
+            _records.append(self)
+
+    def __enter__(self):
+        return self.open(time.perf_counter_ns())
+
+    def __exit__(self, *exc):
+        self.close(time.perf_counter_ns())
+        return None
+
+    def as_dict(self) -> dict:
+        return {"name": self.name, "id": self.id, "parent": self.parent, "thread": self.thread,
+                "inversion": self.inversion, "start_ns": self.start_ns, "end_ns": self.end_ns,
+                "attrs": dict(self.attrs)}
+
+
+def span(name: str, root: bool = False, **attrs):
+    """A context manager around one named interval of the program.
+
+    Off (the default), it returns one shared no-op object.  On, it
+    records a :class:`Span`: name, ``attrs``, start and end, the span
+    open around it on this thread (its parent), the thread, and the id of
+    the inversion it belongs to: its own id with ``root=True`` (an
+    inversion's outermost span), else its parent's, else the one
+    :func:`carry` brought to this thread.  Opened while a
+    ``torch.profiler`` profile records, it also enters
+    ``torch.profiler.record_function(name)``.  Spans never
+    read the device, so they change no result and add no
+    synchronisation."""
+    if not _on:
+        return _NO_SPAN
+    return Span(name, attrs, root)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add the host integer ``n`` to counter ``name`` (nothing while spans
+    are off)."""
+    if not _on:
+        return
+    with _lock:
+        _counters[name] = _counters.get(name, 0) + n
+
+
+def carry(fn):
+    """``fn``, to be run on another thread as part of the inversion open
+    on this one (the SMC's stage saver): spans it opens there carry the
+    inversion's id.  ``fn`` itself while spans are off or no inversion is
+    open."""
+    if not _on:
+        return fn
+    stack = getattr(_local, "stack", None)
+    inversion = stack[-1].inversion if stack else getattr(_local, "inversion", None)
+    if inversion is None:
+        return fn
+
+    def carried(*args, **kwargs):
+        before = getattr(_local, "inversion", None)
+        _local.inversion = inversion
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _local.inversion = before
+
+    return carried
+
+
+def enable_spans(on: bool = True) -> bool:
+    """Turn spans and counters on or off; returns the previous setting.
+    Records made so far stay (see :func:`reset_spans`)."""
+    global _on
+    before, _on = _on, bool(on)
+    return before
+
+
+def reset_spans() -> None:
+    """Drop every closed span and every counter (spans open now are kept
+    when they close)."""
+    with _lock:
+        _records.clear()
+        _counters.clear()
+
+
+def span_snapshot() -> dict:
+    """The spans closed so far and the counters, with per span name its
+    ``count``, ``total_s`` and ``self_s`` (its time less what its child
+    spans on its thread cover)::
+
+        {"spans": [Span.as_dict()...], "counters": {name: int},
+         "by_name": {name: {"count", "total_s", "self_s"}}}
+    """
+    with _lock:
+        records = list(_records)
+        counters = dict(_counters)
+    children_ns = defaultdict(int)
+    for s in records:
+        if s.parent is not None:
+            children_ns[s.parent] += s.end_ns - s.start_ns
+    by_name = {}
+    for s in records:
+        dur = s.end_ns - s.start_ns
+        row = by_name.setdefault(s.name, {"count": 0, "total_s": 0.0, "self_s": 0.0})
+        row["count"] += 1
+        row["total_s"] += dur / 1e9
+        row["self_s"] += max(dur - children_ns.get(s.id, 0), 0) / 1e9
+    return {"spans": [s.as_dict() for s in records], "counters": counters, "by_name": by_name}
+
+
+def span_summary(snapshot: dict | None = None) -> str:
+    """Per span name its count, total and self seconds, then the
+    counters, as lines of text."""
+    snap = span_snapshot() if snapshot is None else snapshot
+    lines = [f"{'span':<24} {'count':>8} {'total':>12} {'self':>12}"]
+    for name, row in sorted(snap["by_name"].items(), key=lambda kv: -kv[1]["total_s"]):
+        lines.append(f"{name:<24} {row['count']:>8d} {row['total_s']:>10.3f} s "
+                     f"{row['self_s']:>10.3f} s")
+    for name, value in sorted(snap["counters"].items()):
+        lines.append(f"{name:<24} {value:>8d}")
+    return "\n".join(lines)
+
+
 @contextlib.contextmanager
-def stage_timer(name: str, n_evals: int | None = None, registry=None, **extra):
-    """Record a named stage's wall-clock into the registry."""
+def stage_timer(name: str, n_evals: int | None = None, registry=None,
+                span_name: str | None = None, span_attrs: dict | None = None, **extra):
+    """Record a named stage's wall-clock into the registry; with
+    ``span_name`` the same interval is also recorded as that span
+    (attributes ``span_attrs`` and ``extra``) while spans are on."""
     reg = registry if registry is not None else timings
-    t0 = time.perf_counter()
+    t0 = time.perf_counter_ns()
+    rec_span = (Span(span_name, dict(span_attrs or {}, **extra)).open(t0)
+                if span_name and _on else None)
     try:
         yield
     finally:
-        rec = reg.add(name, time.perf_counter() - t0, n_evals, **extra)
+        t1 = time.perf_counter_ns()
+        if rec_span is not None:
+            rec_span.close(t1)
+        rec = reg.add(name, (t1 - t0) / 1e9, n_evals, **extra)
         logger.debug("%s: %.3f s%s", name, rec.wall_s,
                      f" ({rec.evals_per_s:.1f} evals/s)" if rec.evals_per_s else "")
-
-
-def time_method(fn):
-    """Decorator recording each call's duration."""
-
-    @functools.wraps(fn)
-    def wrapped(*args, **kwargs):
-        with stage_timer(fn.__qualname__):
-            return fn(*args, **kwargs)
-
-    return wrapped
 
 
 @contextlib.contextmanager
@@ -127,7 +329,6 @@ def torch_trace(logdir: str | None = None):
     if not logdir:
         yield None
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(logdir, exist_ok=True)
@@ -141,14 +342,6 @@ def torch_trace(logdir: str | None = None):
     logger.info("torch profiler trace -> %s", path)
 
 
-def annotate(name: str):
-    """A named region inside a traced block (shows in the trace's
-    timeline)."""
-    import torch
-
-    return torch.profiler.record_function(name)
-
-
 def slope_time(run, n_lo: int = 2, n_hi: int = 32, reps: int = 3, device=None) -> float:
     """
     Seconds per iteration by the two-length slope method: the best of
@@ -158,8 +351,6 @@ def slope_time(run, n_lo: int = 2, n_hi: int = 32, reps: int = 3, device=None) -
     first (warm-up).  On a CUDA ``device`` the time is read from CUDA
     events around the call, otherwise from the host clock.
     """
-    import torch
-
     cuda = device is not None and torch.device(device).type == "cuda"
     run(n_lo, 0)
     run(n_hi, 0)
@@ -191,8 +382,6 @@ def time_per_sample(logp_fn, q, logp_args=(), n_lo: int = 2, n_hi: int = 32) -> 
     Each repetition moves ``q`` by a tiny amount so no evaluation repeats
     the previous one's inputs exactly.
     """
-    import torch
-
     def run(n, rep):
         x = q + 1e-7 * rep
         with torch.no_grad():

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from beat_tpu_torch.device import DTYPE, resolve
+from beat_tpu_torch.profiling import span
 from beat_tpu_torch.samplers.base import GRADIENT_KERNELS, choose_proposal
 
 _TUNE_TABLE = ((lambda a: a < 0.001, 0.1), (lambda a: a < 0.05, 0.5),
@@ -186,24 +187,28 @@ def metropolis_step(logp_fn: Callable, state: MetropolisState, step_idx: int, be
     feed both packages the same numbers).  ``block``: the state's rows of
     a larger population (module docstring); ``noise`` is then the whole
     population's."""
-    proposal = proposal or choose_proposal("MultivariateNormal")
-    rows, n_all = _block_rows(block, state.q.shape[0])
-    scaling, accepted = state.scaling, state.accepted
-    if step_idx > 0 and step_idx % tune_interval == 0:
-        scaling = tune_scale(scaling, accepted / tune_interval)
-        accepted = torch.zeros_like(accepted)
+    with span("metropolis.step"):
+        with span("metropolis.propose"):
+            proposal = proposal or choose_proposal("MultivariateNormal")
+            rows, n_all = _block_rows(block, state.q.shape[0])
+            scaling, accepted = state.scaling, state.accepted
+            if step_idx > 0 and step_idx % tune_interval == 0:
+                scaling = tune_scale(scaling, accepted / tune_interval)
+                accepted = torch.zeros_like(accepted)
 
-    z, u = noise if noise is not None else (None, None)
-    q_prop = state.q + proposal(generator, n_all, cov_chol, z)[rows] * scaling[:, None]
-    in_bounds = torch.all((q_prop >= lower) & (q_prop <= upper), dim=-1)
-    # evaluate clipped into the box; out-of-bounds results are rejected
-    llk_prop = logp_fn(torch.clamp(q_prop, lower, upper), *logp_args)
+            z, u = noise if noise is not None else (None, None)
+            q_prop = state.q + proposal(generator, n_all, cov_chol, z)[rows] * scaling[:, None]
+            in_bounds = torch.all((q_prop >= lower) & (q_prop <= upper), dim=-1)
+            q_eval = torch.clamp(q_prop, lower, upper)
+        # evaluate clipped into the box; out-of-bounds results are rejected
+        llk_prop = logp_fn(q_eval, *logp_args)
 
-    if u is None:
-        u = torch.rand(n_all, generator=generator, dtype=DTYPE, device=state.q.device)
-    log_ratio = beta * (llk_prop - state.llk)
-    accept = in_bounds & torch.isfinite(llk_prop) & (torch.log(u[rows]) < log_ratio)
-    return _accepted_state(state, scaling, accepted, accept, q_prop, llk_prop)
+        with span("metropolis.accept"):
+            if u is None:
+                u = torch.rand(n_all, generator=generator, dtype=DTYPE, device=state.q.device)
+            log_ratio = beta * (llk_prop - state.llk)
+            accept = in_bounds & torch.isfinite(llk_prop) & (torch.log(u[rows]) < log_ratio)
+            return _accepted_state(state, scaling, accepted, accept, q_prop, llk_prop)
 
 
 @torch.no_grad()
@@ -216,31 +221,34 @@ def mala_step(logp_fn: Callable, state: MetropolisState, grad: torch.Tensor, ste
     correction.  ``grad`` is ∇llk at ``state.q``; returns the new
     ``(state, grad)``.  ``noise = (xi, u)`` injects the (n, dim) normal
     and (n,) uniform draws; ``block`` as for :func:`metropolis_step`."""
-    scaling, accepted = _retuned(state, step_idx, tune_interval, MALA_TARGET_ACC)
-    xi, u = _draw_pair(generator, state, block, noise)
+    with span("metropolis.step"):
+        with span("metropolis.propose"):
+            scaling, accepted = _retuned(state, step_idx, tune_interval, MALA_TARGET_ACC)
+            xi, u = _draw_pair(generator, state, block, noise)
 
-    beta, beta_col = _beta_pair(beta, state.q)
-    eps = scaling[:, None]
-    half = 0.5 * eps * eps * beta_col
-    mean_fwd = state.q + half * _sigma_dot(grad, cov_chol)
-    q_prop = mean_fwd + eps * (xi @ cov_chol.T)
-    in_bounds = torch.all((q_prop >= lower) & (q_prop <= upper), dim=-1)
-    q_eval = torch.clamp(q_prop, lower, upper)
-    llk_prop, grad_prop = value_and_grad(logp_fn, q_eval, logp_args)
+            beta, beta_col = _beta_pair(beta, state.q)
+            eps = scaling[:, None]
+            half = 0.5 * eps * eps * beta_col
+            mean_fwd = state.q + half * _sigma_dot(grad, cov_chol)
+            q_prop = mean_fwd + eps * (xi @ cov_chol.T)
+            in_bounds = torch.all((q_prop >= lower) & (q_prop <= upper), dim=-1)
+            q_eval = torch.clamp(q_prop, lower, upper)
+        llk_prop, grad_prop = value_and_grad(logp_fn, q_eval, logp_args)
 
-    def log_g(x, mean):
-        # log N(x; mean, ε²Σ) without the terms symmetric in ε and |Σ|
-        z = torch.linalg.solve_triangular(cov_chol, (x - mean).T, upper=False)   # (dim, n)
-        return -0.5 * torch.sum((z / eps.T) ** 2, dim=0)
+        def log_g(x, mean):
+            # log N(x; mean, ε²Σ) without the terms symmetric in ε and |Σ|
+            z = torch.linalg.solve_triangular(cov_chol, (x - mean).T, upper=False)  # (dim, n)
+            return -0.5 * torch.sum((z / eps.T) ** 2, dim=0)
 
-    mean_rev = q_eval + half * _sigma_dot(grad_prop, cov_chol)
-    log_ratio = (beta * (llk_prop - state.llk)
-                 + log_g(state.q, mean_rev) - log_g(q_eval, mean_fwd))
-    ok = (in_bounds & torch.isfinite(llk_prop)
-          & torch.all(torch.isfinite(grad_prop), dim=-1))
-    accept = ok & (torch.log(u) < log_ratio)
-    return (_accepted_state(state, scaling, accepted, accept, q_eval, llk_prop),
-            torch.where(accept[:, None], grad_prop, grad))
+        with span("metropolis.accept"):
+            mean_rev = q_eval + half * _sigma_dot(grad_prop, cov_chol)
+            log_ratio = (beta * (llk_prop - state.llk)
+                         + log_g(state.q, mean_rev) - log_g(q_eval, mean_fwd))
+            ok = (in_bounds & torch.isfinite(llk_prop)
+                  & torch.all(torch.isfinite(grad_prop), dim=-1))
+            accept = ok & (torch.log(u) < log_ratio)
+            return (_accepted_state(state, scaling, accepted, accept, q_eval, llk_prop),
+                    torch.where(accept[:, None], grad_prop, grad))
 
 
 @torch.no_grad()
@@ -257,36 +265,39 @@ def hmc_step(logp_fn: Callable, state: MetropolisState, grad: torch.Tensor, step
     :func:`metropolis_step`."""
     if n_leapfrog < 1:
         raise ValueError(f"HMC needs n_leapfrog >= 1, got {n_leapfrog}")
-    scaling, accepted = _retuned(state, step_idx, tune_interval, HMC_TARGET_ACC)
-    xi, u = _draw_pair(generator, state, block, noise)
-
     def kinetic(p):
         return 0.5 * torch.sum((p @ cov_chol) ** 2, dim=-1)
 
-    beta, beta_col = _beta_pair(beta, state.q)
-    eps = scaling[:, None]
-    kick = eps * beta_col
-    p0 = torch.linalg.solve_triangular(cov_chol.T, xi.T, upper=True).T
-    k0 = kinetic(p0)
-    # half-kick with the carried gradient, then (drift, kick) × n_leapfrog
-    p = p0 + 0.5 * kick * grad
-    q = state.q
-    for _ in range(n_leapfrog):
-        q = q + eps * _sigma_dot(p, cov_chol)
-        llk_prop, grad_prop = value_and_grad(logp_fn, torch.clamp(q, lower, upper), logp_args)
-        p = p + kick * grad_prop
-    # the loop applied a FULL final kick; take half of it back
-    p = p - 0.5 * kick * grad_prop
+    with span("metropolis.step"):
+        with span("metropolis.propose"):
+            scaling, accepted = _retuned(state, step_idx, tune_interval, HMC_TARGET_ACC)
+            xi, u = _draw_pair(generator, state, block, noise)
+            beta, beta_col = _beta_pair(beta, state.q)
+            eps = scaling[:, None]
+            kick = eps * beta_col
+            p0 = torch.linalg.solve_triangular(cov_chol.T, xi.T, upper=True).T
+            k0 = kinetic(p0)
+        # half-kick with the carried gradient, then (drift, kick) × n_leapfrog
+        p = p0 + 0.5 * kick * grad
+        q = state.q
+        for _ in range(n_leapfrog):
+            q = q + eps * _sigma_dot(p, cov_chol)
+            llk_prop, grad_prop = value_and_grad(logp_fn, torch.clamp(q, lower, upper),
+                                                 logp_args)
+            p = p + kick * grad_prop
+        # the loop applied a FULL final kick; take half of it back
+        p = p - 0.5 * kick * grad_prop
 
-    in_bounds = torch.all((q >= lower) & (q <= upper), dim=-1)
-    log_ratio = beta * (llk_prop - state.llk) + k0 - kinetic(p)
-    ok = (in_bounds & torch.isfinite(llk_prop)
-          & torch.all(torch.isfinite(grad_prop), dim=-1)
-          & torch.all(torch.isfinite(p), dim=-1))
-    accept = ok & (torch.log(u) < log_ratio)
-    return (_accepted_state(state, scaling, accepted, accept,
-                            torch.clamp(q, lower, upper), llk_prop),
-            torch.where(accept[:, None], grad_prop, grad))
+        with span("metropolis.accept"):
+            in_bounds = torch.all((q >= lower) & (q <= upper), dim=-1)
+            log_ratio = beta * (llk_prop - state.llk) + k0 - kinetic(p)
+            ok = (in_bounds & torch.isfinite(llk_prop)
+                  & torch.all(torch.isfinite(grad_prop), dim=-1)
+                  & torch.all(torch.isfinite(p), dim=-1))
+            accept = ok & (torch.log(u) < log_ratio)
+            return (_accepted_state(state, scaling, accepted, accept,
+                                    torch.clamp(q, lower, upper), llk_prop),
+                    torch.where(accept[:, None], grad_prop, grad))
 
 
 def run_metropolis_stage(logp_fn: Callable, state: MetropolisState, beta,

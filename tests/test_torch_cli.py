@@ -220,6 +220,7 @@ def lifecycle(tmp_path_factory):
                           cwd=root, env=port_env(), capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("OK")
+    (root / "stdout.txt").write_text(proc.stdout)
     jdir = pdir + "_jax"
     assert run_jax("build_gfs", jdir, "--mode", "geometry", "--datatypes", "seismic") == 0
     os.makedirs(os.path.join(jdir, "geometry"))
@@ -280,6 +281,15 @@ def test_lifecycle_outputs(lifecycle):
     assert len(traces) == len(stages) and all(t.startswith("trace_") for t in traces)
     with open(os.path.join(out, "timings.json")) as f:
         assert len(json.load(f)["stages"]) == len(stages)
+    # sample --profile turns the spans on and prints them after the stage timings
+    with open(os.path.join(os.path.dirname(pdir), "stdout.txt")) as f:
+        printed = f.read()
+    assert printed.index("smc_stage_-1") < printed.index("smc.sample")
+    for name in ("smc.stage", "stage.write", "metropolis.step", "fullmt.idft", "stage.bytes"):
+        assert name in printed, name
+    for trace_file in traces:
+        with open(os.path.join(pdir, "profile", trace_file)) as f:
+            assert any(e.get("name") == "metropolis.step" for e in json.load(f)["traceEvents"])
     figures = set(os.listdir(os.path.join(out, "figures")))
     assert {"stage_posteriors.png", "waveform_fits_any_P_0.png", "hudson.png",
             "fuzzy_beachball.png"} <= figures
