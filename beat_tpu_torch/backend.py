@@ -2,8 +2,11 @@
 Stage checkpoints of the samplers (copied from ``beat_tpu/backend.py``,
 trimmed to what the port calls).
 
-The files are those of the JAX package, byte for byte in layout, so
-either package reads the other's runs:
+The files are those of the JAX package, so either package reads the
+other's runs: the ``.npz`` container, its members and their decompressed
+bytes are numpy's (``np.savez_compressed``), but each member's deflate
+stream is written in chunks on a pool of host threads
+(:mod:`beat_tpu_torch.npzwrite`), so its compressed bytes differ:
 
     <homepath>/stage_<n>/trace.npz   q (n_rec, n_chains, dim) f32, llk f32
     <homepath>/stage_<n>/state.npz   the array entries of the stage state
@@ -27,25 +30,27 @@ import tempfile
 
 import numpy as np
 
+from beat_tpu_torch.npzwrite import savez_deflated, shared_pool
 from beat_tpu_torch.profiling import count, span
 
 logger = logging.getLogger("beat_tpu_torch.backend")
 
 
-def _atomic_save(path: str, **arrays) -> None:
-    """Write an npz atomically (tmp file + rename) so crashes can't corrupt."""
+def _atomic_save(path: str, **arrays) -> int:
+    """Write an npz atomically (tmp file + rename) so crashes can't corrupt;
+    returns the bytes deflated on the pool (:func:`savez_deflated`)."""
     d = os.path.dirname(path)
     os.makedirs(d, exist_ok=True)
-    # the suffix must be .npz: np.savez appends it otherwise, and the
-    # rename would move an empty placeholder file
+    # the suffix marks a write that never finished, as the JAX package's does
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp.npz")
     os.close(fd)
     try:
-        np.savez_compressed(tmp, **arrays)
+        pooled = savez_deflated(tmp, arrays)
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
+    return pooled
 
 
 class StageTrace:
@@ -114,10 +119,10 @@ class SampleStage:
         scalars = {k: v for k, v in state.items() if not isinstance(v, np.ndarray)}
         traced = {"q": np.asarray(trace["q"], dtype=np.float32),
                   "llk": np.asarray(trace["llk"], dtype=np.float32)}
-        with span("stage.write", stage=stage):
+        with span("stage.write", stage=stage, workers=shared_pool()[1]):
             count("stage.bytes", sum(a.nbytes for a in (*traced.values(), *arrays.values())))
-            _atomic_save(self._trace_file(stage), **traced)
-            _atomic_save(self._state_file(stage), **arrays)
+            count("stage.pool_bytes", _atomic_save(self._trace_file(stage), **traced)
+                  + _atomic_save(self._state_file(stage), **arrays))
             meta = {
                 "scalars": scalars,
                 "shape_q": list(np.asarray(trace["q"]).shape),

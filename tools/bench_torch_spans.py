@@ -16,6 +16,10 @@ prints what the spans read over it:
                           the window, per cent
 ``stage_write_mb_per_s``  ``stage.bytes`` / 1e6 over the seconds in
                           ``stage.write``
+``pool_share``            ``stage.pool_bytes`` over ``stage.bytes``: the
+                          share deflated in chunks on the writer's pool
+                          (``pool_workers``: its size, the writes'
+                          ``workers`` attribute)
 ``write_step_slowdown``   the mean ``metropolis.step`` that overlaps a
                           ``stage.write`` on another thread over the mean
                           of those that overlap none, less 1, per cent
@@ -65,7 +69,7 @@ def _overlap(a0, a1, b0, b1) -> int:
 
 
 def span_readings(snap: dict, t0_ns: int, t1_ns: int, main_thread: int) -> dict:
-    """The four span readings of one window ``[t0_ns, t1_ns]`` (None
+    """The span readings of one window ``[t0_ns, t1_ns]`` (None
     where the window has nothing to read)."""
     spans = snap["spans"]
     window = t1_ns - t0_ns
@@ -74,6 +78,7 @@ def span_readings(snap: dict, t0_ns: int, t1_ns: int, main_thread: int) -> dict:
     writes = [s for s in spans if s["name"] == "stage.write"]
     write_ns = sum(_dur(s) for s in writes)
     written = snap["counters"].get("stage.bytes", 0)
+    pooled = snap["counters"].get("stage.pool_bytes", 0)
     steps = [s for s in spans if s["name"] == "metropolis.step"]
     during, clear = [], []
     for st in steps:
@@ -86,6 +91,8 @@ def span_readings(snap: dict, t0_ns: int, t1_ns: int, main_thread: int) -> dict:
     return {
         "save_wait_share": 100.0 * waits / window if window > 0 else None,
         "stage_write_mb_per_s": (written / 1e6) / (write_ns / 1e9) if write_ns else None,
+        "pool_share": pooled / written if written else None,
+        "pool_workers": sorted({w["attrs"].get("workers") for w in writes} - {None}),
         "write_step_slowdown": (100.0 * (sum(during) * len(clear) / (sum(clear) * len(during))
                                          - 1.0) if during and clear else None),
         "eikonal_iter_us": solve_ns / 1e3 / iterations if iterations else None,
