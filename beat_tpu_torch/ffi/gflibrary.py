@@ -16,16 +16,18 @@ source durations and rupture-onset times.
 
 * **Construction** (:func:`seis_construct_gf_linear`): one broadcasted
   frequency-domain product per batch of patches, on the table's device,
-  spliced into a preallocated device tensor.  The patch spectra come from
-  ``GreensTable.point_spectra``, so the build launches K1 once per batch.
+  spliced into a preallocated device tensor of the storage type.  The
+  patch spectra come from ``GreensTable.point_spectra``, so the build
+  launches K1 once per batch.
 * **Stacking** (:meth:`SeismicGFLibrary.stack_all`): the index
   quantisation of the JAX package, then the all-chain stack through
   kernels K3/K4 (:func:`beat_tpu_torch.ops.gfstack.stack_batched`).
 * **Storage type**: float32, or bfloat16 at half the memory and bytes
-  read (``dtype=``, :meth:`SeismicGFLibrary.to_dtype`; the seismic
-  distributer composite stores its libraries so under
-  ``BEAT_TPU_STACK_DTYPE=bfloat16``, as the JAX package's does); the
-  stack sums in float32 either way.
+  read (``dtype=`` of the build or of the class,
+  :meth:`SeismicGFLibrary.to_dtype`; the seismic distributer composite
+  stores its libraries so under ``BEAT_TPU_STACK_DTYPE=bfloat16``, as the
+  JAX package's does); the stack sums in float32 either way.  A library
+  built as bfloat16 is never whole in float32 on the device.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from beat_tpu_torch.device import DTYPE
 from beat_tpu_torch.heart.taper import stf_spectrum_pair
 from beat_tpu_torch.ops.cplx import cexp, cmul, from_np_complex
 from beat_tpu_torch.ops.gfstack import stack_batched
+from beat_tpu_torch.profiling import count, span
 from beat_tpu_torch.sources import sdr_to_m6, tensile_m6
 
 logger = logging.getLogger("beat_tpu_torch.ffi.gflibrary")
@@ -298,7 +301,8 @@ def seis_construct_gf_linear(table, wavemap, fault, component="uparr",
                              duration_bounds=(0.5, 4.0), duration_sampling=0.5,
                              starttime_bounds=(0.0, 8.0), starttime_sampling=0.25,
                              shear_modulus=33e9, stf_type="HalfSinusoid",
-                             batch_patches: int = 8) -> SeismicGFLibrary:
+                             batch_patches: int = 8,
+                             dtype: torch.dtype = DTYPE) -> SeismicGFLibrary:
     """
     Build the 5-D kinematic library from the GF table, on the table's
     device: per batch of patches, the patch spectra (K1) times the STF
@@ -306,53 +310,67 @@ def seis_construct_gf_linear(table, wavemap, fault, component="uparr",
     grid, transformed to the time domain, chopped to each target's window
     and tapered.  The grids are inclusive aranges over the bounds at the
     given sampling.
+
+    ``dtype`` is the storage type (float32 or bfloat16): the library is
+    allocated in it and each batch's float32 windows are written into it,
+    each element converted once, as :meth:`SeismicGFLibrary.to_dtype`
+    converts it, so a bfloat16 build equals the float32 build converted,
+    bit for bit, without the float32 library on the device.  With the
+    program's spans on, the build is a ``gflibrary.build`` span
+    (attribute ``dtype``) and counts the stored bytes in
+    ``gflibrary.bytes``.
     """
-    durations = np.arange(duration_bounds[0], duration_bounds[1] + duration_sampling / 2,
-                          duration_sampling)
-    starttimes = np.arange(starttime_bounds[0], starttime_bounds[1] + starttime_sampling / 2,
-                           starttime_sampling)
-    patches = fault.get_all_patches()
-    npatches = len(patches)
-    nwin = wavemap.nsamples_win
-    dev = table.freqs.device
+    if dtype not in LIBRARY_DTYPES:
+        raise ValueError(f"library dtype {dtype} (float32 or bfloat16)")
+    with span("gflibrary.build", dtype=str(dtype).removeprefix("torch.")):
+        durations = np.arange(duration_bounds[0], duration_bounds[1] + duration_sampling / 2,
+                              duration_sampling)
+        starttimes = np.arange(starttime_bounds[0], starttime_bounds[1] + starttime_sampling / 2,
+                               starttime_sampling)
+        patches = fault.get_all_patches()
+        npatches = len(patches)
+        nwin = wavemap.nsamples_win
+        dev = table.freqs.device
 
-    freqs = table.freqs
-    w = 2.0 * math.pi * freqs
-    stf_grid = torch.stack([stf_spectrum_pair(freqs, float(d), stf_type)
-                            for d in durations])                          # (nd, nf, 2)
-    phasor_grid = cexp(-w[None, :] * torch.as_tensor(starttimes, dtype=DTYPE,
-                                                     device=dev)[:, None])   # (ns, nf, 2)
-    station_e = torch.as_tensor(wavemap.station_east, dtype=DTYPE, device=dev)
-    station_n = torch.as_tensor(wavemap.station_north, dtype=DTYPE, device=dev)
-    comp_idx = torch.as_tensor(wavemap.comp_idx, device=dev)
-    filt = torch.as_tensor(from_np_complex(wavemap.filter_response), device=dev)
-    win_starts = [int(s) for s in wavemap.window_starts]
-    taper_win = torch.as_tensor(wavemap.taper_window, dtype=DTYPE, device=dev)
+        freqs = table.freqs
+        w = 2.0 * math.pi * freqs
+        stf_grid = torch.stack([stf_spectrum_pair(freqs, float(d), stf_type)
+                                for d in durations])                          # (nd, nf, 2)
+        phasor_grid = cexp(-w[None, :] * torch.as_tensor(starttimes, dtype=DTYPE,
+                                                         device=dev)[:, None])   # (ns, nf, 2)
+        station_e = torch.as_tensor(wavemap.station_east, dtype=DTYPE, device=dev)
+        station_n = torch.as_tensor(wavemap.station_north, dtype=DTYPE, device=dev)
+        comp_idx = torch.as_tensor(wavemap.comp_idx, device=dev)
+        filt = torch.as_tensor(from_np_complex(wavemap.filter_response), device=dev)
+        win_starts = [int(s) for s in wavemap.window_starts]
+        taper_win = torch.as_tensor(wavemap.taper_window, dtype=DTYPE, device=dev)
 
-    m6s = patch_m6s(patches, component, shear_modulus).to(dev)
-    centers = torch.as_tensor(np.stack([p.center() for p in patches]), dtype=DTYPE,
-                              device=dev)
+        m6s = patch_m6s(patches, component, shear_modulus).to(dev)
+        centers = torch.as_tensor(np.stack([p.center() for p in patches]), dtype=DTYPE,
+                                  device=dev)
 
-    n_targets = station_e.shape[0]
-    data = torch.zeros((n_targets, npatches, len(durations), len(starttimes), nwin),
-                       dtype=DTYPE, device=dev)
-    n_b = max(1, int(batch_patches))
-    for i0 in range(0, npatches, n_b):
-        i1 = min(i0 + n_b, npatches)
-        spec = table.point_spectra(m6s[i0:i1], centers[i0:i1, 0], centers[i0:i1, 1],
-                                   centers[i0:i1, 2], station_e, station_n, comp_idx,
-                                   filt)                                  # (b, nt, nf, 2)
-        full = cmul(cmul(spec[:, :, None, None], stf_grid[None, None, :, None]),
-                    phasor_grid[None, None, None])                        # (b, nt, nd, ns, nf, 2)
-        traces = table.to_time_domain(full)
-        for t, start in enumerate(win_starts):
-            data[t, i0:i1] = traces[:, t, :, :, start:start + nwin] * taper_win
+        n_targets = station_e.shape[0]
+        data = torch.zeros((n_targets, npatches, len(durations), len(starttimes), nwin),
+                           dtype=dtype, device=dev)
+        n_b = max(1, int(batch_patches))
+        for i0 in range(0, npatches, n_b):
+            i1 = min(i0 + n_b, npatches)
+            spec = table.point_spectra(m6s[i0:i1], centers[i0:i1, 0], centers[i0:i1, 1],
+                                       centers[i0:i1, 2], station_e, station_n, comp_idx,
+                                       filt)                                  # (b, nt, nf, 2)
+            full = cmul(cmul(spec[:, :, None, None], stf_grid[None, None, :, None]),
+                        phasor_grid[None, None, None])                # (b, nt, nd, ns, nf, 2)
+            traces = table.to_time_domain(full)
+            for t, start in enumerate(win_starts):
+                data[t, i0:i1] = traces[:, t, :, :, start:start + nwin] * taper_win
 
-    logger.info("Built seismic GF library '%s': %s", component, tuple(data.shape))
-    return SeismicGFLibrary(
-        data, duration_min=float(durations[0]), duration_sampling=float(duration_sampling),
-        starttime_min=float(starttimes[0]), starttime_sampling=float(starttime_sampling),
-        component=component, device=dev)
+        logger.info("Built seismic GF library '%s': %s", component, tuple(data.shape))
+        lib = SeismicGFLibrary(
+            data, duration_min=float(durations[0]), duration_sampling=float(duration_sampling),
+            starttime_min=float(starttimes[0]), starttime_sampling=float(starttime_sampling),
+            component=component, device=dev, dtype=dtype)
+    count("gflibrary.bytes", lib.data.numel() * lib.data.element_size())
+    return lib
 
 
 def stack_all_numpy(lib: SeismicGFLibrary, durations, starttimes, slips,

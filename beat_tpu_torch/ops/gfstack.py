@@ -19,7 +19,10 @@ stack extrapolates, as the JAX package's does.
 * :func:`stack_batched` is the kernel wrapper: on CUDA tensors it
   launches ``csrc/gfstack.cu`` (or raises), on CPU tensors it runs the
   plain version.  ``.launches_multilinear`` and ``.launches_nearest``
-  count K3's and K4's launches.
+  count K3's and K4's launches.  With the program's spans on
+  (``profiling.enable_spans``) each call is a ``gfstack.stack`` span
+  (attributes ``variant`` and ``dtype``) and counts ``gfstack.calls``
+  and, on ``mma``, ``gfstack.mma_calls``.
 * :func:`plan_stack` picks the kernel variant and its tile sizes from the
   shapes: ``tiled`` (the cell tile of a patch in shared memory, serving a
   whole chain tile), ``gather`` (rows straight from the library) or, on a
@@ -52,6 +55,7 @@ from functools import lru_cache
 import torch
 
 from beat_tpu_torch.kernels.build import launch, load
+from beat_tpu_torch.profiling import count, span
 
 #: elements of one gathered (chains, T, P, N) corner the plain version
 #: holds at a time (1 GiB of float32)
@@ -410,6 +414,16 @@ def _launch(data, didx, sidx, slips, rtf, stf, plan: StackPlan) -> torch.Tensor:
     return out
 
 
+def _span(data: torch.Tensor, variant: str):
+    """The ``gfstack.stack`` span of one call, and its counters:
+    ``gfstack.calls``, and ``gfstack.mma_calls`` where the variant is
+    ``mma`` (``plain``: the CPU's plain version)."""
+    count("gfstack.calls")
+    if variant == "mma":
+        count("gfstack.mma_calls")
+    return span("gfstack.stack", variant=variant, dtype=str(data.dtype).removeprefix("torch."))
+
+
 def stack_batched(data: torch.Tensor, didx: torch.Tensor, sidx: torch.Tensor,
                   slips: torch.Tensor, rtf: torch.Tensor | None = None,
                   stf: torch.Tensor | None = None, variant: str | None = None) -> torch.Tensor:
@@ -433,7 +447,8 @@ def stack_batched(data: torch.Tensor, didx: torch.Tensor, sidx: torch.Tensor,
     and any failure raises."""
     _check(data, didx, sidx, slips, rtf, stf)
     if data.device.type == "cpu":
-        return stack_batched_reference(data, didx, sidx, slips, rtf, stf)
+        with _span(data, "plain"):
+            return stack_batched_reference(data, didx, sidx, slips, rtf, stf)
     if didx.shape[0] == 0 or data.shape[0] == 0 or data.shape[4] == 0:
         return torch.empty((didx.shape[0], data.shape[0], data.shape[4]),
                            dtype=torch.float32, device=data.device)
@@ -441,7 +456,8 @@ def stack_batched(data: torch.Tensor, didx: torch.Tensor, sidx: torch.Tensor,
     plan = plan_stack(T, P, D, S, N, didx.shape[0], corners=1 if rtf is None else 4,
                       variant=variant, aligned=data.data_ptr() % 16 == 0,
                       elem_bytes=data.element_size())
-    out = _launch(data, didx, sidx, slips, rtf, stf, plan)
+    with _span(data, plan.variant):
+        out = _launch(data, didx, sidx, slips, rtf, stf, plan)
     if rtf is not None:
         stack_batched.launches_multilinear += 1
     else:

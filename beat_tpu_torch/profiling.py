@@ -10,7 +10,8 @@ with the spans added).
   a ``span_name`` records the same interval as that span too.
 * :func:`span` / :func:`count` — named intervals and integer counters
   where the work happens (the SMC stage, the stage files, the Metropolis
-  step, the FullMT forward, the eikonal).  Off by default: ``span``
+  step, the FullMT forward, the eikonal, the kinematic library's build
+  and its stack).  Off by default: ``span``
   then returns one shared no-op object and ``count`` returns at once.
   :func:`enable_spans` turns them on; each span then records its name,
   start and end (``time.perf_counter_ns``), its parent on its thread, its

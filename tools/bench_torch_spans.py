@@ -26,13 +26,19 @@ prints what the spans read over it:
                           (None where either set is empty)
 ``eikonal_iter_us``       seconds in ``eikonal.solve`` × 1e6 over
                           ``eikonal.iterations``
+``mma_call_share``        ``gfstack.mma_calls`` over ``gfstack.calls``: the
+                          share of the stack's calls that ran K3's ``mma``
+                          variant (None where nothing was stacked)
 
 and the last spans-on window's stage files are judged, after every window
-has run, as the benchmark judges a run.  With ``--trace`` a second run follows: spans on from before its
-set-up, one window traced as the benchmark's ``--trace 1`` run traces
-it, and from that trace ``pair_arith_share`` (device seconds launched
-inside ``fullmt.filter`` or ``fullmt.phasors`` over those inside the
-benchmark's ``logp`` span) and the breakdown by the program's spans.
+has run, as the benchmark judges a run.  Spans are on through set-up in
+both runs, for ``library_gb``: ``gflibrary.bytes`` / 1e9, the kinematic
+libraries the set-up built (None where it built none).  With ``--trace``
+a second run follows: spans on from before its set-up, one window traced
+as the benchmark's ``--trace 1`` run traces it, and from that trace
+``pair_arith_share`` (device seconds launched inside ``fullmt.filter``
+or ``fullmt.phasors`` over those inside the benchmark's ``logp`` span)
+and the breakdown by the program's spans.
 ``--small`` runs the cell at the benchmark tests' CPU sizes.  The last
 line of standard output is one JSON object of everything printed.
 """
@@ -54,9 +60,9 @@ sys.path.insert(0, str(ROOT))
 #: the program's spans the trace's device operations and idle gaps are
 #: named by, with the benchmark's own (innermost first)
 PROGRAM_SPANS = ("fullmt.queries", "fullmt.filter", "fullmt.phasors", "fullmt.idft",
-                 "fullmt.misfit", "eikonal.solve", "metropolis.propose", "metropolis.accept",
-                 "metropolis.step", "smc.fetch", "smc.transition", "smc.save_wait",
-                 "smc.stage", "stage.write", "smc.sample")
+                 "fullmt.misfit", "eikonal.solve", "gfstack.stack", "metropolis.propose",
+                 "metropolis.accept", "metropolis.step", "smc.fetch", "smc.transition",
+                 "smc.save_wait", "smc.stage", "stage.write", "smc.sample", "gflibrary.build")
 PAIR_SPANS = ("fullmt.filter", "fullmt.phasors")
 
 
@@ -88,6 +94,7 @@ def span_readings(snap: dict, t0_ns: int, t1_ns: int, main_thread: int) -> dict:
         (during if hit else clear).append(_dur(st))
     solve_ns = sum(_dur(s) for s in spans if s["name"] == "eikonal.solve")
     iterations = snap["counters"].get("eikonal.iterations", 0)
+    stacks = snap["counters"].get("gfstack.calls", 0)
     return {
         "save_wait_share": 100.0 * waits / window if window > 0 else None,
         "stage_write_mb_per_s": (written / 1e6) / (write_ns / 1e9) if write_ns else None,
@@ -96,9 +103,17 @@ def span_readings(snap: dict, t0_ns: int, t1_ns: int, main_thread: int) -> dict:
         "write_step_slowdown": (100.0 * (sum(during) * len(clear) / (sum(clear) * len(during))
                                          - 1.0) if during and clear else None),
         "eikonal_iter_us": solve_ns / 1e3 / iterations if iterations else None,
+        "mma_call_share": (snap["counters"].get("gfstack.mma_calls", 0) / stacks
+                           if stacks else None),
         "steps_during_write": len(during), "steps_clear": len(clear),
         "stage_bytes": written, "eikonal_iterations": iterations,
     }
+
+
+def library_gb(snap: dict) -> float | None:
+    """``gflibrary.bytes`` / 1e9 of a snapshot taken after set-up."""
+    built = snap["counters"].get("gflibrary.bytes", 0)
+    return built / 1e9 if built else None
 
 
 def program_summary(path: str):
@@ -192,7 +207,10 @@ def on_cost(cell, args, device, out: dict):
                   overrides=overrides(cell) if args.small else None)
     windows, judged = [], None
     try:
+        profiling.enable_spans(True)
         run.setup()
+        out["library_gb"] = library_gb(profiling.span_snapshot())
+        profiling.enable_spans(False)
         out["setup_s"] = run.record.setup_s
         for pair in range(args.pairs):
             order = (False, True) if pair % 2 == 0 else (True, False)
@@ -253,6 +271,7 @@ def traced(cell, args, device, out: dict):
                   overrides=overrides(cell) if args.small else None)
     try:
         run.setup()
+        built = library_gb(profiling.span_snapshot())
         profiling.reset_spans()
         t0_ns = time.perf_counter_ns()
         run.window()
@@ -260,6 +279,7 @@ def traced(cell, args, device, out: dict):
         snap = profiling.span_snapshot()
         profiling.enable_spans(False)
         row = span_readings(snap, t0_ns, t1_ns, threading.main_thread().ident)
+        row["library_gb"] = built
         paths = [p for p, *_ in run.spans.traces]
         found = [p for p in paths if has_device_records(p)] or paths[:1]
         if found:
