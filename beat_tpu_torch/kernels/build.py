@@ -30,7 +30,7 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
 #: C signatures of the entry points, by kernel source name
 SIGNATURES = {
@@ -48,6 +48,9 @@ SIGNATURES = {
         "beat_gf_stack_multilinear_bf16": (_I, [_P] * 7 + [_I] * 6 + [_I64] * 7 + [_I] * 3
                                            + [_P]),
         "beat_gf_stack_nearest_bf16": (_I, [_P] * 5 + [_I] * 6 + [_I64] * 4 + [_I] * 3 + [_P]),
+    },
+    "eikonal": {
+        "beat_eikonal_f32": (_I, [_P] * 5 + [_I] * 3 + [_F] * 2 + [_I, _P]),
     },
     "rowgather": {
         "beat_gather_rows_f32": (_I, [_P, _P, _I, _I64, _P, _I64, _I64, _I, _P]),

@@ -7,17 +7,40 @@ nucleation point: the monotone upwind update (Rouy-Tourin / Zhao 2004)
 iterated in Jacobi fashion — every cell refreshed from the previous
 iterate — until the summed squared change of a chain falls to
 ``epsilon``.  Each iteration advances the front by one cell, so a solve
-takes O(grid diameter) iterations of about thirty small elementwise
-kernels; moving the whole solve into one kernel (a block per chain, the
-grid in shared memory) is later performance work.
+takes O(grid diameter) iterations.
 
 Under ``vmap`` the JAX solver stops each chain at its own iteration, and
 ``epsilon = 0.1`` on squared seconds stops short of full convergence,
-so the stopping point is part of the result.  The batched solver keeps a
-per-chain ``active`` mask: a chain whose change has fallen to
-``epsilon`` is frozen while the others go on.  Whether any chain is
-still active is asked of the device only every :data:`CHECK_EVERY`
-iterations; the extra iterations are no-ops under the mask.
+so the stopping point is part of the result.
+
+* :func:`eikonal_rupture_times` routes each solve by what the call
+  shows (:func:`fused_route`): a CUDA float32 slowness that needs no
+  gradient, on a grid of at most :data:`FUSED_MAX_CELLS` cells, goes to
+  :func:`eikonal_rupture_times_fused`; CPU tensors, float64, a slowness
+  that requires grad and larger grids go to
+  :func:`eikonal_rupture_times_plain`.
+* :func:`eikonal_rupture_times_fused` launches ``csrc/eikonal.cu``: the
+  whole solve in one kernel, a warp per chain with its grid in shared
+  memory, each chain stopping at its own iteration, and no host read.
+  ``eikonal_rupture_times.launches_fused`` counts its launches.
+* :func:`eikonal_rupture_times_plain` is the plain version: about thirty
+  elementwise kernels an iteration over the whole batch, with a
+  per-chain ``active`` mask (a chain whose change has fallen to
+  ``epsilon`` is frozen while the others go on).  Whether any chain is
+  still active is asked of the device only every :data:`CHECK_EVERY`
+  iterations; the extra iterations are no-ops under the mask.
+
+The kernel runs the plain version's float32 operations in its order,
+unfused, so an iteration is the same bit for bit; only the order of the
+convergence sum differs, which can move a chain's stop only where its
+change lies within float32 rounding of ``epsilon``.
+
+With the program's spans on each solve is an ``eikonal.solve`` span and
+counts ``eikonal.solves``, on the kernel ``eikonal.fused_solves`` too;
+``eikonal.iterations`` adds the plain version's iterations run (the
+masked no-ops up to the next check included) or the kernel's largest
+per-chain count, read from the device only while spans are on and after
+the span has closed, so the span never holds a wait for the device.
 
 The numpy Gauss-Seidel fast-sweeping solver is kept as the
 cross-validation reference.
@@ -28,12 +51,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from beat_tpu_torch.profiling import count, span
+from beat_tpu_torch.kernels.build import launch, load
+from beat_tpu_torch.profiling import count, span, spans_enabled
 
 _INIT_TIME = 1e8
 _EPSILON = 0.1
 #: iterations between two host reads of ``active.any()``
 CHECK_EVERY = 8
+#: the largest grid the kernel takes: a chain's two onset buffers and its
+#: cell sizes, 12 bytes a cell, in the 48 KiB of shared memory that every
+#: CUDA device gives a block
+FUSED_MAX_CELLS = 48 * 1024 // 12
+
+
+def _default_max_iter(n_dip: int, n_strike: int) -> int:
+    return 4 * (n_dip + n_strike) + 16
 
 
 def _upwind_update(times: torch.Tensor, fh: torch.Tensor) -> torch.Tensor:
@@ -55,6 +87,15 @@ def _upwind_update(times: torch.Tensor, fh: torch.Tensor) -> torch.Tensor:
     return torch.minimum(times, candidate)
 
 
+def fused_route(device, dtype: torch.dtype, requires_grad: bool, shape) -> bool:
+    """Whether a solve of a slowness on ``device`` of ``dtype`` and
+    ``shape`` (C, n_dip, n_strike) goes to the kernel: CUDA, float32, no
+    gradient, and a grid of 1 to :data:`FUSED_MAX_CELLS` cells."""
+    cells = shape[-2] * shape[-1]
+    return (torch.device(device).type == "cuda" and dtype == torch.float32
+            and not requires_grad and 0 < cells <= FUSED_MAX_CELLS)
+
+
 def eikonal_rupture_times(slowness: torch.Tensor, patch_size: float,
                           nuc_dip_idx: torch.Tensor, nuc_strike_idx: torch.Tensor,
                           epsilon: float = _EPSILON, max_iter: int | None = None) -> torch.Tensor:
@@ -67,33 +108,91 @@ def eikonal_rupture_times(slowness: torch.Tensor, patch_size: float,
     epsilon : per-chain convergence threshold on the summed squared update
     max_iter : safety bound (default 4·(n_dip+n_strike) + 16)
 
-    Returns (C, n_dip, n_strike) onset times, 0 at the nucleation patch.
+    Returns (C, n_dip, n_strike) onset times, 0 at the nucleation patch:
+    from the kernel where :func:`fused_route` says so, else from the
+    plain version.
     """
+    chain_iterations = None
+    with span("eikonal.solve"):
+        if fused_route(slowness.device, slowness.dtype, slowness.requires_grad,
+                       slowness.shape):
+            times, chain_iterations = eikonal_rupture_times_fused(
+                slowness, patch_size, nuc_dip_idx, nuc_strike_idx, epsilon, max_iter)
+            count("eikonal.fused_solves")
+        else:
+            times = eikonal_rupture_times_plain(slowness, patch_size, nuc_dip_idx,
+                                                nuc_strike_idx, epsilon, max_iter)
+        count("eikonal.solves")
+    if chain_iterations is not None and spans_enabled() and chain_iterations.numel():
+        count("eikonal.iterations", int(chain_iterations.max()))
+    return times
+
+
+#: launches of the kernel (:func:`eikonal_rupture_times_fused`)
+eikonal_rupture_times.launches_fused = 0
+
+
+def eikonal_rupture_times_fused(slowness: torch.Tensor, patch_size: float,
+                                nuc_dip_idx: torch.Tensor, nuc_strike_idx: torch.Tensor,
+                                epsilon: float = _EPSILON, max_iter: int | None = None) -> tuple:
+    """The whole solve as one launch of ``csrc/eikonal.cu`` on a CUDA
+    float32 slowness of at most :data:`FUSED_MAX_CELLS` cells a chain
+    (the arguments as :func:`eikonal_rupture_times`'s).  Returns the
+    onsets and the (C,) int32 updates each chain ran; a nucleation index
+    outside the grid gives that chain NaN onsets.  Any failure raises."""
+    n_chains, n_dip, n_strike = slowness.shape
+    if not fused_route(slowness.device, slowness.dtype, False, slowness.shape):
+        raise ValueError(f"the eikonal kernel takes CUDA float32 grids of 1 to "
+                         f"{FUSED_MAX_CELLS} cells, got {tuple(slowness.shape)} "
+                         f"{slowness.dtype} on {slowness.device}")
+    if max_iter is None:
+        max_iter = _default_max_iter(n_dip, n_strike)
+    slowness = slowness.detach().contiguous()
+    nuc_d = nuc_dip_idx.to(device=slowness.device, dtype=torch.int64).contiguous()
+    nuc_s = nuc_strike_idx.to(device=slowness.device, dtype=torch.int64).contiguous()
+    times = torch.empty_like(slowness)
+    chain_iterations = torch.empty(n_chains, dtype=torch.int32, device=slowness.device)
+    if n_chains == 0:
+        return times, chain_iterations
+    lib, _ = load("eikonal")
+    rc = launch(slowness.device, lib.beat_eikonal_f32, slowness.data_ptr(), nuc_d.data_ptr(),
+                nuc_s.data_ptr(), times.data_ptr(), chain_iterations.data_ptr(), n_chains,
+                n_dip, n_strike, float(patch_size), float(epsilon), max(int(max_iter), 0))
+    if rc != 0:
+        raise RuntimeError(f"beat_eikonal_f32 kernel launch failed: cudaError {rc}")
+    eikonal_rupture_times.launches_fused += 1
+    return times, chain_iterations
+
+
+def eikonal_rupture_times_plain(slowness: torch.Tensor, patch_size: float,
+                                nuc_dip_idx: torch.Tensor, nuc_strike_idx: torch.Tensor,
+                                epsilon: float = _EPSILON,
+                                max_iter: int | None = None) -> torch.Tensor:
+    """The plain version on any device and floating type (the arguments
+    as :func:`eikonal_rupture_times`'s)."""
     n_chains, n_dip, n_strike = slowness.shape
     if max_iter is None:
-        max_iter = 4 * (n_dip + n_strike) + 16
+        max_iter = _default_max_iter(n_dip, n_strike)
 
-    with span("eikonal.solve"):
-        fh = slowness * patch_size
-        nuc_mask = torch.zeros_like(slowness, dtype=torch.bool)
-        nuc_mask[torch.arange(n_chains, device=slowness.device),
-                 nuc_dip_idx.long(), nuc_strike_idx.long()] = True
-        times = torch.where(nuc_mask, 0.0, torch.full_like(slowness, _INIT_TIME))
-        active = torch.ones(n_chains, dtype=torch.bool, device=slowness.device)
+    fh = slowness * patch_size
+    nuc_mask = torch.zeros_like(slowness, dtype=torch.bool)
+    nuc_mask[torch.arange(n_chains, device=slowness.device),
+             nuc_dip_idx.long(), nuc_strike_idx.long()] = True
+    times = torch.where(nuc_mask, 0.0, torch.full_like(slowness, _INIT_TIME))
+    active = torch.ones(n_chains, dtype=torch.bool, device=slowness.device)
 
-        iterations = 0      # run, the masked no-ops up to the next check included
-        for it in range(max_iter):
-            if it and it % CHECK_EVERY == 0 and not bool(active.any()):
-                break
-            new = _upwind_update(times, fh)
-            new = torch.where(nuc_mask, 0.0, new)
-            new = torch.where(active[:, None, None], new, times)
-            # a frozen chain's change is 0, so it stays frozen
-            active = torch.sum((new - times) ** 2, dim=(1, 2)) > epsilon
-            times = new
-            iterations += 1
-        count("eikonal.solves")
-        count("eikonal.iterations", iterations)
+    iterations = 0      # run, the masked no-ops up to the next check included
+    for it in range(max_iter):
+        if it and it % CHECK_EVERY == 0 and not bool(active.any()):
+            break
+        new = _upwind_update(times, fh)
+        new = torch.where(nuc_mask, 0.0, new)
+        new = torch.where(active[:, None, None], new, times)
+        # a frozen chain's change is 0, so it stays frozen
+        active = torch.sum((new - times) ** 2, dim=(1, 2)) > epsilon
+        times = new
+        iterations += 1
+    count("eikonal.iterations", iterations)
     return times
 
 

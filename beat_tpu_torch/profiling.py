@@ -10,9 +10,10 @@ with the spans added).
   a ``span_name`` records the same interval as that span too.
 * :func:`span` / :func:`count` — named intervals and integer counters
   where the work happens (the SMC stage, the stage files, the Metropolis
-  step, the FullMT forward, the eikonal, the kinematic library's build
-  and its stack).  Off by default: ``span``
-  then returns one shared no-op object and ``count`` returns at once.
+  step, the FullMT forward, the eikonal and whether its kernel took the
+  solve, the kinematic library's build and its stack).  Off by default:
+  ``span`` then returns one shared no-op object and ``count`` returns at
+  once; :func:`spans_enabled` says which.
   :func:`enable_spans` turns them on; each span then records its name,
   start and end (``time.perf_counter_ns``), its parent on its thread, its
   thread and the inversion it belongs to, and, opened inside a profiled
@@ -242,6 +243,12 @@ def carry(fn):
             _local.inversion = before
 
     return carried
+
+
+def spans_enabled() -> bool:
+    """Whether spans and counters record: a counter that needs a read of
+    the device asks this first, so nothing syncs while they are off."""
+    return _on
 
 
 def enable_spans(on: bool = True) -> bool:

@@ -123,7 +123,12 @@ SMC on the first and a post-seismic geodetic SMC on the last.
     (|llk| + |llk0|), llk0 being the likelihood's residual-free part (the
     llk is the difference of llk0 and the whitened misfit and passes
     through 0, so a bar on |llk| alone is ill-posed); its time, the
-    eikonal solve's time and kernel launches within it;
+    eikonal solve's time and kernel launches within it; then the onset
+    solve alone at 2000 and 5000 chains on the 10 × 50 grid: the kernel
+    (``csrc/eikonal.cu``) and the plain Jacobi loop in turns, their
+    launches, the bound, the largest onset difference and the chains
+    whose iteration counts differ (at most 1 %, every other chain's
+    onsets equal bit for bit);
 15b. the runtime (slice 13): [parallel_ffi_llk] the library split by
     targets on a ``make_gf_mesh(2, 2)`` of 4 ranks started here (spawn),
     sharing the card over gloo (NCCL refuses two ranks on one device):
@@ -135,7 +140,8 @@ SMC on the first and a post-seismic geodetic SMC on the last.
 16. [ffi_smc] ``Problem.sample(SMCParams(n_chains=2000, n_steps=20,
     max_stages=4, seed=1))`` as the example runs it: the stage cap ends
     it (the one expected exception); β strictly increasing, finite llks,
-    K3 launched; the cost of the stage files;
+    K3 launched, every onset solve on the eikonal kernel (its launches
+    counted, the plain loop never entered); the cost of the stage files;
 17. [ffi_recover] a small FFI problem (12 targets, 6 × 3 patches) sampled
     to β = 1 with each interpolation (multilinear: K3; nearest
     neighbour: K4): the magnitude of the rupture behind the data within
@@ -650,6 +656,104 @@ def check_stack(lib, durations, starttimes, slips, interpolation: str, iters: in
                          f"{over}, tiled == gather {out['variants_equal']}, deterministic "
                          f"{deterministic}")
     return out
+
+
+def plain_chain_iterations(slowness, nuc_d, nuc_s, patch_size: float, epsilon: float = 0.1,
+                           max_iter: int | None = None) -> tuple:
+    """The updates each chain runs in ``eikonal_rupture_times_plain``, from
+    the plain update iterated without stopping (a chain's updates before
+    its stop are those of the masked loop): a chain's count is its first
+    update whose summed squared change is not above ``epsilon`` (a NaN
+    change stops it too), else ``max_iter``.  Returns the (C,) int32
+    counts and the (C, n) float32 changes of the n updates run, n the
+    largest count."""
+    import torch
+
+    from beat_tpu_torch.ops.eikonal import _INIT_TIME, _default_max_iter, _upwind_update
+
+    n_chains, n_dip, n_strike = slowness.shape
+    if max_iter is None:
+        max_iter = _default_max_iter(n_dip, n_strike)
+    fh = slowness * patch_size
+    nuc = torch.zeros_like(slowness, dtype=torch.bool)
+    nuc[torch.arange(n_chains, device=slowness.device), nuc_d.long(), nuc_s.long()] = True
+    times = torch.where(nuc, 0.0, torch.full_like(slowness, _INIT_TIME))
+    runs = torch.full((n_chains,), max_iter, dtype=torch.int32, device=slowness.device)
+    going = torch.ones(n_chains, dtype=torch.bool, device=slowness.device)
+    changes = []
+    for it in range(max_iter):
+        if not bool(going.any()):
+            break
+        new = torch.where(nuc, 0.0, _upwind_update(times, fh))
+        change = torch.sum((new - times) ** 2, dim=(1, 2))
+        changes.append(change)
+        stops = going & ~(change > epsilon)
+        runs[stops] = it + 1
+        going &= ~stops
+        times = new
+    return runs, (torch.stack(changes, dim=1) if changes
+                  else slowness.new_zeros((n_chains, 0)))
+
+
+def eikonal_turns(dev, n_chains: int, n_dip: int = 10, n_strike: int = 50,
+                  patch_size: float = 2000.0, iters: int = 10) -> dict:
+    """[ffi_llk]'s onset solve alone: ``n_chains`` grids of the FFI
+    prior's velocities (2000–4000 m/s) and random nucleation cells,
+    through the kernel and the plain loop, timed in turns; their launches
+    and device time, the bound, and how the two results differ.  Raises
+    SystemExit where a chain whose iteration count agrees has other
+    onsets, or where more than 1 % of the chains disagree on the count."""
+    import numpy as np
+    import torch
+
+    from beat_tpu_torch.ops.eikonal import (eikonal_rupture_times_fused,
+                                            eikonal_rupture_times_plain)
+
+    rng = np.random.default_rng(n_chains)
+    s = torch.as_tensor(1.0 / rng.uniform(2000.0, 4000.0, (n_chains, n_dip, n_strike)),
+                        dtype=torch.float32, device=dev)
+    d = torch.as_tensor(rng.integers(0, n_dip, n_chains), device=dev)
+    k = torch.as_tensor(rng.integers(0, n_strike, n_chains), device=dev)
+
+    def fused():
+        return eikonal_rupture_times_fused(s, patch_size, d, k)
+
+    def plain():
+        return eikonal_rupture_times_plain(s, patch_size, d, k)
+
+    fused_ms, plain_ms = time_in_turns(fused, plain, iters)
+    f_launches, f_kernel_ms, f_by_name = device_kernels(fused)
+    p_launches, p_kernel_ms, _ = device_kernels(plain)
+    (tf, rf), tp = fused(), plain()
+    rp = plain_chain_iterations(s, d, k, patch_size)[0]
+    agree = rf == rp
+    cells = n_dip * n_strike
+    # slowness read and onsets written once, the indexes and the counts;
+    # about 20 operations a cell an iteration
+    n_bytes = n_chains * (8 * cells + 2 * 8 + 4)
+    n_flops = 20.0 * cells * float(rf.sum())
+    b_ms, b_by = bound_ms(n_bytes, n_flops)
+    r = dict(fused_ms=fused_ms, plain_ms=plain_ms, fused_launches=f_launches,
+             plain_launches=p_launches, fused_device_ms=f_kernel_ms,
+             plain_device_ms=p_kernel_ms, bound_ms=b_ms, bound_by=b_by,
+             max_onset_diff=float((tf - tp).abs().max()),
+             chains_iterations_differ=int((~agree).sum()),
+             mean_iterations=float(rf.float().mean()), max_iterations=int(rf.max()),
+             kernel=next(iter(f_by_name), ""))
+    say("ffi_llk", shape=f"eikonal_{n_chains}x{n_dip}x{n_strike}",
+        fused_ms=f"{fused_ms:.4f}", plain_ms=f"{plain_ms:.4f}", fused_launches=f_launches,
+        plain_launches=p_launches, fused_device_ms=fmt_ms(ms_or_none(f_kernel_ms)),
+        plain_device_ms=fmt_ms(ms_or_none(p_kernel_ms)), bound_ms=f"{b_ms:.4f}",
+        bound_by=b_by, max_onset_diff=f"{r['max_onset_diff']:.3e}",
+        chains_iterations_differ=r["chains_iterations_differ"],
+        mean_iterations=f"{r['mean_iterations']:.2f}", max_iterations=r["max_iterations"])
+    if not torch.equal(tf[agree].view(torch.int32), tp[agree].view(torch.int32)):
+        raise SystemExit("[ffi_llk] the eikonal kernel's onsets differ from the plain loop's "
+                         "on chains that stopped at the same iteration")
+    if r["chains_iterations_differ"] > 0.01 * n_chains or f_launches != 1:
+        raise SystemExit(f"[ffi_llk] eikonal kernel: {r['chains_iterations_differ']} chains "
+                         f"stop elsewhere, {f_launches} launches")
+    return r
 
 
 def say_stack(key: str, shape: str, dims: dict, r: dict, **extra) -> None:
@@ -4449,6 +4553,7 @@ def main() -> int:
         raise SystemExit("FFI llk parity failed (or K3 was not launched)")
     del llk, llk_plain, point, diff
     torch.cuda.empty_cache()
+    eik_turns = {n: eikonal_turns(dev, n, iters=5) for n in sorted({N_CHAINS, 5000})}
 
     # 15b. [parallel_ffi_llk] the library split by targets over 4 ranks
     parallel_ffi = parallel_ffi_phase(dev, problem, q, workdir.name)
@@ -4467,11 +4572,23 @@ def main() -> int:
                        os.path.getsize(self._trace_file(stage)) / 1e6,
                        np.asarray(trace["q"]).nbytes / 1e6))
 
+    # every onset solve goes through the router (ffi/fault.py) to the kernel
+    # or to the plain loop; the plain loop's calls are counted beside it
+    from beat_tpu_torch.ops import eikonal as eik
+    plain_solves = []
+    eik_plain = eik.eikonal_rupture_times_plain
+
+    def counted_plain(*args, **kwargs):
+        plain_solves.append(1)
+        return eik_plain(*args, **kwargs)
+
     stack_batched.launches_multilinear = stack_batched.launches_nearest = 0
     zero_bilinear()
     gather_rows.launches = 0
+    eik.eikonal_rupture_times.launches_fused = 0
     torch.cuda.reset_peak_memory_stats()
     SampleStage.save_stage = timed_save_stage
+    eik.eikonal_rupture_times_plain = counted_plain
     t0 = time.perf_counter()
     try:
         problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=FFI_STEPS,
@@ -4483,10 +4600,12 @@ def main() -> int:
         capped = True
     finally:
         SampleStage.save_stage = save_stage
+        eik.eikonal_rupture_times_plain = eik_plain
     torch.cuda.synchronize()
     ffi_wall = time.perf_counter() - t0
     ffi_launches = stack_batched.launches_multilinear
     k5_launches["ffi_smc"] = gather_rows.launches
+    eik_launches = eik.eikonal_rupture_times.launches_fused
     handler = SampleStage(problem.outfolder, ordering=problem.ordering)
     stages = list(range(1, FFI_MAX_STAGES)) if capped else [-1]
     states = [handler.load_state(st) for st in stages]
@@ -4497,7 +4616,8 @@ def main() -> int:
         wall_s=f"{ffi_wall:.2f}", stages_run=len(states), capped=capped,
         betas=json.dumps([round(x, 6) for x in betas]), finite=ffi_finite,
         k3_launches=ffi_launches, k4_launches=stack_batched.launches_nearest,
-        k5_launches=k5_launches["ffi_smc"],
+        k5_launches=k5_launches["ffi_smc"], eikonal_launches=eik_launches,
+        eikonal_plain_solves=len(plain_solves),
         acceptance=json.dumps([round(float(a), 3) for a in states[-1]["acceptance"]]),
         stage_write_s=json.dumps([round(w[1], 2) for w in writes]),
         stage_file_MB=json.dumps([round(w[2], 1) for w in writes]),
@@ -4509,6 +4629,9 @@ def main() -> int:
         raise SystemExit("FFI SMC: beta not strictly increasing, or non-finite llks")
     if ffi_launches == 0 or k5_launches["ffi_smc"] == 0:
         raise SystemExit("the FFI SMC run never launched K3 (or K5, its resampling gather)")
+    if eik_launches == 0 or plain_solves:
+        raise SystemExit(f"[ffi_smc] {len(plain_solves)} of {eik_launches + len(plain_solves)} "
+                         "onset solves took the plain loop, not the eikonal kernel")
 
     # 16b. [ffi_extras], [k3_bf16], [k4_bf16] on the same library and wavemap
     extras = ffi_extra_phases(dev, problem, workdir.name)
@@ -4537,14 +4660,15 @@ def main() -> int:
     workdir.cleanup()
 
     # 18. results: launches from each kernel's main path (SMC for K1 and
-    # K1c, MALA-SMC for K2 and K2c, FFI SMC for K3 and K5, the
+    # K1c, MALA-SMC for K2 and K2c, FFI SMC for K3, K5 and the eikonal, the
     # nearest-neighbour FFI SMC for K4), with every path's count beside
     # them (the geometry-mode paths of 11b-11e among them; K1c also
     # with its times at the finite source's two query layouts).  K1 and K2 run on no path now (0): K1c and K2c took their
     # place; their launches in [grad_profile]'s unfused yardstick, which
     # is not a path of the port, stand apart.  K1c's and K2c's times are
     # those on the main path's queries, K3's and K4's those on the real
-    # library, K5's those at the FFI population's shape.
+    # library, K5's those at the FFI population's shape, the eikonal's
+    # those of [ffi_llk]'s solve alone at the FFI population's shape.
     paths = {"smc": smc_launches, "mala_smc": mala_launches, "hmc": hmc_launches,
              "map": map_launches, "laplace": lap_launches,
              "sources_llk": sources_llk_launches, "dc_mala_smc": dc_launches,
@@ -4662,7 +4786,19 @@ def main() -> int:
          "library_device_ms": k5["smc"]["library_device_ms"],
          "device_kernels_per_call": k5["smc"]["device_kernels_per_call"],
          "table_shape": k5["table"],
-         "launches_by_path": k5_launches}]}))
+         "launches_by_path": k5_launches},
+        {"name": "eikonal", "route": "cuda", "source": "beat_tpu_torch/csrc/eikonal.cu",
+         "replaces": None, "launches": eik_launches,
+         "max_abs_err": eik_turns[N_CHAINS]["max_onset_diff"],
+         "ms": eik_turns[N_CHAINS]["fused_ms"], "plain_ms": eik_turns[N_CHAINS]["plain_ms"],
+         "bound_ms": eik_turns[N_CHAINS]["bound_ms"],
+         "bound_by": eik_turns[N_CHAINS]["bound_by"], "library_ms": None, "previous_ms": None,
+         "plain_launches": eik_turns[N_CHAINS]["plain_launches"],
+         "by_chains": {n: {f: r[f] for f in ("fused_ms", "plain_ms", "bound_ms",
+                                             "chains_iterations_differ")}
+                       for n, r in eik_turns.items()},
+         "launches_by_path": {"ffi_smc": eik_launches,
+                              "ffi_smc_plain_solves": len(plain_solves)}}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))
     return 0

@@ -5,9 +5,13 @@ reference, on the CPU.
 
 ``epsilon = 0.1`` on a sum of squared seconds stops before full
 convergence, and under ``vmap`` each chain stops at its own iteration:
-the batch below mixes chains that converge early (fast medium, central
-nucleation) with chains that converge late (slow medium, corner
-nucleation), so a solver that iterated all chains together would differ.
+the mixed batch (``test_torch_common.mixed_batch``) holds chains that
+converge early (fast medium, central nucleation) and chains that
+converge late (slow medium, corner nucleation), so a solver that
+iterated all chains together would differ.  The routing between the
+card's kernel and the plain version is checked here as a function of
+what a call shows; the kernel itself is checked on the card
+(``tests/test_torch_gpu.py``).
 """
 
 import numpy as np
@@ -20,23 +24,11 @@ import torch
 from beat_tpu.ops.eikonal import eikonal_rupture_times as jax_eikonal
 from beat_tpu.ops.eikonal import eikonal_rupture_times_numpy as jax_eikonal_numpy
 from beat_tpu_torch.ops import eikonal as port
-import test_torch_common  # noqa: F401  (the tests' thread policy)
+from test_torch_common import mixed_batch
 
 # the same float32 operations in the same order, except the order of the
 # convergence sum
 VMAP_RTOL = 1e-6
-
-
-def mixed_batch(n_dip, n_strike, n_chains, seed):
-    rng = np.random.default_rng(seed)
-    vel = rng.uniform(2000.0, 4000.0, size=(n_chains, n_dip, n_strike))
-    vel[0] = 4000.0                                    # fast and uniform
-    vel[1] = rng.uniform(500.0, 700.0, size=(n_dip, n_strike))   # slow: late convergence
-    nuc_d = rng.integers(0, n_dip, n_chains)
-    nuc_s = rng.integers(0, n_strike, n_chains)
-    nuc_d[0], nuc_s[0] = n_dip // 2, n_strike // 2
-    nuc_d[1], nuc_s[1] = 0, 0
-    return (1.0 / vel).astype(np.float32), nuc_d, nuc_s
 
 
 def port_solve(slowness, patch_size, nuc_d, nuc_s, **kw):
@@ -95,3 +87,90 @@ def test_max_iter_bounds_the_solve():
     one = port_solve(slowness, 2000.0, nuc_d, nuc_s, max_iter=1)
     # one iteration reaches the nucleation patch's neighbours only
     assert (one < 1e7).sum() <= 3 * 5
+
+
+@pytest.mark.parametrize("device,dtype,requires_grad,shape,fused", [
+    ("cuda", torch.float32, False, (5000, 10, 50), True),        # the main path
+    ("cuda:1", torch.float32, False, (3, 5, 12), True),
+    ("cuda", torch.float32, False, (1, 64, 64), True),           # 4096 cells: the edge
+    ("cuda", torch.float32, False, (1, 4096, 1), True),
+    ("cuda", torch.float32, False, (1, 4097, 1), False),         # one cell beyond it
+    ("cuda", torch.float32, False, (2, 65, 64), False),
+    ("cuda", torch.float32, False, (0, 10, 50), True),           # no chains: nothing to launch
+    ("cuda", torch.float32, False, (4, 0, 50), False),           # no cells
+    ("cuda", torch.float64, False, (5000, 10, 50), False),
+    ("cuda", torch.bfloat16, False, (5000, 10, 50), False),
+    ("cuda", torch.float32, True, (5000, 10, 50), False),
+    ("cpu", torch.float32, False, (5000, 10, 50), False),
+    ("cpu", torch.float64, False, (9, 5, 12), False),
+])
+def test_fused_route_is_a_function_of_what_the_call_shows(device, dtype, requires_grad, shape,
+                                                          fused):
+    """The kernel takes CUDA float32 solves that need no gradient on grids
+    of at most ``FUSED_MAX_CELLS`` cells (48 KiB of shared memory at 12
+    bytes a cell); everything else runs the plain version."""
+    assert port.FUSED_MAX_CELLS == 4096
+    assert port.fused_route(torch.device(device), dtype, requires_grad, shape) is fused
+
+
+def test_kernel_entry_is_declared():
+    import ctypes
+
+    from beat_tpu_torch.kernels.build import SIGNATURES
+
+    restype, args = SIGNATURES["eikonal"]["beat_eikonal_f32"]
+    assert restype is ctypes.c_int
+    assert args == ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
+                    + [ctypes.c_int, ctypes.c_void_p])
+
+
+def test_cpu_solves_take_the_plain_version(monkeypatch):
+    """A CPU solve never reaches the kernel's wrapper, and the wrapper
+    refuses host tensors."""
+    from test_torch_common import spy
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the kernel's wrapper was called on the CPU")
+
+    monkeypatch.setattr(port, "eikonal_rupture_times_fused", refuse)
+    plain = spy(monkeypatch, port, "eikonal_rupture_times_plain")
+    before = port.eikonal_rupture_times.launches_fused
+    slowness, nuc_d, nuc_s = mixed_batch(5, 12, 4, seed=7)
+    port_solve(slowness, 2000.0, nuc_d, nuc_s)
+    port_solve(slowness.astype(np.float64), 2000.0, nuc_d, nuc_s)
+    assert plain == ["cpu", "cpu"]
+    assert port.eikonal_rupture_times.launches_fused == before
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="CUDA float32"):
+        port.eikonal_rupture_times_fused(torch.as_tensor(slowness), 2000.0,
+                                         torch.as_tensor(nuc_d), torch.as_tensor(nuc_s))
+
+
+@pytest.mark.parametrize("epsilon", [0.0, 0.1])
+def test_plain_chain_iterations_follow_the_stopping_rule(epsilon):
+    """The per-chain counts that the card tests and ``chip_smoke.py`` hold
+    the kernel's against, derived from the plain update iterated without
+    stopping: capped at its count n a chain solves to the plain loop's
+    onsets; the n-th update changed it by at most ``epsilon`` and the one
+    before by more."""
+    from chip_smoke import plain_chain_iterations
+
+    slowness, nuc_d, nuc_s = mixed_batch(6, 14, 5, seed=4)
+    args = (torch.as_tensor(slowness), 2000.0, torch.as_tensor(nuc_d), torch.as_tensor(nuc_s))
+    times = port.eikonal_rupture_times_plain(*args, epsilon=epsilon)
+    runs, changes = plain_chain_iterations(args[0], args[2], args[3], 2000.0, epsilon=epsilon)
+    assert runs.dtype == torch.int32 and runs.shape == (5,)
+    assert changes.shape == (5, int(runs.max()))
+    assert len(set(runs.tolist())) > 1          # the chains stop at their own iterations
+
+    def change(a, b):
+        return float(torch.sum((a - b) ** 2))
+
+    for c in range(5):
+        one = (args[0][c:c + 1], 2000.0, args[2][c:c + 1], args[3][c:c + 1])
+        n = int(runs[c])
+        capped = [port.eikonal_rupture_times_plain(*one, epsilon=epsilon, max_iter=m)
+                  for m in (n, n - 1, n - 2)]
+        np.testing.assert_array_equal(capped[0][0].numpy(), times[c].numpy())
+        assert change(capped[0], capped[1]) <= epsilon < change(capped[1], capped[2])
+        assert float(changes[c, n - 1]) == pytest.approx(change(capped[0], capped[1]), rel=1e-5)

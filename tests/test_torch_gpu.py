@@ -19,7 +19,8 @@ layered static values, the Kennett kernels, layered waveform tables, the
 viscoelastic table and its epoch gather) on the card against the host;
 K1c's forward-mode rule against the plain version's JVP, ``seis_derivative``
 on the card against the CPU, and a project loaded and sampled on the card;
-two gloo ranks sharing the card, each its block of chains through K1c.  They skip without a card (the check
+two gloo ranks sharing the card, each its block of chains through K1c; the eikonal
+onset kernel (``eikonal.cu``) against the plain Jacobi loop.  They skip without a card (the check
 that nothing falls back to the CPU without one runs everywhere); run
 them on one with
 
@@ -44,7 +45,8 @@ from beat_tpu_torch.ops.rowgather import gather_rows, gather_rows_reference
 from beat_tpu_torch.optimize import laplace_approximation
 from beat_tpu_torch.samplers import value_and_grad
 from beat_tpu_torch.sources import sdr_to_m6
-from test_torch_common import assert_grad_close
+from chip_smoke import plain_chain_iterations
+from test_torch_common import assert_grad_close, mixed_batch
 
 pytestmark = pytest.mark.gpu
 
@@ -1170,3 +1172,176 @@ def test_two_gloo_ranks_on_the_card_equal_one_process(cuda, tmp_path):
         assert r["gpu_device"] == "cuda:0" and r["gpu_k1c_launches"] > 0
         assert r["imported_jax"] == []
         np.testing.assert_allclose(r["gpu_llk"], want, rtol=LLK_RTOL)
+
+
+# ---------------------------------------------------------------------------
+# the eikonal onset solve in one launch (csrc/eikonal.cu)
+# ---------------------------------------------------------------------------
+
+#: a stop decision closer than this (relative) to epsilon may fall either
+#: way: the kernel sums a chain's squared changes in another order
+EIKONAL_TIE_RTOL = 1e-5
+
+
+def _eikonal_case(cuda, n_dip, n_strike, n_chains, seed):
+    slowness, nuc_d, nuc_s = mixed_batch(n_dip, n_strike, n_chains, seed)
+    return (torch.as_tensor(slowness, device=cuda), torch.as_tensor(nuc_d, device=cuda),
+            torch.as_tensor(nuc_s, device=cuda))
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("n_dip,n_strike,n_chains", [(5, 12, 257), (10, 50, 2000), (1, 37, 64),
+                                                     (33, 1, 64), (7, 3, 99), (64, 64, 40),
+                                                     (41, 97, 9)])
+def test_eikonal_kernel_equals_the_plain_loop_at_epsilon_zero(cuda, n_dip, n_strike, n_chains):
+    """At epsilon = 0 a chain stops when no cell moved, whatever the sum's
+    order: onsets equal bit for bit, per-chain iteration counts equal, the
+    nucleation cells 0 (on the largest grid the kernel takes, too)."""
+    from beat_tpu_torch.ops.eikonal import (eikonal_rupture_times_fused,
+                                            eikonal_rupture_times_plain)
+
+    s, d, k = _eikonal_case(cuda, n_dip, n_strike, n_chains, seed=n_dip * n_strike)
+    got, runs = eikonal_rupture_times_fused(s, 1500.0, d, k, epsilon=0.0)
+    want = eikonal_rupture_times_plain(s, 1500.0, d, k, epsilon=0.0)
+    want_runs = plain_chain_iterations(s, d, k, 1500.0, epsilon=0.0)[0]
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(runs, want_runs)
+    assert (got[torch.arange(n_chains, device=cuda), d, k] == 0).all()
+    assert bool(torch.isfinite(got).all()) and bool((got < 1e7).all())
+
+
+@pytest.mark.parametrize("n_dip,n_strike", [(5, 12), (10, 50)])
+def test_eikonal_kernel_equals_the_plain_loop_at_epsilon_tenth(cuda, n_dip, n_strike):
+    """5000 chains of the mixed batch at the solver's epsilon: every chain
+    whose stop decisions all lie outside the sum-order band of epsilon
+    stops at the plain loop's iteration with the same onsets bit for bit;
+    the band holds few chains."""
+    from beat_tpu_torch.ops.eikonal import (eikonal_rupture_times_fused,
+                                            eikonal_rupture_times_plain)
+
+    s, d, k = _eikonal_case(cuda, n_dip, n_strike, 5000, seed=n_strike)
+    got, runs = eikonal_rupture_times_fused(s, 2000.0, d, k)
+    want = eikonal_rupture_times_plain(s, 2000.0, d, k)
+    want_runs, changes = plain_chain_iterations(s, d, k, 2000.0)
+    # the decisions both made: the updates up to the first stop of either
+    both = torch.minimum(runs, want_runs)
+    upto = torch.arange(changes.shape[1], device=cuda)[None, :] < both[:, None]
+    near = ((changes - 0.1).abs() <= EIKONAL_TIE_RTOL * 0.1) & upto
+    clear = ~near.any(dim=1)
+    assert int(clear.sum()) >= 0.99 * 5000
+    assert torch.equal(runs[clear], want_runs[clear])
+    assert torch.equal(_bits(got[clear]), _bits(want[clear]))
+    assert len(set(runs.tolist())) > 1
+    assert (got[torch.arange(5000, device=cuda), d, k] == 0).all()
+
+
+@pytest.mark.parametrize("max_iter", [0, 1, 5, 17])
+def test_eikonal_kernel_honours_max_iter(cuda, max_iter):
+    from beat_tpu_torch.ops.eikonal import (eikonal_rupture_times_fused,
+                                            eikonal_rupture_times_plain)
+
+    s, d, k = _eikonal_case(cuda, 10, 50, 300, seed=2)
+    got, runs = eikonal_rupture_times_fused(s, 2000.0, d, k, epsilon=0.0, max_iter=max_iter)
+    want = eikonal_rupture_times_plain(s, 2000.0, d, k, epsilon=0.0, max_iter=max_iter)
+    assert torch.equal(_bits(got), _bits(want))
+    assert bool((runs == max_iter).all())
+
+
+def test_eikonal_kernel_chain_alone_equals_the_batch(cuda):
+    """A chain's solve does not depend on its neighbours in the batch: a
+    chain alone (one warp in the launch) equals the same chain among 77
+    (eight a block, the last block short)."""
+    from beat_tpu_torch.ops.eikonal import eikonal_rupture_times_fused
+
+    s, d, k = _eikonal_case(cuda, 10, 50, 77, seed=5)
+    batch, runs = eikonal_rupture_times_fused(s, 2000.0, d, k)
+    for c in (0, 1, 8, 33, 76):
+        alone, n = eikonal_rupture_times_fused(s[c:c + 1], 2000.0, d[c:c + 1], k[c:c + 1])
+        assert torch.equal(_bits(alone[0]), _bits(batch[c])) and int(n) == int(runs[c])
+
+
+def test_eikonal_kernel_nucleation_indexes(cuda):
+    """Negative nucleation indexes wrap as PyTorch's indexing wraps them
+    in the plain loop; an index beyond the grid gives that chain NaN
+    onsets (the plain loop raises)."""
+    from beat_tpu_torch.ops.eikonal import (eikonal_rupture_times_fused,
+                                            eikonal_rupture_times_plain)
+
+    s, d, k = _eikonal_case(cuda, 5, 12, 4, seed=9)
+    d[1], k[2] = -1, -12
+    got, _ = eikonal_rupture_times_fused(s, 2000.0, d, k)
+    want = eikonal_rupture_times_plain(s, 2000.0, d, k)
+    assert torch.equal(_bits(got), _bits(want))
+    assert float(got[1, 4, k[1]]) == 0.0 and float(got[2, d[2], 0]) == 0.0
+    d[3] = 5
+    beyond, _ = eikonal_rupture_times_fused(s, 2000.0, d, k)
+    assert bool(torch.isnan(beyond[3]).all()) and torch.equal(beyond[:3], got[:3])
+
+
+def test_eikonal_kernel_propagates_nan_as_the_plain_loop(cuda):
+    """NaN, infinite and negative slowness: the same NaNs, numbers and
+    iteration counts as the plain loop."""
+    from beat_tpu_torch.ops.eikonal import (eikonal_rupture_times_fused,
+                                            eikonal_rupture_times_plain)
+
+    s, d, k = _eikonal_case(cuda, 5, 12, 8, seed=3)
+    s[2, 1, 4] = float("nan")
+    s[4] = float("nan")
+    s[5, 0, 0] = float("inf")
+    s[6, 3, 7] = -s[6, 3, 7]
+    s[7] = -s[7]
+    got, runs = eikonal_rupture_times_fused(s, 2000.0, d, k)
+    want = eikonal_rupture_times_plain(s, 2000.0, d, k)
+    want_runs = plain_chain_iterations(s, d, k, 2000.0)[0]
+    assert torch.equal(torch.isnan(got), torch.isnan(want)) and bool(torch.isnan(got[2]).any())
+    fin = ~torch.isnan(want)
+    assert torch.equal(got[fin], want[fin]) and torch.equal(runs, want_runs)
+
+
+def test_eikonal_card_solves_launch_the_kernel_and_never_the_plain_loop(cuda, monkeypatch):
+    """Through the router and through the kinematic FFI likelihood on the
+    card: the kernel's counter rises, the plain loop is not entered; a grid
+    beyond the kernel's shared memory and a float64 one take the loop."""
+    from beat_tpu_torch.ops import eikonal as eik
+    from test_torch_common import spy
+
+    plain = spy(monkeypatch, eik, "eikonal_rupture_times_plain")
+    s, d, k = _eikonal_case(cuda, 10, 50, 64, seed=1)
+    before = eik.eikonal_rupture_times.launches_fused
+    got = eik.eikonal_rupture_times(s, 2000.0, d, k)
+    assert eik.eikonal_rupture_times.launches_fused == before + 1 and plain == []
+    assert torch.equal(_bits(got), _bits(eik.eikonal_rupture_times_fused(s, 2000.0, d, k)[0]))
+
+    problem = build_ffi_flagship(**FFI_TEST_SIZE, seed=3, device=cuda)
+    logp, data = problem.make_logp_fn()
+    lower, upper = problem.priors.bounds_arrays()
+    q = torch.as_tensor(np.random.default_rng(1).uniform(lower, upper, size=(32, lower.size)),
+                        dtype=torch.float32, device=cuda)
+    before = eik.eikonal_rupture_times.launches_fused
+    assert torch.isfinite(logp(q, data)).all()
+    assert eik.eikonal_rupture_times.launches_fused > before and plain == []
+
+    big = torch.full((2, 65, 64), 1e-3, device=cuda)
+    zero = torch.zeros(2, dtype=torch.int64, device=cuda)
+    before = eik.eikonal_rupture_times.launches_fused
+    eik.eikonal_rupture_times(big, 1.0, zero, zero, max_iter=3)
+    eik.eikonal_rupture_times(s.double(), 2000.0, d, k, max_iter=3)
+    assert plain == ["cuda", "cuda"] and eik.eikonal_rupture_times.launches_fused == before
+    with pytest.raises(ValueError):
+        eik.eikonal_rupture_times_fused(big, 1.0, zero, zero)
+
+
+def test_eikonal_card_solve_is_one_kernel(cuda):
+    ops = _kernel_ops("""
+import numpy as np
+from beat_tpu_torch.ops.eikonal import eikonal_rupture_times
+rng = np.random.default_rng(0)
+s = torch.as_tensor(1.0 / rng.uniform(2000.0, 4000.0, (5000, 10, 50)), dtype=torch.float32,
+                    device="cuda")
+d = torch.as_tensor(rng.integers(0, 10, 5000), device="cuda")
+k = torch.as_tensor(rng.integers(0, 50, 5000), device="cuda")
+""", "eikonal_rupture_times(s, 2000.0, d, k)", "eikonal_rupture_times.launches_fused")
+    assert len(ops) == 1 and "eikonal" in ops[0]

@@ -131,7 +131,7 @@ def test_rank_program_imports_neither_jax_nor_the_jax_package():
         assert re.search(pattern, text, re.MULTILINE) is None, pattern
 
 
-_C_TYPES = {"int": "c_int", "int64_t": "c_int64", "void*": "c_void_p"}
+_C_TYPES = {"int": "c_int", "int64_t": "c_int64", "float": "c_float", "void*": "c_void_p"}
 
 
 @pytest.mark.parametrize("source", sorted(p.stem for p in (REPO / "beat_tpu_torch" / "csrc")

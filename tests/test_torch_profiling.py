@@ -380,6 +380,7 @@ def test_spans_on_a_kinematic_ffi_inversion(tmp_path):
     # one evaluation a step and the start population's, one solve each
     assert solves == params.n_steps + 1
     assert solves <= counters["eikonal.iterations"]
+    assert "eikonal.fused_solves" not in counters           # the CPU takes the plain version
     _check_inversion_spans(snap)
 
 
@@ -393,7 +394,7 @@ def test_eikonal_counts_its_iterations(spans_on):
     args = (slowness, 2.0, torch.tensor([0, 2, 4]), torch.tensor([0, 4, 8]))
     got = eikonal_rupture_times(*args)
     counters = profiling.span_snapshot()["counters"]
-    assert counters["eikonal.solves"] == 1
+    assert counters["eikonal.solves"] == 1 and "eikonal.fused_solves" not in counters
     n = counters["eikonal.iterations"]
     assert n % CHECK_EVERY == 0 and n >= 5 + 9 - 2
     profiling.enable_spans(False)
@@ -403,6 +404,47 @@ def test_eikonal_counts_its_iterations(spans_on):
     profiling.reset_spans()
     eikonal_rupture_times(*args, max_iter=n - 3)
     assert profiling.span_snapshot()["counters"]["eikonal.iterations"] == n - 3
+
+
+def test_eikonal_counts_a_fused_solve(monkeypatch):
+    """A solve routed to the kernel (stood in for here by the plain
+    version's onsets and per-chain counts) counts ``eikonal.fused_solves``
+    beside ``eikonal.solves``, and as ``eikonal.iterations`` the largest
+    per-chain count, read only while spans are on and after the
+    ``eikonal.solve`` span has closed."""
+    from beat_tpu_torch.ops import eikonal as eik
+    from chip_smoke import plain_chain_iterations
+
+    rng = np.random.default_rng(1)
+    slowness = torch.as_tensor(rng.uniform(0.3, 0.5, (3, 5, 9)), dtype=torch.float32)
+    args = (slowness, 2.0, torch.tensor([0, 2, 4]), torch.tensor([0, 4, 8]))
+    before = profiling.enable_spans(False)
+    times = eik.eikonal_rupture_times_plain(*args)
+    runs = plain_chain_iterations(args[0], args[2], args[3], args[1])[0]
+    reads = []
+
+    class Counts(torch.Tensor):
+        def max(self, *a, **kw):        # records the solve spans closed by then
+            solve = profiling.span_snapshot()["by_name"].get("eikonal.solve", {})
+            reads.append(solve.get("count", 0))
+            return super().max(*a, **kw)
+
+    monkeypatch.setattr(eik, "fused_route", lambda *a: True)
+    monkeypatch.setattr(eik, "eikonal_rupture_times_fused",
+                        lambda *a, **kw: (times, runs.as_subclass(Counts)))
+    try:
+        assert eik.eikonal_rupture_times(*args) is times and not reads
+        assert profiling.span_snapshot()["counters"] == {}
+        profiling.enable_spans(True)
+        profiling.reset_spans()
+        assert eik.eikonal_rupture_times(*args) is times and reads == [1]
+        counters = profiling.span_snapshot()["counters"]
+    finally:
+        profiling.enable_spans(before)
+        profiling.reset_spans()
+    assert counters == {"eikonal.solves": 1, "eikonal.fused_solves": 1,
+                        "eikonal.iterations": int(runs.max())}
+    assert len(set(runs.tolist())) > 1
 
 
 # ---------------------------------------------------------------------------
@@ -428,19 +470,22 @@ def test_span_readings_on_hand_built_intervals():
         _hand_span("metropolis.step", 500, 550), _hand_span("metropolis.step", 600, 650),
         _hand_span("eikonal.solve", 700, 701), _hand_span("eikonal.solve", 800, 801),
     ]
-    snap = {"spans": spans, "counters": {"stage.bytes": 6_000_000, "eikonal.iterations": 40}}
+    snap = {"spans": spans, "counters": {"stage.bytes": 6_000_000, "eikonal.iterations": 40,
+                                         "eikonal.solves": 4, "eikonal.fused_solves": 3}}
     got = span_readings(snap, 0, int(1000e6), main_thread=1)
     assert got["save_wait_share"] == pytest.approx(20.0)          # 100 + 100 of 1000 ms
     assert got["stage_write_mb_per_s"] == pytest.approx(20.0)     # 6 MB in 0.3 s
     assert got["write_step_slowdown"] == pytest.approx(100.0)     # 100 ms against 50
     assert (got["steps_during_write"], got["steps_clear"]) == (1, 2)
     assert got["eikonal_iter_us"] == pytest.approx(50.0)          # 2 ms over 40
+    assert got["eikonal_fused_share"] == pytest.approx(0.75)      # 3 of 4 solves
 
     # a write on the step's own thread slows no step; nothing else to read
     alone = span_readings({"spans": [_hand_span("metropolis.step", 0, 10),
                                      _hand_span("stage.write", 0, 5)], "counters": {}},
                           0, int(1e9), main_thread=1)
     assert alone["write_step_slowdown"] is None and alone["eikonal_iter_us"] is None
+    assert alone["eikonal_fused_share"] is None
     assert alone["save_wait_share"] == 0.0 and alone["stage_write_mb_per_s"] == 0.0
     empty = span_readings({"spans": [], "counters": {}}, 0, int(1e9), main_thread=1)
     assert empty["stage_write_mb_per_s"] is None and empty["write_step_slowdown"] is None

@@ -26,6 +26,9 @@ prints what the spans read over it:
                           (None where either set is empty)
 ``eikonal_iter_us``       seconds in ``eikonal.solve`` × 1e6 over
                           ``eikonal.iterations``
+``eikonal_fused_share``   ``eikonal.fused_solves`` over ``eikonal.solves``:
+                          the share of the onset solves that the one-launch
+                          kernel took (None where nothing was solved)
 ``mma_call_share``        ``gfstack.mma_calls`` over ``gfstack.calls``: the
                           share of the stack's calls that ran K3's ``mma``
                           variant (None where nothing was stacked)
@@ -94,6 +97,7 @@ def span_readings(snap: dict, t0_ns: int, t1_ns: int, main_thread: int) -> dict:
         (during if hit else clear).append(_dur(st))
     solve_ns = sum(_dur(s) for s in spans if s["name"] == "eikonal.solve")
     iterations = snap["counters"].get("eikonal.iterations", 0)
+    solves = snap["counters"].get("eikonal.solves", 0)
     stacks = snap["counters"].get("gfstack.calls", 0)
     return {
         "save_wait_share": 100.0 * waits / window if window > 0 else None,
@@ -103,6 +107,8 @@ def span_readings(snap: dict, t0_ns: int, t1_ns: int, main_thread: int) -> dict:
         "write_step_slowdown": (100.0 * (sum(during) * len(clear) / (sum(clear) * len(during))
                                          - 1.0) if during and clear else None),
         "eikonal_iter_us": solve_ns / 1e3 / iterations if iterations else None,
+        "eikonal_fused_share": (snap["counters"].get("eikonal.fused_solves", 0) / solves
+                                if solves else None),
         "mma_call_share": (snap["counters"].get("gfstack.mma_calls", 0) / stacks
                            if stacks else None),
         "steps_during_write": len(during), "steps_clear": len(clear),
