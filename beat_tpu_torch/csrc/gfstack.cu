@@ -69,8 +69,8 @@
 // shared memory: the reads of the C*T*P*CORNERS rows at 128 bytes a clock and
 // SM (a quarter of the float32 rate), beside which the copies into the tiles
 // and the fold of the entries, which pass through the same unit, do not
-// hide.  tools/bench_torch_gfstack.py reads each part's share of the time
-// from builds with parts left out; PERF.md has the numbers.
+// hide.  tools/bench_torch_stack.py --ablate reads each part's share of the
+// time from builds with parts left out; PERF.md has the numbers.
 //
 // A library in bfloat16 (half the bytes; the JAX package's
 // BEAT_TPU_STACK_DTYPE=bfloat16) runs K3 on a third variant, `mma`
@@ -110,7 +110,7 @@
 // row read once, C*T*P*4 rows as in `tiled`, now at 16 bytes a lane) takes
 // as long as the whole, 3.9 ms, one without the products 3.0; the tile
 // copies add 0.7 ms and the fold 0.2 (builds with parts left out,
-// tools/bench_torch_stack_bf16.py --ablate; PERF.md).  K4 has no
+// tools/bench_torch_stack.py --ablate; PERF.md).  K4 has no
 // `mma` body: one built on m16n8k8 with a diagonal B lost to `gather` at the
 // Laquila shape (2.25 against 1.70 ms; PERF.md), the copies of the cell tiles
 // costing more than one row a chain read straight from the library.  A
@@ -333,11 +333,11 @@ int launch_gather(const Operands<E>& a, bool vec4, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 // tiled
 
-// Measurement builds only (tools/bench_torch_gfstack.py,
-// tools/bench_torch_stack_bf16.py): -DBEAT_ABLATE=n leaves parts of the tiled
-// and mma kernels out (1: the fold of the entries after the first chunk, 2:
-// the tile copies after the first two, 4: the sums; mma only, 8: the tensor
-// core products, 16: the ldmatrix loads), so that
+// Measurement builds only (tools/bench_torch_stack.py --ablate):
+// -DBEAT_ABLATE=n leaves parts of the tiled and mma kernels out (1: the fold
+// of the entries after the first chunk, 2: the tile copies after the first
+// two, 4: the sums; mma only, 8: the tensor core products, 16: the ldmatrix
+// loads), so that
 // each part's share of the time can be read on a machine where no kernel
 // profiler runs.  Such a build computes nothing of use.
 #ifndef BEAT_ABLATE
@@ -694,7 +694,7 @@ gf_stack_mma_kernel(const Operands<bf16_t> a, const int chunk_shift) {
     copy_tile(0, 0);
     // the buffer of patch p, carried from patch to patch: computed as p & 1
     // the same loop took 3 % longer at the Laquila shape (3.99 against 3.88
-    // ms in turns, H100; tools/bench_torch_stack_bf16.py)
+    // ms in turns, H100; tools/bench_torch_stack.py)
     int buf = 0;
     for (int p = 0; p < P; ++p) {
         const int pp = p & chunk_mask;

@@ -23,6 +23,8 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+from beat_tpu_torch.profiling import count
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -89,7 +91,7 @@ def nvcc_path() -> str:
 def build(name: str, defines: tuple = ()) -> BuildInfo:
     """Compile ``csrc/<name>.cu`` into ``_build/lib<name>-<hash>.so``
     unless that file exists already.  ``defines`` are extra ``-D`` flags
-    (measurement builds: ``tools/bench_torch_gfstack.py``)."""
+    (measurement builds: ``tools/bench_torch_stack.py --ablate``)."""
     src = CSRC_DIR / f"{name}.cu"
     flags = NVCC_FLAGS + tuple(defines)
     digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
@@ -145,10 +147,17 @@ def launch(device, entry, *args) -> int:
     and ``stream`` PyTorch's current stream on it; returns the entry's
     code.  The device guard is entered only where ``device`` is not the
     current one already, and the stream comes as a plain integer: a
-    launch-sized kernel is bounded by this path."""
+    launch-sized kernel is bounded by this path.  Every launch of the
+    port goes through here, and one whose entry returns 0 counts
+    ``launches.<entry name>`` (a counter of
+    :mod:`beat_tpu_torch.profiling`: nothing while spans are off)."""
     import torch
 
     if device.index == torch.cuda.current_device():
-        return entry(*args, _stream(torch, device))
-    with torch.cuda.device(device):
-        return entry(*args, _stream(torch, device))
+        rc = entry(*args, _stream(torch, device))
+    else:
+        with torch.cuda.device(device):
+            rc = entry(*args, _stream(torch, device))
+    if rc == 0:
+        count("launches." + entry.__name__)
+    return rc

@@ -23,8 +23,7 @@ differentiated; both functions save only ``tbl``, ``cd`` and ``z0``.
 
 * :func:`bilinear_rows` and :func:`corner_dot` are the kernel wrappers:
   on CUDA tensors they launch ``csrc/bilgather.cu`` (or raise), on CPU
-  tensors they run the plain versions.  ``.launches`` on each counts its
-  kernel's launches.
+  tensors they run the plain versions.
 * :func:`bilinear_rows_reference` and :func:`corner_dot_reference` are
   the plain PyTorch versions; they also take float64 (for
   ``torch.autograd.gradcheck`` on the CPU), the kernels float32 only.
@@ -176,7 +175,6 @@ def _k1(tbl, cd, z0, w4) -> torch.Tensor:
     out = torch.empty((cd.shape[0], tbl.shape[2]), dtype=tbl.dtype, device=tbl.device)
     if cd.shape[0]:
         _launch("beat_bilinear_rows_f32", tbl, cd, z0, w4, out, *tbl.shape[1:])
-        bilinear_rows.launches += 1
     return out
 
 
@@ -189,7 +187,6 @@ def _k2(tbl, cd, z0, g) -> torch.Tensor:
         g = g.clone()
     if cd.shape[0]:
         _launch("beat_corner_dot_f32", tbl, cd, z0, g, out, *tbl.shape[1:])
-        corner_dot.launches += 1
     return out
 
 
@@ -305,7 +302,6 @@ def _k1c(tbl, cd, z0, A) -> torch.Tensor:
     if cd.numel():
         _launch("beat_bilinear_contract_f32", tbl, cd, z0, A, out, _targets(cd), tbl.shape[1],
                 tbl.shape[2] // 6)
-        bilinear_contract.launches += 1
     return out
 
 
@@ -317,7 +313,6 @@ def _k2c(tbl, cd, z0, G) -> torch.Tensor:
     if cd.numel():
         _launch("beat_contract_corner_dot_f32", tbl, cd, z0, G, out, _targets(cd), tbl.shape[1],
                 tbl.shape[2] // 6)
-        contract_corner_dot.launches += 1
     return out
 
 
@@ -418,8 +413,3 @@ def contract_corner_dot(tbl: torch.Tensor, cd: torch.Tensor, z0: torch.Tensor,
     cd, z0 = _clamped(tbl, cd, z0)
     return ContractCornerDot.apply(tbl, cd, z0, G)
 
-
-bilinear_rows.launches = 0
-corner_dot.launches = 0
-bilinear_contract.launches = 0
-contract_corner_dot.launches = 0

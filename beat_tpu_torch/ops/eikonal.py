@@ -22,7 +22,6 @@ so the stopping point is part of the result.
 * :func:`eikonal_rupture_times_fused` launches ``csrc/eikonal.cu``: the
   whole solve in one kernel, a warp per chain with its grid in shared
   memory, each chain stopping at its own iteration, and no host read.
-  ``eikonal_rupture_times.launches_fused`` counts its launches.
 * :func:`eikonal_rupture_times_plain` is the plain version: about thirty
   elementwise kernels an iteration over the whole batch, with a
   per-chain ``active`` mask (a chain whose change has fallen to
@@ -36,11 +35,13 @@ convergence sum differs, which can move a chain's stop only where its
 change lies within float32 rounding of ``epsilon``.
 
 With the program's spans on each solve is an ``eikonal.solve`` span and
-counts ``eikonal.solves``, on the kernel ``eikonal.fused_solves`` too;
-``eikonal.iterations`` adds the plain version's iterations run (the
-masked no-ops up to the next check included) or the kernel's largest
-per-chain count, read from the device only while spans are on and after
-the span has closed, so the span never holds a wait for the device.
+counts ``eikonal.solves`` (a kernel solve also counts its launch,
+``launches.beat_eikonal_f32``, in the launcher).  ``eikonal.iterations``
+adds the plain version's iterations run (the masked no-ops up to the
+next check included); ``eikonal.kernel_max_iterations`` adds the
+kernel's largest per-chain count, read from the device only while spans
+are on and after the span has closed, so the span never holds a wait
+for the device.
 
 The numpy Gauss-Seidel fast-sweeping solver is kept as the
 cross-validation reference.
@@ -118,18 +119,13 @@ def eikonal_rupture_times(slowness: torch.Tensor, patch_size: float,
                        slowness.shape):
             times, chain_iterations = eikonal_rupture_times_fused(
                 slowness, patch_size, nuc_dip_idx, nuc_strike_idx, epsilon, max_iter)
-            count("eikonal.fused_solves")
         else:
             times = eikonal_rupture_times_plain(slowness, patch_size, nuc_dip_idx,
                                                 nuc_strike_idx, epsilon, max_iter)
         count("eikonal.solves")
     if chain_iterations is not None and spans_enabled() and chain_iterations.numel():
-        count("eikonal.iterations", int(chain_iterations.max()))
+        count("eikonal.kernel_max_iterations", int(chain_iterations.max()))
     return times
-
-
-#: launches of the kernel (:func:`eikonal_rupture_times_fused`)
-eikonal_rupture_times.launches_fused = 0
 
 
 def eikonal_rupture_times_fused(slowness: torch.Tensor, patch_size: float,
@@ -160,7 +156,6 @@ def eikonal_rupture_times_fused(slowness: torch.Tensor, patch_size: float,
                 n_dip, n_strike, float(patch_size), float(epsilon), max(int(max_iter), 0))
     if rc != 0:
         raise RuntimeError(f"beat_eikonal_f32 kernel launch failed: cudaError {rc}")
-    eikonal_rupture_times.launches_fused += 1
     return times, chain_iterations
 
 

@@ -18,8 +18,7 @@ stack extrapolates, as the JAX package's does.
 
 * :func:`stack_batched` is the kernel wrapper: on CUDA tensors it
   launches ``csrc/gfstack.cu`` (or raises), on CPU tensors it runs the
-  plain version.  ``.launches_multilinear`` and ``.launches_nearest``
-  count K3's and K4's launches.  With the program's spans on
+  plain version.  With the program's spans on
   (``profiling.enable_spans``) each call is a ``gfstack.stack`` span
   (attributes ``variant`` and ``dtype``) and counts ``gfstack.calls``
   and, on ``mma``, ``gfstack.mma_calls``.
@@ -27,7 +26,7 @@ stack extrapolates, as the JAX package's does.
   shapes: ``tiled`` (the cell tile of a patch in shared memory, serving a
   whole chain tile), ``gather`` (rows straight from the library) or, on a
   bfloat16 library, ``mma`` (the tiled block with its sums on the tensor
-  cores).  ``.launches_mma`` counts the launches of ``mma``.
+  cores).
 * :func:`stack_operands` hands the operands to the kernel as they come:
   ``(C, 1, P)`` onsets go with a target stride of 0, nothing is expanded
   or copied.
@@ -194,7 +193,7 @@ _MMA_THREADS, _MMA_N_TILE, _MMA_CHAINS = 512, 64, 512
 #: K3 on a bfloat16 library: ``mma`` (where it can run) from 3 reads a
 #: staged cell row, else ``tiled`` from 1.5, on a long walk or a short one;
 #: ``gather`` below.  Measured on an H100 (NVIDIA H100 80GB HBM3, 700 W;
-#: ``tools/bench_torch_stack_bf16.py``, the variants in turns; ``PERF.md``
+#: ``tools/bench_torch_stack.py``, the variants in turns; ``PERF.md``
 #: §6), ms of ``mma`` / ``tiled`` / ``gather`` at (T, P, D, S, N) and C
 #: chains (reads a row): the Laquila shape (12, 500, 10, 32, 512), 2000
 #: (6.4): 3.90 / 4.51 / 6.30; the same library, 256 (3.2): 1.02 / 1.07 /
@@ -457,21 +456,4 @@ def stack_batched(data: torch.Tensor, didx: torch.Tensor, sidx: torch.Tensor,
                       variant=variant, aligned=data.data_ptr() % 16 == 0,
                       elem_bytes=data.element_size())
     with _span(data, plan.variant):
-        out = _launch(data, didx, sidx, slips, rtf, stf, plan)
-    if rtf is not None:
-        stack_batched.launches_multilinear += 1
-    else:
-        stack_batched.launches_nearest += 1
-    if data.dtype == torch.bfloat16:
-        stack_batched.launches_bf16 += 1
-    if plan.variant == "mma":
-        stack_batched.launches_mma += 1
-    return out
-
-
-#: K3's and K4's launches; those on a bfloat16 library are counted in
-#: ``launches_bf16`` as well, those of the mma variant in ``launches_mma``
-stack_batched.launches_multilinear = 0
-stack_batched.launches_nearest = 0
-stack_batched.launches_bf16 = 0
-stack_batched.launches_mma = 0
+        return _launch(data, didx, sidx, slips, rtf, stf, plan)

@@ -10,7 +10,7 @@ device (:mod:`beat_tpu_torch.samplers.smc`).
 
 * :func:`gather_rows` is the kernel wrapper: on CUDA tensors it launches
   ``csrc/rowgather.cu`` (or raises), on CPU tensors it runs the plain
-  version.  ``.launches`` counts the kernel's launches.
+  version.
 * :func:`gather_rows_reference` is the plain PyTorch version.
 
 Unlike the TPU entry there is no padding of the row length to (8, L)
@@ -71,8 +71,4 @@ def gather_rows(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                 idx.element_size(), idx.stride(0), out.data_ptr(), R, n, M)
     if rc != 0:
         raise RuntimeError(f"beat_gather_rows_f32 kernel launch failed: cudaError {rc}")
-    gather_rows.launches += 1
     return out
-
-
-gather_rows.launches = 0

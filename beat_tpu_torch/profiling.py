@@ -10,8 +10,9 @@ with the spans added).
   a ``span_name`` records the same interval as that span too.
 * :func:`span` / :func:`count` — named intervals and integer counters
   where the work happens (the SMC stage, the stage files, the Metropolis
-  step, the FullMT forward, the eikonal and whether its kernel took the
-  solve, the kinematic library's build and its stack).  Off by default:
+  step, the FullMT forward, the eikonal, the kinematic library's build
+  and its stack, and each kernel launch, counted once in
+  ``kernels/build.py::launch`` as ``launches.<C entry>``).  Off by default:
   ``span`` then returns one shared no-op object and ``count`` returns at
   once; :func:`spans_enabled` says which.
   :func:`enable_spans` turns them on; each span then records its name,

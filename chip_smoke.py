@@ -26,32 +26,13 @@ SMC on the first and a post-seismic geodetic SMC on the last.
 1. device: name, count, ``nvidia-smi`` name and power limit;
 2. build: every kernel source under ``beat_tpu_torch/csrc/`` (K1, K2,
    K1c and K2c ``bilgather.cu``, K3 and K4 ``gfstack.cu``, K5
-   ``rowgather.cu``), one ``nvcc`` each, all started together;
-3. [k1] K1 against its plain PyTorch version at the main path's shapes
-   (60,000 queries), max |err| <= 1e-6 · max|ref|; its time, the plain
-   time, the one-call library time (``embedding_bag``) and its bound;
-4. [k2] K2 against its plain version on the same queries with a random
-   cotangent, per query |err| <= 1e-5 · Σ_j|g_ij| · max_c|row_cj|; its
-   time, the plain time, the one-call library time (the per-sample-weights
-   backward of ``embedding_bag``) and its bound;
-5. [k1c], [k2c] K1c (the gather fused with the m6 contraction) and K2c
-   (its transpose) against their plain versions on the main path's own
-   60,000 queries (captured from one likelihood over the prior) and on
-   random ones, per query |err| <= 1e-5 · Σ|A_i| · max|rows_i| and
-   1e-5 · Σ|G_i| · max|rows_i|, each equal to itself on a second call;
-   their times, ``previous_ms`` (the unfused path in turns: K1 and the
-   matmul; the matmul's backward and K2), the plain times, the one-call
-   library times (``embedding_bag`` over the table's component segments,
-   24 a query, and its per-sample-weights backward, held to the same
-   bars), the bounds, the table rows read and the corner-block groups;
+   ``rowgather.cu``, the onset solve ``eikonal.cu``), one ``nvcc`` each,
+   all started together;
 6. [llk] the 2000-chain log-likelihood through K1c against the plain
    versions, rtol 2e-5;
 7. [grad] the 2000-chain gradient ∂llk/∂q through K1c and K2c against
    the plain versions', per parameter rtol 5e-3 and atol 5e-3 · that
-   parameter's max|grad|; then [grad_profile]: one value-and-grad
-   profiled through K1c/K2c and through the unfused path (K1 and a
-   matmul, ``gather_spectra``'s path), with the CUDA calls of a forward
-   and of a value-and-grad and the peak memory of each;
+   parameter's max|grad|;
 8. [smc] ``Problem.sample()`` with SMC (2000 chains, 60 steps per
    stage): β = 1 with finite llks, K1c launched, the true depth (±500 m)
    and magnitude (±0.05) recovered;
@@ -64,30 +45,6 @@ SMC on the first and a post-seismic geodetic SMC on the last.
     within 600 m of the depth and 0.15 of Mw, then
     ``laplace_approximation`` with a finite evidence, its Hessian through
     K1c and K2c and no plain version;
-12. [k5] K5 against its plain version (a copy: equal exactly) at the
-    shape the SMC's resampling gives it (2000 × 1504), on the FullMT
-    table's rows and at a ragged row length, with ``int64`` and ``int32``
-    indices and with indices of ±2^40, which must clip; its time and
-    ``index_select``'s in turns, the plain time, its bound, the device
-    operations one call makes (must be 1) and the kernel's device time;
-13. [k3], [k4] K3 and K4 against their plain version at the GF-stack
-    bench shape (C=2000, T=8, P=12, D=6, S=16, N=256, the inputs of
-    ``tools/bench_gfstack.py``) and, after [ffi_build], on the real
-    library with durations and starttimes on and beyond the grid; per
-    (chain, target) |err| <= 1e-5 · Σ_p |slip_p| · Σ_corners |w| ·
-    max|data|, for the variant ``plan_stack`` chose and for every other
-    one that can run (``tiled`` and ``gather``, which must equal each
-    other bit for bit; ``mma`` for K3 on a bf16 library), each equal to itself
-    on a second call; every variant's time in turns, the chosen one's as
-    ``ms`` and the ``gather`` variant's as ``previous_ms``; plain time
-    and bound; the library yardstick, a
-    dense ``bmm`` over the scattered corner weights (four corners for K3,
-    one for K4), alone and with its scatter, at the bench shape and on the
-    real library (15.4 GB of weights: the kernels line's ``library_ms``).  On the
-    real library also K3 with the onsets shared by the targets, (C, 1, P)
-    operands as the main path passes them, which must allocate the
-    output and nothing else, and K3 with all chains on one cell and on
-    eight cells;
 11b. [sources_llk] MTQT, DC, Explosion, CLVD, DoubleDC, Ringfault and
     Rectangular sources, and a DC composite with station corrections,
     with one hyperparameter per target, in the ``spectrum`` domain and
@@ -108,14 +65,10 @@ SMC on the first and a post-seismic geodetic SMC on the last.
     a non-Toeplitz analyser and two real-size ensemble tables (velocities
     -3 % and +3 %), then one 2000-chain llk: finite, every wavemap's
     weights changed, K1c launched;
-11e. [k1c_finite], [rect_smc] the finite RectangularSource (8 × 5
-    patches: 2.4 M K1c queries an evaluation): K1c on one likelihood's
-    queries as the composite lays them out, (K, C, T), and permuted to
-    (C, K, T), against its plain version chunk by chunk (the per-query
-    bar of phase 5), its time, the plain and ``embedding_bag`` times,
-    the bound, the llk's time and peak memory; then a random-walk SMC
-    capped at 3 stages × 20 steps: β strictly increasing, finite llks,
-    K1c launched;
+11e. [rect_smc] the finite RectangularSource (8 × 5 patches: 2.4 M K1c
+    queries an evaluation): the llk's time and peak memory, then a
+    random-walk SMC capped at 3 stages × 20 steps: β strictly increasing,
+    finite llks, K1c launched;
 14. [ffi_build] the real-size FFI problem, its library built on the card
     through K1c;
 15. [ffi_llk] the 2000-chain FFI log-likelihood through K3 against the
@@ -123,12 +76,9 @@ SMC on the first and a post-seismic geodetic SMC on the last.
     (|llk| + |llk0|), llk0 being the likelihood's residual-free part (the
     llk is the difference of llk0 and the whitened misfit and passes
     through 0, so a bar on |llk| alone is ill-posed); its time, the
-    eikonal solve's time and kernel launches within it; then the onset
-    solve alone at 2000 and 5000 chains on the 10 × 50 grid: the kernel
-    (``csrc/eikonal.cu``) and the plain Jacobi loop in turns, their
-    launches, the bound, the largest onset difference and the chains
-    whose iteration counts differ (at most 1 %, every other chain's
-    onsets equal bit for bit);
+    eikonal solve's time and kernel launches within it;
+15a. [kernels] each kernel's wrapper against its plain version at the
+    path's shapes, one launch a call (see :func:`kernel_checks`);
 15b. the runtime (slice 13): [parallel_ffi_llk] the library split by
     targets on a ``make_gf_mesh(2, 2)`` of 4 ranks started here (spawn),
     sharing the card over gloo (NCCL refuses two ranks on one device):
@@ -181,17 +131,9 @@ SMC on the first and a post-seismic geodetic SMC on the last.
     reduction >= 0.9 per scene (after [rect_smc]); [ffi_extras] the
     Laquila-scale kinematic llk with a station time shift per target, a
     second wavemap in the ``spectrum`` domain and ``hp_specific``, through
-    K3, against the plain stack as [ffi_llk]; [k3_bf16], [k4_bf16] the
-    bf16 copy of the library (built on the card a target at a time: half
-    the bytes, no third copy), K3 and K4 on it against their plain version
-    on the same copy at phase 13's bar in every variant (K3's ``mma``,
-    the tensor-core one, ``tiled``, ``gather``: their times in turns, the
-    distinct cells of each 8-chain group's rows), the planned one timed in
-    turns with the float32 kernels, within 0.02 · max of the float32
-    stack and not equal to it, and the dense ``bmm`` yardstick on it (bf16
-    operands, float32 accumulation) as their ``library_ms``; their bound
-    counts the operations at the tensor cores' bf16 rate; [ffi_llk_bf16]
-    one llk of the FFI flagship on the bf16 library with each
+    K3, against the plain stack as [ffi_llk]; [ffi_llk_bf16] the bf16
+    copy of the library (built on the card a target at a time: half the
+    bytes, no third copy) and one llk of the FFI flagship on it with each
     interpolation (after [ffi_smc]); [ffi_smc_bf16] the multilinear one
     through [ffi_smc]'s capped SMC (2000 chains × 20 steps, stage cap 4):
     β strictly increasing, finite llks, K3 on the bf16 library at every
@@ -303,18 +245,25 @@ SMC on the first and a post-seismic geodetic SMC on the last.
     capped SMC (stage 0 and one stage of 2000 chains × 60 steps) equal to
     the meshless run of the same seed (q atol 1e-6, llk atol 1e-5); a
     rank that fails, or ranks still running after 240 s, end the script;
-18. [done] the script's seconds, a JSON line of the kernels, then
+18. [done] the script's seconds and K5's launches by path, then
     ``{"ok": true, "device": ...}`` last.
 
-Phase 12 and the bench-shape half of 13 run right after phase 4, phase 5
-after them (the profiler's device records of launch-sized calls go
-missing later in the process).  Every launch count is read from counters set to 0 just before
-the path it counts.  It needs CUDA and exits non-zero without it; it never falls
-back to the CPU.
+Every launch count is the launcher's counter of the kernel's C entry
+(``launches.<entry>``, ``beat_tpu_torch/kernels/build.py::launch``),
+counted from 0 over the call it counts.  The program's spans and counters
+are on only over those calls (:func:`counting`), so a path run whose
+launches are counted is also timed with them on: its wall seconds
+include the spans' bookkeeping and, on the FFI paths, one host read of
+the eikonal's iteration count a solve.  The kernels alone are checked at
+more shapes by ``tests/test_torch_gpu.py`` and timed by
+``tools/bench_torch_contract.py`` (K1c, K2c) and
+``tools/bench_torch_stack.py`` (K3, K4).  It needs CUDA and exits
+non-zero without it; it never falls back to the CPU.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -327,15 +276,15 @@ os.environ.pop("BEAT_TPU_PLATFORM", None)
 
 N_CHAINS = 2000
 N_STEPS = 60
-K1_RTOL = 1e-6          # K1 vs plain: max |err| <= K1_RTOL · max|ref|
-K2_RTOL = 1e-5          # K2 vs plain, per query: see phase 4 above
-CONTRACT_RTOL = 1e-5    # K1c/K2c vs plain, per query: see phase 5 above
+CONTRACT_RTOL = 1e-5    # K1c's JVP vs plain, per query: see [project_seis_derivative]
+#: [kernels]: the card tests' bars (tests/test_torch_gpu.py): K1 max |err| over
+#: max|ref|; K2 per query over Σ|g| · max|rows|; K3/K4 per (chain, target) over
+#: Σ_p |slip_p| · Σ_corners |w| · max|data|; the bf16 stack's loss, of max|stack|
+K1_RTOL, K2_RTOL, STACK_RTOL, BF16_LOSS_MAX = 1e-6, 1e-5, 1e-5, 0.02
 LLK_RTOL = 2e-5         # the JAX package's per-chain llk bar
 GRAD_RTOL = 5e-3        # the JAX package's bar between its gather paths' gradients
 DEPTH_TOL, MAG_TOL = 500.0, 0.05
 MAP_DEPTH_TOL, MAP_MAG_TOL = 600.0, 0.15        # tests/test_optimize.py:115-116
-STACK_RTOL = 1e-5        # K3/K4 vs plain, per (chain, target): see phase 12 above
-K3_BENCH_SHAPE = dict(C=2000, T=8, P=12, D=6, S=16, N=256)     # tools/bench_gfstack.py
 FFI_STEPS, FFI_MAX_STAGES = 20, 4                 # examples/laquila_scale_ffi.py
 FFI_PLAIN_CHAINS = 128           # chains of the [ffi_llk] comparison with the plain stack
 FFI_RECOVER_SIZE = dict(n_targets=12, n_strike=6, n_dip=3, nt=256, nwin=96)
@@ -385,9 +334,6 @@ TRANSD = dict(k_max=20, k_min=1, n_chains=1024, n_steps=4000, record_every=20, s
 TRANSD_CORR_MIN = 0.8
 TRANSD_PRIOR = dict(k_max=8, k_min=1, n_chains=96, n_steps=4000, record_every=20, seed=1)
 TRANSD_PRIOR_ATOL = 0.045
-#: [k3_bf16], [k4_bf16]: the bf16 stack against the float32 one
-#: (tests/test_gfstack_pallas.py:176-179)
-BF16_LOSS_MAX = 0.02
 ESTIMATE_HYPERS_STEPS, ESTIMATE_HYPERS_CHAINS = 2000, 20      # [ffi_extras], static FFI
 #: [bem_build]: the random blocks of the matrices held against the host's
 #: float64 (rtol of the block's max, the CPU tests' bar) and the unit
@@ -431,9 +377,6 @@ VR_TRUTH_MARGIN = 0.02
 PARALLEL_SMC_RANKS, PARALLEL_FFI_MESH, PARALLEL_DEADLINE_S = 2, (2, 2), 240.0
 #: [parallel_nccl]: the mesh run against the meshless one (tests/test_parallel.py:91-92)
 PARALLEL_Q_ATOL, PARALLEL_LLK_ATOL = 1e-6, 1e-5
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM, HBM3
-FP32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
-BF16_FLOPS_PER_S = 989e12       # H100 SXM, bf16 on the tensor cores (dense)
 
 
 def say(phase: str, **fields) -> None:
@@ -449,48 +392,35 @@ def fmt_ms(x) -> str:
     return "not_measured" if x is None else f"{x:.4f}"
 
 
+@contextlib.contextmanager
+def spans_off():
+    """The main path's setting for a timed or profiled call: the program's
+    spans and counters off (on, an eikonal solve also reads its iteration
+    count from the device)."""
+    from beat_tpu_torch.profiling import enable_spans
+
+    before = enable_spans(False)
+    try:
+        yield
+    finally:
+        enable_spans(before)
+
+
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean milliseconds of ``fn()`` on the current stream (CUDA events)."""
+    """Mean milliseconds of ``fn()`` on the current stream (CUDA events),
+    spans off."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    with spans_off():
+        for _ in range(warmup):
+            fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def bound_ms(n_bytes: float, n_flops: float, flops_per_s: float = FP32_FLOPS_PER_S) -> tuple:
-    """The least time the card could take for the work: ``(ms, "bytes" or
-    "operations")``, whichever bounds it; the operations at
-    ``flops_per_s`` (float32 outside the tensor cores unless said)."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / flops_per_s
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def k1_queries(table, n: int, gen):
-    """Random K1 queries over all three channel blocks, with top-edge
-    nodes (fd or fz exactly 1.0) among them."""
-    import torch
-
-    nd, nz = table.distances.size, table.depths.size
-    dev = table.packed.device
-    comp = torch.randint(0, 3, (n,), generator=gen, device=dev)
-    d0 = torch.randint(0, nd - 1, (n,), generator=gen, device=dev)
-    z0 = torch.randint(0, nz - 1, (n,), generator=gen, device=dev)
-    fd = torch.rand(n, generator=gen, device=dev)
-    fz = torch.rand(n, generator=gen, device=dev)
-    edge = torch.arange(n, device=dev) % 7 == 0
-    d0 = torch.where(edge, nd - 2, d0)
-    fd = torch.where(edge, 1.0, fd)
-    z0 = torch.where(edge, nz - 2, z0)
-    fz = torch.where(edge, 1.0, fz)
-    w4 = torch.stack([(1 - fd) * (1 - fz), (1 - fd) * fz, fd * (1 - fz), fd * fz], dim=-1)
-    return comp * (table.packed.shape[0] // 3) + d0, z0, w4
 
 
 #: the CUDA calls by which a host thread hands work to the device; the
@@ -509,471 +439,78 @@ def device_kernels(fn) -> tuple:
     hands out a new record buffer in mid-trace and the records in it do
     not come back with this trace; seen a minute into a process): the
     trace is then taken again, four times at most, and if the records
-    still miss ``ms`` is NaN and the dictionary empty."""
+    still miss ``ms`` is NaN and the dictionary empty.  Spans off."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(5):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        kernels = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
-                         key=lambda e: -e.self_device_time_total)
-        if kernels:
-            break
+    with spans_off():
+        for _ in range(5):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            events = prof.key_averages()
+            kernels = sorted((e for e in events
+                              if e.device_type == torch.autograd.DeviceType.CUDA),
+                             key=lambda e: -e.self_device_time_total)
+            if kernels:
+                break
     launches = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CPU
                    and e.key.startswith(DEVICE_CALLS))
     by_name = {e.key: e.self_device_time_total / 1e3 for e in kernels}
     return launches, (sum(by_name.values()) if kernels else float("nan")), by_name
 
 
-def stack_inputs(lib, n_chains: int, duration_range, starttime_range, gen) -> tuple:
-    """Random (durations, starttimes, slips) of a GF-stack call on
-    ``lib``'s device: uniform over the given ranges [s], slips in [0, 3)."""
-    import torch
-
-    dev = lib.data.device
-    T, P = lib.ntargets, lib.npatches
-
-    def uniform(shape, lo, hi):
-        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
-
-    return (uniform((n_chains, P), *duration_range), uniform((n_chains, T, P), *starttime_range),
-            uniform((n_chains, P), 0.0, 3.0))
+#: each kernel's C entry, whose launches the launcher counts as
+#: ``launches.<entry>`` (``beat_tpu_torch/kernels/build.py::launch``)
+ENTRIES = {"k1c": "beat_bilinear_contract_f32", "k2c": "beat_contract_corner_dot_f32",
+           "k1": "beat_bilinear_rows_f32", "k2": "beat_corner_dot_f32",
+           "k3": "beat_gf_stack_multilinear_f32", "k4": "beat_gf_stack_nearest_f32",
+           "k3_bf16": "beat_gf_stack_multilinear_bf16", "k4_bf16": "beat_gf_stack_nearest_bf16",
+           "k5": "beat_gather_rows_f32", "eikonal": "beat_eikonal_f32"}
 
 
-def stack_gate(data, slips, rtf, stf, got, ref) -> float:
-    """Worst |got - ref| per (chain, target) over its bar, STACK_RTOL ·
-    Σ_p |slip_p| · Σ_corners |w| · max|data| (the float32 sums of P ·
-    corners products differ in order)."""
-    wabs = 1.0
-    if rtf is not None:
-        wabs = (rtf.abs() + (1 - rtf).abs())[:, None, :] * (stf.abs() + (1 - stf).abs())
-    bar = STACK_RTOL * (slips.abs()[:, None, :] * wabs).sum(-1) * data.abs().max().float()
-    return float(((got - ref).abs().amax(-1) / bar).max())
+@contextlib.contextmanager
+def counting():
+    """The program's counters over the block, from 0: spans on inside it
+    and off after it (the main path's setting), so that only the counted
+    calls run with them on.  :func:`counter` reads the block's counts
+    after it, until the next block."""
+    from beat_tpu_torch.profiling import enable_spans, reset_spans
+
+    reset_spans()
+    before = enable_spans(True)
+    try:
+        yield
+    finally:
+        enable_spans(before)
 
 
-def times_in_turns(fns: dict, iters: int) -> dict:
-    """Mean CUDA-event milliseconds of each of ``fns`` timed in turns
-    a, b, c, ..., c, b, a."""
-    times = {k: [] for k in fns}
-    for k in list(fns) + list(fns)[::-1]:
-        times[k].append(cuda_ms(fns[k], iters=iters))
-    return {k: sum(v) / len(v) for k, v in times.items()}
+def counter(name: str) -> int:
+    """The program's counter ``name`` over the last :func:`counting`
+    block."""
+    from beat_tpu_torch.profiling import span_snapshot
+
+    return span_snapshot()["counters"].get(name, 0)
 
 
-def time_in_turns(fn_a, fn_b, iters: int) -> tuple:
-    """Mean CUDA-event milliseconds of ``fn_a`` and ``fn_b`` timed a, b, b, a."""
-    t = times_in_turns({"a": fn_a, "b": fn_b}, iters)
-    return t["a"], t["b"]
+def launch_counts() -> dict:
+    """The kernel launches over the last :func:`counting` block, by C
+    entry."""
+    from beat_tpu_torch.profiling import span_snapshot
+
+    return {name.removeprefix("launches."): n for name, n in span_snapshot()["counters"].items()
+            if name.startswith("launches.")}
 
 
-#: the GF stack's kernel variants, in the order they are tried beside the plan's
-STACK_VARIANTS = ("mma", "tiled", "gather")
-
-
-def check_stack(lib, durations, starttimes, slips, interpolation: str, iters: int) -> dict:
-    """One GF-stack kernel (K3 for multilinear, K4 for nearest neighbour)
-    against its plain version on the same inputs: the variant the plan
-    chose and every other one that can run here (``mma``: K3 on a bf16
-    library only); their times in turns, the plain time and the bound.
-    ``tiled`` and ``gather`` must be equal bit for bit, every variant
-    equal to itself on a second call.  Raises SystemExit when a check
-    fails."""
-    import torch
-
-    from beat_tpu_torch.ops.gfstack import (_clamp_cells, group_cells, plan_stack,
-                                            stack_batched, stack_batched_reference)
-
-    data = lib.data
-    T, P, D, S, N = data.shape
-    C = durations.shape[0]
-    didx, rtf = lib.durations2idxs(durations, interpolation)
-    sidx, stf = lib.starttimes2idxs(starttimes, interpolation)
-    multilinear = rtf is not None
-    corners = 4 if multilinear else 1
-    bf16 = data.dtype == torch.bfloat16
-    plan = plan_stack(T, P, D, S, N, C, corners, aligned=data.data_ptr() % 16 == 0,
-                      elem_bytes=data.element_size())
-    variants = [plan.variant]
-    for v in STACK_VARIANTS:
-        if v == plan.variant:
-            continue
-        try:
-            plan_stack(T, P, D, S, N, C, corners, variant=v, elem_bytes=data.element_size())
-            variants.append(v)
-        except ValueError:      # tiled or mma cannot run here
-            pass
-
-    def run(variant):
-        return stack_batched(data, didx, sidx, slips, rtf, stf, variant=variant)
-
-    ref = stack_batched_reference(data, didx, sidx, slips, rtf, stf)
-    got = {v: run(v) for v in variants}
-    deterministic = {v: bool(torch.equal(run(v), got[v])) for v in variants}
-    torch.cuda.synchronize()
-    errs = {v: float((g - ref).abs().max()) for v, g in got.items()}
-    over = {v: stack_gate(data, slips, rtf, stf, g, ref) for v, g in got.items()}
-    out = {"variant": plan.variant, "why": plan.why, "variants": variants,
-           "max_ref": float(ref.abs().max()), "max_abs_err": errs[plan.variant],
-           "worst_err_over_bar": max(over.values()),
-           "variants_err_over_bar": over, "variants_max_abs_err": errs,
-           "deterministic": all(deterministic.values()),
-           "variants_equal": ("tiled" not in got or "gather" not in got
-                              or bool(torch.equal(got["tiled"], got["gather"])))}
-    del got, ref
-    torch.cuda.empty_cache()
-    # every variant in turns; ``previous_ms`` is the gather variant (the
-    # kernel before the tiled one)
-    times = times_in_turns({v: (lambda v=v: run(v)) for v in variants}, iters)
-    out["variants_ms"] = times
-    out["ms"], out["previous_ms"] = times[plan.variant], times["gather"]
-    out["device_ms"] = ms_or_none(device_kernels(lambda: run(plan.variant))[1])
-    out["previous_device_ms"] = ms_or_none(device_kernels(lambda: run("gather"))[1])
-    out["plain_ms"] = cuda_ms(
-        lambda: stack_batched_reference(data, didx, sidx, slips, rtf, stf), iters=2, warmup=1)
-    # bytes: the library cells these indices touch, the indices and weights, the output
-    touched = torch.zeros(T * P * D * S, dtype=torch.bool, device=data.device)
-    tp = (torch.arange(T, device=data.device)[:, None] * P
-          + torch.arange(P, device=data.device)[None, :])
-    for dd, ss in ((0, 0), (0, 1), (1, 0), (1, 1)) if multilinear else ((0, 0),):
-        touched[((tp * D + (didx.long()[:, None, :] - dd)) * S + (sidx.long() - ss))] = True
-    out["cells_read"] = int(touched.sum())
-    per_entry = 8 if multilinear else 4          # sidx (+ stf); didx, slips (+ rtf)
-    n_bytes = (out["cells_read"] * N * data.element_size() + sidx.numel() * per_entry
-               + C * P * (per_entry + 4) + C * T * N * 4)
-    # a bf16 library's products fit the tensor cores (bf16 operands, float32
-    # sums), a float32 library's the CUDA cores
-    out["bound_ms"], out["bound_by"] = bound_ms(
-        n_bytes, 2.0 * corners * C * T * P * N, BF16_FLOPS_PER_S if bf16 else FP32_FLOPS_PER_S)
-    if "mma" in variants:
-        out["group_cells"] = group_cells(*_clamp_cells(data, didx, sidx, True))
-    if not (out["worst_err_over_bar"] <= 1.0 and out["variants_equal"]
-            and out["deterministic"]):
-        raise SystemExit(f"the {interpolation} GF stack disagrees with its plain version (or "
-                         f"tiled with gather, or a variant with itself on a second call): err/bar "
-                         f"{over}, tiled == gather {out['variants_equal']}, deterministic "
-                         f"{deterministic}")
-    return out
-
-
-def plain_chain_iterations(slowness, nuc_d, nuc_s, patch_size: float, epsilon: float = 0.1,
-                           max_iter: int | None = None) -> tuple:
-    """The updates each chain runs in ``eikonal_rupture_times_plain``, from
-    the plain update iterated without stopping (a chain's updates before
-    its stop are those of the masked loop): a chain's count is its first
-    update whose summed squared change is not above ``epsilon`` (a NaN
-    change stops it too), else ``max_iter``.  Returns the (C,) int32
-    counts and the (C, n) float32 changes of the n updates run, n the
-    largest count."""
-    import torch
-
-    from beat_tpu_torch.ops.eikonal import _INIT_TIME, _default_max_iter, _upwind_update
-
-    n_chains, n_dip, n_strike = slowness.shape
-    if max_iter is None:
-        max_iter = _default_max_iter(n_dip, n_strike)
-    fh = slowness * patch_size
-    nuc = torch.zeros_like(slowness, dtype=torch.bool)
-    nuc[torch.arange(n_chains, device=slowness.device), nuc_d.long(), nuc_s.long()] = True
-    times = torch.where(nuc, 0.0, torch.full_like(slowness, _INIT_TIME))
-    runs = torch.full((n_chains,), max_iter, dtype=torch.int32, device=slowness.device)
-    going = torch.ones(n_chains, dtype=torch.bool, device=slowness.device)
-    changes = []
-    for it in range(max_iter):
-        if not bool(going.any()):
-            break
-        new = torch.where(nuc, 0.0, _upwind_update(times, fh))
-        change = torch.sum((new - times) ** 2, dim=(1, 2))
-        changes.append(change)
-        stops = going & ~(change > epsilon)
-        runs[stops] = it + 1
-        going &= ~stops
-        times = new
-    return runs, (torch.stack(changes, dim=1) if changes
-                  else slowness.new_zeros((n_chains, 0)))
-
-
-def eikonal_turns(dev, n_chains: int, n_dip: int = 10, n_strike: int = 50,
-                  patch_size: float = 2000.0, iters: int = 10) -> dict:
-    """[ffi_llk]'s onset solve alone: ``n_chains`` grids of the FFI
-    prior's velocities (2000–4000 m/s) and random nucleation cells,
-    through the kernel and the plain loop, timed in turns; their launches
-    and device time, the bound, and how the two results differ.  Raises
-    SystemExit where a chain whose iteration count agrees has other
-    onsets, or where more than 1 % of the chains disagree on the count."""
-    import numpy as np
-    import torch
-
-    from beat_tpu_torch.ops.eikonal import (eikonal_rupture_times_fused,
-                                            eikonal_rupture_times_plain)
-
-    rng = np.random.default_rng(n_chains)
-    s = torch.as_tensor(1.0 / rng.uniform(2000.0, 4000.0, (n_chains, n_dip, n_strike)),
-                        dtype=torch.float32, device=dev)
-    d = torch.as_tensor(rng.integers(0, n_dip, n_chains), device=dev)
-    k = torch.as_tensor(rng.integers(0, n_strike, n_chains), device=dev)
-
-    def fused():
-        return eikonal_rupture_times_fused(s, patch_size, d, k)
-
-    def plain():
-        return eikonal_rupture_times_plain(s, patch_size, d, k)
-
-    fused_ms, plain_ms = time_in_turns(fused, plain, iters)
-    f_launches, f_kernel_ms, f_by_name = device_kernels(fused)
-    p_launches, p_kernel_ms, _ = device_kernels(plain)
-    (tf, rf), tp = fused(), plain()
-    rp = plain_chain_iterations(s, d, k, patch_size)[0]
-    agree = rf == rp
-    cells = n_dip * n_strike
-    # slowness read and onsets written once, the indexes and the counts;
-    # about 20 operations a cell an iteration
-    n_bytes = n_chains * (8 * cells + 2 * 8 + 4)
-    n_flops = 20.0 * cells * float(rf.sum())
-    b_ms, b_by = bound_ms(n_bytes, n_flops)
-    r = dict(fused_ms=fused_ms, plain_ms=plain_ms, fused_launches=f_launches,
-             plain_launches=p_launches, fused_device_ms=f_kernel_ms,
-             plain_device_ms=p_kernel_ms, bound_ms=b_ms, bound_by=b_by,
-             max_onset_diff=float((tf - tp).abs().max()),
-             chains_iterations_differ=int((~agree).sum()),
-             mean_iterations=float(rf.float().mean()), max_iterations=int(rf.max()),
-             kernel=next(iter(f_by_name), ""))
-    say("ffi_llk", shape=f"eikonal_{n_chains}x{n_dip}x{n_strike}",
-        fused_ms=f"{fused_ms:.4f}", plain_ms=f"{plain_ms:.4f}", fused_launches=f_launches,
-        plain_launches=p_launches, fused_device_ms=fmt_ms(ms_or_none(f_kernel_ms)),
-        plain_device_ms=fmt_ms(ms_or_none(p_kernel_ms)), bound_ms=f"{b_ms:.4f}",
-        bound_by=b_by, max_onset_diff=f"{r['max_onset_diff']:.3e}",
-        chains_iterations_differ=r["chains_iterations_differ"],
-        mean_iterations=f"{r['mean_iterations']:.2f}", max_iterations=r["max_iterations"])
-    if not torch.equal(tf[agree].view(torch.int32), tp[agree].view(torch.int32)):
-        raise SystemExit("[ffi_llk] the eikonal kernel's onsets differ from the plain loop's "
-                         "on chains that stopped at the same iteration")
-    if r["chains_iterations_differ"] > 0.01 * n_chains or f_launches != 1:
-        raise SystemExit(f"[ffi_llk] eikonal kernel: {r['chains_iterations_differ']} chains "
-                         f"stop elsewhere, {f_launches} launches")
-    return r
-
-
-def say_stack(key: str, shape: str, dims: dict, r: dict, **extra) -> None:
-    fields = dict(variant=r["variant"], max_abs_err=f"{r['max_abs_err']:.3e}",
-                  max_ref=f"{r['max_ref']:.3e}",
-                  worst_err_over_bar=f"{r['worst_err_over_bar']:.3e}",
-                  variants_equal=r["variants_equal"], deterministic=r["deterministic"],
-                  ms=f"{r['ms']:.4f}",
-                  previous_ms=f"{r['previous_ms']:.4f}", device_ms=fmt_ms(r["device_ms"]),
-                  previous_device_ms=fmt_ms(r["previous_device_ms"]))
-    fields.update({f"{v}_ms": f"{t:.4f}" for v, t in r["variants_ms"].items()})
-    fields["err_over_bar"] = json.dumps({v: float(f"{e:.3e}")
-                                         for v, e in r["variants_err_over_bar"].items()})
-    if "group_cells" in r:
-        fields["group_cells"] = json.dumps(r["group_cells"])
-    library_ms = "none" if r.get("library_ms") is None else f"{r['library_ms']:.4f}"
-    say(key, shape=shape, **dims, **fields, plain_ms=f"{r['plain_ms']:.4f}", library_ms=library_ms,
-        cells_read=r["cells_read"], bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"],
-        share_of_bound=f"{r['bound_ms'] / r['ms']:.3f}", why=json.dumps(r["why"]), **extra)
-
-
-def dense_bmm_ms(lib, durations, starttimes, slips, interpolation: str = "multilinear"
-                 ) -> tuple:
-    """The GF stack as one dense ``torch.bmm`` over the scattered corner
-    weights, (T, C, P·D·S) @ (T, P·D·S, N): the library yardstick of K3
-    (``multilinear``: four corners a patch) and K4 (``nearest_neighbor``:
-    one), not a path of the port; on a bf16 library the weights are bf16
-    too (a corner's weight is written once, never summed).  The cells are clamped as the plain
-    version clamps them.  Returns (ms of the bmm alone, ms with the scatter
-    that builds the weights, max |err| against the plain version)."""
-    import torch
-
-    from beat_tpu_torch.ops.gfstack import _clamp_cells, stack_batched_reference
-
-    data = lib.data
-    T, P, D, S, N = data.shape
-    C = durations.shape[0]
-    didx, rtf = lib.durations2idxs(durations, interpolation)
-    sidx, stf = lib.starttimes2idxs(starttimes, interpolation)
-    d, s = _clamp_cells(data, didx, sidx, rtf is not None)
-    d = d[:, None, :]
-    p = torch.arange(P, device=data.device)
-    flat = data.reshape(T, P * D * S, N)
-    if rtf is None:
-        corners = ((0, 0, torch.ones_like(slips)[:, None, :]),)
-    else:
-        rf = rtf[:, None, :]
-        corners = ((1, 1, rf * stf), (1, 0, rf * (1 - stf)), (0, 1, (1 - rf) * stf),
-                   (0, 0, (1 - rf) * (1 - stf)))
-
-    def weights():
-        w = torch.zeros((C, T, P * D * S), dtype=data.dtype, device=data.device)
-        for dd, ss, wc in corners:
-            idx = ((p * D + (d - dd)) * S + (s - ss)).expand(C, T, P)
-            w.scatter_add_(2, idx, (wc * slips[:, None, :]).to(data.dtype).expand(C, T, P))
-        return w.transpose(0, 1).contiguous()
-
-    w = weights()
-    got = torch.bmm(w, flat).transpose(0, 1)
-    err = float((got - stack_batched_reference(data, didx, sidx, slips, rtf, stf)).abs().max())
-    del got
-    return (cuda_ms(lambda: torch.bmm(w, flat), iters=10),
-            cuda_ms(lambda: torch.bmm(weights(), flat), iters=10), err)
-
-
-def unfused_point_spectra(table):
-    """``table.point_spectra`` as it was before K1c: K1's blended (…, 6,
-    nf, 2) rows (``gather_spectra``), then the m6 contraction as a matmul,
-    whose backward is a gemm, a gemv and K2.  The yardstick of
-    [grad_profile]; not a path of the port."""
-    import torch
-
-    from beat_tpu_torch.heart.gftable import rotate_m6_to_ray_frame
-    from beat_tpu_torch.ops.cplx import cmul
-
-    def point_spectra(m6, east_shift, north_shift, depth, station_east, station_north,
-                      comp_idx, filter_response=None):
-        de = station_east - east_shift[..., None]
-        dn = station_north - north_shift[..., None]
-        g = table.gather_spectra(torch.sqrt(de**2 + dn**2), depth, comp_idx)
-        m6_ray = rotate_m6_to_ray_frame(m6[..., None, :], torch.atan2(de, dn))
-        spec = (m6_ray.to(g.dtype)[..., None, :]
-                @ g.reshape(g.shape[:-3] + (6, 2 * table.nf))).reshape(g.shape[:-3]
-                                                                      + (table.nf, 2))
-        return spec if filter_response is None else cmul(spec, filter_response)
-
-    return point_spectra
-
-
-def check_contract(tbl, queries: dict, gen) -> dict:
-    """K1c and K2c against their plain versions on one set of (..., T)
-    queries (``cd``, ``z0`` and ``A = w4 ⊗ m6`` (..., T, 4, 6), with its
-    factors), per query within CONTRACT_RTOL · Σ|A| (or Σ|G|) · max|rows|;
-    their times, the unfused path's in turns (``previous_ms``: K1 and the
-    matmul for K1c, the matmul's backward and K2 for K2c), the plain times,
-    the one-call library times and the bounds.  The library call is
-    ``embedding_bag`` over the table's component segments, one bag of 24
-    segments a query weighted by A, and for K2c its per-sample-weights
-    backward; it is held to the same bar.  Raises SystemExit when a kernel
-    or the library call disagrees."""
-    import torch
-
-    from beat_tpu_torch.kernels.build import load
-    from beat_tpu_torch.ops.bilgather import (bilinear_contract, bilinear_contract_reference,
-                                              bilinear_rows, contract_corner_dot,
-                                              contract_corner_dot_reference, corner_dot,
-                                              corner_rows_reference)
-
-    CD, NZ, M = tbl.shape
-    L = M // 6
-    cd, z0, A = queries["cd"], queries["z0"], queries["A"]
-    T, n = cd.shape[-1], cd.numel()
-    w4, m6 = queries["w4"].reshape(n, 4), queries["m6"].reshape(n, 6)
-    G = torch.randn(cd.shape + (L,), generator=gen, device=tbl.device)
-    cdf, z0f, Af, Gf = cd.reshape(n), z0.reshape(n), A.reshape(n, 4, 6), G.reshape(n, L)
-    cdc, z0c = cdf.clamp(0, CD - 2), z0f.clamp(0, NZ - 2)       # the plain versions do not clamp
-    rows = corner_rows_reference(tbl, cdc, z0c)
-    row_max = rows.abs().amax(dim=(1, 2))
-    row = cdc * NZ + z0c
-    rows_read = int(torch.unique(torch.cat([row, row + 1, row + NZ, row + NZ + 1])).numel())
-    del rows
-    # groups: distinct corner blocks of each (chain tile, target), what the
-    # kernels bring from L2 once each; the tiles are the built kernels' own
-    lib, _ = load("bilgather")
-    q = torch.arange(n, device=tbl.device)
-    groups = {}
-    for key, kernel_id in (("k1c", 0), ("k2c", 1)):
-        tile = lib.beat_contract_tile(kernel_id)
-        block = (q // T) // tile * T + q % T
-        groups[key] = int(torch.unique(block * (CD * NZ) + row).numel())
-    out = {"queries": n, "targets": T, "table_rows_read": rows_read, "groups": groups}
-
-    # the library yardstick: the table as (CD·NZ·6, L) segment rows, a bag
-    # of the 24 segments (corner c, component k) of each query
-    seg = tbl.view(CD * NZ * 6, L)
-    corners = torch.stack([row, row + 1, row + NZ, row + NZ + 1], dim=1)
-    idx24 = (corners[:, :, None] * 6 + torch.arange(6, device=tbl.device)).reshape(n, 24)
-    offsets = torch.arange(0, 24 * n, 24, device=tbl.device)
-    offset2bag = torch.arange(n, device=tbl.device).repeat_interleave(24)
-    ind = idx24.reshape(-1)
-    A24 = Af.reshape(n, 24)
-
-    def library_forward():
-        return torch.nn.functional.embedding_bag(idx24, seg, per_sample_weights=A24, mode="sum")
-
-    def library_backward():
-        return torch.ops.aten._embedding_bag_per_sample_weights_backward(
-            Gf, seg, ind, offsets, offset2bag, 0, -1).view(n, 4, 6)
-
-    def unfused_forward():
-        blended = bilinear_rows(tbl, cdf, z0f, w4)                     # K1, (n, 6·L)
-        return (m6[:, None, :] @ blended.view(n, 6, L)).view(n, L)
-
-    blended = bilinear_rows(tbl, cdf, z0f, w4).view(n, 6, L)
-
-    def unfused_backward():
-        d_rows = m6[:, :, None] @ Gf[:, None, :]                       # gemm, (n, 6, L)
-        dm6 = blended @ Gf[:, :, None]                                 # gemv
-        return corner_dot(tbl, cdf, z0f, d_rows.view(n, M)), dm6       # K2
-
-    for key, kernel, plain, unfused, library, x, x_abs, sum_dims in (
-            ("k1c", bilinear_contract, bilinear_contract_reference, unfused_forward,
-             library_forward, A, Af.abs().sum((1, 2)), -1),
-            ("k2c", contract_corner_dot, contract_corner_dot_reference, unfused_backward,
-             library_backward, G, Gf.abs().sum(-1), (1, 2))):
-        got = kernel(tbl, cd, z0, x)
-        again = kernel(tbl, cd, z0, x)
-        xf = Af if key == "k1c" else Gf
-        ref = plain(tbl, cdc, z0c, xf)
-        lib_got = library()
-        torch.cuda.synchronize()
-        bar = CONTRACT_RTOL * x_abs * row_max
-        err = (got.reshape(ref.shape) - ref).abs().amax(sum_dims)
-        r = {"max_abs_err": float(err.max()), "max_ref": float(ref.abs().max()),
-             "worst_err_over_bar": float((err / bar).max()),
-             "deterministic": bool(torch.equal(got, again)),
-             "library_worst_err_over_bar": float(
-                 ((lib_got - ref).abs().amax(sum_dims) / bar).max())}
-        del got, again, ref, err, lib_got, bar
-        torch.cuda.empty_cache()
-        r["ms"], r["previous_ms"] = time_in_turns(lambda: kernel(tbl, cd, z0, x), unfused, 20)
-        r["library_ms"] = cuda_ms(library, iters=20)
-        r["plain_ms"] = cuda_ms(lambda: plain(tbl, cdc, z0c, xf), iters=3, warmup=1)
-        # bytes: the touched table rows, the int32 indices, the coefficients
-        # (A in, or P out), the spectra (out) or their cotangent (G in)
-        r["bound_ms"], r["bound_by"] = bound_ms(rows_read * M * 4 + n * 8 + n * 24 * 4
-                                                + n * L * 4, 2.0 * 24 * L * n)
-        out[key] = r
-    del blended, idx24, ind, offsets, offset2bag
-    torch.cuda.empty_cache()
-    for key in ("k1c", "k2c"):
-        r = out[key]
-        if not (r["worst_err_over_bar"] <= 1.0 and r["deterministic"]):
-            raise SystemExit(f"{key} disagrees with its plain version (or with itself): "
-                             f"worst err/bar {r['worst_err_over_bar']}, "
-                             f"deterministic {r['deterministic']}")
-        if not r["library_worst_err_over_bar"] <= 1.0:
-            raise SystemExit(f"{key}'s library yardstick computes another function: "
-                             f"worst err/bar {r['library_worst_err_over_bar']}")
-    return out
-
-
-def say_contract(shape: str, r: dict) -> None:
-    for key in ("k1c", "k2c"):
-        k = r[key]
-        say(key, shape=shape, queries=r["queries"], targets=r["targets"],
-            max_abs_err=f"{k['max_abs_err']:.3e}", max_ref=f"{k['max_ref']:.3e}",
-            worst_err_over_bar=f"{k['worst_err_over_bar']:.3e}",
-            deterministic=k["deterministic"], ms=f"{k['ms']:.4f}",
-            previous_ms=f"{k['previous_ms']:.4f}", plain_ms=f"{k['plain_ms']:.4f}",
-            library_ms=f"{k['library_ms']:.4f}",
-            library_worst_err_over_bar=f"{k['library_worst_err_over_bar']:.3e}",
-            table_rows_read=r["table_rows_read"], groups=r["groups"][key],
-            bound_ms=f"{k['bound_ms']:.4f}", bound_by=k["bound_by"],
-            share_of_bound=f"{k['bound_ms'] / k['ms']:.3f}")
+def launched(kernel: str) -> int:
+    """The launches of ``kernel`` (a key of :data:`ENTRIES`) over the
+    last :func:`counting` block."""
+    return launch_counts().get(ENTRIES[kernel], 0)
 
 
 def chunked_value(fn, q, chunk: int):
     """``fn`` over the chains of ``q`` in chunks of ``chunk``, concatenated
-    (the plain versions at the finite layouts outgrow the card in one call)."""
+    (the plain versions' corner rows outgrow the card in one call)."""
     import torch
 
     outs = [fn(q[i:i + chunk]) for i in range(0, q.shape[0], chunk)]
@@ -1006,59 +543,6 @@ def queries_per_chain(comp) -> int:
 
     return sum(w.ntargets * sum(points(s) for _, s, _ in comp._selected_sources(w))
                for w in comp.wavemaps)
-
-
-def check_finite_layout(tbl, cd, z0, A, gen) -> dict:
-    """K1c on the queries of one finite-source likelihood (millions: the
-    patches as one more leading axis) against its plain version chunk by
-    chunk, per query within CONTRACT_RTOL · Σ|A| · max|rows|; its time,
-    the plain version's over all chunks, the ``embedding_bag`` yardstick's
-    and the bound.  Raises SystemExit when K1c disagrees."""
-    import torch
-
-    from beat_tpu_torch.ops.bilgather import (bilinear_contract, bilinear_contract_reference,
-                                              corner_rows_reference)
-
-    CD, NZ, M = tbl.shape
-    L = M // 6
-    n = cd.numel()
-    cdc = cd.reshape(n).clamp(0, CD - 2)
-    z0c = z0.reshape(n).clamp(0, NZ - 2)
-    Af = A.reshape(n, 4, 6)
-    row = cdc * NZ + z0c
-    rows_read = int(torch.unique(torch.cat([row, row + 1, row + NZ, row + NZ + 1])).numel())
-    chunk = 60000
-    got = bilinear_contract(tbl, cd, z0, A).reshape(n, L)
-    worst, max_err = 0.0, 0.0
-    for i in range(0, n, chunk):
-        sl = slice(i, i + chunk)
-        ref = bilinear_contract_reference(tbl, cdc[sl], z0c[sl], Af[sl])
-        row_max = corner_rows_reference(tbl, cdc[sl], z0c[sl]).abs().amax(dim=(1, 2))
-        err = (got[sl] - ref).abs().amax(-1)
-        max_err = max(max_err, float(err.max()))
-        worst = max(worst, float((err / (CONTRACT_RTOL * Af[sl].abs().sum((1, 2))
-                                         * row_max)).max()))
-    del got, ref, row_max, err
-    torch.cuda.empty_cache()
-    out = {"queries": n, "shape": tuple(cd.shape), "max_abs_err": max_err,
-           "worst_err_over_bar": worst, "table_rows_read": rows_read}
-    out["ms"] = cuda_ms(lambda: bilinear_contract(tbl, cd, z0, A), iters=5, warmup=1)
-    out["plain_ms"] = cuda_ms(lambda: [bilinear_contract_reference(
-        tbl, cdc[i:i + chunk], z0c[i:i + chunk], Af[i:i + chunk]) for i in range(0, n, chunk)],
-        iters=1, warmup=1)
-    seg = tbl.view(CD * NZ * 6, L)
-    corners = torch.stack([row, row + 1, row + NZ, row + NZ + 1], dim=1)
-    idx24 = (corners[:, :, None] * 6 + torch.arange(6, device=tbl.device)).reshape(n, 24)
-    out["library_ms"] = cuda_ms(lambda: torch.nn.functional.embedding_bag(
-        idx24, seg, per_sample_weights=Af.reshape(n, 24), mode="sum"), iters=3, warmup=1)
-    del idx24, corners
-    torch.cuda.empty_cache()
-    out["bound_ms"], out["bound_by"] = bound_ms(rows_read * M * 4 + n * 8 + n * 24 * 4
-                                                + n * L * 4, 2.0 * 24 * L * n)
-    if not worst <= 1.0:
-        raise SystemExit(f"K1c disagrees with its plain version at the finite layout "
-                         f"{tuple(cd.shape)}: worst err/bar {worst}")
-    return out
 
 
 def ffi_recover(interpolation: str, dev, workdir: str, n_chains: int) -> dict:
@@ -1276,7 +760,6 @@ def geodetic_phases(dev, workdir: str, k5_launches: dict) -> dict:
                                          scatter_points)
     from beat_tpu_torch.heart.okada import okada_surface_displacement
     from beat_tpu_torch.heart.statictable import build_homogeneous_static_table
-    from beat_tpu_torch.ops.rowgather import gather_rows
     from beat_tpu_torch.samplers import SMCParams
     from beat_tpu_torch.sources import RectangularSource, moment_to_magnitude
 
@@ -1314,14 +797,14 @@ def geodetic_phases(dev, workdir: str, k5_launches: dict) -> dict:
     problem = build_geodetic_flagship(**GEO_REAL_SIZE, seed=0, device=dev,
                                       outfolder=os.path.join(workdir, "geo_smc"))
     comp = problem.composites["geodetic"]
-    gather_rows.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    q_tr, llk_tr = problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=GEO_STEPS, seed=0))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    k5_launches["geo_smc"] = gather_rows.launches
+    with counting():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        q_tr, llk_tr = problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=GEO_STEPS, seed=0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    k5_launches["geo_smc"] = launched("k5")
     state = SampleStage(problem.outfolder, ordering=problem.ordering).load_state(-1)
     post, llk_post = q_tr[-1], llk_tr[-1]
     mean = problem.ordering.to_point(post.mean(axis=0))
@@ -1422,22 +905,22 @@ def geodetic_phases(dev, workdir: str, k5_launches: dict) -> dict:
     say("static_ffi_llk", **r)
 
     # [static_ffi_smc] lsq start, capped at STATIC_FFI_MAX_STAGES - 1 stages
-    gather_rows.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    try:
-        problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=STATIC_FFI_STEPS,
-                                 max_stages=STATIC_FFI_MAX_STAGES,
-                                 buffer_thinning=STATIC_FFI_THINNING, seed=1))
-        capped = False
-    except RuntimeError as e:
-        if "did not reach beta=1" not in str(e):
-            raise
-        capped = True
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    k5_launches["static_ffi_smc"] = gather_rows.launches
+    with counting():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=STATIC_FFI_STEPS,
+                                     max_stages=STATIC_FFI_MAX_STAGES,
+                                     buffer_thinning=STATIC_FFI_THINNING, seed=1))
+            capped = False
+        except RuntimeError as e:
+            if "did not reach beta=1" not in str(e):
+                raise
+            capped = True
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    k5_launches["static_ffi_smc"] = launched("k5")
     handler = SampleStage(problem.outfolder, ordering=problem.ordering)
     stages = list(range(1, STATIC_FFI_MAX_STAGES)) if capped else [-1]
     states = [handler.load_state(st) for st in stages]
@@ -1482,13 +965,13 @@ def geodetic_phases(dev, workdir: str, k5_launches: dict) -> dict:
     problem = build_static_ffi_flagship(**STATIC_RECOVER_SIZE, seed=0, device=dev,
                                         outfolder=os.path.join(workdir, "static_recover"))
     comp = problem.composites["geodetic"]
-    gather_rows.launches = 0
-    t0 = time.perf_counter()
-    q_tr, llk_tr = problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=STATIC_RECOVER_STEPS,
-                                            seed=0))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    k5_launches["static_ffi_recover"] = gather_rows.launches
+    with counting():
+        t0 = time.perf_counter()
+        q_tr, llk_tr = problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=STATIC_RECOVER_STEPS,
+                                                seed=0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    k5_launches["static_ffi_recover"] = launched("k5")
     state = SampleStage(problem.outfolder, ordering=problem.ordering).load_state(-1)
     mean = problem.ordering.to_point(q_tr[-1].mean(axis=0))
     best = problem.ordering.to_point(q_tr[-1][int(np.argmax(llk_tr[-1]))])
@@ -1584,14 +1067,14 @@ def joint_phases(dev, table, workdir: str) -> dict:
             with torch.no_grad():
                 return logp(x, data)
 
-        bilinear_contract.launches = 0
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        llk = fwd()
-        torch.cuda.synchronize()
-        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
-        launches = bilinear_contract.launches
+        with counting():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            llk = fwd()
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        launches = launched("k1c")
         point = problem.ordering.to_point(q)
         with torch.no_grad():
             parts = {name: c.loglike(point, d) for (name, c), d in
@@ -1643,14 +1126,14 @@ def joint_phases(dev, table, workdir: str) -> dict:
 
     # [pt_joint] parallel tempering on the joint problem
     params = PTParams(**PT_JOINT, proposal_name=PT_PROPOSAL)
-    bilinear_contract.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    q_tr, llk_tr, history = problem.sample(params)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = bilinear_contract.launches
+    with counting():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        q_tr, llk_tr, history = problem.sample(params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = launched("k1c")
     n_post = params.n_chains_posterior
     betas = np.asarray(history["betas"])
     # the CUDA calls and kernel time of one PT step: a 10-step segment at
@@ -1713,11 +1196,11 @@ def ffi_extra_phases(dev, problem, workdir: str) -> dict:
     problem ``problem`` (its library and wavemap): [ffi_extras] (the
     2000-chain llk with a station time shift per target, a second wavemap
     in the ``spectrum`` domain and a hyperparameter per target, through K3,
-    against the plain stack), [k3_bf16] and [k4_bf16] (K3 and K4 on the
-    bf16 copy of the library, built on the card in target chunks, against
-    the plain version on that copy, beside the float32 kernels in turns)
-    and one llk of the FFI flagship with the bf16 library.  Returns the
-    results; raises SystemExit at the first gate missed."""
+    against the plain stack), the bf16 copy of the library (built on the
+    card in target chunks: half the bytes, no third copy) and one llk of
+    the FFI flagship on it with each interpolation ([ffi_llk_bf16]), then
+    [ffi_smc_bf16].  Returns the results; raises SystemExit at the first
+    gate missed."""
     import dataclasses
 
     import numpy as np
@@ -1760,10 +1243,10 @@ def ffi_extra_phases(dev, problem, workdir: str) -> dict:
     xcomp = xp.composites["seismic"]
     xlogp, xdata = xp.make_logp_fn()
     q = batch(xp, 11)
-    stack_batched.launches_multilinear = 0
-    with torch.no_grad():
-        llk = xlogp(q, xdata)
-    launched = stack_batched.launches_multilinear
+    with counting():
+        with torch.no_grad():
+            llk = xlogp(q, xdata)
+    k3_launched = launched("k3")
     idx = torch.arange(0, N_CHAINS, max(1, N_CHAINS // FFI_PLAIN_CHAINS),
                        device=dev)[:FFI_PLAIN_CHAINS]
     lib.stack_fn = stack_batched_reference
@@ -1789,19 +1272,19 @@ def ffi_extra_phases(dev, problem, workdir: str) -> dict:
         case="kinematic", chains=N_CHAINS, dims=xp.ordering.size,
         time_shifts=len(xcomp.get_hierarchical_names()), hypers=len(xcomp.get_hypernames()),
         domains=json.dumps([w.domain for w in xcomp.wavemaps]), plain_chains=len(idx),
-        worst_err_over_bar=f"{worst:.3e}", k3_launches=launched, llk_ms=f"{ms:.3f}",
+        worst_err_over_bar=f"{worst:.3e}", k3_launches=k3_launched, llk_ms=f"{ms:.3f}",
         kernel_ms=fmt_ms(ms_or_none(kernel_ms)), calls=calls,
         k3_ms=f"{sum(v for k, v in by_name.items() if 'gf_stack' in k):.4f}",
         finite=bool(torch.isfinite(llk).all()))
     say("ffi_extras", **r)
-    if not (worst <= 1.0 and launched > 0 and r["finite"]):
+    if not (worst <= 1.0 and k3_launched > 0 and r["finite"]):
         raise SystemExit(f"[ffi_extras] the llk with time shifts, a spectrum wavemap and "
                          f"hp_specific disagrees with the plain stack (worst/bar {worst}), is "
                          f"not finite, or K3 was not launched")
     del xp, xcomp, xlogp, xdata, q, llk, llk_plain
     torch.cuda.empty_cache()
 
-    # [k3_bf16], [k4_bf16]: the bf16 copy, built one target at a time
+    # the bf16 copy of the library, built on the card one target at a time
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -1811,70 +1294,29 @@ def ffi_extra_phases(dev, problem, workdir: str) -> dict:
     convert_s = time.perf_counter() - t0
     convert_extra = torch.cuda.max_memory_allocated() - base
     bytes32, bytes16 = lib.data.nbytes, lib16.data.nbytes
-    gen = torch.Generator(device=dev).manual_seed(13)
-    real_in = stack_inputs(lib, N_CHAINS, (0.2, 5.5), (-0.5, 9.0), gen)
-    for key, interpolation in (("k3", "multilinear"), ("k4", "nearest_neighbor")):
-        rb = check_stack(lib16, *real_in, interpolation, iters=10)
-        didx, rtf = lib.durations2idxs(real_in[0], interpolation)
-        sidx, stf = lib.starttimes2idxs(real_in[1], interpolation)
-
-        def run(data):
-            return stack_batched(data, didx, sidx, real_in[2], rtf, stf)
-
-        s16, s32 = run(lib16.data), run(lib.data)
-        loss = float((s16 - s32).abs().max() / s32.abs().max())
-        rb["ms"], rb["float32_ms"] = time_in_turns(lambda: run(lib16.data),
-                                                   lambda: run(lib.data), 10)
-        del s16, s32
-        torch.cuda.empty_cache()
-        # the library yardstick on the bf16 library: bf16 operands, float32
-        # accumulation (reduced-precision reductions off)
-        reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-        try:
-            bmm_ms, bmm_scatter_ms, bmm_err = dense_bmm_ms(lib16, *real_in, interpolation)
-        finally:
-            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
-        torch.cuda.empty_cache()
-        rb.update(loss_vs_float32=loss, library_bytes=bytes16, float32_library_bytes=bytes32,
-                  convert_s=convert_s, convert_extra_GB=convert_extra / 1e9,
-                  library_ms=bmm_ms, library_with_scatter_ms=bmm_scatter_ms,
-                  library_max_abs_err=bmm_err)
-        out[key + "_bf16"] = rb
-        say_stack(key + "_bf16", "real", dict(C=N_CHAINS, T=lib.ntargets, P=lib.npatches,
-                                              D=lib.ndurations, S=lib.nstarttimes,
-                                              N=lib.nsamples), rb,
-                  float32_ms=f"{rb['float32_ms']:.4f}", loss_vs_float32=f"{loss:.3e}",
-                  library_GB=f"{bytes16 / 1e9:.3f}", float32_library_GB=f"{bytes32 / 1e9:.3f}",
-                  convert_s=f"{convert_s:.3f}", convert_extra_GB=f"{convert_extra / 1e9:.3f}",
-                  library_with_scatter_ms=f"{bmm_scatter_ms:.4f}",
-                  library_max_abs_err=f"{bmm_err:.3e}")
-        if not (0.0 < loss < BF16_LOSS_MAX and 2 * bytes16 == bytes32
-                and convert_extra <= bytes16 + 2**21):
-            raise SystemExit(f"[{key}_bf16] the bf16 stack is {loss} of max off the float32 "
-                             f"one, or the library is not half the bytes, or its conversion "
-                             f"took {convert_extra} bytes beside the copy")
-        del didx, rtf, sidx, stf
-    del real_in
-    torch.cuda.empty_cache()
+    library = dict(library_GB=f"{bytes16 / 1e9:.3f}", float32_library_GB=f"{bytes32 / 1e9:.3f}",
+                   convert_s=f"{convert_s:.3f}", convert_extra_GB=f"{convert_extra / 1e9:.3f}")
+    if not (2 * bytes16 == bytes32 and convert_extra <= bytes16 + 2**21):
+        raise SystemExit(f"[ffi_llk_bf16] the bf16 library is not half the bytes, or its "
+                         f"conversion took {convert_extra} bytes beside the copy")
 
     # one llk of the FFI flagship with the bf16 library, with each interpolation
     logp, data = problem.make_logp_fn()
-    for interpolation, key in (("multilinear", "k3_bf16"), ("nearest_neighbor", "k4_bf16")):
+    for interpolation in ("multilinear", "nearest_neighbor"):
         c16 = SeismicDistributerComposite([(wmap, {"uparr": lib16})], comp.fault,
                                           interpolation=interpolation, device=dev)
         bp = Problem(ffi_priors(sub.n_strike, sub.n_dip), {"seismic": c16, "laplacian": lap},
                      device=dev, outfolder=os.path.join(workdir, f"ffi_bf16_{interpolation}"))
         blogp, bdata = bp.make_logp_fn()
         q = batch(bp, 4)
-        stack_batched.launches_bf16 = stack_batched.launches_mma = 0
-        with torch.no_grad():
-            llk16 = blogp(q, bdata)
-        launched16 = stack_batched.launches_bf16
+        with counting():
+            with torch.no_grad():
+                llk16 = blogp(q, bdata)
+        launched16 = launched("k3_bf16") + launched("k4_bf16")
         r = dict(interpolation=interpolation, chains=N_CHAINS, bf16_launches=launched16,
-                 mma_launches=stack_batched.launches_mma,
+                 mma_launches=counter("gfstack.mma_calls"),
                  finite=bool(torch.isfinite(llk16).all()),
-                 llk_ms=f"{cuda_ms(lambda: blogp(q, bdata), iters=3, warmup=1):.3f}")
+                 llk_ms=f"{cuda_ms(lambda: blogp(q, bdata), iters=3, warmup=1):.3f}", **library)
         if interpolation == comp.interpolation:
             with torch.no_grad():
                 llk32 = logp(q, data)
@@ -1885,8 +1327,6 @@ def ffi_extra_phases(dev, problem, workdir: str) -> dict:
         if not (r["finite"] and launched16 > 0):
             raise SystemExit(f"[ffi_llk_bf16] {interpolation}: non-finite llks, or the kernel "
                              f"on the bf16 library never ran")
-        out[key]["launches"] = launched16
-        out[key]["mma_launches"] = r["mma_launches"]
         if interpolation == "multilinear":
             out["ffi_smc_bf16"] = ffi_smc_bf16(bp)
         del bp, c16, blogp, bdata, q, llk16
@@ -1919,24 +1359,22 @@ def ffi_smc_bf16(problem) -> dict:
         cells.append(group_cells(*_clamp_cells(data, didx, sidx, True)))
         return stack_batched(data, didx, sidx, slips, rtf, stf)
 
-    counters = ("launches_multilinear", "launches_nearest", "launches_bf16", "launches_mma")
-    for c in counters:
-        setattr(stack_batched, c, 0)
-    lib.stack_fn = stack_and_count_cells
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    try:
-        problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=FFI_STEPS,
-                                 max_stages=FFI_MAX_STAGES, seed=1))
-        capped = False
-    except RuntimeError as e:
-        if "did not reach beta=1" not in str(e):
-            raise
-        capped = True
-    finally:
-        lib.stack_fn = stack_batched
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with counting():
+        lib.stack_fn = stack_and_count_cells
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=FFI_STEPS,
+                                     max_stages=FFI_MAX_STAGES, seed=1))
+            capped = False
+        except RuntimeError as e:
+            if "did not reach beta=1" not in str(e):
+                raise
+            capped = True
+        finally:
+            lib.stack_fn = stack_batched
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     # the first call evaluates the prior draws, then FFI_STEPS calls a stage
     by_stage = [("prior", cells[:1])] + [
         (f"stage_{i}", cells[1 + i * FFI_STEPS:1 + (i + 1) * FFI_STEPS])
@@ -1945,7 +1383,8 @@ def ffi_smc_bf16(problem) -> dict:
         {"population": name, "rows": part[0]["rows"],
          "mean": round(sum(c["mean"] for c in part) / len(part), 3),
          "max": max(c["max"] for c in part)} for name, part in by_stage if part]
-    k3, k4, bf16, mma = (getattr(stack_batched, c) for c in counters)
+    k3, k4, bf16, mma = (launched("k3"), launched("k4") + launched("k4_bf16"),
+                         launched("k3_bf16"), counter("gfstack.mma_calls"))
     handler = SampleStage(problem.outfolder, ordering=problem.ordering)
     stages = list(range(1, FFI_MAX_STAGES)) if capped else [-1]
     states = [handler.load_state(st) for st in stages]
@@ -1953,7 +1392,7 @@ def ffi_smc_bf16(problem) -> dict:
     finite = all(np.isfinite(st["likelihoods"]).all() for st in states)
     r = dict(chains=N_CHAINS, steps=FFI_STEPS, dims=problem.ordering.size, wall_s=wall,
              stages_run=len(states), capped=capped, betas=[round(b, 6) for b in betas],
-             finite=finite, k3_launches=k3, k3_bf16_launches=bf16, k4_launches=k4,
+             finite=finite, k3_float32_launches=k3, k3_bf16_launches=bf16, k4_launches=k4,
              mma_launches=mma, group_cells_by_stage=group_cells_by_stage,
              acceptance=[round(float(a), 3) for a in states[-1]["acceptance"]])
     say("ffi_smc_bf16", **{k: (json.dumps(v) if isinstance(v, list) else
@@ -1961,11 +1400,11 @@ def ffi_smc_bf16(problem) -> dict:
     if not (all(b1 > b0 for b0, b1 in zip(betas, betas[1:])) and finite):
         raise SystemExit("[ffi_smc_bf16] beta not strictly increasing, or non-finite llks")
     planned = plan_stack(*lib.data.shape, N_CHAINS, 4, elem_bytes=2).variant
-    if not (bf16 == k3 and k4 == 0 and bf16 >= len(states) * FFI_STEPS
+    if not (k3 == 0 and k4 == 0 and bf16 >= len(states) * FFI_STEPS
             and mma == (bf16 if planned == "mma" else 0)):
         raise SystemExit(f"[ffi_smc_bf16] K3 on the bf16 library launched {bf16} times "
                          f"({mma} mma, planned {planned}) in {len(states)} stages of {FFI_STEPS} "
-                         f"steps, with {k3 - bf16} float32 K3 and {k4} K4 launches")
+                         f"steps, with {k3} float32 K3 and {k4} K4 launches")
     return r
 
 
@@ -2064,8 +1503,6 @@ def polarity_phases(dev, table, workdir: str, k5_launches: dict) -> dict:
     from beat_tpu_torch.flagship import (POLARITY_REAL_SIZE, TRUE_DEPTH, TRUE_MAGNITUDE,
                                          build_polarity_flagship)
     from beat_tpu_torch.models.polarity import PolarityComposite, PolarityMapping
-    from beat_tpu_torch.ops.bilgather import bilinear_contract
-    from beat_tpu_torch.ops.rowgather import gather_rows
     from beat_tpu_torch.samplers import SMCParams
 
     out = {}
@@ -2092,10 +1529,10 @@ def polarity_phases(dev, table, workdir: str, k5_launches: dict) -> dict:
 
     r = {}
     for name, fn in (("polarity", pol_fwd), ("joint", joint_fwd)):
-        bilinear_contract.launches = 0
-        llk = fn()
-        torch.cuda.synchronize()
-        launches = bilinear_contract.launches
+        with counting():
+            llk = fn()
+            torch.cuda.synchronize()
+        launches = launched("k1c")
         calls, kernel_ms, _ = device_kernels(fn)
         r[name] = dict(llk_ms=cuda_ms(fn, iters=10, warmup=2), calls=calls,
                        kernel_ms=ms_or_none(kernel_ms), k1c_launches=launches,
@@ -2128,15 +1565,14 @@ def polarity_phases(dev, table, workdir: str, k5_launches: dict) -> dict:
     out["polarity_llk"] = {"k1c_launches": r["joint"]["k1c_launches"]}
 
     # [polarity_smc] the joint problem to beta = 1: every step re-derives the takeoffs
-    bilinear_contract.launches = 0
-    gather_rows.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    q_tr, llk_tr = problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=N_STEPS, seed=0))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    k1c = bilinear_contract.launches
-    k5_launches["polarity_smc"] = gather_rows.launches
+    with counting():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        q_tr, llk_tr = problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=N_STEPS, seed=0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    k1c = launched("k1c")
+    k5_launches["polarity_smc"] = launched("k5")
     state = SampleStage(problem.outfolder, ordering=problem.ordering).load_state(-1)
     est = problem.ordering.to_point(q_tr[-1].mean(axis=0))
     depth, mag = float(np.asarray(est["depth"])), float(np.asarray(est["magnitude"]))
@@ -2234,7 +1670,6 @@ def bem_phases(dev, workdir: str, k5_launches: dict) -> dict:
     from beat_tpu_torch.device import DTYPE
     from beat_tpu_torch.flagship import (BEM_GEOMETRY_REAL_SIZE, BEM_REAL_SIZE,
                                          BEM_TRUE_TRACTION, build_bem_flagship)
-    from beat_tpu_torch.ops.rowgather import gather_rows
     from beat_tpu_torch.samplers import SMCParams
 
     # the flagship's own assembly, its three parts timed where the linear
@@ -2298,12 +1733,12 @@ def bem_phases(dev, workdir: str, k5_launches: dict) -> dict:
     del G, D, G64, D64
 
     # [bem_smc] the traction of the linear composite to beta = 1
-    gather_rows.launches = 0
-    t0 = time.perf_counter()
-    q_tr, llk_tr = problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=N_STEPS, seed=0))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    k5_launches["bem_smc"] = gather_rows.launches
+    with counting():
+        t0 = time.perf_counter()
+        q_tr, llk_tr = problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=N_STEPS, seed=0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    k5_launches["bem_smc"] = launched("k5")
     state = SampleStage(problem.outfolder, ordering=problem.ordering).load_state(-1)
     est = float(np.asarray(problem.ordering.to_point(q_tr[-1].mean(axis=0))["normal_traction"]))
     say("bem_smc", chains=N_CHAINS, steps=N_STEPS, wall_s=f"{wall:.2f}",
@@ -2342,19 +1777,19 @@ def bem_phases(dev, workdir: str, k5_launches: dict) -> dict:
         bad = comp.synthetics_los(problem.ordering.to_point(
             torch.as_tensor(breach, dtype=DTYPE, device=dev)[None]))
     filled = bool((bad == BEMResponse.INVALID).all())
-    gather_rows.launches = 0
-    t0 = time.perf_counter()
-    try:
-        problem.sample(SMCParams(n_chains=BEM_GEO_SMC_CHAINS, n_steps=BEM_GEO_STEPS,
-                                 max_stages=BEM_GEO_MAX_STAGES, seed=1))
-        capped = False
-    except RuntimeError as e:
-        if "did not reach beta=1" not in str(e):
-            raise
-        capped = True
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    k5_launches["bem_geometry"] = gather_rows.launches
+    with counting():
+        t0 = time.perf_counter()
+        try:
+            problem.sample(SMCParams(n_chains=BEM_GEO_SMC_CHAINS, n_steps=BEM_GEO_STEPS,
+                                     max_stages=BEM_GEO_MAX_STAGES, seed=1))
+            capped = False
+        except RuntimeError as e:
+            if "did not reach beta=1" not in str(e):
+                raise
+            capped = True
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    k5_launches["bem_geometry"] = launched("k5")
     handler = SampleStage(problem.outfolder, ordering=problem.ordering)
     states = [handler.load_state(st) for st in
               (range(1, BEM_GEO_MAX_STAGES) if capped else [-1])]
@@ -2538,7 +1973,6 @@ def project_phases(dev, workdir: str, k5_launches: dict) -> dict:
     from beat_tpu_torch.models.problem import load_model
     from beat_tpu_torch.models.seismic import M6_NAMES, point_getter, source_m6
     from beat_tpu_torch.ops.bilgather import bilinear_contract, bilinear_contract_reference
-    from beat_tpu_torch.ops.rowgather import gather_rows
     from beat_tpu_torch.parameter import Parameter
     from beat_tpu_torch.sources import magnitude_to_moment, sdr_to_m6
 
@@ -2558,12 +1992,11 @@ def project_phases(dev, workdir: str, k5_launches: dict) -> dict:
     del direct
     torch.cuda.empty_cache()
 
-    bilinear_contract.launches = 0
-    gather_rows.launches = 0
-    (res, wall, peak) = timed_peak(lambda: problem.sample())
-    q_tr, llk_tr = res
-    k1c = bilinear_contract.launches
-    k5_launches["project"] = gather_rows.launches
+    with counting():
+        (res, wall, peak) = timed_peak(lambda: problem.sample())
+        q_tr, llk_tr = res
+    k1c = launched("k1c")
+    k5_launches["project"] = launched("k5")
     handler = SampleStage(problem.outfolder, ordering=problem.ordering)
     state = handler.load_state(-1)
     trace = handler.load_trace(-1)
@@ -2648,45 +2081,46 @@ def project_phases(dev, workdir: str, k5_launches: dict) -> dict:
     captured, jvp_launches = [], []
 
     def capture(tbl, cd, z0, A):
-        before = bilinear_contract.launches
+        before = launched("k1c")
         res = bilinear_contract(tbl, cd, z0, A)
         tangent = fwAD.unpack_dual(A).tangent
         if tangent is not None:
             # the primal and the tangent: two launches of K1c, none plain
-            jvp_launches.append(bilinear_contract.launches - before)
+            jvp_launches.append(launched("k1c") - before)
             captured.append((cd, z0, tangent.detach().clone(),
                              fwAD.unpack_dual(res).tangent.detach().clone()))
         return res
 
     CD, NZ, _ = table.packed.shape
     jvp_worst, fd = 0.0, {}
-    bilinear_contract.launches = 0
-    table.contract_fn = capture
-    try:
-        for name in ("depth",) + M6_NAMES:
-            J = [comp.seis_derivative(best, name, wmap_idx=w) for w in range(len(comp.wavemaps))]
-            scale = max(float(np.abs(j).max()) for j in J)
-            # the step: the default, but the 5-point stencil must not reach
-            # across a depth node of the table, where the bilinear gather kinks
-            h = 1e-3 * max(abs(float(best[name])), 1.0)
-            if name == "depth":
-                h = min(h, float(np.abs(table.depths - float(best[name])).min()) / 4.0)
-            err = {}
-            for order in (3, 5):
-                F = [comp.seis_derivative(best, name, wmap_idx=w, mode="fd", h=h,
-                                          stencil_order=order)
+    with counting():
+        table.contract_fn = capture
+        try:
+            for name in ("depth",) + M6_NAMES:
+                J = [comp.seis_derivative(best, name, wmap_idx=w)
                      for w in range(len(comp.wavemaps))]
-                err[order] = max(float(np.abs(f - j).max()) for f, j in zip(F, J)) / scale
-                err[f"fd{order}"] = F
-            # the bar: the 3-point stencil's truncation error, estimated
-            # against the 5-point one, plus float32 roundoff over the step
-            wmax = max(float(np.abs(w).max()) for w in comp.get_synthetics(best).values())
-            trunc = max(float(np.abs(a - b).max()) for a, b in zip(err["fd3"], err["fd5"]))
-            bar = FD_BAR_FACTOR * (trunc + 2.0 ** -23 * wmax / h) / scale
-            fd[name] = (err[3], bar)
-    finally:
-        table.contract_fn = bilinear_contract
-    k1c_all = bilinear_contract.launches
+                scale = max(float(np.abs(j).max()) for j in J)
+                # the step: the default, but the 5-point stencil must not reach
+                # across a depth node of the table, where the bilinear gather kinks
+                h = 1e-3 * max(abs(float(best[name])), 1.0)
+                if name == "depth":
+                    h = min(h, float(np.abs(table.depths - float(best[name])).min()) / 4.0)
+                err = {}
+                for order in (3, 5):
+                    F = [comp.seis_derivative(best, name, wmap_idx=w, mode="fd", h=h,
+                                              stencil_order=order)
+                         for w in range(len(comp.wavemaps))]
+                    err[order] = max(float(np.abs(f - j).max()) for f, j in zip(F, J)) / scale
+                    err[f"fd{order}"] = F
+                # the bar: the 3-point stencil's truncation error, estimated
+                # against the 5-point one, plus float32 roundoff over the step
+                wmax = max(float(np.abs(w).max()) for w in comp.get_synthetics(best).values())
+                trunc = max(float(np.abs(a - b).max()) for a, b in zip(err["fd3"], err["fd5"]))
+                bar = FD_BAR_FACTOR * (trunc + 2.0 ** -23 * wmax / h) / scale
+                fd[name] = (err[3], bar)
+        finally:
+            table.contract_fn = bilinear_contract
+    k1c_all = launched("k1c")
     k1c_jvp = len(jvp_launches)             # one tangent launch per call with a tangent
     for cd, z0, tA, got in captured:
         cdc, z0c = cd.clamp(0, CD - 2), z0.clamp(0, NZ - 2)
@@ -2816,23 +2250,21 @@ def cli_phases(dev, workdir: str, k5_launches: dict) -> dict:
                                          build_flagship, flagship_datasets,
                                          set_config_priors)
     from beat_tpu_torch.inputf import save_seismic_datasets
-    from beat_tpu_torch.ops.bilgather import bilinear_contract, contract_corner_dot
-    from beat_tpu_torch.ops.rowgather import gather_rows
 
     pdir = os.path.join(workdir, "cli_fullmt")
     seconds, launches = {}, {}
 
     def run(name, *argv):
-        bilinear_contract.launches = contract_corner_dot.launches = gather_rows.launches = 0
-        log = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(log):
-            rc = cli_main(list(argv))
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        seconds[name] = round(time.perf_counter() - t0, 2)
-        launches[name] = {"k1c": bilinear_contract.launches, "k2c": contract_corner_dot.launches,
-                          "k5": gather_rows.launches}
+        with counting():
+            log = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(log):
+                rc = cli_main(list(argv))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            seconds[name] = round(time.perf_counter() - t0, 2)
+        launches[name] = {"k1c": launched("k1c"), "k2c": launched("k2c"),
+                          "k5": launched("k5")}
         if rc != 0:
             print(log.getvalue()[-3000:])
             raise SystemExit(f"[cli] {name} exited {rc}")
@@ -2959,13 +2391,13 @@ def run_ranks(phase: str, fn, n_ranks: int, args: tuple, deadline: float) -> flo
 def join_group(rank: int, n_ranks: int, port: int, device_type: str, backend: str) -> None:
     """A rank of this script joins its phase's process group (on card 0:
     the ranks of a phase share the one card), with its share of the
-    host's cores for the host work."""
+    host's cores for the host work.  Its launches are read from the
+    launcher's counters, as in :func:`main`."""
     from datetime import timedelta
 
     import torch
 
     from beat_tpu_torch.parallel import init_distributed
-
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // n_ranks))
 
     init_distributed(f"tcp://localhost:{port}", n_ranks, rank, local_rank=0,
@@ -3013,8 +2445,6 @@ def parallel_smc_rank(rank: int, n_ranks: int, port: int, device_type: str, pdir
 
     from beat_tpu_torch.backend import SampleStage
     from beat_tpu_torch.models.problem import load_model
-    from beat_tpu_torch.ops.bilgather import bilinear_contract
-    from beat_tpu_torch.ops.rowgather import gather_rows
 
     join_group(rank, n_ranks, port, device_type, "gloo")
     try:
@@ -3030,11 +2460,11 @@ def parallel_smc_rank(rank: int, n_ranks: int, port: int, device_type: str, pdir
             return save_stage(self, stage, *a, **k)
 
         SampleStage.save_stage = counted
-        bilinear_contract.launches = gather_rows.launches = 0
-        (q_tr, llk_tr), wall, peak = rank_timed(problem.sample, device_type)
+        with counting():
+            (q_tr, llk_tr), wall, peak = rank_timed(problem.sample, device_type)
         result = dict(rank=rank, mesh_size=mesh.size(), device=str(problem.device),
-                      load_s=load_s, wall_s=wall, k1c_launches=bilinear_contract.launches,
-                      k5_launches=gather_rows.launches, saves=saves,
+                      load_s=load_s, wall_s=wall, k1c_launches=launched("k1c"),
+                      k5_launches=launched("k5"), saves=saves,
                       chains=int(q_tr.shape[1]), finite=bool(np.isfinite(llk_tr).all()),
                       q_mean=q_tr[-1].mean(axis=0).tolist(), peak_GB=peak)
         dist.barrier()
@@ -3055,8 +2485,6 @@ def parallel_nccl_rank(rank: int, n_ranks: int, port: int, device_type: str, pdi
 
     from beat_tpu_torch.backend import SampleStage
     from beat_tpu_torch.models.problem import load_model
-    from beat_tpu_torch.ops.bilgather import bilinear_contract
-    from beat_tpu_torch.ops.rowgather import gather_rows
     from beat_tpu_torch.parallel import make_chain_mesh
     from beat_tpu_torch.samplers import SMCParams, smc_sample
 
@@ -3070,22 +2498,22 @@ def parallel_nccl_rank(rank: int, n_ranks: int, port: int, device_type: str, pdi
         runs = {}
         for key, mesh in (("meshless", None), ("mesh", make_chain_mesh(1))):
             home = os.path.join(resdir, key)
-            bilinear_contract.launches = gather_rows.launches = 0
+            with counting():
 
-            def capped():
-                try:
-                    smc_sample(logp, lower, upper, params, device=problem.device,
-                               homepath=home, ordering=problem.ordering, logp_args=(data,),
-                               mesh=mesh)
-                except RuntimeError as e:
-                    if "did not reach beta=1" not in str(e):
-                        raise
+                def capped():
+                    try:
+                        smc_sample(logp, lower, upper, params, device=problem.device,
+                                   homepath=home, ordering=problem.ordering, logp_args=(data,),
+                                   mesh=mesh)
+                    except RuntimeError as e:
+                        if "did not reach beta=1" not in str(e):
+                            raise
 
-            _, wall, _ = rank_timed(capped, device_type)
+                _, wall, _ = rank_timed(capped, device_type)
             handler = SampleStage(home, ordering=problem.ordering)
             st = handler.load_state(handler.highest_sampled_stage())
             runs[key] = (np.asarray(st["population"]), np.asarray(st["likelihoods"]), wall,
-                         bilinear_contract.launches, gather_rows.launches, float(st["beta"]))
+                         launched("k1c"), launched("k5"), float(st["beta"]))
         (q0, l0, wall0, *_), (q1, l1, wall1, k1c, k5, beta) = runs["meshless"], runs["mesh"]
         nccl = torch.cuda.nccl.version() if device_type == "cuda" else ()
         result = dict(backend=backend, nccl=".".join(map(str, nccl)),
@@ -3122,7 +2550,6 @@ def parallel_ffi_rank(rank: int, n_ranks: int, port: int, device_type: str, bloc
     import torch.distributed as dist
 
     from beat_tpu_torch.ffi import SeismicGFLibrary
-    from beat_tpu_torch.ops.gfstack import stack_batched
     from beat_tpu_torch.parallel import (CHAIN_AXIS, TARGET_AXIS, all_gather, axis_index,
                                          make_gf_mesh, sharded_gf_logp)
 
@@ -3135,10 +2562,10 @@ def parallel_ffi_rank(rank: int, n_ranks: int, port: int, device_type: str, bloc
             mesh, functools.partial(ffi_partial_llk, interpolation=interpolation),
             in_specs=(None, ("chains",), ("chains",), ("chains",), ("chains", "targets"),
                       ("targets",), ("targets",), ("targets",), ("targets",)))
-        stack_batched.launches_multilinear = stack_batched.launches_nearest = 0
         with torch.no_grad():
-            llk, first_s, peak = rank_timed(lambda: llk_fn(lib, *inputs), device_type)
-            launches = (stack_batched.launches_multilinear, stack_batched.launches_nearest)
+            with counting():
+                llk, first_s, peak = rank_timed(lambda: llk_fn(lib, *inputs), device_type)
+            launches = (launched("k3"), launched("k4"))
             llk_all = all_gather(llk, mesh, CHAIN_AXIS)
             # a second call, warm: the first one pays the rank's CUDA and
             # cuBLAS start-up
@@ -3271,7 +2698,6 @@ def parallel_ffi_phase(dev, problem, q, workdir: str) -> dict:
     import numpy as np
     import torch
 
-    from beat_tpu_torch.ops.gfstack import stack_batched
 
     comp = problem.composites["seismic"]
     lib, wmap = comp.libs[0]["uparr"], comp.wavemaps[0]
@@ -3287,9 +2713,9 @@ def parallel_ffi_phase(dev, problem, q, workdir: str) -> dict:
     with torch.no_grad():
         starttimes = comp.point2starttimes(point)
         hyper = comp._hyper_vector(point, wmap, q.shape[0], dev).contiguous()
-        before = stack_batched.launches_multilinear
-        llk_one = comp.loglike(point).double().cpu().numpy()
-        one_k3 = stack_batched.launches_multilinear - before
+        with counting():
+            llk_one = comp.loglike(point).double().cpu().numpy()
+        one_k3 = launched("k3")
         one_ms = (cuda_ms(lambda: comp.loglike(point), iters=3, warmup=1)
                   if dev.type == "cuda" else float("nan"))
     llk0 = (-0.5 * (dd["slog_pdets"].sum() + (dd["nsamples"] * (
@@ -3375,8 +2801,6 @@ def table_builder_phases(dev, workdir: str, k5_launches: dict) -> dict:
     from beat_tpu_torch.heart.velocity_model import LayeredModel
     from beat_tpu_torch.heart.viscoelastic import DAY, laplace_nodes
     from beat_tpu_torch.ops.bessel import bessel_j0, bessel_j1
-    from beat_tpu_torch.ops.bilgather import bilinear_contract
-    from beat_tpu_torch.ops.rowgather import gather_rows
     from beat_tpu_torch.samplers import SMCParams
     from beat_tpu_torch.sources import sdr_to_m6
 
@@ -3463,13 +2887,12 @@ def table_builder_phases(dev, workdir: str, k5_launches: dict) -> dict:
     # [layered_smc] the FullMT inversion on the layered table
     problem = build_layered_flagship(**LAYERED_REAL_SIZE, seed=0, device=dev, table=table,
                                      outfolder=os.path.join(workdir, "layered_smc"))
-    bilinear_contract.launches = 0
-    gather_rows.launches = 0
-    (res, wall, peak) = timed_peak(lambda: problem.sample(
-        SMCParams(n_chains=N_CHAINS, n_steps=N_STEPS, seed=0)))
+    with counting():
+        (res, wall, peak) = timed_peak(lambda: problem.sample(
+            SMCParams(n_chains=N_CHAINS, n_steps=N_STEPS, seed=0)))
     q_tr, llk_tr = res
-    k1c = bilinear_contract.launches
-    k5_launches["layered_smc"] = gather_rows.launches
+    k1c = launched("k1c")
+    k5_launches["layered_smc"] = launched("k5")
     state = SampleStage(problem.outfolder, ordering=problem.ordering).load_state(-1)
     est = problem.ordering.to_point(q_tr[-1].mean(axis=0))
     depth, mag = float(np.asarray(est["depth"])), float(np.asarray(est["magnitude"]))
@@ -3591,11 +3014,11 @@ def table_builder_phases(dev, workdir: str, k5_launches: dict) -> dict:
     route_err = float((routed - own).abs().max() / routed.abs().max())
     a, b = per_epoch.values()
     slab_diff = float((a - b).abs().max() / a.abs().max())
-    gather_rows.launches = 0
-    (res, wall, peak) = timed_peak(lambda: problem.sample(
-        SMCParams(n_chains=N_CHAINS, n_steps=GEO_STEPS, seed=0)))
+    with counting():
+        (res, wall, peak) = timed_peak(lambda: problem.sample(
+            SMCParams(n_chains=N_CHAINS, n_steps=GEO_STEPS, seed=0)))
     q_tr, llk_tr = res
-    k5_launches["visco_smc"] = gather_rows.launches
+    k5_launches["visco_smc"] = launched("k5")
     state = SampleStage(problem.outfolder, ordering=problem.ordering).load_state(-1)
     mean = problem.ordering.to_point(q_tr[-1].mean(axis=0))
     pos_err = {k: float(mean[k]) - GEO_TRUE[k] for k in ("east_shift", "north_shift", "depth")}
@@ -3634,6 +3057,168 @@ def table_builder_phases(dev, workdir: str, k5_launches: dict) -> dict:
     return out
 
 
+def kernel_checks(dev, table_shape: tuple, n_queries: int, lib, n_dims: int, n_dip: int,
+                  n_strike: int) -> dict:
+    """[kernels] each kernel's wrapper on card tensors at the shapes the
+    path gives it, against its plain version at the card tests' bars, with
+    its launches in that call from the launcher's counter: K1 and K2 on a
+    random table of the flagship's shape at 2000 chains × its targets
+    (top-edge queries among them); K3 and K4 on the FFI library and on its
+    bf16 copy, 2000 chains with onsets on and beyond the grids, in every
+    variant the plan offers
+    for the storage type (mma: K3 on bf16 only), the bf16 stack within
+    BF16_LOSS_MAX of the float32 one and not equal to it; K5 on the FFI
+    population's sorted resampling indexes, int64 and int32, and clipping
+    ±2^40; the eikonal on the FFI fault's grid at 2000 and 5000 chains,
+    equal to the plain loop bit for bit at epsilon 0 and on at least
+    99 % of the chains at the path's epsilon.  Each call is one launch of
+    its entry and no other.  Raises SystemExit at a gate missed."""
+    import numpy as np
+    import torch
+
+    from beat_tpu_torch.flagship import FFI_PATCH
+    from beat_tpu_torch.ops.bilgather import (bilinear_rows, bilinear_rows_reference,
+                                              corner_dot, corner_rows_reference)
+    from beat_tpu_torch.ops.eikonal import eikonal_rupture_times, eikonal_rupture_times_plain
+    from beat_tpu_torch.ops.gfstack import plan_stack, stack_batched, stack_batched_reference
+    from beat_tpu_torch.ops.rowgather import gather_rows, gather_rows_reference
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = {}
+
+    def check(name: str, entry: str, fn, gate, mma_calls=None, **extra):
+        """``fn()`` counted, its result through ``gate`` (→ ok, fields);
+        ``mma_calls``: the mma variant's calls expected, if any."""
+        with counting():
+            got = fn()
+            torch.cuda.synchronize()
+        calls = launch_counts()
+        ok, fields = gate(got)
+        out[name] = r = dict(launches=calls, **fields, **extra)
+        if mma_calls is not None:
+            r["mma_calls"] = counter("gfstack.mma_calls")
+        say("kernels", check=name, **{k: json.dumps(v) if isinstance(v, dict) else v
+                                      for k, v in r.items()})
+        if not (ok and calls == {entry: 1} and r.get("mma_calls") == mma_calls):
+            raise SystemExit(f"[kernels] {name}: off its plain version, or not one launch "
+                             f"of {entry}: {r}")
+        return got
+
+    def worst(err_over_bar):
+        def gate(got):
+            w = float(err_over_bar(got).max())
+            return w <= 1.0, {"worst_err_over_bar": f"{w:.3e}"}
+        return gate
+
+    def equal(ref):
+        def gate(got):
+            eq = torch.equal(got, ref)
+            return eq, {"equal": eq}
+        return gate
+
+    # K1, K2: a table of the flagship's shape, one query a (chain, target)
+    CD, NZ, M = table_shape
+    tbl = torch.randn(table_shape, generator=gen, device=dev)
+    n = n_queries
+    cd = torch.randint(0, CD - 1, (n,), generator=gen, device=dev)
+    z0 = torch.randint(0, NZ - 1, (n,), generator=gen, device=dev)
+    z0[::5] = NZ - 2
+    w4 = torch.rand((n, 4), generator=gen, device=dev)
+    ref = bilinear_rows_reference(tbl, cd, z0, w4)
+    check("k1", ENTRIES["k1"], lambda: bilinear_rows(tbl, cd, z0, w4),
+          worst(lambda got: (got - ref).abs().max() / (K1_RTOL * ref.abs().max())), queries=n)
+    g = torch.randn((n, M), generator=gen, device=dev)
+    rows = corner_rows_reference(tbl, cd, z0)
+    ref = torch.einsum("nj,ncj->nc", g, rows)
+    bar = K2_RTOL * g.abs().sum(-1) * rows.abs().amax(dim=(1, 2))
+    check("k2", ENTRIES["k2"], lambda: corner_dot(tbl, cd, z0, g),
+          worst(lambda got: (got - ref).abs().amax(-1) / bar), queries=n)
+    del tbl, cd, z0, w4, g, rows, ref, bar
+    torch.cuda.empty_cache()
+
+    # K3, K4: the FFI library in float32 and bf16
+    T, P, D, S, N = lib.data.shape
+
+    def uniform(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+
+    durations = lib.duration_min + lib.duration_sampling * uniform((N_CHAINS, P), -1.0, D)
+    starttimes = lib.starttime_min + lib.starttime_sampling * uniform((N_CHAINS, T, P), -2.0,
+                                                                      S + 1)
+    slips = uniform((N_CHAINS, P), 0.0, 3.0)
+    data16 = lib.data.to(torch.bfloat16)
+    for interpolation in ("multilinear", "nearest_neighbor"):
+        didx, rtf = lib.durations2idxs(durations, interpolation)
+        sidx, stf = lib.starttimes2idxs(starttimes, interpolation)
+        wabs = 1.0
+        if rtf is not None:
+            wabs = (rtf.abs() + (1 - rtf).abs())[:, None, :] * (stf.abs() + (1 - stf).abs())
+        kind = "multilinear" if rtf is not None else "nearest"
+        s32 = None
+        for data, suffix in ((lib.data, "f32"), (data16, "bf16")):
+            ref = stack_batched_reference(data, didx, sidx, slips, rtf, stf)
+            bar = STACK_RTOL * (slips.abs()[:, None, :] * wabs).sum(-1) * data.float().abs().max()
+            variants = (None, "tiled", "gather") + (
+                ("mma",) if suffix == "bf16" and rtf is not None else ())
+            for variant in variants:
+                mma = None
+                if suffix == "bf16" and rtf is not None:
+                    pick = variant or plan_stack(T, P, D, S, N, N_CHAINS, 4,
+                                                 elem_bytes=2).variant
+                    mma = int(pick == "mma")
+                got = check(f"{'k3' if rtf is not None else 'k4'}_{suffix}_{variant or 'plan'}",
+                            f"beat_gf_stack_{kind}_{suffix}",
+                            lambda: stack_batched(data, didx, sidx, slips, rtf, stf,
+                                                  variant=variant),
+                            worst(lambda got: (got - ref).abs().amax(-1) / bar), mma_calls=mma)
+            if suffix == "f32":
+                s32 = got
+            else:
+                loss = float((got - s32).abs().max()) / float(s32.abs().max())
+                say("kernels", check=f"bf16_loss_{kind}", loss_of_max=f"{loss:.3e}")
+                if not 0.0 < loss < BF16_LOSS_MAX:
+                    raise SystemExit(f"[kernels] the bf16 {kind} stack is {loss} of max|stack| "
+                                     f"off the float32 one (bar: 0 < loss < {BF16_LOSS_MAX})")
+            del ref, bar
+        del didx, sidx, rtf, stf, s32, got
+        torch.cuda.empty_cache()
+    del data16, durations, starttimes, slips
+    torch.cuda.empty_cache()
+
+    # K5: the SMC's resampling of the FFI population
+    population = torch.randn((N_CHAINS, n_dims), generator=gen, device=dev)
+    parents = torch.sort(torch.randint(0, N_CHAINS, (N_CHAINS,), generator=gen,
+                                       device=dev)).values
+    far = parents.clone()
+    far[::3], far[1::3] = 2**40, -2**40
+    for name, idx in (("k5_int64", parents), ("k5_int32", parents.to(torch.int32)),
+                      ("k5_clip", far)):
+        ref = gather_rows_reference(population, idx)
+        check(name, ENTRIES["k5"], lambda: gather_rows(population, idx), equal(ref),
+              rows=list(population.shape))
+
+    # the eikonal: the FFI prior's velocities, random nucleation cells
+    for n_chains in (N_CHAINS, 5000):
+        rng = np.random.default_rng(n_chains)
+        s = torch.as_tensor(1.0 / rng.uniform(2000.0, 4000.0, (n_chains, n_dip, n_strike)),
+                            dtype=torch.float32, device=dev)
+        d = torch.as_tensor(rng.integers(0, n_dip, n_chains), device=dev)
+        k = torch.as_tensor(rng.integers(0, n_strike, n_chains), device=dev)
+        for epsilon, share in ((0.0, 1.0), (0.1, 0.99)):
+            want = eikonal_rupture_times_plain(s, FFI_PATCH, d, k, epsilon=epsilon)
+
+            def gate(got):
+                same = (got.view(torch.int32) == want.view(torch.int32)).all(-1).all(-1)
+                equal = float(same.float().mean())
+                return equal >= share, {"chains_equal": f"{equal:.4f}",
+                                        "max_onset_diff": f"{float((got - want).abs().max()):.3e}"}
+
+            check(f"eikonal_{n_chains}_eps{epsilon}", ENTRIES["eikonal"],
+                  lambda: eikonal_rupture_times(s, FFI_PATCH, d, k, epsilon=epsilon), gate,
+                  grid=f"{n_dip}x{n_strike}")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -3644,23 +3229,17 @@ def main() -> int:
               "and does not fall back to the CPU", file=sys.stderr)
         return 2
 
-    from torch.profiler import ProfilerActivity, profile
-
     from beat_tpu_torch.backend import SampleStage
     from beat_tpu_torch.covariance import SeismicNoiseAnalyser
     from beat_tpu_torch.device import DTYPE, require_cuda
-    from beat_tpu_torch.ffi import SeismicGFLibrary
     from beat_tpu_torch.flagship import (FFI_REAL_SIZE, REAL_SIZE, TRUE_DEPTH, TRUE_DURATION,
                                          TRUE_MAGNITUDE, TRUE_SDR, build_ffi_flagship,
                                          build_flagship, flagship_table)
     from beat_tpu_torch.kernels.build import SIGNATURES, build_all, load
     from beat_tpu_torch.ops import bilgather
     from beat_tpu_torch.ops.bilgather import (bilinear_contract, bilinear_contract_reference,
-                                              bilinear_rows, bilinear_rows_reference,
-                                              contract_corner_dot, corner_dot,
-                                              corner_dot_reference, corner_rows_reference)
+                                              bilinear_rows, bilinear_rows_reference)
     from beat_tpu_torch.ops.gfstack import stack_batched, stack_batched_reference
-    from beat_tpu_torch.ops.rowgather import gather_rows, gather_rows_reference
     from beat_tpu_torch.optimize import laplace_approximation, map_estimate
     from beat_tpu_torch.samplers import (MetropolisState, SMCParams, run_metropolis_stage,
                                          value_and_grad)
@@ -3697,191 +3276,19 @@ def main() -> int:
     comp = problem.composites["seismic"]
     table = comp.tables[0]
     tbl = table.packed
-    CD, NZ, M = tbl.shape
+    table_shape = tuple(tbl.shape)
     n_targets = sum(w.ntargets for w in comp.wavemaps)
-    n_queries = N_CHAINS * n_targets
     say("problem", table=tuple(tbl.shape), table_MB=f"{tbl.numel() * 4 / 1e6:.1f}",
-        targets=n_targets, chains=N_CHAINS, k1_queries=n_queries,
+        targets=n_targets, chains=N_CHAINS, k1c_queries=N_CHAINS * n_targets,
         seconds=f"{time.perf_counter() - t0:.1f}")
 
-    # 3. K1 against its plain version and the one-call library version
-    gen = torch.Generator(device=dev).manual_seed(1)
-    cd, z0, w4 = k1_queries(table, n_queries, gen)
-    got = bilinear_rows(tbl, cd, z0, w4)
-    ref = bilinear_rows_reference(tbl, cd, z0, w4)
-    row = cd * NZ + z0
-    idx4 = torch.stack([row, row + 1, row + NZ, row + NZ + 1], dim=1)
-    flat = tbl.reshape(CD * NZ, M)
-    lib = torch.nn.functional.embedding_bag(idx4, flat, per_sample_weights=w4, mode="sum")
-    torch.cuda.synchronize()
-    k1_err = float((got - ref).abs().max())
-    scale = float(ref.abs().max())
-    lib_err = float((lib - ref).abs().max())
-    del got, ref, lib
-    k1_ms = cuda_ms(lambda: bilinear_rows(tbl, cd, z0, w4), iters=20)
-    k1_plain_ms = cuda_ms(lambda: bilinear_rows_reference(tbl, cd, z0, w4), iters=5)
-    k1_lib_ms = cuda_ms(lambda: torch.nn.functional.embedding_bag(
-        idx4, flat, per_sample_weights=w4, mode="sum"), iters=20)
-    # bytes: the table rows these queries touch, indices and weights, the output
-    rows_read = int(torch.unique(idx4).numel())
-    k1_bound, k1_by = bound_ms(rows_read * M * 4 + n_queries * (4 + 4 + 16)
-                               + n_queries * M * 4, n_queries * M * 7)
-    say("k1", queries=n_queries, max_abs_err=f"{k1_err:.3e}", max_ref=f"{scale:.3e}",
-        ms=f"{k1_ms:.4f}", plain_ms=f"{k1_plain_ms:.4f}", library_ms=f"{k1_lib_ms:.4f}",
-        library_max_abs_err=f"{lib_err:.3e}", table_rows_read=rows_read,
-        bound_ms=f"{k1_bound:.4f}", bound_by=k1_by, share_of_bound=f"{k1_bound / k1_ms:.3f}")
-    if not k1_err <= K1_RTOL * scale:
-        raise SystemExit(f"K1 disagrees with its plain version: {k1_err} > {K1_RTOL}·{scale}")
-
-    # 4. K2 against its plain version: the same queries, a random cotangent.
-    # The one-call library version is the per-sample-weights backward of
-    # K1's embedding_bag yardstick (sum mode): one bag of 4 rows per query.
-    g = torch.randn((n_queries, M), generator=gen, device=dev)
-    offsets = torch.arange(0, 4 * n_queries, 4, device=dev)
-    offset2bag = torch.arange(n_queries, device=dev).repeat_interleave(4)
-    ind = idx4.reshape(-1)
-
-    def k2_library():
-        return torch.ops.aten._embedding_bag_per_sample_weights_backward(
-            g, flat, ind, offsets, offset2bag, 0, -1)
-
-    got = corner_dot(tbl, cd, z0, g)
-    lib = k2_library().view(n_queries, 4)
-    rows = corner_rows_reference(tbl, cd, z0)
-    ref = torch.einsum("nj,ncj->nc", g, rows)
-    bar = K2_RTOL * g.abs().sum(-1) * rows.abs().amax(dim=(1, 2))
-    err = (got - ref).abs().amax(-1)
-    k2_err = float(err.max())
-    k2_worst = float((err / bar).max())
-    lib_worst = float(((lib - ref).abs().amax(-1) / bar).max())
-    del got, lib, ref, rows, bar, err
-    torch.cuda.empty_cache()
-    k2_ms = cuda_ms(lambda: corner_dot(tbl, cd, z0, g), iters=20)
-    k2_plain_ms = cuda_ms(lambda: corner_dot_reference(tbl, cd, z0, g), iters=5)
-    k2_lib_ms = cuda_ms(k2_library, iters=20)
-    # bytes: the touched table rows, indices, the cotangent, the (n, 4) output
-    k2_bound, k2_by = bound_ms(rows_read * M * 4 + n_queries * (4 + 4)
-                               + n_queries * M * 4 + n_queries * 16, n_queries * 4 * M * 2)
-    say("k2", queries=n_queries, max_abs_err=f"{k2_err:.3e}",
-        worst_err_over_bar=f"{k2_worst:.3e}", ms=f"{k2_ms:.4f}",
-        plain_ms=f"{k2_plain_ms:.4f}", library_ms=f"{k2_lib_ms:.4f}",
-        library_worst_err_over_bar=f"{lib_worst:.3e}", bound_ms=f"{k2_bound:.4f}",
-        bound_by=k2_by, share_of_bound=f"{k2_bound / k2_ms:.3f}")
-    if not k2_worst <= 1.0:
-        raise SystemExit(f"K2 disagrees with its plain version: worst err/bar {k2_worst}")
-    if not lib_worst <= 1.0:
-        raise SystemExit(f"K2's library yardstick computes another function: {lib_worst}")
-    del cd, z0, w4, g, idx4, flat, ind, offsets, offset2bag
-    torch.cuda.empty_cache()
-
-    # 12. K5 against its plain version (a copy: equal exactly) at the shape
-    # the SMC gives it (the FFI population, resampling indices ascending), on
-    # the FullMT table's rows (float4 path) and at a ragged row length
-    # (scalar path); index_select is the library call, timed in turns with K5.
-    # This phase and 13a run here, while the process is young: later on the
-    # device's records go missing from short profiler traces
-    def check_k5(tbl2, idx, iters):
-        ref = gather_rows_reference(tbl2, idx)
-        clipped = idx.clamp(0, tbl2.shape[0] - 1)
-        far = idx.clone()               # beyond the int32 range on both sides: must clip
-        far[::3], far[1::3] = 2**40, -2**40
-        r = {"equal": torch.equal(gather_rows(tbl2, idx), ref),
-             "equal_int32": torch.equal(gather_rows(tbl2, idx.to(torch.int32)), ref),
-             "clips_int64": torch.equal(gather_rows(tbl2, far),
-                                        gather_rows_reference(tbl2, far)),
-             "library_equal": torch.equal(torch.index_select(tbl2, 0, clipped), ref),
-             "rows_read": int(torch.unique(clipped).numel())}
-        r["ms"], r["library_ms"] = time_in_turns(
-            lambda: gather_rows(tbl2, idx), lambda: torch.index_select(tbl2, 0, clipped), iters)
-        r["plain_ms"] = cuda_ms(lambda: gather_rows_reference(tbl2, idx), iters=iters)
-        r["device_kernels_per_call"], device_ms, _ = device_kernels(
-            lambda: gather_rows(tbl2, idx))
-        r["device_ms"] = ms_or_none(device_ms)
-        r["library_device_ms"] = ms_or_none(device_kernels(
-            lambda: torch.index_select(tbl2, 0, clipped))[1])
-        n, m = idx.shape[0], tbl2.shape[1]
-        r["bound_ms"], r["bound_by"] = bound_ms(r["rows_read"] * m * 4 + n * 8 + n * m * 4, 0.0)
-        return r
-
-    ffi_dims = 3 * FFI_REAL_SIZE["n_strike"] * FFI_REAL_SIZE["n_dip"] + 4
-    population = torch.randn((N_CHAINS, ffi_dims), generator=gen, device=dev)
-    parents = torch.sort(torch.randint(0, N_CHAINS, (N_CHAINS,), generator=gen,
-                                       device=dev)).values
-    flat = tbl.reshape(CD * NZ, M)
-    idx = torch.randint(-2, CD * NZ + 2, (n_queries,), generator=gen, device=dev)
-    ragged = flat[:97, :333].contiguous()
-    k5 = {"smc": check_k5(population, parents, 100), "table": check_k5(flat, idx, 20),
-          "ragged": check_k5(ragged, idx[:41], 100)}
-    for shape, r in k5.items():
-        say("k5", shape=shape, equal=r["equal"], equal_int32=r["equal_int32"],
-            clips_int64=r["clips_int64"], ms=f"{r['ms']:.4f}",
-            library_ms=f"{r['library_ms']:.4f}", device_ms=fmt_ms(r["device_ms"]),
-            library_device_ms=fmt_ms(r["library_device_ms"]),
-            device_kernels_per_call=r["device_kernels_per_call"],
-            plain_ms=f"{r['plain_ms']:.4f}", library_equal=r["library_equal"],
-            table_rows_read=r["rows_read"], bound_ms=f"{r['bound_ms']:.5f}",
-            bound_by=r["bound_by"], share_of_bound=f"{r['bound_ms'] / r['ms']:.3f}")
-    if not all(r["equal"] and r["equal_int32"] and r["clips_int64"] and r["library_equal"]
-               for r in k5.values()):
-        raise SystemExit("K5 (or its library yardstick) is not the plain row gather")
-    if not all(r["device_kernels_per_call"] == 1 for r in k5.values()):
-        raise SystemExit("a gather_rows call made another device operation beside K5")
-    del flat, idx, ragged, population, parents
-
-    # 13a. K3 and K4 at the GF-stack bench shape, the bench's inputs
-    b = K3_BENCH_SHAPE
-    bench_lib = SeismicGFLibrary(
-        torch.randn((b["T"], b["P"], b["D"], b["S"], b["N"]), generator=gen, device=dev),
-        duration_min=0.5, duration_sampling=0.5, starttime_min=0.0, starttime_sampling=0.25,
-        device=dev)
-    bench_in = stack_inputs(bench_lib, b["C"], (0.5, 2.0), (0.0, 2.0), gen)
-    bench = {}
-    for key, interpolation in (("k3", "multilinear"), ("k4", "nearest_neighbor")):
-        bench[key] = r = check_stack(bench_lib, *bench_in, interpolation, iters=50)
-        extra = {}
-        if key == "k3":
-            bmm_ms, bmm_scatter_ms, bmm_err = dense_bmm_ms(bench_lib, *bench_in)
-            extra = dict(dense_bmm_ms=f"{bmm_ms:.4f}",
-                         dense_bmm_with_scatter_ms=f"{bmm_scatter_ms:.4f}",
-                         dense_bmm_max_abs_err=f"{bmm_err:.3e}")
-        say_stack(key, "bench", b, r, **extra)
-    del bench_lib, bench_in
-    torch.cuda.empty_cache()
-
-    # 5. K1c and K2c against their plain versions: on the main path's own
-    # queries (captured from one 2000-chain likelihood over the prior, the
-    # chains of a target clustered on a few depth cells) and on random ones
     logp, data = problem.make_logp_fn()
     lower, upper = problem.priors.bounds_arrays()
     span = upper - lower
+    # queries kept off the box edges, where clamp passes no gradient
     q_prior = torch.as_tensor(np.random.default_rng(3).uniform(
         lower + 0.01 * span, upper - 0.01 * span, size=(N_CHAINS, lower.size)),
         dtype=DTYPE, device=dev)
-    captured = {}
-
-    def capture(tbl_, cd_, z0_, A_):
-        captured.update(cd=cd_, z0=z0_, A=A_.detach())
-        return bilinear_contract(tbl_, cd_, z0_, A_)
-
-    table.contract_fn = capture
-    try:
-        logp(q_prior, data)
-    finally:
-        table.contract_fn = bilinear_contract
-    A_main = captured["A"]
-    # A = w4 ⊗ m6_ray with w4 >= 0 and Σ_c w4 = 1: its factors, up to rounding
-    main_q = dict(cd=captured["cd"], z0=captured["z0"], A=A_main, m6=A_main.sum(-2),
-                  w4=A_main.abs().sum(-1) / A_main.abs().sum((-2, -1))[..., None])
-    cd, z0, w4 = (x.view((N_CHAINS, n_targets) + x.shape[1:])
-                  for x in k1_queries(table, n_queries, gen))
-    m6 = torch.randn((N_CHAINS, n_targets, 6), generator=gen, device=dev)
-    random_q = dict(cd=cd, z0=z0, A=w4[..., :, None] * m6[..., None, :], w4=w4, m6=m6)
-    contract = {"main_path": check_contract(tbl, main_q, gen),
-                "random": check_contract(tbl, random_q, gen)}
-    for shape, r in contract.items():
-        say_contract(shape, r)
-    del captured, A_main, main_q, random_q, cd, z0, w4, m6
-    torch.cuda.empty_cache()
 
     def plain_gathers():
         """Swap the table's gathers for their plain versions (the parity
@@ -3895,9 +3302,9 @@ def main() -> int:
     # 6. 2000-chain log-likelihood: K1c against the plain version
     q = torch.as_tensor(np.random.default_rng(2).uniform(
         lower, upper, size=(N_CHAINS, lower.size)), dtype=torch.float32, device=dev)
-    before = bilinear_contract.launches
-    llk = logp(q, data)
-    launched = bilinear_contract.launches - before
+    with counting():
+        llk = logp(q, data)
+    k1c_launched = launched("k1c")
     logp_ms = cuda_ms(lambda: logp(q, data), iters=10)
     undo = plain_gathers()
     try:
@@ -3906,24 +3313,23 @@ def main() -> int:
         undo()
     torch.cuda.synchronize()
     rel = float(((llk - llk_plain).abs() / llk_plain.abs()).max())
-    say("llk", chains=N_CHAINS, max_rel_err=f"{rel:.3e}", k1c_launches=launched,
+    say("llk", chains=N_CHAINS, max_rel_err=f"{rel:.3e}", k1c_launches=k1c_launched,
         logp_ms=f"{logp_ms:.3f}", finite=bool(torch.isfinite(llk).all()))
-    if not (rel <= LLK_RTOL and launched > 0 and torch.isfinite(llk).all()):
+    if not (rel <= LLK_RTOL and k1c_launched > 0 and torch.isfinite(llk).all()):
         raise SystemExit("llk parity failed (or K1c was not launched)")
     del llk, llk_plain, q
     torch.cuda.empty_cache()
 
-    # 7. 2000-chain gradient through K1c and K2c against the plain
-    # versions'; queries kept off the box edges, where clamp passes no gradient
+    # 7. 2000-chain gradient through K1c and K2c against the plain versions'
     q = q_prior
-    bilinear_contract.launches = contract_corner_dot.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base_GB = torch.cuda.memory_allocated() / 1e9
-    _, grad = value_and_grad(logp, q, (data,))
-    torch.cuda.synchronize()
-    vg_peak_GB = torch.cuda.max_memory_allocated() / 1e9 - base_GB
-    grad_launches = (bilinear_contract.launches, contract_corner_dot.launches)
+    with counting():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_GB = torch.cuda.memory_allocated() / 1e9
+        _, grad = value_and_grad(logp, q, (data,))
+        torch.cuda.synchronize()
+        vg_peak_GB = torch.cuda.max_memory_allocated() / 1e9 - base_GB
+    grad_launches = (launched("k1c"), launched("k2c"))
     vg_ms = cuda_ms(lambda: value_and_grad(logp, q, (data,)), iters=5)
     undo = plain_gathers()
     try:
@@ -3947,79 +3353,23 @@ def main() -> int:
         peak_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
     if not (grad_ok and min(grad_launches) > 0):
         raise SystemExit("gradient parity failed (or K1c/K2c were not launched)")
-    del grad, grad_plain, diff, bar
-    torch.cuda.empty_cache()
-
-    # one forward and one value-and-grad profiled, through K1c/K2c and,
-    # as the yardstick, through the unfused path (K1, a matmul; its
-    # backward a gemm, a gemv and K2) in the same process: the CUDA calls
-    # each hands to the device, the kernels' device time, the peak memory
-    def profile_path(name: str) -> dict:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            value_and_grad(logp, q, (data,))
-            torch.cuda.synchronize()
-        # kernels only: the operators' own rows repeat their kernels' device time
-        kernels = sorted((e for e in prof.key_averages()
-                          if e.device_type == torch.autograd.DeviceType.CUDA),
-                         key=lambda e: -e.self_device_time_total)
-        kernel_ms = {e.key: e.self_device_time_total / 1e3 for e in kernels}
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        value_and_grad(logp, q, (data,))
-        torch.cuda.synchronize()
-
-        def ms_of(kernel):
-            return f"{sum(v for k, v in kernel_ms.items() if '::' + kernel + '(' in k):.4f}"
-
-        r = dict(path=name, kernel_ms=f"{sum(kernel_ms.values()):.3f}", kernels=len(kernels),
-                 forward_ms=f"{cuda_ms(lambda: logp(q, data), iters=10):.3f}",
-                 value_and_grad_ms=f"{cuda_ms(lambda: value_and_grad(logp, q, (data,)), 5):.3f}",
-                 calls_forward=device_kernels(lambda: logp(q, data))[0],
-                 calls_value_and_grad=device_kernels(
-                     lambda: value_and_grad(logp, q, (data,)))[0],
-                 value_and_grad_peak_GB=f"{torch.cuda.max_memory_allocated() / 1e9 - base_GB:.2f}",
-                 k1c_ms=ms_of("bilinear_contract_kernel"),
-                 k2c_ms=ms_of("contract_corner_dot_kernel"),
-                 k1_ms=ms_of("bilinear_rows_kernel"), k2_ms=ms_of("corner_dot_kernel"),
-                 top=json.dumps([[k[:70], round(v, 4)] for k, v in list(kernel_ms.items())[:10]]))
-        say("grad_profile", **r)
-        return r
-
-    fused_profile = profile_path("fused")
-    bilinear_rows.launches = corner_dot.launches = 0
-    table.point_spectra = unfused_point_spectra(table)
-    try:
-        unfused_profile = profile_path("unfused")
-    finally:
-        del table.point_spectra
-    # K1 and K2 now run in this yardstick only (gather_spectra's path)
-    gather_launches = (bilinear_rows.launches, corner_dot.launches)
-    if min(gather_launches) == 0:
-        raise SystemExit("the unfused path (gather_spectra) never launched K1 or K2")
-    del q, q_prior
+    del grad, grad_plain, diff, bar, q, q_prior
     torch.cuda.empty_cache()
 
     # every path's launches of K1c, K2c, K1 and K2, counted from 0 before it
-    def zero_bilinear():
-        bilinear_contract.launches = contract_corner_dot.launches = 0
-        bilinear_rows.launches = corner_dot.launches = 0
-
     def bilinear_launches() -> dict:
-        return dict(k1c_launches=bilinear_contract.launches,
-                    k2c_launches=contract_corner_dot.launches,
-                    k1_launches=bilinear_rows.launches, k2_launches=corner_dot.launches)
+        return {k + "_launches": launched(k) for k in ("k1c", "k2c", "k1", "k2")}
 
     # 8. the slice-1 main path: random-walk SMC at 2000 chains
-    zero_bilinear()
-    gather_rows.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    q_tr, llk_tr = problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=N_STEPS, seed=0))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with counting():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        q_tr, llk_tr = problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=N_STEPS, seed=0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     smc_wall = wall
     smc_launches = bilinear_launches()
-    k5_launches = {"smc": gather_rows.launches}
+    k5_launches = {"smc": launched("k5")}
     state = SampleStage(problem.outfolder, ordering=problem.ordering).load_state(-1)
     est = problem.ordering.to_point(q_tr[-1].mean(axis=0))
     depth, mag = float(np.asarray(est["depth"])), float(np.asarray(est["magnitude"]))
@@ -4038,16 +3388,15 @@ def main() -> int:
 
     # 9. the slice-2 main path: MALA-SMC at 2000 chains
     problem.outfolder = os.path.join(workdir.name, "mala_smc")
-    zero_bilinear()
-    gather_rows.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    q_tr, llk_tr = problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=N_STEPS, seed=0,
-                                            proposal_name="MALA"))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with counting():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        q_tr, llk_tr = problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=N_STEPS, seed=0,
+                                                proposal_name="MALA"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     mala_launches = bilinear_launches()
-    k5_launches["mala_smc"] = gather_rows.launches
+    k5_launches["mala_smc"] = launched("k5")
     state = SampleStage(problem.outfolder, ordering=problem.ordering).load_state(-1)
     est = problem.ordering.to_point(q_tr[-1].mean(axis=0))
     depth, mag = float(np.asarray(est["depth"])), float(np.asarray(est["magnitude"]))
@@ -4075,15 +3424,15 @@ def main() -> int:
         acc_total=torch.zeros(N_CHAINS, dtype=DTYPE, device=dev))
     cov_chol = torch.as_tensor(np.linalg.cholesky(state["cov"]), dtype=DTYPE, device=dev)
     hmc_steps, n_leapfrog = 10, 5
-    zero_bilinear()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    final, _ = run_metropolis_stage(
-        logp, start, 1.0, cov_chol, lo, hi, n_steps=hmc_steps,
-        generator=torch.Generator(device=dev).manual_seed(0), proposal_name="HMC",
-        tune_interval=5, logp_args=(data,), n_leapfrog=n_leapfrog)
-    torch.cuda.synchronize()
-    hmc_ms = (time.perf_counter() - t0) * 1e3 / hmc_steps
+    with counting():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, _ = run_metropolis_stage(
+            logp, start, 1.0, cov_chol, lo, hi, n_steps=hmc_steps,
+            generator=torch.Generator(device=dev).manual_seed(0), proposal_name="HMC",
+            tune_interval=5, logp_args=(data,), n_leapfrog=n_leapfrog)
+        torch.cuda.synchronize()
+        hmc_ms = (time.perf_counter() - t0) * 1e3 / hmc_steps
     hmc_acc = float(final.acc_total.mean()) / hmc_steps
     hmc_finite = bool(torch.isfinite(final.q).all() and torch.isfinite(final.llk).all())
     hmc_launches = bilinear_launches()
@@ -4099,30 +3448,30 @@ def main() -> int:
 
     # 11. MAP + Laplace; the Laplace Hessian must run through K1c and K2c
     # and call no plain version
-    zero_bilinear()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    q_map, llk_map, all_llks = map_estimate(logp, lower, upper, n_restarts=32, n_steps=150,
-                                            seed=0, logp_args=(data,),
-                                            start=problem.priors.test_array()[None],
-                                            device=dev)
-    map_s = time.perf_counter() - t0
+    with counting():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q_map, llk_map, all_llks = map_estimate(logp, lower, upper, n_restarts=32, n_steps=150,
+                                                seed=0, logp_args=(data,),
+                                                start=problem.priors.test_array()[None],
+                                                device=dev)
+        map_s = time.perf_counter() - t0
     map_launches = bilinear_launches()
-    zero_bilinear()
-    plain_names = ("bilinear_contract_reference", "contract_corner_dot_reference",
-                   "bilinear_rows_reference", "corner_dot_reference")
-    plain_fns = {fname: getattr(bilgather, fname) for fname in plain_names}
-    plain_calls = []
-    for fname, fn in plain_fns.items():
-        setattr(bilgather, fname, lambda *a, _fn=fn, _name=fname, **k: (
-            plain_calls.append(_name), _fn(*a, **k))[1])
-    t0 = time.perf_counter()
-    try:
-        lap = laplace_approximation(logp, q_map, lower, upper, logp_args=(data,), device=dev)
-    finally:
+    with counting():
+        plain_names = ("bilinear_contract_reference", "contract_corner_dot_reference",
+                       "bilinear_rows_reference", "corner_dot_reference")
+        plain_fns = {fname: getattr(bilgather, fname) for fname in plain_names}
+        plain_calls = []
         for fname, fn in plain_fns.items():
-            setattr(bilgather, fname, fn)
-    lap_s = time.perf_counter() - t0
+            setattr(bilgather, fname, lambda *a, _fn=fn, _name=fname, **k: (
+                plain_calls.append(_name), _fn(*a, **k))[1])
+        t0 = time.perf_counter()
+        try:
+            lap = laplace_approximation(logp, q_map, lower, upper, logp_args=(data,), device=dev)
+        finally:
+            for fname, fn in plain_fns.items():
+                setattr(bilgather, fname, fn)
+        lap_s = time.perf_counter() - t0
     lap_launches = bilinear_launches()
     point = problem.ordering.to_point(q_map)
     depth, mag = float(point["depth"]), float(point["magnitude"])
@@ -4175,22 +3524,22 @@ def main() -> int:
             with torch.no_grad():
                 return vlogp(x, vdata)
 
-        zero_bilinear()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        llk = no_grad_logp(vq)
-        torch.cuda.synchronize()
-        llk_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
-        llk_launches = bilinear_contract.launches
+        with counting():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            llk = no_grad_logp(vq)
+            torch.cuda.synchronize()
+            llk_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        llk_launches = launched("k1c")
         for k, v in bilinear_launches().items():
             sources_llk_launches[k] += v
-        zero_bilinear()
-        torch.cuda.reset_peak_memory_stats()
-        _, grad = value_and_grad(vlogp, vq, (vdata,))
-        torch.cuda.synchronize()
-        vg_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
-        vg_launches = (bilinear_contract.launches, contract_corner_dot.launches)
+        with counting():
+            torch.cuda.reset_peak_memory_stats()
+            _, grad = value_and_grad(vlogp, vq, (vdata,))
+            torch.cuda.synchronize()
+            vg_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        vg_launches = (launched("k1c"), launched("k2c"))
         for k, v in bilinear_launches().items():
             sources_llk_launches[k] += v
         llk_ms = cuda_ms(lambda: no_grad_logp(vq), iters=3, warmup=1)
@@ -4231,16 +3580,15 @@ def main() -> int:
     # 11c. [dc_mala_smc] a DCSource MALA-SMC to beta = 1 on the flagship data
     dc = build_flagship(**REAL_SIZE, seed=0, device=dev, table=table, source="DCSource",
                         outfolder=os.path.join(workdir.name, "dc_mala_smc"))
-    zero_bilinear()
-    gather_rows.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    q_tr, llk_tr = dc.sample(SMCParams(n_chains=N_CHAINS, n_steps=N_STEPS, seed=0,
-                                       proposal_name="MALA"))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with counting():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        q_tr, llk_tr = dc.sample(SMCParams(n_chains=N_CHAINS, n_steps=N_STEPS, seed=0,
+                                           proposal_name="MALA"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     dc_launches = bilinear_launches()
-    k5_launches["dc_mala_smc"] = gather_rows.launches
+    k5_launches["dc_mala_smc"] = launched("k5")
     dc_state = SampleStage(dc.outfolder, ordering=dc.ordering).load_state(-1)
     est = dc.ordering.to_point(q_tr[-1].mean(axis=0))
     depth, mag = float(np.asarray(est["depth"])), float(np.asarray(est["magnitude"]))
@@ -4306,12 +3654,12 @@ def main() -> int:
                         ensemble_tables=ens, outfolder=os.path.join(workdir.name, "uw"))
     ulogp, udata = uw.make_logp_fn()
     before = [d["weights"].clone() for d in udata[0]]
-    zero_bilinear()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    uw.update_weights(dc_best)
-    torch.cuda.synchronize()
-    uw_s = time.perf_counter() - t0
+    with counting():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        uw.update_weights(dc_best)
+        torch.cuda.synchronize()
+        uw_s = time.perf_counter() - t0
     uw_launches = bilinear_launches()
     with torch.no_grad():
         ullk = ulogp(dc_population, udata)
@@ -4325,8 +3673,8 @@ def main() -> int:
     del uw, ulogp, udata, ens, before, ullk, dc_population
     torch.cuda.empty_cache()
 
-    # 11e. [rect_smc] the finite RectangularSource: K1c at its query layout
-    # and the other one (K = 40 patches), then a random-walk SMC capped at
+    # 11e. [rect_smc] the finite RectangularSource (K = 40 patches): one
+    # likelihood's time and peak, then a random-walk SMC capped at
     # RECT_MAX_STAGES - 1 stages
     rect = build_flagship(**REAL_SIZE, seed=0, device=dev, table=table,
                           source="RectangularSource",
@@ -4336,75 +3684,42 @@ def main() -> int:
     rlo, rhi = rect.priors.bounds_arrays()
     rq = torch.as_tensor(np.random.default_rng(6).uniform(rlo, rhi, size=(N_CHAINS, rlo.size)),
                          dtype=DTYPE, device=dev)
-    # the queries of one likelihood as the composite lays them out, (K, C,
-    # T), and the same queries as (C, K, T), the other layout
-    captured = {}
-
-    def capture(tbl_, cd_, z0_, A_):
-        captured.update(cd=cd_, z0=z0_, A=A_.detach())
-        return bilinear_contract(tbl_, cd_, z0_, A_)
-
-    table.contract_fn = capture
-    try:
-        with torch.no_grad():
-            rlogp(rq, rdata)
-    finally:
-        table.contract_fn = bilinear_contract
-    kept, other = "patches_first", "chains_first"
-    layouts = {kept: check_finite_layout(tbl, captured["cd"], captured["z0"], captured["A"],
-                                         gen)}
-    layouts[other] = check_finite_layout(
-        tbl, *(captured[k].transpose(0, 1).contiguous() for k in ("cd", "z0", "A")), gen)
-    del captured
-    torch.cuda.empty_cache()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    with torch.no_grad():
-        rlogp(rq, rdata)
-    torch.cuda.synchronize()
-    layouts[kept]["llk_peak_GB"] = (torch.cuda.max_memory_allocated() - base) / 1e9
 
     def rect_llk():
         with torch.no_grad():
             return rlogp(rq, rdata)
 
-    layouts[kept]["logp_ms"] = cuda_ms(rect_llk, iters=3, warmup=1)
-    for name_, r in layouts.items():
-        extra = ({} if name_ != kept else dict(logp_ms=f"{r['logp_ms']:.3f}",
-                                               llk_peak_GB=f"{r['llk_peak_GB']:.2f}"))
-        say("k1c_finite", layout=name_, kept=name_ == kept, shape=r["shape"],
-            queries=r["queries"], max_abs_err=f"{r['max_abs_err']:.3e}",
-            worst_err_over_bar=f"{r['worst_err_over_bar']:.3e}", ms=f"{r['ms']:.4f}",
-            plain_ms=f"{r['plain_ms']:.4f}", library_ms=f"{r['library_ms']:.4f}",
-            table_rows_read=r["table_rows_read"], bound_ms=f"{r['bound_ms']:.4f}",
-            bound_by=r["bound_by"], share_of_bound=f"{r['bound_ms'] / r['ms']:.3f}", **extra)
-    faster = min(layouts, key=lambda k: layouts[k]["ms"])
-    del rq
-    zero_bilinear()
-    gather_rows.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    try:
-        rect.sample(SMCParams(n_chains=N_CHAINS, n_steps=RECT_STEPS, max_stages=RECT_MAX_STAGES,
-                              seed=0))
-        capped = False
-    except RuntimeError as e:
-        if "did not reach beta=1" not in str(e):
-            raise
-        capped = True
     torch.cuda.synchronize()
-    rect_wall = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rect_llk()
+    torch.cuda.synchronize()
+    rect_llk_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    rect_llk_ms = cuda_ms(rect_llk, iters=3, warmup=1)
+    del rq
+    with counting():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            rect.sample(SMCParams(n_chains=N_CHAINS, n_steps=RECT_STEPS, max_stages=RECT_MAX_STAGES,
+                                  seed=0))
+            capped = False
+        except RuntimeError as e:
+            if "did not reach beta=1" not in str(e):
+                raise
+            capped = True
+        torch.cuda.synchronize()
+        rect_wall = time.perf_counter() - t0
     rect_launches = bilinear_launches()
-    k5_launches["rect_smc"] = gather_rows.launches
+    k5_launches["rect_smc"] = launched("k5")
     handler = SampleStage(rect.outfolder, ordering=rect.ordering)
     rstates = [handler.load_state(st) for st in (range(1, RECT_MAX_STAGES) if capped else [-1])]
     rbetas = [0.0] + [float(st["beta"]) for st in rstates]
     rfinite = all(np.isfinite(st["likelihoods"]).all() for st in rstates)
     say("rect_smc", chains=N_CHAINS, steps=RECT_STEPS, dims=rect.ordering.size,
         patches=f"{rcomp.finite_patches[0]}x{rcomp.finite_patches[1]}",
-        k1c_queries_per_eval=queries_per_chain(rcomp) * N_CHAINS, layout=kept,
-        faster_layout=faster, wall_s=f"{rect_wall:.2f}", stages_run=len(rstates),
+        k1c_queries_per_eval=queries_per_chain(rcomp) * N_CHAINS, llk_ms=f"{rect_llk_ms:.3f}",
+        llk_peak_GB=f"{rect_llk_peak:.2f}", wall_s=f"{rect_wall:.2f}", stages_run=len(rstates),
         capped=capped, betas=json.dumps([round(x, 6) for x in rbetas]), finite=rfinite,
         **rect_launches, k5_launches=k5_launches["rect_smc"],
         acceptance=json.dumps([round(float(a), 3) for a in rstates[-1]["acceptance"]]),
@@ -4417,8 +3732,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 11f. [joint_llk], [pt_joint]: the joint seismic + geodetic problem on the same table
-    joint = joint_phases(dev, table, workdir.name)
-    polarity = polarity_phases(dev, table, workdir.name, k5_launches)
+    joint_phases(dev, table, workdir.name)
+    polarity_phases(dev, table, workdir.name, k5_launches)
 
 
     # the FullMT problem is done: free its table before the FFI library
@@ -4426,13 +3741,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 14. the real-size FFI problem: its library is built on the card, through K1c
-    zero_bilinear()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    problem = build_ffi_flagship(**FFI_REAL_SIZE, seed=0, device=dev,
-                                 outfolder=os.path.join(workdir.name, "ffi_smc"))
-    torch.cuda.synchronize()
-    ffi_build_s = time.perf_counter() - t0
+    with counting():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        problem = build_ffi_flagship(**FFI_REAL_SIZE, seed=0, device=dev,
+                                     outfolder=os.path.join(workdir.name, "ffi_smc"))
+        torch.cuda.synchronize()
+        ffi_build_s = time.perf_counter() - t0
     comp = problem.composites["seismic"]
     lib = comp.libs[0]["uparr"]
     fsub = comp.fault.get_subfault(0)
@@ -4447,79 +3762,15 @@ def main() -> int:
             and float(lib.data.abs().max()) > 0):
         raise SystemExit("the FFI library is not finite and non-zero (or K1c was not launched)")
 
-    # 13b. K3 and K4 on the real library: durations and starttimes on and
-    # beyond the grids (0.5–5.0 s, 0–7.75 s), so the weights leave [0, 1]
-    real_in = stack_inputs(lib, N_CHAINS, (0.2, 5.5), (-0.5, 9.0), gen)
-    real_dims = dict(C=N_CHAINS, T=lib.ntargets, P=lib.npatches, D=lib.ndurations,
-                     S=lib.nstarttimes, N=lib.nsamples)
-    real = {}
-    for key, interpolation in (("k3", "multilinear"), ("k4", "nearest_neighbor")):
-        real[key] = r = check_stack(lib, *real_in, interpolation, iters=10)
-        say_stack(key, "real", real_dims, r)
-    # their library yardstick on the real library: one dense bmm over the
-    # scattered corner weights, (T, C, P·D·S) floats (15.4 GB) beside the library
-    for key, interpolation in (("k3", "multilinear"), ("k4", "nearest_neighbor")):
-        bmm_ms, bmm_scatter_ms, bmm_err = dense_bmm_ms(lib, *real_in, interpolation)
-        real[key].update(library_ms=bmm_ms, library_with_scatter_ms=bmm_scatter_ms,
-                         library_max_abs_err=bmm_err)
-        say(key, shape="real_dense_bmm", dense_bmm_ms=f"{bmm_ms:.4f}",
-            dense_bmm_with_scatter_ms=f"{bmm_scatter_ms:.4f}",
-            dense_bmm_max_abs_err=f"{bmm_err:.3e}",
-            weights_GB=f"{N_CHAINS * lib.ntargets * lib.npatches * lib.ndurations * lib.nstarttimes * 4 / 1e9:.2f}")
-        torch.cuda.empty_cache()
-
-    # K3 as the main path calls it: the onsets shared by the targets, (C, 1, P)
-    # operands; the call may allocate its output and nothing else
-    durations, starttimes, slips = real_in
-    shared = check_stack(lib, durations, starttimes[:, :1].contiguous(), slips, "multilinear",
-                         iters=10)
-    didx, rtf = lib.durations2idxs(durations, "multilinear")
-    sidx, stf = lib.starttimes2idxs(starttimes[:, :1].contiguous(), "multilinear")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    out = stack_batched(lib.data, didx, sidx, slips, rtf, stf)
-    torch.cuda.synchronize()
-    extra_bytes = torch.cuda.max_memory_allocated() - base
-    out_bytes = out.numel() * out.element_size()
-    say_stack("k3", "real_shared", real_dims, shared, operands=tuple(sidx.shape),
-              allocated_MB=f"{extra_bytes / 1e6:.3f}", output_MB=f"{out_bytes / 1e6:.3f}")
-    if extra_bytes > out_bytes + 2**21:
-        raise SystemExit(f"K3 with shared onsets allocated {extra_bytes} bytes for an output "
-                         f"of {out_bytes}")
-    del out, sidx, stf
-
-    # what bounds the gather variant: all chains on one cell (the 8 chains of
-    # a block load the same rows: L1 serves 7 of 8), then eight cells, one per
-    # chain of a block (no row shared within a block, few enough rows to stay
-    # in cache); the tiled variant's time does not depend on the cells
-    chain = torch.arange(N_CHAINS, device=dev, dtype=torch.int32)
-    T, P = lib.ntargets, lib.npatches
-    for shape, d_cells, s_cells in (
-            ("real_one_cell", torch.full_like(didx, 5),
-             torch.full((N_CHAINS, T, P), 17, dtype=torch.int32, device=dev)),
-            ("real_eight_cells", (1 + chain % 8)[:, None].expand(N_CHAINS, P).contiguous(),
-             (2 + 3 * (chain % 8))[:, None, None].expand(N_CHAINS, T, P).contiguous())):
-        stf_full = torch.rand((N_CHAINS, T, P), generator=gen, device=dev)
-        tiled_ms, gather_ms = time_in_turns(
-            lambda: stack_batched(lib.data, d_cells, s_cells, slips, rtf, stf_full,
-                                  variant="tiled"),
-            lambda: stack_batched(lib.data, d_cells, s_cells, slips, rtf, stf_full,
-                                  variant="gather"), 5)
-        say("k3", shape=shape, tiled_ms=f"{tiled_ms:.4f}", gather_ms=f"{gather_ms:.4f}")
-    del durations, starttimes, slips, didx, rtf, d_cells, s_cells, stf_full
-    del real_in
-    torch.cuda.empty_cache()
-
     # 15. the 2000-chain FFI log-likelihood through K3, against the plain
     # stack on chains spread over the batch
     logp, data = problem.make_logp_fn()
     lower, upper = problem.priors.bounds_arrays()
     q = torch.as_tensor(np.random.default_rng(4).uniform(
         lower, upper, size=(N_CHAINS, lower.size)), dtype=torch.float32, device=dev)
-    stack_batched.launches_multilinear = stack_batched.launches_nearest = 0
-    llk = logp(q, data)
-    launched = stack_batched.launches_multilinear
+    with counting():
+        llk = logp(q, data)
+    k3_launched = launched("k3")
     sub = torch.arange(0, N_CHAINS, max(1, N_CHAINS // FFI_PLAIN_CHAINS),
                        device=dev)[:FFI_PLAIN_CHAINS]
     lib.stack_fn = stack_batched_reference
@@ -4541,7 +3792,7 @@ def main() -> int:
     n_launches, kernel_ms, by_name = device_kernels(lambda: logp(q, data))
     beyond = float((comp.point2starttimes(point) > 7.75).float().mean())
     say("ffi_llk", chains=N_CHAINS, dims=lower.size, plain_chains=len(sub),
-        max_rel_err=f"{rel:.3e}", worst_err_over_bar=f"{worst:.3e}", k3_launches=launched,
+        max_rel_err=f"{rel:.3e}", worst_err_over_bar=f"{worst:.3e}", k3_launches=k3_launched,
         logp_ms=f"{ffi_logp_ms:.3f}",
         eikonal_ms=f"{eik_ms:.3f}", eikonal_launches=eik_launches,
         eikonal_kernel_ms=f"{eik_kernel_ms:.3f}", launches=n_launches,
@@ -4549,14 +3800,18 @@ def main() -> int:
         k3_ms=f"{sum(v for k, v in by_name.items() if 'gf_stack' in k):.4f}",
         onsets_beyond_grid=f"{beyond:.3f}", finite=bool(torch.isfinite(llk).all()),
         top=json.dumps([[k[:60], round(v, 4)] for k, v in list(by_name.items())[:6]]))
-    if not (worst <= 1.0 and launched > 0 and torch.isfinite(llk).all()):
+    if not (worst <= 1.0 and k3_launched > 0 and torch.isfinite(llk).all()):
         raise SystemExit("FFI llk parity failed (or K3 was not launched)")
     del llk, llk_plain, point, diff
     torch.cuda.empty_cache()
-    eik_turns = {n: eikonal_turns(dev, n, iters=5) for n in sorted({N_CHAINS, 5000})}
+
+    # 15a. [kernels] each kernel's wrapper against its plain version
+    kernel_checks(dev, table_shape, N_CHAINS * n_targets, lib, problem.ordering.size,
+                  fsub.n_dip, fsub.n_strike)
+    torch.cuda.empty_cache()
 
     # 15b. [parallel_ffi_llk] the library split by targets over 4 ranks
-    parallel_ffi = parallel_ffi_phase(dev, problem, q, workdir.name)
+    parallel_ffi_phase(dev, problem, q, workdir.name)
     del q
 
     # 16. the slice-3 main path: random-walk SMC at 2000 chains and 1504
@@ -4582,30 +3837,27 @@ def main() -> int:
         plain_solves.append(1)
         return eik_plain(*args, **kwargs)
 
-    stack_batched.launches_multilinear = stack_batched.launches_nearest = 0
-    zero_bilinear()
-    gather_rows.launches = 0
-    eik.eikonal_rupture_times.launches_fused = 0
-    torch.cuda.reset_peak_memory_stats()
-    SampleStage.save_stage = timed_save_stage
-    eik.eikonal_rupture_times_plain = counted_plain
-    t0 = time.perf_counter()
-    try:
-        problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=FFI_STEPS,
-                                 max_stages=FFI_MAX_STAGES, seed=1))
-        capped = False
-    except RuntimeError as e:
-        if "did not reach beta=1" not in str(e):
-            raise
-        capped = True
-    finally:
-        SampleStage.save_stage = save_stage
-        eik.eikonal_rupture_times_plain = eik_plain
-    torch.cuda.synchronize()
-    ffi_wall = time.perf_counter() - t0
-    ffi_launches = stack_batched.launches_multilinear
-    k5_launches["ffi_smc"] = gather_rows.launches
-    eik_launches = eik.eikonal_rupture_times.launches_fused
+    with counting():
+        torch.cuda.reset_peak_memory_stats()
+        SampleStage.save_stage = timed_save_stage
+        eik.eikonal_rupture_times_plain = counted_plain
+        t0 = time.perf_counter()
+        try:
+            problem.sample(SMCParams(n_chains=N_CHAINS, n_steps=FFI_STEPS,
+                                     max_stages=FFI_MAX_STAGES, seed=1))
+            capped = False
+        except RuntimeError as e:
+            if "did not reach beta=1" not in str(e):
+                raise
+            capped = True
+        finally:
+            SampleStage.save_stage = save_stage
+            eik.eikonal_rupture_times_plain = eik_plain
+        torch.cuda.synchronize()
+        ffi_wall = time.perf_counter() - t0
+    ffi_launches = launched("k3")
+    k5_launches["ffi_smc"] = launched("k5")
+    eik_launches = launched("eikonal")
     handler = SampleStage(problem.outfolder, ordering=problem.ordering)
     stages = list(range(1, FFI_MAX_STAGES)) if capped else [-1]
     states = [handler.load_state(st) for st in stages]
@@ -4615,7 +3867,7 @@ def main() -> int:
     say("ffi_smc", chains=N_CHAINS, steps=FFI_STEPS, dims=problem.ordering.size,
         wall_s=f"{ffi_wall:.2f}", stages_run=len(states), capped=capped,
         betas=json.dumps([round(x, 6) for x in betas]), finite=ffi_finite,
-        k3_launches=ffi_launches, k4_launches=stack_batched.launches_nearest,
+        k3_launches=ffi_launches, k4_launches=launched("k4"),
         k5_launches=k5_launches["ffi_smc"], eikonal_launches=eik_launches,
         eikonal_plain_solves=len(plain_solves),
         acceptance=json.dumps([round(float(a), 3) for a in states[-1]["acceptance"]]),
@@ -4633,172 +3885,33 @@ def main() -> int:
         raise SystemExit(f"[ffi_smc] {len(plain_solves)} of {eik_launches + len(plain_solves)} "
                          "onset solves took the plain loop, not the eikonal kernel")
 
-    # 16b. [ffi_extras], [k3_bf16], [k4_bf16] on the same library and wavemap
-    extras = ffi_extra_phases(dev, problem, workdir.name)
+    # 16b. [ffi_extras], [ffi_llk_bf16], [ffi_smc_bf16] on the same library and wavemap
+    ffi_extra_phases(dev, problem, workdir.name)
     del problem, comp, lib, logp, data
     torch.cuda.empty_cache()
 
     # 17. a small FFI problem sampled to beta = 1, with each interpolation
     recover = {}
     for interpolation in ("multilinear", "nearest_neighbor"):
-        stack_batched.launches_multilinear = stack_batched.launches_nearest = 0
-        gather_rows.launches = 0
-        recover[interpolation] = ffi_recover(interpolation, dev, workdir.name, N_CHAINS)
-        recover[interpolation]["launches"] = (stack_batched.launches_multilinear,
-                                              stack_batched.launches_nearest)
-        k5_launches[f"ffi_recover_{interpolation}"] = gather_rows.launches
+        with counting():
+            recover[interpolation] = ffi_recover(interpolation, dev, workdir.name, N_CHAINS)
+        recover[interpolation]["launches"] = (launched("k3"), launched("k4"))
+        k5_launches[f"ffi_recover_{interpolation}"] = launched("k5")
     k4_launches = recover["nearest_neighbor"]["launches"][1]
     if recover["multilinear"]["launches"][0] == 0 or k4_launches == 0:
         raise SystemExit("the small FFI runs never launched K3 (multilinear) or K4 (nearest)")
     geodetic_phases(dev, workdir.name, k5_launches)
     bem_phases(dev, workdir.name, k5_launches)
     transd_phases(dev, workdir.name)
-    builders = table_builder_phases(dev, workdir.name, k5_launches)
+    table_builder_phases(dev, workdir.name, k5_launches)
     # [parallel_smc], [parallel_nccl] the runtime: [project]'s FullMT project
     # sampled by ranks
-    runtime = parallel_smc_phases(dev, workdir.name, k5_launches, smc_wall)
+    parallel_smc_phases(dev, workdir.name, k5_launches, smc_wall)
     workdir.cleanup()
 
-    # 18. results: launches from each kernel's main path (SMC for K1 and
-    # K1c, MALA-SMC for K2 and K2c, FFI SMC for K3, K5 and the eikonal, the
-    # nearest-neighbour FFI SMC for K4), with every path's count beside
-    # them (the geometry-mode paths of 11b-11e among them; K1c also
-    # with its times at the finite source's two query layouts).  K1 and K2 run on no path now (0): K1c and K2c took their
-    # place; their launches in [grad_profile]'s unfused yardstick, which
-    # is not a path of the port, stand apart.  K1c's and K2c's times are
-    # those on the main path's queries, K3's and K4's those on the real
-    # library, K5's those at the FFI population's shape, the eikonal's
-    # those of [ffi_llk]'s solve alone at the FFI population's shape.
-    paths = {"smc": smc_launches, "mala_smc": mala_launches, "hmc": hmc_launches,
-             "map": map_launches, "laplace": lap_launches,
-             "sources_llk": sources_llk_launches, "dc_mala_smc": dc_launches,
-             "update_weights": uw_launches, "rect_smc": rect_launches,
-             "ffi_build": ffi_build_launches}
-
-    def by_path(key):
-        return {path: counts[key] for path, counts in paths.items()}
-
-    def bf16_entry(r, name, replaces, launches, launches_by_path):
-        """K3's or K4's entry on the bf16 library: the variant the plan
-        chose there (K3: ``mma``; K4: ``gather``) with every variant's time
-        in turns; ``previous_ms`` is the float32 kernel's time, in turns
-        with it."""
-        return {"name": name, "route": "cuda", "source": "beat_tpu_torch/csrc/gfstack.cu",
-                "replaces": replaces, "launches": launches, "max_abs_err": r["max_abs_err"],
-                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                "library_with_scatter_ms": r["library_with_scatter_ms"],
-                "previous_ms": r["float32_ms"], "variant": r["variant"],
-                "variants_ms": r["variants_ms"], "variants_max_abs_err": r["variants_max_abs_err"],
-                "worst_err_over_bar": r["worst_err_over_bar"],
-                "group_cells": r.get("group_cells"),
-                "loss_vs_float32": r["loss_vs_float32"], "library_bytes": r["library_bytes"],
-                "launches_by_path": launches_by_path}
-
-    def contract_entry(key, name, replaces, launches):
-        main, rnd = contract["main_path"], contract["random"]
-        r = main[key]
-        return {"name": name, "route": "cuda", "source": "beat_tpu_torch/csrc/bilgather.cu",
-                "replaces": replaces, "launches": launches, "max_abs_err": r["max_abs_err"],
-                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                "previous_ms": r["previous_ms"],
-                "table_rows_read": main["table_rows_read"], "groups": main["groups"][key],
-                "random_queries": rnd[key], "launches_by_path": by_path(key + "_launches")}
-
-    k1c_entry = contract_entry("k1c", "bilinear_contract", "beat_tpu/ops/bilgather.py:47",
-                               smc_launches["k1c_launches"])
-    k1c_entry["launches_by_path"].update(
-        joint_llk=joint[f"joint_llk_{N_CHAINS}"]["k1c_launches"],
-        pt_joint=joint["pt_joint"]["k1c_launches"],
-        polarity_llk=polarity["polarity_llk"]["k1c_launches"],
-        polarity_smc=polarity["polarity_smc"]["k1c_launches"],
-        layered_smc=builders["layered_smc"]["k1c_launches"],
-        project=builders["project"]["k1c_launches"],
-        project_seis_derivative=builders["project_seis_derivative"]["k1c_launches"],
-        project_seis_derivative_jvp=builders["project_seis_derivative"]["k1c_jvp_launches"],
-        **{f"cli_{cmd}": n["k1c"] for cmd, n in builders["cli"].items()})
-    k1c_entry["launches_by_path"].update(
-        {f"parallel_smc_rank{r}": n
-         for r, n in enumerate(runtime["parallel_smc"]["k1c_launches"])},
-        parallel_nccl=runtime["parallel_nccl"]["k1c_launches"])
-    k2c_entry = contract_entry("k2c", "contract_corner_dot", "beat_tpu/ops/bilgather.py:154",
-                               mala_launches["k2c_launches"])
-    k2c_entry["launches_by_path"].update(
-        {f"cli_{cmd}": n["k2c"] for cmd, n in builders["cli"].items()})
-    k1c_entry["finite_layouts"] = {k: {f: v for f, v in r.items() if f != "shape"}
-                                   for k, r in layouts.items()}
-    k1c_entry["finite_layout_kept"] = kept
-
-    say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
-    print(json.dumps({"kernels": [
-        {"name": "bilinear_rows", "route": "cuda", "source": "beat_tpu_torch/csrc/bilgather.cu",
-         "replaces": "beat_tpu/ops/bilgather.py:47", "launches": smc_launches["k1_launches"],
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": k1_lib_ms, "launches_by_path": by_path("k1_launches"),
-         "unfused_yardstick_launches": gather_launches[0]},
-        {"name": "corner_dot", "route": "cuda", "source": "beat_tpu_torch/csrc/bilgather.cu",
-         "replaces": "beat_tpu/ops/bilgather.py:154", "launches": mala_launches["k2_launches"],
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": k2_lib_ms, "launches_by_path": by_path("k2_launches"),
-         "unfused_yardstick_launches": gather_launches[1]},
-        k1c_entry,
-        k2c_entry,
-        {"name": "gf_stack_multilinear", "route": "cuda",
-         "source": "beat_tpu_torch/csrc/gfstack.cu", "replaces": "beat_tpu/ops/gfstack.py:241",
-         "launches": ffi_launches, "max_abs_err": real["k3"]["max_abs_err"],
-         "ms": real["k3"]["ms"], "plain_ms": real["k3"]["plain_ms"],
-         "bound_ms": real["k3"]["bound_ms"], "bound_by": real["k3"]["bound_by"],
-         "library_ms": real["k3"]["library_ms"],
-         "library_with_scatter_ms": real["k3"]["library_with_scatter_ms"],
-         "variant": real["k3"]["variant"],
-         "previous_ms": real["k3"]["previous_ms"], "shared_onsets": shared,
-         "bench_shape": bench["k3"],
-         "launches_by_path": {"ffi_smc": ffi_launches,
-                              "ffi_recover": recover["multilinear"]["launches"][0],
-                              **{f"parallel_ffi_llk_rank{r}": n
-                                 for r, n in enumerate(parallel_ffi["k3_launches"])}}},
-        bf16_entry(extras["k3_bf16"], "gf_stack_multilinear_bf16", "beat_tpu/ops/gfstack.py:241",
-                   extras["ffi_smc_bf16"]["k3_bf16_launches"],
-                   {"ffi_smc_bf16": extras["ffi_smc_bf16"]["k3_bf16_launches"],
-                    "ffi_smc_bf16_mma": extras["ffi_smc_bf16"]["mma_launches"],
-                    "ffi_llk_bf16": extras["k3_bf16"]["launches"],
-                    "ffi_llk_bf16_mma": extras["k3_bf16"]["mma_launches"]}),
-        {"name": "gf_stack_nearest", "route": "cuda",
-         "source": "beat_tpu_torch/csrc/gfstack.cu", "replaces": "beat_tpu/ops/gfstack.py:218",
-         "launches": k4_launches, "max_abs_err": real["k4"]["max_abs_err"],
-         "ms": real["k4"]["ms"], "plain_ms": real["k4"]["plain_ms"],
-         "bound_ms": real["k4"]["bound_ms"], "bound_by": real["k4"]["bound_by"],
-         "library_ms": real["k4"]["library_ms"],
-         "library_with_scatter_ms": real["k4"]["library_with_scatter_ms"],
-         "variant": real["k4"]["variant"],
-         "previous_ms": real["k4"]["previous_ms"], "bench_shape": bench["k4"],
-         "launches_by_path": {"ffi_recover_nearest_neighbor": k4_launches}},
-        bf16_entry(extras["k4_bf16"], "gf_stack_nearest_bf16", "beat_tpu/ops/gfstack.py:218",
-                   extras["k4_bf16"]["launches"],
-                   {"ffi_llk_bf16": extras["k4_bf16"]["launches"]}),
-        {"name": "gather_rows", "route": "cuda", "source": "beat_tpu_torch/csrc/rowgather.cu",
-         "replaces": "beat_tpu/ops/rowgather.py:34", "launches": k5_launches["ffi_smc"],
-         "max_abs_err": 0.0, "ms": k5["smc"]["ms"], "plain_ms": k5["smc"]["plain_ms"],
-         "bound_ms": k5["smc"]["bound_ms"], "bound_by": k5["smc"]["bound_by"],
-         "library_ms": k5["smc"]["library_ms"], "variant": "flat", "previous_ms": None,
-         "device_ms": k5["smc"]["device_ms"],
-         "library_device_ms": k5["smc"]["library_device_ms"],
-         "device_kernels_per_call": k5["smc"]["device_kernels_per_call"],
-         "table_shape": k5["table"],
-         "launches_by_path": k5_launches},
-        {"name": "eikonal", "route": "cuda", "source": "beat_tpu_torch/csrc/eikonal.cu",
-         "replaces": None, "launches": eik_launches,
-         "max_abs_err": eik_turns[N_CHAINS]["max_onset_diff"],
-         "ms": eik_turns[N_CHAINS]["fused_ms"], "plain_ms": eik_turns[N_CHAINS]["plain_ms"],
-         "bound_ms": eik_turns[N_CHAINS]["bound_ms"],
-         "bound_by": eik_turns[N_CHAINS]["bound_by"], "library_ms": None, "previous_ms": None,
-         "plain_launches": eik_turns[N_CHAINS]["plain_launches"],
-         "by_chains": {n: {f: r[f] for f in ("fused_ms", "plain_ms", "bound_ms",
-                                             "chains_iterations_differ")}
-                       for n, r in eik_turns.items()},
-         "launches_by_path": {"ffi_smc": eik_launches,
-                              "ffi_smc_plain_solves": len(plain_solves)}}]}))
+    # 18. the script's seconds and K5's launches by path
+    say("done", seconds=f"{time.perf_counter() - t_start:.1f}",
+        k5_launches=json.dumps(k5_launches))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))
     return 0

@@ -9,7 +9,7 @@ composition, on the same numpy inputs; the autograd pair under
 ``gradcheck``, ``gradgradcheck`` and a Hessian; and ``point_spectra``
 going through the pair without making the (…, 6, nf, 2) rows.  The CUDA
 kernels are held against the plain versions on the card
-(``tests/test_torch_gpu.py``, ``chip_smoke.py`` [k1c], [k2c]).
+(``tests/test_torch_gpu.py``).
 """
 
 import numpy as np
@@ -32,7 +32,7 @@ from beat_tpu_torch.ops.bilgather import (BilinearContract, ContractCornerDot,
                                           contract_corner_dot, contract_corner_dot_reference,
                                           pack_table)
 from beat_tpu_torch.sources import sdr_to_m6
-from test_torch_common import spy
+from test_torch_common import counters, launches, spy
 
 # K1c/K2c sum 24 (or L) products in another order than JAX's einsums: per
 # query |err| <= RTOL·|want| + ATOL · Σ|coefficients| · max|corner row|
@@ -210,11 +210,12 @@ def test_launch_counters_stay_zero_on_cpu(lead):
     cd, z0 = torch.as_tensor(cd).view(lead), torch.as_tensor(z0).view(lead)
     G = torch.as_tensor(G).view(lead + (L,))
     A = torch.as_tensor(w4[:, :, None] * m6[:, None, :]).view(lead + (4, 6)).requires_grad_()
-    out = bilinear_contract(packed, cd, z0, A)
-    out.backward(G)
-    P = contract_corner_dot(packed, cd, z0, G)
+    with counters() as counts:
+        out = bilinear_contract(packed, cd, z0, A)
+        out.backward(G)
+        P = contract_corner_dot(packed, cd, z0, G)
     assert out.shape == G.shape and P.shape == lead + (4, 6)
-    assert bilinear_contract.launches == contract_corner_dot.launches == 0
+    assert launches(counts) == {}
     torch.testing.assert_close(A.grad, P, rtol=0, atol=0)
     torch.testing.assert_close(out, bilinear_contract_reference(packed, cd, z0, A), rtol=0,
                                atol=0)

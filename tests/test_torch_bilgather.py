@@ -5,7 +5,7 @@ kernels in interpret mode, its numpy reference and its custom VJP, on
 the same numpy inputs; and the autograd pair (K1 and K2 as each other's
 backward) under ``gradcheck`` and ``gradgradcheck``.  The CUDA kernels
 themselves are held against the plain versions on the card
-(``tests/test_torch_gpu.py``, ``chip_smoke.py``).
+(``tests/test_torch_gpu.py``).
 """
 
 import numpy as np
@@ -22,7 +22,7 @@ from beat_tpu.ops.bilgather import pack_table as jax_pack_table
 from beat_tpu_torch.ops.bilgather import (BilinearRows, CornerDot, bilinear_rows,
                                           bilinear_rows_reference, corner_dot,
                                           corner_dot_reference, pack_table)
-import test_torch_common  # noqa: F401  (the tests' thread policy)
+from test_torch_common import counters, launches  # (and the tests' thread policy)
 
 # the JAX package's bar for gathered spectra (tests/test_seismic.py:349-350)
 ATOL_REL = 2e-6
@@ -113,11 +113,11 @@ def test_launch_counter_stays_zero_on_cpu():
     spectra = _spectra(4, 3, 5)
     packed = pack_table(torch.as_tensor(spectra))
     comp, d0, z0, w4 = _queries(4, 3, 10)
-    before = bilinear_rows.launches
-    out = bilinear_rows(packed, torch.as_tensor(comp * 4 + d0), torch.as_tensor(z0),
-                        torch.as_tensor(w4))
+    with counters() as counts:
+        out = bilinear_rows(packed, torch.as_tensor(comp * 4 + d0), torch.as_tensor(z0),
+                            torch.as_tensor(w4))
     assert out.shape == (10, packed.shape[2])
-    assert bilinear_rows.launches == before == 0
+    assert launches(counts) == {}
     ref = bilinear_rows_reference(packed, torch.as_tensor(comp * 4 + d0),
                                   torch.as_tensor(z0), torch.as_tensor(w4))
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
@@ -211,9 +211,10 @@ def test_hessian_runs_through_the_pair_and_table_is_data():
 
 def test_k2_launch_counter_stays_zero_on_cpu():
     packed, _, cd, z0, _, g = _case_inputs("ragged")
-    out = corner_dot(packed, torch.as_tensor(cd), torch.as_tensor(z0), torch.as_tensor(g))
+    with counters() as counts:
+        out = corner_dot(packed, torch.as_tensor(cd), torch.as_tensor(z0), torch.as_tensor(g))
     assert out.shape == (g.shape[0], 4)
-    assert corner_dot.launches == 0
+    assert launches(counts) == {}
     torch.testing.assert_close(out, corner_dot_reference(
         packed, torch.as_tensor(cd).int(), torch.as_tensor(z0).int(), torch.as_tensor(g)),
         rtol=0, atol=0)

@@ -1,13 +1,19 @@
 """
 What the port's tests share: the thread policy of the CPU runs, the
-per-parameter bar of the gradient comparisons and the eikonal solver's
-mixed batch.  Importing this module sets torch's intra-op thread count;
-it holds no tests of its own and imports neither JAX nor ``beat_tpu``,
-so the card-only tests use it too.
+per-parameter bar of the gradient comparisons, the program's counters
+over a block (kernel launches among them), and the eikonal solver's
+mixed batch and the plain loop's per-chain counts.  Importing this
+module sets torch's intra-op thread count; it holds no tests of its own
+and imports neither JAX nor ``beat_tpu``, so the card-only tests use it
+too.
 """
+
+import contextlib
 
 import numpy as np
 import torch
+
+from beat_tpu_torch import profiling
 
 # one intra-op thread: the suite runs in several worker processes at once,
 # and torch's spinning thread pool on these small ops slows every worker
@@ -60,3 +66,61 @@ def spy(monkeypatch, module, name: str) -> list:
 
     monkeypatch.setattr(module, name, wrapper)
     return calls
+
+
+@contextlib.contextmanager
+def counters():
+    """The program's counters over the block: turns spans on and resets
+    them, yields a dict that holds the counters when the block ends
+    (``launches.<C entry>`` for each kernel launch, see
+    ``kernels/build.py::launch``), then puts the previous setting back."""
+    before = profiling.enable_spans(True)
+    profiling.reset_spans()
+    counts = {}
+    try:
+        yield counts
+    finally:
+        counts.update(profiling.span_snapshot()["counters"])
+        profiling.enable_spans(before)
+        profiling.reset_spans()
+
+
+def launches(counts: dict) -> dict:
+    """The kernel launches among ``counts``, by C entry."""
+    return {name.removeprefix("launches."): n for name, n in counts.items()
+            if name.startswith("launches.")}
+
+
+def plain_chain_iterations(slowness, nuc_d, nuc_s, patch_size: float, epsilon: float = 0.1,
+                           max_iter: int | None = None) -> tuple:
+    """The updates each chain runs in ``eikonal_rupture_times_plain``, from
+    the plain update iterated without stopping (a chain's updates before
+    its stop are those of the masked loop): a chain's count is its first
+    update whose summed squared change is not above ``epsilon`` (a NaN
+    change stops it too), else ``max_iter``.  Returns the (C,) int32
+    counts and the (C, n) float32 changes of the n updates run, n the
+    largest count."""
+    from beat_tpu_torch.ops.eikonal import _INIT_TIME, _default_max_iter, _upwind_update
+
+    n_chains, n_dip, n_strike = slowness.shape
+    if max_iter is None:
+        max_iter = _default_max_iter(n_dip, n_strike)
+    fh = slowness * patch_size
+    nuc = torch.zeros_like(slowness, dtype=torch.bool)
+    nuc[torch.arange(n_chains, device=slowness.device), nuc_d.long(), nuc_s.long()] = True
+    times = torch.where(nuc, 0.0, torch.full_like(slowness, _INIT_TIME))
+    runs = torch.full((n_chains,), max_iter, dtype=torch.int32, device=slowness.device)
+    going = torch.ones(n_chains, dtype=torch.bool, device=slowness.device)
+    changes = []
+    for it in range(max_iter):
+        if not bool(going.any()):
+            break
+        new = torch.where(nuc, 0.0, _upwind_update(times, fh))
+        change = torch.sum((new - times) ** 2, dim=(1, 2))
+        changes.append(change)
+        stops = going & ~(change > epsilon)
+        runs[stops] = it + 1
+        going &= ~stops
+        times = new
+    return runs, (torch.stack(changes, dim=1) if changes
+                  else slowness.new_zeros((n_chains, 0)))

@@ -24,7 +24,7 @@ import torch
 from beat_tpu.ops.eikonal import eikonal_rupture_times as jax_eikonal
 from beat_tpu.ops.eikonal import eikonal_rupture_times_numpy as jax_eikonal_numpy
 from beat_tpu_torch.ops import eikonal as port
-from test_torch_common import mixed_batch
+from test_torch_common import mixed_batch, plain_chain_iterations
 
 # the same float32 operations in the same order, except the order of the
 # convergence sum
@@ -127,19 +127,19 @@ def test_kernel_entry_is_declared():
 def test_cpu_solves_take_the_plain_version(monkeypatch):
     """A CPU solve never reaches the kernel's wrapper, and the wrapper
     refuses host tensors."""
-    from test_torch_common import spy
+    from test_torch_common import counters, launches, spy
 
     def refuse(*args, **kwargs):
         raise AssertionError("the kernel's wrapper was called on the CPU")
 
     monkeypatch.setattr(port, "eikonal_rupture_times_fused", refuse)
     plain = spy(monkeypatch, port, "eikonal_rupture_times_plain")
-    before = port.eikonal_rupture_times.launches_fused
     slowness, nuc_d, nuc_s = mixed_batch(5, 12, 4, seed=7)
-    port_solve(slowness, 2000.0, nuc_d, nuc_s)
-    port_solve(slowness.astype(np.float64), 2000.0, nuc_d, nuc_s)
+    with counters() as counts:
+        port_solve(slowness, 2000.0, nuc_d, nuc_s)
+        port_solve(slowness.astype(np.float64), 2000.0, nuc_d, nuc_s)
     assert plain == ["cpu", "cpu"]
-    assert port.eikonal_rupture_times.launches_fused == before
+    assert launches(counts) == {} and counts["eikonal.solves"] == 2
     monkeypatch.undo()
     with pytest.raises(ValueError, match="CUDA float32"):
         port.eikonal_rupture_times_fused(torch.as_tensor(slowness), 2000.0,
@@ -148,13 +148,11 @@ def test_cpu_solves_take_the_plain_version(monkeypatch):
 
 @pytest.mark.parametrize("epsilon", [0.0, 0.1])
 def test_plain_chain_iterations_follow_the_stopping_rule(epsilon):
-    """The per-chain counts that the card tests and ``chip_smoke.py`` hold
-    the kernel's against, derived from the plain update iterated without
+    """The per-chain counts that the card tests hold the kernel's
+    against, derived from the plain update iterated without
     stopping: capped at its count n a chain solves to the plain loop's
     onsets; the n-th update changed it by at most ``epsilon`` and the one
     before by more."""
-    from chip_smoke import plain_chain_iterations
-
     slowness, nuc_d, nuc_s = mixed_batch(6, 14, 5, seed=4)
     args = (torch.as_tensor(slowness), 2000.0, torch.as_tensor(nuc_d), torch.as_tensor(nuc_s))
     times = port.eikonal_rupture_times_plain(*args, epsilon=epsilon)

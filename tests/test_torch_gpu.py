@@ -24,7 +24,10 @@ onset kernel (``eikonal.cu``) against the plain Jacobi loop.  They skip without 
 that nothing falls back to the CPU without one runs everywhere); run
 them on one with
 
-    python -m pytest tests -m gpu -q
+    python -m pytest tests/test_torch_gpu.py -q
+
+Each kernel launch is read from the launcher's counter
+(``launches.<C entry>``, ``test_torch_common.counters``).
 """
 
 import numpy as np
@@ -45,8 +48,8 @@ from beat_tpu_torch.ops.rowgather import gather_rows, gather_rows_reference
 from beat_tpu_torch.optimize import laplace_approximation
 from beat_tpu_torch.samplers import value_and_grad
 from beat_tpu_torch.sources import sdr_to_m6
-from chip_smoke import plain_chain_iterations
-from test_torch_common import assert_grad_close, mixed_batch
+from test_torch_common import (assert_grad_close, counters, launches, mixed_batch,
+                               plain_chain_iterations)
 
 pytestmark = pytest.mark.gpu
 
@@ -69,6 +72,9 @@ GRAD_RTOL = 5e-3
 # K3/K4 sum P · corners products in another order than the plain einsum:
 # per (chain, target) |err| <= STACK_RTOL · Σ_p |slip_p| · Σ_corners |w| · max|data|
 STACK_RTOL = 1e-5
+# a stack on a bf16 library against the float32 library it was rounded
+# from: max |difference| over max |float32 stack|
+BF16_LOSS_MAX = 0.02
 
 
 @pytest.fixture
@@ -87,10 +93,10 @@ def test_k1_matches_plain(cuda, cd_rows, nz, m, n):
     z0 = torch.randint(0, nz - 1, (n,), generator=gen, device=cuda)
     z0[::5] = nz - 2                                     # top-edge queries
     w4 = torch.rand((n, 4), generator=gen, device=cuda)
-    before = bilinear_rows.launches
-    got = bilinear_rows(tbl, cd, z0, w4)
-    torch.cuda.synchronize()
-    assert bilinear_rows.launches == before + 1
+    with counters() as counts:
+        got = bilinear_rows(tbl, cd, z0, w4)
+        torch.cuda.synchronize()
+    assert counts["launches.beat_bilinear_rows_f32"] == 1
     ref = bilinear_rows_reference(tbl, cd, z0, w4)
     assert float((got - ref).abs().max()) <= K1_RTOL * float(ref.abs().max())
 
@@ -110,9 +116,9 @@ def test_llk_parity_on_card(cuda):
     lower, upper = problem.priors.bounds_arrays()
     q = np.random.default_rng(0).uniform(lower, upper, size=(64, lower.size))
     q = torch.as_tensor(q, dtype=torch.float32, device=cuda)
-    before = bilinear_contract.launches
-    llk = logp(q, data)
-    assert bilinear_contract.launches == before + 1
+    with counters() as counts:
+        llk = logp(q, data)
+    assert counts["launches.beat_bilinear_contract_f32"] == 1
     table = problem.composites["seismic"].tables[0]
     table.rows_fn = bilinear_rows_reference
     table.contract_fn = bilinear_contract_reference
@@ -130,10 +136,10 @@ def test_k2_matches_plain(cuda, cd_rows, nz, m, n):
     z0 = torch.randint(0, nz - 1, (n,), generator=gen, device=cuda)
     z0[::5] = nz - 2
     g = torch.randn((n, m), generator=gen, device=cuda)
-    before = corner_dot.launches
-    got = corner_dot(tbl, cd, z0, g)
-    torch.cuda.synchronize()
-    assert corner_dot.launches == before + 1
+    with counters() as counts:
+        got = corner_dot(tbl, cd, z0, g)
+        torch.cuda.synchronize()
+    assert counts["launches.beat_corner_dot_f32"] == 1
     ref = corner_dot_reference(tbl, cd, z0, g)
     rows = corner_rows_reference(tbl, cd, z0)
     bar = K2_RTOL * g.abs().sum(-1) * rows.abs().amax(dim=(1, 2))
@@ -148,9 +154,9 @@ def test_grad_parity_on_card(cuda):
     q = np.random.default_rng(1).uniform(lower + 0.01 * span, upper - 0.01 * span,
                                          size=(64, lower.size))
     q = torch.as_tensor(q, dtype=torch.float32, device=cuda)
-    k1c, k2c = bilinear_contract.launches, contract_corner_dot.launches
-    llk, grad = value_and_grad(logp, q, (data,))
-    assert bilinear_contract.launches == k1c + 1 and contract_corner_dot.launches == k2c + 1
+    with counters() as counts:
+        llk, grad = value_and_grad(logp, q, (data,))
+    assert counts["launches.beat_bilinear_contract_f32"] == 1 and counts["launches.beat_contract_corner_dot_f32"] == 1
     table = problem.composites["seismic"].tables[0]
     table.rows_fn = bilinear_rows_reference
     table.contract_fn = bilinear_contract_reference
@@ -171,13 +177,13 @@ def test_hessian_double_backward_launches_k1(cuda):
     def f(rows_fn):
         return lambda x: torch.sum(torch.tanh(rows_fn(tbl, cd, z0, x.reshape(n, 4))) ** 2)
 
-    k1, k2 = bilinear_rows.launches, corner_dot.launches
-    hess = torch.autograd.functional.hessian(f(bilinear_rows), w)
-    torch.cuda.synchronize()
+    with counters() as counts:
+        hess = torch.autograd.functional.hessian(f(bilinear_rows), w)
+        torch.cuda.synchronize()
     # forward K1, one K2 per Hessian row's first backward, and K1 again in
     # every row's double backward (CornerDot.backward)
-    assert corner_dot.launches - k2 >= n * 4
-    assert bilinear_rows.launches - k1 > n * 4
+    assert counts["launches.beat_corner_dot_f32"] >= n * 4
+    assert counts["launches.beat_bilinear_rows_f32"] > n * 4
     want = torch.autograd.functional.hessian(f(bilinear_rows_reference), w)
     torch.testing.assert_close(hess, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
 
@@ -221,10 +227,10 @@ def test_k1c_matches_plain(cuda, CD, NZ, nf, C, T, layout):
     tbl = torch.randn((CD, NZ, 12 * nf), generator=gen, device=cuda)
     cd, z0 = _contract_queries(layout, CD, NZ, C, T, gen, cuda)
     A = _at_odd_offset(cd.shape + (4, 6), gen, cuda)
-    before = bilinear_contract.launches
-    got = bilinear_contract(tbl, cd, z0, A)
-    torch.cuda.synchronize()
-    assert bilinear_contract.launches == before + 1
+    with counters() as counts:
+        got = bilinear_contract(tbl, cd, z0, A)
+        torch.cuda.synchronize()
+    assert counts["launches.beat_bilinear_contract_f32"] == 1
     assert torch.equal(got, bilinear_contract(tbl, cd, z0, A))   # no atomics
     cd, z0 = cd.clamp(max=CD - 2), z0.clamp(max=NZ - 2)      # the plain versions do not clamp
     ref = bilinear_contract_reference(tbl, cd, z0, A)
@@ -240,10 +246,10 @@ def test_k2c_matches_plain(cuda, CD, NZ, nf, C, T, layout):
     tbl = torch.randn((CD, NZ, 12 * nf), generator=gen, device=cuda)
     cd, z0 = _contract_queries(layout, CD, NZ, C, T, gen, cuda)
     G = _at_odd_offset(cd.shape + (2 * nf,), gen, cuda)
-    before = contract_corner_dot.launches
-    got = contract_corner_dot(tbl, cd, z0, G)
-    torch.cuda.synchronize()
-    assert contract_corner_dot.launches == before + 1
+    with counters() as counts:
+        got = contract_corner_dot(tbl, cd, z0, G)
+        torch.cuda.synchronize()
+    assert counts["launches.beat_contract_corner_dot_f32"] == 1
     assert torch.equal(got, contract_corner_dot(tbl, cd, z0, G))
     cd, z0 = cd.clamp(max=CD - 2), z0.clamp(max=NZ - 2)      # the plain versions do not clamp
     ref = contract_corner_dot_reference(tbl, cd, z0, G)
@@ -264,12 +270,12 @@ def test_hessian_double_backward_launches_k1c_and_k2c(cuda):
         return lambda x: torch.sum(torch.tanh(contract_fn(tbl, cd, z0,
                                                           x.reshape(2, n // 2, 4, 6))) ** 2)
 
-    k1c, k2c = bilinear_contract.launches, contract_corner_dot.launches
-    hess = torch.autograd.functional.hessian(f(bilinear_contract), a)
-    torch.cuda.synchronize()
+    with counters() as counts:
+        hess = torch.autograd.functional.hessian(f(bilinear_contract), a)
+        torch.cuda.synchronize()
     # forward K1c, K2c in the first backward, K1c in every row's double backward
-    assert contract_corner_dot.launches - k2c >= 1
-    assert bilinear_contract.launches - k1c > n * 24
+    assert counts["launches.beat_contract_corner_dot_f32"] >= 1
+    assert counts["launches.beat_bilinear_contract_f32"] > n * 24
     want = torch.autograd.functional.hessian(f(bilinear_contract_reference), a)
     torch.testing.assert_close(hess, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
 
@@ -291,13 +297,10 @@ def test_laplace_hessian_on_card_launches_the_pair_and_no_plain_version(cuda, mo
     for name in ("bilinear_contract_reference", "contract_corner_dot_reference",
                  "bilinear_rows_reference", "corner_dot_reference"):
         monkeypatch.setattr(bilgather, name, lambda *a, _n=name, **k: plain.append(_n))
-    counts = (bilinear_contract.launches, contract_corner_dot.launches,
-              bilinear_rows.launches, corner_dot.launches)
-    lap = laplace_approximation(logp, q_true, lower, upper, logp_args=(data,), device=cuda)
-    torch.cuda.synchronize()
-    launched = [now - before for now, before in zip(
-        (bilinear_contract.launches, contract_corner_dot.launches, bilinear_rows.launches,
-         corner_dot.launches), counts)]
+    with counters() as counts:
+        lap = laplace_approximation(logp, q_true, lower, upper, logp_args=(data,), device=cuda)
+        torch.cuda.synchronize()
+    launched = [counts.get(k, 0) for k in ("launches.beat_bilinear_contract_f32", "launches.beat_contract_corner_dot_f32", "launches.beat_bilinear_rows_f32", "launches.beat_corner_dot_f32")]
     assert launched[0] > 1 and launched[1] >= 1 and launched[2:] == [0, 0]
     assert not plain and np.isfinite(lap["log_evidence"]) and lap["curvature_ok"]
 
@@ -306,53 +309,73 @@ KERNEL_OPS = """
 import json, sys
 import torch
 from torch.profiler import ProfilerActivity, profile
+from beat_tpu_torch import profiling
 {setup}
-{call}                                  # builds the kernel and warms up
+profiling.enable_spans()
+{call}                                  # builds the kernel and warms up, counted
 torch.cuda.synchronize()
-before = {counter}
+counters = profiling.span_snapshot()["counters"]
+launches = {{k: v for k, v in counters.items() if k.startswith("launches.")}}
+profiling.enable_spans(False)           # the main path's call: no span, no counter read
 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
     {call}
     torch.cuda.synchronize()
 ops = [e.key for e in prof.key_averages()
        if e.device_type == torch.autograd.DeviceType.CUDA for _ in range(e.count)]
-print(json.dumps({{"ops": ops, "launches": {counter} - before}}))
+print(json.dumps({{"ops": ops, "launches": launches}}))
 """
 
 
-def _kernel_ops(setup: str, call: str, counter: str) -> list:
+def _kernel_ops(setup: str, call: str, entry: str) -> list:
     """Names of the device operations one ``call`` makes, read by the
     first ``torch.profiler`` session of a fresh process (a later session
     in one process can record no device event at all).  ``setup`` makes
-    the inputs; ``counter`` is the wrapper's launch counter, which must
-    count exactly one launch of the profiled call.  A profile without a
-    device record fails: it cannot tell how many kernels ran."""
+    the inputs; with spans on, the launcher's counters must show exactly
+    one launch of the C entry ``entry`` in the first call and no other;
+    the profiled call runs with spans off, as the main path does (on, an
+    eikonal solve also reads its iteration count from the device).  A
+    profile without a device record fails: it cannot tell how many
+    kernels ran."""
     import json
     import os
     import subprocess
     import sys
 
-    code = KERNEL_OPS.format(setup=setup, call=call, counter=counter)
+    code = KERNEL_OPS.format(setup=setup, call=call)
     env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.dirname(os.path.abspath(
         __file__))))
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                           text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out["launches"] == 1, out
+    assert out["launches"] == {"launches." + entry: 1}, out
     assert out["ops"], "the profile holds no device record: the kernel count is unknown"
     return out["ops"]
 
 
+#: (C, T, P, D, S, N, cells): the shape of a K3/K4 call, and where its
+#: chains sit (None: anywhere; 1 or 8: every chain on one of that many
+#: (duration, starttime) cells, chain by chain)
+STACK_CASES = [
+    (37, 3, 11, 4, 9, 100, None),       # ragged tiles, float4 rows, a half-used n tile
+    (5, 2, 33, 2, 2, 101, None),        # N % 4 != 0: the plan keeps the gather variant
+    (1030, 2, 45, 3, 5, 72, None),      # three chain tiles, the last ragged; 6 chunks of patches
+    (300, 3, 20, 3, 4, 24, None),       # N <= 32: the narrow n tile
+    (600, 2, 9, 20, 32, 64, None),      # D·S = 640: only the narrow n tile fits
+    (2000, 8, 12, 6, 16, 256, None),    # the GF-stack bench shape
+    (2000, 12, 500, 10, 32, 512, None),  # the L'Aquila library (3.93 GB), the FFI chains
+    (2000, 12, 500, 10, 32, 512, 1),    # ... every chain on one cell: 8 a block load one row
+    (2000, 12, 500, 10, 32, 512, 8)]    # ... on eight cells, one a chain of a block
+
+
+def _stack_id(case) -> str:
+    return "-".join(str(x) for x in case[:6]) + (f"-{case[6]}cells" if case[6] else "")
+
+
 @pytest.mark.parametrize("variant", [None, "tiled", "gather"])
 @pytest.mark.parametrize("interpolation", ["multilinear", "nearest_neighbor"])
-@pytest.mark.parametrize("C,T,P,D,S,N", [
-    (37, 3, 11, 4, 9, 100),        # ragged tiles, float4 rows, a half-used n tile
-    (5, 2, 33, 2, 2, 101),         # N % 4 != 0: the plan keeps the gather variant
-    (1030, 2, 45, 3, 5, 72),       # three chain tiles, the last ragged; 6 chunks of patches
-    (300, 3, 20, 3, 4, 24),        # N <= 32: the narrow n tile
-    (600, 2, 9, 20, 32, 64),       # D·S = 640: only the narrow n tile fits
-    (2000, 8, 12, 6, 16, 256)])    # the GF-stack bench shape
-def test_k3_k4_match_plain(cuda, interpolation, variant, C, T, P, D, S, N):
+@pytest.mark.parametrize("C,T,P,D,S,N,cells", STACK_CASES, ids=map(_stack_id, STACK_CASES))
+def test_k3_k4_match_plain(cuda, interpolation, variant, C, T, P, D, S, N, cells):
     gen = torch.Generator(device=cuda).manual_seed(C + N)
     lib = SeismicGFLibrary(torch.randn((T, P, D, S, N), generator=gen, device=cuda),
                            duration_min=0.5, duration_sampling=0.5, starttime_min=0.0,
@@ -368,15 +391,19 @@ def test_k3_k4_match_plain(cuda, interpolation, variant, C, T, P, D, S, N):
     slips = uniform((C, P + 5), 0.0, 3.0)[:, 2:2 + P]
     didx, rtf = lib.durations2idxs(durations, interpolation)
     sidx, stf = lib.starttimes2idxs(starttimes, interpolation)
+    if cells:
+        cell = torch.arange(C, device=cuda) % cells
+        didx = (1 + cell)[:, None].expand(C, P).to(didx.dtype).contiguous()
+        sidx = (2 + 3 * cell)[:, None, None].expand(C, T, P).to(sidx.dtype).contiguous()
     if variant == "tiled" and N % 4 != 0:
         with pytest.raises(ValueError, match="16-byte"):
             stack_batched(lib.data, didx, sidx, slips, rtf, stf, variant=variant)
         return
-    name = "launches_multilinear" if rtf is not None else "launches_nearest"
-    before = getattr(stack_batched, name)
-    got = stack_batched(lib.data, didx, sidx, slips, rtf, stf, variant=variant)
-    torch.cuda.synchronize()
-    assert getattr(stack_batched, name) == before + 1
+    entry = "multilinear" if rtf is not None else "nearest"
+    with counters() as counts:
+        got = stack_batched(lib.data, didx, sidx, slips, rtf, stf, variant=variant)
+        torch.cuda.synchronize()
+    assert launches(counts) == {f"beat_gf_stack_{entry}_f32": 1}
     ref = stack_batched_reference(lib.data, didx, sidx, slips, rtf, stf)
     wabs = 1.0
     if rtf is not None:
@@ -434,7 +461,7 @@ sidx = torch.randint(1, S, (C, 1, P), generator=gen, device="cuda", dtype=torch.
 slips = torch.rand((C, 3 * P + 4), generator=gen, device="cuda")[:, P:2 * P]
 rtf = torch.rand((C, P), generator=gen, device="cuda")
 stf = torch.rand((C, 1, P), generator=gen, device="cuda")
-""", "stack_batched(data, didx, sidx, slips, rtf, stf)", "stack_batched.launches_multilinear")
+""", "stack_batched(data, didx, sidx, slips, rtf, stf)", "beat_gf_stack_multilinear_f32")
     assert len(ops) == 1 and "gf_stack" in ops[0]
 
 
@@ -462,10 +489,10 @@ def test_k5_matches_plain(cuda, R, M, n, dtype):
     idx = torch.randint(-3, R + 3, (n,), generator=gen, device=cuda).to(dtype)
     far = 2**40 if dtype == torch.int64 else 2**31 - 1
     idx[::7], idx[1::7] = far, -far
-    before = gather_rows.launches
-    got = gather_rows(tbl, idx)
-    torch.cuda.synchronize()
-    assert gather_rows.launches == before + 1
+    with counters() as counts:
+        got = gather_rows(tbl, idx)
+        torch.cuda.synchronize()
+    assert launches(counts) == {"beat_gather_rows_f32": 1}
     assert torch.equal(got, gather_rows_reference(tbl, idx))
     # a strided index view goes to the kernel as it is
     assert torch.equal(gather_rows(tbl, torch.stack([idx, idx], 1)[:, 1]), got)
@@ -477,7 +504,7 @@ def test_k5_call_is_one_kernel(cuda, dtype):
 from beat_tpu_torch.ops.rowgather import gather_rows
 tbl = torch.randn((2000, 1504), device="cuda")
 idx = torch.randint(0, 2000, (2000,), device="cuda").to({dtype})
-""", "gather_rows(tbl, idx)", "gather_rows.launches")
+""", "gather_rows(tbl, idx)", "beat_gather_rows_f32")
     assert len(ops) == 1 and "gather_rows_kernel" in ops[0]
 
 
@@ -489,9 +516,10 @@ def test_ffi_llk_parity_on_card(cuda, interpolation):
     lower, upper = problem.priors.bounds_arrays()
     q = np.random.default_rng(0).uniform(lower, upper, size=(64, lower.size))
     q = torch.as_tensor(q, dtype=torch.float32, device=cuda)
-    before = stack_batched.launches_multilinear + stack_batched.launches_nearest
-    llk = logp(q, data)
-    assert stack_batched.launches_multilinear + stack_batched.launches_nearest == before + 1
+    with counters() as counts:
+        llk = logp(q, data)
+    assert (counts.get("launches.beat_gf_stack_multilinear_f32", 0)
+            + counts.get("launches.beat_gf_stack_nearest_f32", 0)) == 1
     problem.composites["seismic"].libs[0]["uparr"].stack_fn = stack_batched_reference
     llk_plain = logp(q, data)
     assert torch.isfinite(llk).all()
@@ -536,30 +564,49 @@ def _subsource_queries(table, layout, C, gen):
     return cd, z0, w4[..., :, None] * m6[..., None, :]
 
 
-@pytest.mark.parametrize("layout", ["chains_first", "patches_first", "ring"])
-def test_k1c_k2c_match_plain_on_subsource_layouts(cuda, layout):
+#: (layout, chains, nt): the layouts at 64 chains, and the rectangle's
+#: real size, 2000 chains × 40 patches × 30 targets (2.4 M queries), in
+#: both of its layouts
+SUBSOURCE_CASES = {"chains_first": ("chains_first", 64, 256),
+                   "patches_first": ("patches_first", 64, 256),
+                   "ring": ("ring", 64, 256),
+                   "chains_first-real": ("chains_first", 2000, 1024),
+                   "patches_first-real": ("patches_first", 2000, 1024)}
+#: queries a chunk of the plain versions' comparison (5.9 GB of corner rows
+#: on the real-size table)
+PLAIN_QUERIES = 60000
+
+
+@pytest.mark.parametrize("layout,C,nt", SUBSOURCE_CASES.values(), ids=SUBSOURCE_CASES.keys())
+def test_k1c_k2c_match_plain_on_subsource_layouts(cuda, layout, C, nt):
     """K1c and K2c against their plain versions on the query layouts of the
     finite rectangle ((C, K, T) and (K, C, T), K = 40) and of a ring of
-    sub-sources, on the real-size table's grid."""
+    sub-sources, on the real-size table's grid; compared chunk by chunk
+    of the leading axis."""
     from beat_tpu_torch.flagship import REAL_SIZE, flagship_table
 
-    table = flagship_table(REAL_SIZE["n_distances"], REAL_SIZE["n_depths"], 256, device=cuda)
+    table = flagship_table(REAL_SIZE["n_distances"], REAL_SIZE["n_depths"], nt, device=cuda)
     gen = torch.Generator(device=cuda).manual_seed(7)
-    cd, z0, A = _subsource_queries(table, layout, 64, gen)
+    cd, z0, A = _subsource_queries(table, layout, C, gen)
     tbl = table.packed
-    k1c, k2c = bilinear_contract.launches, contract_corner_dot.launches
-    got = bilinear_contract(tbl, cd, z0, A)
-    G = torch.randn(got.shape, generator=gen, device=cuda)
-    got_p = contract_corner_dot(tbl, cd, z0, G)
-    torch.cuda.synchronize()
-    assert (bilinear_contract.launches, contract_corner_dot.launches) == (k1c + 1, k2c + 1)
-    rows = corner_rows_reference(tbl, cd.reshape(-1), z0.reshape(-1)).abs().amax(dim=(1, 2))
-    ref = bilinear_contract_reference(tbl, cd, z0, A)
-    bar = CONTRACT_RTOL * A.abs().sum((-2, -1)).reshape(-1) * rows
-    assert bool(((got - ref).abs().amax(-1).reshape(-1) <= bar).all())
-    ref_p = contract_corner_dot_reference(tbl, cd, z0, G)
-    bar = CONTRACT_RTOL * G.abs().sum(-1).reshape(-1) * rows
-    assert bool(((got_p - ref_p).abs().amax(dim=(-2, -1)).reshape(-1) <= bar).all())
+    with counters() as counts:
+        got = bilinear_contract(tbl, cd, z0, A)
+        G = torch.randn(got.shape, generator=gen, device=cuda)
+        got_p = contract_corner_dot(tbl, cd, z0, G)
+        torch.cuda.synchronize()
+    assert launches(counts) == {"beat_bilinear_contract_f32": 1,
+                                "beat_contract_corner_dot_f32": 1}
+    step = max(1, PLAIN_QUERIES // cd[0].numel())
+    for i in range(0, cd.shape[0], step):
+        part = slice(i, i + step)
+        c, z, a, g = cd[part], z0[part], A[part], G[part]
+        rows = corner_rows_reference(tbl, c.reshape(-1), z.reshape(-1)).abs().amax(dim=(1, 2))
+        ref = bilinear_contract_reference(tbl, c, z, a)
+        bar = CONTRACT_RTOL * a.abs().sum((-2, -1)).reshape(-1) * rows
+        assert bool(((got[part] - ref).abs().amax(-1).reshape(-1) <= bar).all())
+        ref_p = contract_corner_dot_reference(tbl, c, z, g)
+        bar = CONTRACT_RTOL * g.abs().sum(-1).reshape(-1) * rows
+        assert bool(((got_p[part] - ref_p).abs().amax(dim=(-2, -1)).reshape(-1) <= bar).all())
 
 
 @pytest.mark.parametrize("source", ["RectangularSource", "DoubleDCSource", "RingfaultSource"])
@@ -574,9 +621,10 @@ def test_subsource_llk_and_grad_parity_on_card(cuda, source):
     q = torch.as_tensor(np.random.default_rng(2).uniform(
         lower + 0.01 * span, upper - 0.01 * span, size=(64, lower.size)), dtype=torch.float32,
         device=cuda)
-    k1c, k2c = bilinear_contract.launches, contract_corner_dot.launches
-    llk, grad = value_and_grad(logp, q, (data,))
-    assert (bilinear_contract.launches, contract_corner_dot.launches) == (k1c + 1, k2c + 1)
+    with counters() as counts:
+        llk, grad = value_and_grad(logp, q, (data,))
+    assert (counts["launches.beat_bilinear_contract_f32"],
+            counts["launches.beat_contract_corner_dot_f32"]) == (1, 1)
     table = problem.composites["seismic"].tables[0]
     table.contract_fn = bilinear_contract_reference
     llk_plain, grad_plain = value_and_grad(logp, q, (data,))
@@ -757,12 +805,14 @@ def _stack_bar(data, slips, rtf, stf):
     (600, 2, 9, 20, 32, 64),       # D·S = 640: the wide n tile fits in bf16
     (2000, 4, 40, 10, 32, 512),    # the Laquila rows, N = 512
     (5, 2, 33, 2, 2, 102),         # N % 4 != 0: gather only, scalar loads
-    (1030, 2, 13, 3, 5, 40)])      # mma: three chain tiles, the last ragged; a ragged n tile
+    (1030, 2, 13, 3, 5, 40),       # mma: three chain tiles, the last ragged; a ragged n tile
+    (2000, 12, 500, 10, 32, 512)])  # the L'Aquila library (1.97 GB), the FFI chains
 def test_k3_k4_bf16_match_plain(cuda, interpolation, variant, C, T, P, D, S, N):
     """K3 and K4 on a bfloat16 library against the plain version on the
     same bf16 tensor (its rows widened to float32); ``tiled`` and
     ``gather`` equal bit for bit, ``mma`` (K3 only) equal to itself on a
-    second call."""
+    second call; within BF16_LOSS_MAX of max|stack| of the float32 library
+    it was rounded from, and not equal to that stack."""
     data, didx, sidx, slips, rtf, stf = _bf16_case(cuda, C, T, P, D, S, N, interpolation,
                                                    C + N + 1)
     if variant == "mma" and rtf is None:
@@ -773,14 +823,22 @@ def test_k3_k4_bf16_match_plain(cuda, interpolation, variant, C, T, P, D, S, N):
         with pytest.raises(ValueError, match="16-byte"):
             stack_batched(data, didx, sidx, slips, rtf, stf, variant=variant)
         return
-    before = stack_batched.launches_bf16
-    got = stack_batched(data, didx, sidx, slips, rtf, stf, variant=variant)
-    torch.cuda.synchronize()
-    assert stack_batched.launches_bf16 == before + 1 and got.dtype == torch.float32
+    entry = "multilinear" if rtf is not None else "nearest"
+    with counters() as counts:
+        got = stack_batched(data, didx, sidx, slips, rtf, stf, variant=variant)
+        torch.cuda.synchronize()
+    assert launches(counts) == {f"beat_gf_stack_{entry}_bf16": 1} and got.dtype == torch.float32
     ref = stack_batched_reference(data, didx, sidx, slips, rtf, stf)
     assert bool(((got - ref).abs().amax(-1) <= _stack_bar(data, slips, rtf, stf)).all())
     again = stack_batched(data, didx, sidx, slips, rtf, stf, variant=variant)
     assert torch.equal(got, again)
+    # the float32 library of the same draws (``_bf16_case`` rounds it)
+    data32 = torch.randn(data.shape, generator=torch.Generator(device=cuda).manual_seed(C + N + 1),
+                         device=cuda)
+    assert torch.equal(data32.to(torch.bfloat16), data)
+    s32 = stack_batched(data32, didx, sidx, slips, rtf, stf)
+    assert 0.0 < float((got - s32).abs().max()) < BF16_LOSS_MAX * float(s32.abs().max())
+    del data32, s32
     T_, P_, D_, S_, N_ = data.shape
     chosen = plan_stack(T_, P_, D_, S_, N_, C, 4 if rtf is not None else 1, variant=variant,
                         elem_bytes=2).variant
@@ -799,11 +857,11 @@ def test_k3_bf16_mma_spread_over_every_cell(cuda, C, T, P, D, S, N):
     stack's bar; one launch, counted once, equal on a second call."""
     data, didx, sidx, slips, rtf, stf = _bf16_case(cuda, C, T, P, D, S, N, "multilinear",
                                                    C + P, spread=True)
-    counts = stack_batched.launches_mma, stack_batched.launches_bf16
-    got = stack_batched(data, didx, sidx, slips, rtf, stf, variant="mma")
-    torch.cuda.synchronize()
-    assert (stack_batched.launches_mma, stack_batched.launches_bf16) == (counts[0] + 1,
-                                                                         counts[1] + 1)
+    with counters() as counts:
+        got = stack_batched(data, didx, sidx, slips, rtf, stf, variant="mma")
+        torch.cuda.synchronize()
+    assert launches(counts) == {"beat_gf_stack_multilinear_bf16": 1}
+    assert counts["gfstack.mma_calls"] == 1
     ref = stack_batched_reference(data, didx, sidx, slips, rtf, stf)
     assert bool(((got - ref).abs().amax(-1) <= _stack_bar(data, slips, rtf, stf)).all())
     assert torch.equal(got, stack_batched(data, didx, sidx, slips, rtf, stf, variant="mma"))
@@ -825,7 +883,7 @@ didx, rtf = lib.durations2idxs(0.5 + 4.5 * torch.rand((C, P), generator=gen, dev
 sidx, stf = lib.starttimes2idxs(7.75 * torch.rand((C, 1, P), generator=gen, device="cuda"),
                                 "multilinear")
 slips = torch.rand((C, P), generator=gen, device="cuda")
-""", "stack_batched(lib.data, didx, sidx, slips, rtf, stf)", "stack_batched.launches_mma")
+""", "stack_batched(lib.data, didx, sidx, slips, rtf, stf)", "beat_gf_stack_multilinear_bf16")
     assert len(ops) == 1 and "gf_stack_mma" in ops[0]
 
 
@@ -1092,11 +1150,10 @@ def test_slice11_k1c_jvp_matches_the_plain_jvp(cuda, CD, NZ, nf, C, T):
     cd, z0 = _contract_queries("three_cells", CD, NZ, C, T, gen, cuda)
     A = torch.randn(cd.shape + (4, 6), generator=gen, device=cuda)
     tA = torch.randn(cd.shape + (4, 6), generator=gen, device=cuda)
-    before = bilinear_contract.launches
-    with fwAD.dual_level():
+    with counters() as counts, fwAD.dual_level():
         primal, tangent = fwAD.unpack_dual(bilinear_contract(tbl, cd, z0, fwAD.make_dual(A, tA)))
-    torch.cuda.synchronize()
-    assert bilinear_contract.launches == before + 2
+        torch.cuda.synchronize()
+    assert counts["launches.beat_bilinear_contract_f32"] == 2
     assert torch.equal(primal, bilinear_contract(tbl, cd, z0, A))
     cd, z0 = cd.clamp(max=CD - 2), z0.clamp(max=NZ - 2)
     ref = bilinear_contract_reference(tbl, cd, z0, tA)
@@ -1115,10 +1172,9 @@ def test_slice11_seis_derivative_on_card_matches_the_cpu(cuda, parameter):
     out = {}
     for dev in (cuda, torch.device("cpu")):
         comp = build_flagship(**TEST_SIZE, seed=5, device=dev).composites["seismic"]
-        before = bilinear_contract.launches
-        out[dev.type] = comp.seis_derivative(point, parameter)
-        if dev.type == "cuda":
-            assert bilinear_contract.launches == before + 2
+        with counters() as counts:
+            out[dev.type] = comp.seis_derivative(point, parameter)
+        assert counts.get("launches.beat_bilinear_contract_f32", 0) == (2 if dev.type == "cuda" else 0)
     scale = np.abs(out["cpu"]).max()
     assert scale > 0
     np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0, atol=1e-4 * scale)
@@ -1148,9 +1204,9 @@ def test_slice11_project_loads_and_samples_on_card(cuda, tmp_path):
     direct.composites["seismic"].tables[0].save(f"{pdir}/gf_table.npz")
     problem = load_model(pdir)
     assert problem.device.type == "cuda"
-    before = bilinear_contract.launches, gather_rows.launches
-    q_tr, llk_tr = problem.sample(SMCParams(n_chains=64, n_steps=5, seed=0))
-    assert bilinear_contract.launches > before[0] and gather_rows.launches > before[1]
+    with counters() as counts:
+        q_tr, llk_tr = problem.sample(SMCParams(n_chains=64, n_steps=5, seed=0))
+    assert counts["launches.beat_bilinear_contract_f32"] > 0 and counts["launches.beat_gather_rows_f32"] > 0
     assert np.isfinite(llk_tr).all()
     assert set(problem.summarize(-1)) == set(problem.ordering.names)
     assert problem.derived_samples(-1, max_samples=10)["strike1"].shape == (10,)
@@ -1310,9 +1366,9 @@ def test_eikonal_card_solves_launch_the_kernel_and_never_the_plain_loop(cuda, mo
 
     plain = spy(monkeypatch, eik, "eikonal_rupture_times_plain")
     s, d, k = _eikonal_case(cuda, 10, 50, 64, seed=1)
-    before = eik.eikonal_rupture_times.launches_fused
-    got = eik.eikonal_rupture_times(s, 2000.0, d, k)
-    assert eik.eikonal_rupture_times.launches_fused == before + 1 and plain == []
+    with counters() as counts:
+        got = eik.eikonal_rupture_times(s, 2000.0, d, k)
+    assert launches(counts) == {"beat_eikonal_f32": 1} and plain == []
     assert torch.equal(_bits(got), _bits(eik.eikonal_rupture_times_fused(s, 2000.0, d, k)[0]))
 
     problem = build_ffi_flagship(**FFI_TEST_SIZE, seed=3, device=cuda)
@@ -1320,16 +1376,16 @@ def test_eikonal_card_solves_launch_the_kernel_and_never_the_plain_loop(cuda, mo
     lower, upper = problem.priors.bounds_arrays()
     q = torch.as_tensor(np.random.default_rng(1).uniform(lower, upper, size=(32, lower.size)),
                         dtype=torch.float32, device=cuda)
-    before = eik.eikonal_rupture_times.launches_fused
-    assert torch.isfinite(logp(q, data)).all()
-    assert eik.eikonal_rupture_times.launches_fused > before and plain == []
+    with counters() as counts:
+        assert torch.isfinite(logp(q, data)).all()
+    assert counts["launches.beat_eikonal_f32"] == counts["eikonal.solves"] > 0 and plain == []
 
     big = torch.full((2, 65, 64), 1e-3, device=cuda)
     zero = torch.zeros(2, dtype=torch.int64, device=cuda)
-    before = eik.eikonal_rupture_times.launches_fused
-    eik.eikonal_rupture_times(big, 1.0, zero, zero, max_iter=3)
-    eik.eikonal_rupture_times(s.double(), 2000.0, d, k, max_iter=3)
-    assert plain == ["cuda", "cuda"] and eik.eikonal_rupture_times.launches_fused == before
+    with counters() as counts:
+        eik.eikonal_rupture_times(big, 1.0, zero, zero, max_iter=3)
+        eik.eikonal_rupture_times(s.double(), 2000.0, d, k, max_iter=3)
+    assert plain == ["cuda", "cuda"] and "launches.beat_eikonal_f32" not in counts
     with pytest.raises(ValueError):
         eik.eikonal_rupture_times_fused(big, 1.0, zero, zero)
 
@@ -1343,5 +1399,5 @@ s = torch.as_tensor(1.0 / rng.uniform(2000.0, 4000.0, (5000, 10, 50)), dtype=tor
                     device="cuda")
 d = torch.as_tensor(rng.integers(0, 10, 5000), device="cuda")
 k = torch.as_tensor(rng.integers(0, 50, 5000), device="cuda")
-""", "eikonal_rupture_times(s, 2000.0, d, k)", "eikonal_rupture_times.launches_fused")
+""", "eikonal_rupture_times(s, 2000.0, d, k)", "beat_eikonal_f32")
     assert len(ops) == 1 and "eikonal" in ops[0]

@@ -25,6 +25,7 @@ import torch
 
 from beat_tpu_torch import profiling
 from test_torch_common import THREADS  # noqa: F401  (thread policy)
+from test_torch_common import plain_chain_iterations
 
 
 @pytest.fixture
@@ -380,7 +381,8 @@ def test_spans_on_a_kinematic_ffi_inversion(tmp_path):
     # one evaluation a step and the start population's, one solve each
     assert solves == params.n_steps + 1
     assert solves <= counters["eikonal.iterations"]
-    assert "eikonal.fused_solves" not in counters           # the CPU takes the plain version
+    assert "launches.beat_eikonal_f32" not in counters      # the CPU takes the plain version
+    assert "eikonal.kernel_max_iterations" not in counters
     _check_inversion_spans(snap)
 
 
@@ -394,7 +396,8 @@ def test_eikonal_counts_its_iterations(spans_on):
     args = (slowness, 2.0, torch.tensor([0, 2, 4]), torch.tensor([0, 4, 8]))
     got = eikonal_rupture_times(*args)
     counters = profiling.span_snapshot()["counters"]
-    assert counters["eikonal.solves"] == 1 and "eikonal.fused_solves" not in counters
+    assert counters["eikonal.solves"] == 1 and "launches.beat_eikonal_f32" not in counters
+    assert "eikonal.kernel_max_iterations" not in counters
     n = counters["eikonal.iterations"]
     assert n % CHECK_EVERY == 0 and n >= 5 + 9 - 2
     profiling.enable_spans(False)
@@ -408,12 +411,12 @@ def test_eikonal_counts_its_iterations(spans_on):
 
 def test_eikonal_counts_a_fused_solve(monkeypatch):
     """A solve routed to the kernel (stood in for here by the plain
-    version's onsets and per-chain counts) counts ``eikonal.fused_solves``
-    beside ``eikonal.solves``, and as ``eikonal.iterations`` the largest
-    per-chain count, read only while spans are on and after the
-    ``eikonal.solve`` span has closed."""
+    version's onsets and per-chain counts) counts ``eikonal.solves``, and
+    as ``eikonal.kernel_max_iterations`` the largest per-chain count, read
+    only while spans are on and after the ``eikonal.solve`` span has
+    closed; ``eikonal.iterations`` stays the plain loop's.  (The launch
+    itself is counted by the launcher: ``test_launcher_counts_each_launch_once``.)"""
     from beat_tpu_torch.ops import eikonal as eik
-    from chip_smoke import plain_chain_iterations
 
     rng = np.random.default_rng(1)
     slowness = torch.as_tensor(rng.uniform(0.3, 0.5, (3, 5, 9)), dtype=torch.float32)
@@ -442,9 +445,41 @@ def test_eikonal_counts_a_fused_solve(monkeypatch):
     finally:
         profiling.enable_spans(before)
         profiling.reset_spans()
-    assert counters == {"eikonal.solves": 1, "eikonal.fused_solves": 1,
-                        "eikonal.iterations": int(runs.max())}
+    assert counters == {"eikonal.solves": 1, "eikonal.kernel_max_iterations": int(runs.max())}
     assert len(set(runs.tolist())) > 1
+
+
+def test_launcher_counts_each_launch_once(monkeypatch):
+    """Every kernel launch goes through ``kernels/build.py::launch``,
+    which counts it once as ``launches.<C entry>`` while spans are on and
+    counts nothing while they are off, nor a launch whose entry returns an
+    error (a stand-in entry here: the CPU has no card)."""
+    from beat_tpu_torch.kernels import build
+
+    calls = []
+
+    def beat_gather_rows_f32(*args):
+        calls.append(args)
+        return 0 if args[0] else 700
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(build, "_stream", lambda torch_, device: 7)
+    card = torch.device("cuda", 0)
+    before = profiling.enable_spans(False)
+    try:
+        assert build.launch(card, beat_gather_rows_f32, 1, 2) == 0
+        assert profiling.span_snapshot()["counters"] == {}
+        profiling.enable_spans(True)
+        profiling.reset_spans()
+        for _ in range(3):
+            build.launch(card, beat_gather_rows_f32, 1, 2)
+        assert build.launch(card, beat_gather_rows_f32, 0, 2) == 700
+        counters = profiling.span_snapshot()["counters"]
+    finally:
+        profiling.enable_spans(before)
+        profiling.reset_spans()
+    assert counters == {"launches.beat_gather_rows_f32": 3}
+    assert calls == [(1, 2, 7)] * 4 + [(0, 2, 7)]
 
 
 # ---------------------------------------------------------------------------
@@ -471,14 +506,19 @@ def test_span_readings_on_hand_built_intervals():
         _hand_span("eikonal.solve", 700, 701), _hand_span("eikonal.solve", 800, 801),
     ]
     snap = {"spans": spans, "counters": {"stage.bytes": 6_000_000, "eikonal.iterations": 40,
-                                         "eikonal.solves": 4, "eikonal.fused_solves": 3}}
+                                         "eikonal.solves": 4}}
     got = span_readings(snap, 0, int(1000e6), main_thread=1)
     assert got["save_wait_share"] == pytest.approx(20.0)          # 100 + 100 of 1000 ms
     assert got["stage_write_mb_per_s"] == pytest.approx(20.0)     # 6 MB in 0.3 s
     assert got["write_step_slowdown"] == pytest.approx(100.0)     # 100 ms against 50
     assert (got["steps_during_write"], got["steps_clear"]) == (1, 2)
     assert got["eikonal_iter_us"] == pytest.approx(50.0)          # 2 ms over 40
-    assert got["eikonal_fused_share"] == pytest.approx(0.75)      # 3 of 4 solves
+    assert got["eikonal_fused_share"] == 0.0
+    # three of the four solves on the kernel: its time is not the plain loop's
+    snap["counters"]["launches.beat_eikonal_f32"] = 3
+    got = span_readings(snap, 0, int(1000e6), main_thread=1)
+    assert got["eikonal_fused_share"] == pytest.approx(0.75)
+    assert got["eikonal_iter_us"] is None
 
     # a write on the step's own thread slows no step; nothing else to read
     alone = span_readings({"spans": [_hand_span("metropolis.step", 0, 10),

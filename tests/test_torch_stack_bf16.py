@@ -35,7 +35,7 @@ from test_torch_config import jax_llks, kinematic_ffi_project, port_llks
 # the FFI slice's per-chain llk bar (tests/test_torch_ffi.py)
 LLK_RTOL = 2e-5
 # K3/K4 per (chain, target): |err| <= STACK_RTOL · Σ_p |slip_p| · Σ_corners |w| · max|data|
-# (tests/test_torch_gpu.py, chip_smoke.py [k3_bf16])
+# (tests/test_torch_gpu.py, tools/bench_torch_stack.py)
 STACK_RTOL = 1e-5
 
 

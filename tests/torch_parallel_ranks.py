@@ -272,18 +272,20 @@ def case_gpu_llk(out: dict, outdir: str) -> None:
     each rank its block through K1c, gathered."""
     import torch
 
+    from beat_tpu_torch import profiling
     from beat_tpu_torch.device import resolve
-    from beat_tpu_torch.ops.bilgather import bilinear_contract
     from beat_tpu_torch.parallel import CHAIN_AXIS, all_gather, chain_sharding, make_chain_mesh
 
     dev = resolve("cuda")
     logp, data, q = gpu_llk_inputs(dev)
     mesh = make_chain_mesh()
-    bilinear_contract.launches = 0
+    profiling.enable_spans()
+    profiling.reset_spans()
     with torch.no_grad():
         llk = logp(chain_sharding(mesh)(q), data)
     out["gpu_llk"] = all_gather(llk, mesh, CHAIN_AXIS).cpu().numpy()
-    out["gpu_k1c_launches"] = bilinear_contract.launches
+    out["gpu_k1c_launches"] = profiling.span_snapshot()["counters"].get(
+        "launches.beat_bilinear_contract_f32", 0)
     out["gpu_device"] = str(llk.device)
 
 

@@ -25,10 +25,13 @@ prints what the spans read over it:
                           of those that overlap none, less 1, per cent
                           (None where either set is empty)
 ``eikonal_iter_us``       seconds in ``eikonal.solve`` × 1e6 over
-                          ``eikonal.iterations``
-``eikonal_fused_share``   ``eikonal.fused_solves`` over ``eikonal.solves``:
-                          the share of the onset solves that the one-launch
-                          kernel took (None where nothing was solved)
+                          ``eikonal.iterations``, the plain loop's
+                          iterations run (None where a solve took the
+                          kernel, or none ran)
+``eikonal_fused_share``   ``launches.beat_eikonal_f32`` over
+                          ``eikonal.solves``: the share of the onset solves
+                          that the one-launch kernel took (None where
+                          nothing was solved)
 ``mma_call_share``        ``gfstack.mma_calls`` over ``gfstack.calls``: the
                           share of the stack's calls that ran K3's ``mma``
                           variant (None where nothing was stacked)
@@ -98,6 +101,7 @@ def span_readings(snap: dict, t0_ns: int, t1_ns: int, main_thread: int) -> dict:
     solve_ns = sum(_dur(s) for s in spans if s["name"] == "eikonal.solve")
     iterations = snap["counters"].get("eikonal.iterations", 0)
     solves = snap["counters"].get("eikonal.solves", 0)
+    fused = snap["counters"].get("launches.beat_eikonal_f32", 0)
     stacks = snap["counters"].get("gfstack.calls", 0)
     return {
         "save_wait_share": 100.0 * waits / window if window > 0 else None,
@@ -106,9 +110,8 @@ def span_readings(snap: dict, t0_ns: int, t1_ns: int, main_thread: int) -> dict:
         "pool_workers": sorted({w["attrs"].get("workers") for w in writes} - {None}),
         "write_step_slowdown": (100.0 * (sum(during) * len(clear) / (sum(clear) * len(during))
                                          - 1.0) if during and clear else None),
-        "eikonal_iter_us": solve_ns / 1e3 / iterations if iterations else None,
-        "eikonal_fused_share": (snap["counters"].get("eikonal.fused_solves", 0) / solves
-                                if solves else None),
+        "eikonal_iter_us": solve_ns / 1e3 / iterations if iterations and not fused else None,
+        "eikonal_fused_share": fused / solves if solves else None,
         "mma_call_share": (snap["counters"].get("gfstack.mma_calls", 0) / stacks
                            if stacks else None),
         "steps_during_write": len(during), "steps_clear": len(clear),
