@@ -46,31 +46,54 @@
 // costs to stage (few chains, or K4 on a short walk over the patches), for
 // cell tiles that do not fit shared memory and for N % 4 != 0.
 //
-// `tiled` (gf_stack_tiled_kernel): a block of 512 threads owns (target, n
-// tile of 4*LANES samples, chain tile of 16 * 512/LANES chains) and walks the
-// patches.  For each patch it brings the whole (D*S x n tile) cell tile of
-// data[t, p] into shared memory once, with 16-byte cp.async copies into the
-// other of two buffers while the sums of the present patch run (one barrier a
-// patch), and every chain of the tile takes its CORNERS rows from there.
-// L2 -> SM traffic falls from C*T*P*CORNERS rows to the library times the
-// number of chain tiles (4 at 2000 chains and LANES = 16); blocks of one
-// (target, n tile) are neighbours in the grid, so their chain tiles stream
-// the same cells through L2 together.  LANES threads spread along n serve one
-// chain: a shared-memory read is one contiguous row segment (conflict-free)
-// and the chain's weights are a broadcast.  A thread keeps 16 chains x 4
-// samples of sums in registers (64 of its 128).  Per (chain, patch) one
-// 16-byte entry {slip*rf, slip*(1-rf), sf, row offset} (K4: {slip, offset})
-// is folded from the operands for a chunk of patches at a time, swizzled so
-// that neither its writes nor its reads conflict; with shared onsets an entry
-// serves every sample of the tile, and is folded again by the blocks of other
-// targets and n tiles (no scratch array is allocated for the launch).  At
-// D*S = 320 the two cell tiles of 64 samples take 160 KB and 8 patches of
-// entries 64 KB of the 227 KB a block may use.  What bounds this variant is
-// shared memory: the reads of the C*T*P*CORNERS rows at 128 bytes a clock and
-// SM (a quarter of the float32 rate), beside which the copies into the tiles
-// and the fold of the entries, which pass through the same unit, do not
-// hide.  tools/bench_torch_stack.py --ablate reads each part's share of the
-// time from builds with parts left out; PERF.md has the numbers.
+// `tiled` (gf_stack_tiled_kernel; gf_stack_tiled_fed_kernel, `tiled_fed`):
+// a block of 512 summing threads owns (target, n tile of 4*LANES samples,
+// chain tile of 16 * 512/LANES chains) and walks the patches.  For each patch
+// the whole (D*S x n tile) cell tile of data[t, p] comes into shared memory
+// once, into the other of two buffers while the sums of the present patch
+// run, and every chain of the tile takes its CORNERS rows from there.  L2 -> SM traffic
+// falls from C*T*P*CORNERS rows to the library times the number of chain
+// tiles (4 at 2000 chains and LANES = 16); blocks of one (target, n tile) are
+// neighbours in the grid, so their chain tiles stream the same cells through
+// L2 together.  LANES threads spread along n serve one chain: a shared-memory
+// read is one contiguous row segment (conflict-free) and the chain's weights
+// are a broadcast.  A thread keeps 16 chains x 4 samples of sums in registers.
+// Per (chain, patch) one 16-byte entry {slip*rf, slip*(1-rf), sf, row offset}
+// (K4: {slip, offset}) gives a chain its weights and rows; a chunk of patches
+// of entries lies in shared memory, swizzled so that neither its writes nor
+// its reads conflict.  Two bodies feed the sums:
+//
+// - `tiled_fed` (K3 on float32 with shared onsets; variant 3): an entry serves
+//   every target and n tile, so gf_stack_fold_kernel folds each once a call
+//   into an array the wrapper allocates (chain tile, chunk, the swizzled
+//   entries: one contiguous run a chunk), in about 0.05 ms at 5000 chains.
+//   A 17th warp, the producer, has one thread issue every copy: per chunk one
+//   cp.async.bulk of its entries, per patch one TMA load of its cell tile (a
+//   5-d tensor map over data whose box is one (t, p)'s D x S x n tile; it
+//   fills the ragged n tile with zeros), each into the other of two buffers,
+//   its bytes counted on the buffer's `full` mbarrier; every summing thread
+//   arrives on the buffer's `empty` one when done with it.  The 16 summing
+//   warps only wait and sum: no fold, no copy instruction, no __syncthreads
+//   in the walk.  The producer earns its machinery: the halfway design (the
+//   fold once a call, the summing threads copying its entries and the cell
+//   tiles by cp.async; BEAT_ABLATE & 32) takes 12.12 ms against 9.71 at the
+//   Laquila shape and 5000 chains, 4.73 against 3.76 at 2000 (H100, PERF.md).
+// - `tiled` (per-target onsets, K4, bf16): each block folds the entries of
+//   a chunk of patches from the operands itself between two __syncthreads
+//   (with shared onsets the blocks of the other targets and n tiles fold the
+//   same entries again, 98 times at the Laquila shape and 5000 chains), and
+//   its threads copy the next cell tile by 16-byte cp.async, one barrier a
+//   patch.  Per-target onsets would make the fed body's array T times larger.
+//
+// At D*S = 320 the two cell tiles of 64 samples take 160 KB, and 8 patches of
+// entries (in-block) or two buffers of 4 (fed) 64 KB, of the 227 KB a block
+// may use.  What bounds both is shared memory: the reads of the C*T*P*CORNERS
+// rows at 128 bytes a clock and SM (a quarter of the float32 rate).  In the
+// in-block body the fold and the copies, issued by the summing warps and
+// passing through the same unit, do not hide behind them; the fed body takes
+// them off those warps.  tools/bench_torch_stack.py --ablate reads each
+// part's share of the time from builds with parts left out; PERF.md has the
+// numbers.
 //
 // A library in bfloat16 (half the bytes; the JAX package's
 // BEAT_TPU_STACK_DTYPE=bfloat16) runs K3 on a third variant, `mma`
@@ -126,6 +149,7 @@
 // call) and within the stack's bar of the others, not equal to them.  Ragged
 // tiles (C, P, N not multiples of the tile sizes) are masked in the kernels.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -335,11 +359,15 @@ int launch_gather(const Operands<E>& a, bool vec4, cudaStream_t stream) {
 
 // Measurement builds only (tools/bench_torch_stack.py --ablate):
 // -DBEAT_ABLATE=n leaves parts of the tiled and mma kernels out (1: the fold
-// of the entries after the first chunk, 2: the tile copies after the first
-// two, 4: the sums; mma only, 8: the tensor core products, 16: the ldmatrix
-// loads), so that
-// each part's share of the time can be read on a machine where no kernel
-// profiler runs.  Such a build computes nothing of use.
+// of the entries after the first chunk, or for the fed body the fold
+// launch; 2: the tile copies after the first two, and for the fed body the
+// copies of the entries too; 4: the sums; mma only, 8: the tensor core
+// products, 16: the ldmatrix loads), so that each part's share of the time
+// can be read on a machine where no kernel profiler runs.  Such a build
+// computes nothing of use, except 32: variant 3 runs the fed body's halfway
+// design instead (the entries folded once a call, each block's summing
+// threads copying them and its cell tiles by cp.async), which computes the
+// same output.
 #ifndef BEAT_ABLATE
 #define BEAT_ABLATE 0
 #endif
@@ -425,10 +453,14 @@ __device__ __forceinline__ void fold_chunk(const Operands<E>& a, int t, int c0, 
 
 // grid = (chain tiles, n tiles, T); kTiledThreads threads; dynamic shared
 // memory: two cell tiles of D*S x 4*LANES elements of E, then
-// CT << chunk_shift entries.
-template <int CORNERS, int LANES, typename E>
+// CT << chunk_shift entries (FOLDED: two buffers of them).  FOLDED (a
+// measurement build only, BEAT_ABLATE & 32: the fed body's halfway design)
+// copies each chunk of entries from `folded`, as gf_stack_fold_kernel lays
+// them out, by cp.async with the cell tiles instead of folding it.
+template <int CORNERS, int LANES, typename E, bool FOLDED = false>
 __global__ void __launch_bounds__(kTiledThreads, 1)
-gf_stack_tiled_kernel(const Operands<E> a, const int chunk_shift) {
+gf_stack_tiled_kernel(const Operands<E> a, const int chunk_shift,
+                      const float4* __restrict__ folded) {
     using entry_t = typename Entry<CORNERS>::type;
     constexpr int THREADS = kTiledThreads, CPT = kChainsPerThread;
     constexpr int NT = 4 * LANES;             // samples of the n tile
@@ -468,15 +500,25 @@ gf_stack_tiled_kernel(const Operands<E> a, const int chunk_shift) {
                                          [&](int d, int s) { return (d * S + s) * NT; },
                                          threadIdx.x);
     };
+    // FOLDED: the entries of chunk k into buffer k & 1, in the tile's copy group
+    const int n_ents = CT << chunk_shift;
+    auto copy_entries = [&](int k) {
+        const float4* src =
+            folded + ((int64_t)blockIdx.x * ((P + chunk_mask) >> chunk_shift) + k) * n_ents;
+        entry_t* dst = ents + (k & 1) * n_ents;
+        for (int i = threadIdx.x; i < n_ents; i += THREADS) {
+            cp_async_4samples<float>(dst + i, src + i);
+        }
+    };
 
     float4 acc[CPT];
 #pragma unroll
     for (int j = 0; j < CPT; ++j) acc[j] = Vec<4>::zero();
 
     // the CORNERS rows of chain j * G + g at patch slot pp of the chunk
-    auto add_chain = [&](int j, int pp, const E* tile) {
+    auto add_chain = [&](int j, int pp, const E* tile, int slot) {
         const int cc = j * G + g;
-        const entry_t e = ents[(cc << chunk_shift) + (pp ^ (cc & chunk_mask))];
+        const entry_t e = ents[slot + (cc << chunk_shift) + (pp ^ (cc & chunk_mask))];
         if constexpr (CORNERS == 4) {
             const E* row = tile + __float_as_int(e.w);
             const float4 x0 = Row<E, 4>::shared(row);
@@ -494,6 +536,7 @@ gf_stack_tiled_kernel(const Operands<E> a, const int chunk_shift) {
         }
     };
 
+    if constexpr (FOLDED) copy_entries(0);
     copy_tile(0, 0);
     for (int p = 0; p < P; ++p) {
         const int buf = p & 1;
@@ -501,24 +544,27 @@ gf_stack_tiled_kernel(const Operands<E> a, const int chunk_shift) {
         cp_async_wait_all();                  // this thread's share of tile p has landed
         __syncthreads();                      // tile p is whole; patch p - 1 is summed by all
         if (p + 1 < P && !((BEAT_ABLATE & 2) && p > 0)) {
+            // FOLDED: the next chunk's buffer held the last chunk's entries
+            if (FOLDED && ((p + 1) & chunk_mask) == 0) copy_entries((p + 1) >> chunk_shift);
             copy_tile(p + 1, buf ^ 1);        // lands while patch p is summed
         }
-        if (pp == 0 && !((BEAT_ABLATE & 1) && p > 0)) {
+        if (!FOLDED && pp == 0 && !((BEAT_ABLATE & 1) && p > 0)) {
             fold(p);
             __syncthreads();
         }
         if (BEAT_ABLATE & 4) continue;
         const E* tile = tiles + buf * DS * NT + 4 * lane;
+        const int slot = FOLDED ? ((p >> chunk_shift) & 1) * n_ents : 0;
         // K3 on a whole chain tile runs its chains without a branch between
         // them, so the reads of one overlap the sums of the last; measured,
         // K4 (one row a chain) is faster with the branch
         if (CORNERS == 4 && nc == CT) {
 #pragma unroll
-            for (int j = 0; j < CPT; ++j) add_chain(j, pp, tile);
+            for (int j = 0; j < CPT; ++j) add_chain(j, pp, tile, slot);
         } else {
 #pragma unroll
             for (int j = 0; j < CPT; ++j) {
-                if (j * G < nc) add_chain(j, pp, tile);       // same for the whole block
+                if (j * G < nc) add_chain(j, pp, tile, slot);     // same for the whole block
             }
         }
     }
@@ -533,19 +579,301 @@ gf_stack_tiled_kernel(const Operands<E> a, const int chunk_shift) {
     }
 }
 
-template <int CORNERS, int LANES, typename E>
-int launch_tiled(const Operands<E>& a, int chunk_shift, cudaStream_t stream) {
+template <int CORNERS, int LANES, typename E, bool FOLDED = false>
+int launch_tiled(const Operands<E>& a, int chunk_shift, cudaStream_t stream,
+                 const float4* folded = nullptr) {
     constexpr int NT = 4 * LANES, CT = kTiledThreads / LANES * kChainsPerThread;
     const size_t smem = (size_t)2 * a.D * a.S * NT * sizeof(E) +
-                        ((size_t)CT << chunk_shift) * sizeof(typename Entry<CORNERS>::type);
+                        ((size_t)(FOLDED ? 2 : 1) * CT << chunk_shift) *
+                            sizeof(typename Entry<CORNERS>::type);
     const int n_tiles = (a.N + NT - 1) / NT;
     if (smem > kSmemPerBlock || n_tiles > 65535) return (int)cudaErrorInvalidValue;
-    auto kernel = gf_stack_tiled_kernel<CORNERS, LANES, E>;
+    auto kernel = gf_stack_tiled_kernel<CORNERS, LANES, E, FOLDED>;
     const cudaError_t rc = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (rc != cudaSuccess) return (int)rc;
     const dim3 grid((a.C + CT - 1) / CT, n_tiles, a.T);
-    kernel<<<grid, kTiledThreads, smem, stream>>>(a, chunk_shift);
+    kernel<<<grid, kTiledThreads, smem, stream>>>(a, chunk_shift, folded);
+    return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// tiled, fed (K3 on float32 libraries with shared onsets)
+
+constexpr int kFoldThreads = 256;
+constexpr int kFedThreads = kTiledThreads + 32;     // 16 summing warps and a producer warp
+
+// The entries of every chain tile of CT chains and every chunk of 1 <<
+// chunk_shift patches, as the tiled kernel folds them into shared memory:
+// chunk k of tile blockIdx.y at (blockIdx.y * gridDim.x + k) * (CT <<
+// chunk_shift), swizzled within, zero past the chains and the patches.
+// The onsets are every target's (target stride 0), so one entry serves all
+// targets and n tiles.  grid = (chunks, chain tiles).
+template <int CT>
+__global__ void __launch_bounds__(kFoldThreads)
+gf_stack_fold_kernel(const Operands<float> a, float4* __restrict__ folded, const int chunk_shift,
+                     const int nt) {
+    const int c0 = blockIdx.y * CT;
+    float4* const ents = folded + ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) *
+                                      ((int64_t)CT << chunk_shift);
+    const int S = a.S;
+    fold_chunk<4, kFoldThreads, CT, 4>(a, 0, c0, min(CT, a.C - c0),
+                                       (int)blockIdx.x << chunk_shift, chunk_shift, ents,
+                                       [&](int d, int s) { return (d * S + s) * nt; },
+                                       threadIdx.x);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// arrive and expect `bytes` of copies on this phase
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                 "r"(bytes)
+                 : "memory");
+}
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+    asm volatile(
+        "{\n"
+        ".reg .pred done;\n"
+        "WAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+        "@!done bra WAIT;\n"
+        "}\n" ::"r"(bar),
+        "r"(parity)
+        : "memory");
+}
+// `bytes` (a multiple of 16) from global to shared memory, completed on `bar`
+__device__ __forceinline__ void bulk_load(unsigned dst, const void* src, unsigned bytes,
+                                          unsigned bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];\n" ::"r"(dst),
+        "l"(src), "r"(bytes), "r"(bar)
+        : "memory");
+}
+// the box of `map` at (c0 .. c4) into shared memory, completed on `bar`
+__device__ __forceinline__ void tensor_load_5d(unsigned dst, const CUtensorMap* map, int c0,
+                                               int c1, int c2, int c3, int c4, unsigned bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], "
+        "[%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(dst),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4),
+        "r"(bar)
+        : "memory");
+}
+
+// grid = (chain tiles, n tiles, T); kFedThreads threads; dynamic shared
+// memory: two cell tiles of D*S x 4*LANES floats, two buffers of CT <<
+// chunk_shift entries, then 8 barriers.  `cells` maps data (T, P, D, S, N)
+// with a box of one (t, p)'s D x S x 4*LANES samples, the tile's layout;
+// samples past N are filled with zeros.  `folded` holds the entries of
+// gf_stack_fold_kernel.  Warps 0-15 sum as gf_stack_tiled_kernel<4, LANES,
+// float> does, product for product; warp 16 has one thread issue every
+// copy.  Per buffer a `full` barrier (the producer's arrival and the copy's
+// bytes) and an `empty` one (every summing thread's arrival).
+template <int LANES>
+__global__ void __launch_bounds__(kFedThreads, 1)
+gf_stack_tiled_fed_kernel(const Operands<float> a, const __grid_constant__ CUtensorMap cells,
+                          const float4* __restrict__ folded, const int chunk_shift) {
+    constexpr int CPT = kChainsPerThread, NT = 4 * LANES, G = kTiledThreads / LANES;
+    constexpr int CT = G * CPT;
+    extern __shared__ __align__(128) unsigned char fed_smem[];    // TMA: 128-byte aligned
+
+    const int P = a.P, S = a.S;
+    const int DS = a.D * S;
+    const int chunk_mask = (1 << chunk_shift) - 1;
+    const int n_ents = CT << chunk_shift;
+    float* const tiles = reinterpret_cast<float*>(fed_smem);
+    float4* const ents = reinterpret_cast<float4*>(tiles + 2 * DS * NT);
+    // barrier i of buffer b: tile full, tile empty, entries full, entries empty
+    const unsigned bars = smem_addr(ents + 2 * n_ents);
+    auto bar = [&](int i, int b) { return bars + 8 * (2 * i + b); };
+
+    const int c0 = blockIdx.x * CT;
+    const int n0 = blockIdx.y * NT;
+    const int t = blockIdx.z;
+    const int nc = min(CT, a.C - c0);
+
+    if (threadIdx.x == 0) {
+        for (int b = 0; b < 2; ++b) {
+            mbar_init(bar(0, b), 1);
+            mbar_init(bar(1, b), kTiledThreads);
+            mbar_init(bar(2, b), 1);
+            mbar_init(bar(3, b), kTiledThreads);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (threadIdx.x >= kTiledThreads) {
+        if (threadIdx.x > kTiledThreads) return;
+        // the producer: the chunk of entries a patch starts, then its tile,
+        // each into the buffer its use two before has released
+        const unsigned tile_bytes = DS * NT * sizeof(float), ent_bytes = n_ents * sizeof(float4);
+        const float4* src =
+            folded + (int64_t)blockIdx.x * ((P + chunk_mask) >> chunk_shift) * n_ents;
+        for (int p = 0; p < P; ++p) {
+            if ((p & chunk_mask) == 0) {
+                const int k = p >> chunk_shift, b = k & 1;
+                if (k >= 2) mbar_wait(bar(3, b), ((k >> 1) - 1) & 1);
+                if ((BEAT_ABLATE & 2) && k >= 2) {
+                    mbar_arrive(bar(2, b));
+                } else {
+                    mbar_expect(bar(2, b), ent_bytes);
+                    bulk_load(smem_addr(ents + b * n_ents), src + (int64_t)k * n_ents, ent_bytes,
+                              bar(2, b));
+                }
+            }
+            const int b = p & 1;
+            if (p >= 2) mbar_wait(bar(1, b), ((p >> 1) - 1) & 1);
+            if ((BEAT_ABLATE & 2) && p >= 2) {
+                mbar_arrive(bar(0, b));
+            } else {
+                mbar_expect(bar(0, b), tile_bytes);
+                tensor_load_5d(smem_addr(tiles + b * DS * NT), &cells, n0, 0, 0, p, t, bar(0, b));
+            }
+        }
+        return;
+    }
+
+    const int lane = threadIdx.x % LANES;     // this thread's 4 samples of the tile
+    const int g = threadIdx.x / LANES;        // its chains: g, g + G, g + 2 G, ...
+    const bool live = n0 + 4 * lane < a.N;
+
+    float4 acc[CPT];
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) acc[j] = Vec<4>::zero();
+
+    // the 4 rows of chain j * G + g at patch slot pp of the chunk
+    auto add_chain = [&](int j, int pp, const float* tile, const float4* chunk) {
+        const int cc = j * G + g;
+        const float4 e = chunk[(cc << chunk_shift) + (pp ^ (cc & chunk_mask))];
+        const float* row = tile + __float_as_int(e.w);
+        const float4 x0 = Row<float, 4>::shared(row);
+        const float4 x1 = Row<float, 4>::shared(row + NT);
+        const float4 x2 = Row<float, 4>::shared(row + S * NT);
+        const float4 x3 = Row<float, 4>::shared(row + S * NT + NT);
+        const float u = 1.0f - e.z;
+        Vec<4>::fma(acc[j], e.x * e.z, x0);       // (d-1, s-1)
+        Vec<4>::fma(acc[j], e.x * u, x1);         // (d-1, s)
+        Vec<4>::fma(acc[j], e.y * e.z, x2);       // (d,   s-1)
+        Vec<4>::fma(acc[j], e.y * u, x3);         // (d,   s)
+    };
+
+    for (int p = 0; p < P; ++p) {
+        const int b = p & 1, pp = p & chunk_mask, k = p >> chunk_shift, eb = k & 1;
+        if (pp == 0) mbar_wait(bar(2, eb), (k >> 1) & 1);
+        mbar_wait(bar(0, b), (p >> 1) & 1);
+        if (!(BEAT_ABLATE & 4)) {
+            const float* tile = tiles + b * DS * NT + 4 * lane;
+            const float4* chunk = ents + eb * n_ents;
+            if (nc == CT) {
+#pragma unroll
+                for (int j = 0; j < CPT; ++j) add_chain(j, pp, tile, chunk);
+            } else {
+#pragma unroll
+                for (int j = 0; j < CPT; ++j) {
+                    if (j * G < nc) add_chain(j, pp, tile, chunk);    // same for the whole block
+                }
+            }
+        }
+        mbar_arrive(bar(1, b));
+        if (pp == chunk_mask || p == P - 1) mbar_arrive(bar(3, eb));
+    }
+    if (!live) return;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+        const int cc = j * G + g;
+        if (cc < nc) {
+            float* o = a.out + ((int64_t)(c0 + cc) * a.T + t) * a.N + n0 + 4 * lane;
+            *reinterpret_cast<float4*>(o) = acc[j];
+        }
+    }
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query
+// (no link against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+    static const EncodeTiled fn = [] {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        const cudaError_t rc = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+        const cudaError_t rc =
+            cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+        return rc == cudaSuccess && found == cudaDriverEntryPointSuccess
+                   ? reinterpret_cast<EncodeTiled>(p)
+                   : nullptr;
+    }();
+    return fn;
+}
+
+// The fed body's shared memory; 0 where it cannot run: the tensor map's box
+// takes at most 256 cells along D and along S
+template <int LANES>
+size_t fed_smem(const Operands<float>& a, int chunk_shift) {
+    constexpr int CT = kTiledThreads / LANES * kChainsPerThread;
+    if (a.D > 256 || a.S > 256) return 0;
+    return (size_t)2 * a.D * a.S * 4 * LANES * sizeof(float) +
+           ((size_t)2 * CT << chunk_shift) * sizeof(float4) + 8 * sizeof(uint64_t);
+}
+
+template <int LANES>
+int launch_tiled_fed(const Operands<float>& a, const float4* folded, int chunk_shift,
+                     cudaStream_t stream) {
+    constexpr int NT = 4 * LANES, CT = kTiledThreads / LANES * kChainsPerThread;
+    const size_t smem = fed_smem<LANES>(a, chunk_shift);
+    const int n_tiles = (a.N + NT - 1) / NT;
+    const EncodeTiled encode = encode_tiled();
+    if (smem == 0 || smem > kSmemPerBlock || n_tiles > 65535 || folded == nullptr ||
+        encode == nullptr) {
+        return (int)cudaErrorInvalidValue;
+    }
+    CUtensorMap cells;
+    const cuuint64_t N = a.N, S = a.S, D = a.D, P = a.P;
+    const cuuint64_t dims[5] = {N, S, D, P, (cuuint64_t)a.T};
+    const cuuint64_t strides[4] = {N * 4, S * N * 4, D * S * N * 4, P * D * S * N * 4};
+    const cuuint32_t box[5] = {NT, (cuuint32_t)a.S, (cuuint32_t)a.D, 1, 1};
+    const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+    if (encode(&cells, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5, const_cast<float*>(a.data), dims,
+               strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+        return (int)cudaErrorInvalidValue;
+    }
+    auto kernel = gf_stack_tiled_fed_kernel<LANES>;
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc != cudaSuccess) return (int)rc;
+    const dim3 grid((a.C + CT - 1) / CT, n_tiles, a.T);
+    kernel<<<grid, kFedThreads, smem, stream>>>(a, cells, folded, chunk_shift);
+    return (int)cudaGetLastError();
+}
+
+template <int LANES>
+int launch_fold(const Operands<float>& a, float4* folded, int chunk_shift, cudaStream_t stream) {
+    constexpr int CT = kTiledThreads / LANES * kChainsPerThread;
+    const int chain_tiles = (a.C + CT - 1) / CT;
+    if (chain_tiles > 65535) return (int)cudaErrorInvalidValue;
+    const dim3 grid((a.P + (1 << chunk_shift) - 1) >> chunk_shift, chain_tiles);
+    gf_stack_fold_kernel<CT><<<grid, kFoldThreads, 0, stream>>>(a, folded, chunk_shift,
+                                                                4 * LANES);
     return (int)cudaGetLastError();
 }
 
@@ -798,11 +1126,13 @@ int launch_mma(const Operands<bf16_t>& a, int chunk_shift, cudaStream_t stream) 
 
 // variant 0: gather; 1: tiled with `lanes` threads along n a chain (16 or 8)
 // and 1 << chunk_shift patches of entries; 2: mma (K3 on bf16 only) with 1 <<
-// chunk_shift patches of entries.  The tiled variant needs rows of 4-sample
-// columns aligned to their size (16 bytes of float, 8 of bf16_t), mma rows of
-// 8-sample chunks on 16-byte boundaries (N % 8 == 0).
+// chunk_shift patches of entries; 3: tiled_fed with the entries `folded` by
+// beat_gf_stack_fold_f32 at the same lanes and chunk_shift (K3 on float32
+// with shared onsets only).  The tiled variants need rows of 4-sample
+// columns aligned to their size (16 bytes of float, 8 of bf16_t), mma rows
+// of 8-sample chunks on 16-byte boundaries (N % 8 == 0).
 template <int CORNERS, typename E>
-int launch(const Operands<E>& a, int variant, int lanes, int chunk_shift,
+int launch(const Operands<E>& a, int variant, int lanes, int chunk_shift, const void* folded,
            cudaStream_t stream) {
     if (a.C <= 0 || a.T <= 0 || a.N <= 0) return 0;
     if (a.P < 0 || a.D < 1 + (CORNERS == 4) || a.S < 1 + (CORNERS == 4) || a.T > 65535) {
@@ -823,6 +1153,23 @@ int launch(const Operands<E>& a, int variant, int lanes, int chunk_shift,
         }
         return (int)cudaErrorInvalidValue;
     }
+    if (variant == 3) {
+        // tiled fed: K3, float32, every target on the same onsets
+        if constexpr (CORNERS == 4 && sizeof(E) == 4) {
+            if (vec4 && a.st.sidx_t == 0 && a.st.stf_t == 0) {
+                const float4* f = static_cast<const float4*>(folded);
+                if constexpr ((BEAT_ABLATE & 32) != 0) {       // the halfway design
+                    if (f == nullptr) return (int)cudaErrorInvalidValue;
+                    if (lanes == 16) return launch_tiled<4, 16, E, true>(a, chunk_shift, stream, f);
+                    if (lanes == 8) return launch_tiled<4, 8, E, true>(a, chunk_shift, stream, f);
+                    return (int)cudaErrorInvalidValue;
+                }
+                if (lanes == 16) return launch_tiled_fed<16>(a, f, chunk_shift, stream);
+                if (lanes == 8) return launch_tiled_fed<8>(a, f, chunk_shift, stream);
+            }
+        }
+        return (int)cudaErrorInvalidValue;
+    }
     if (variant != 1 || !vec4) {
         return (int)cudaErrorInvalidValue;
     }
@@ -836,8 +1183,9 @@ int launch(const Operands<E>& a, int variant, int lanes, int chunk_shift,
 // Plain C entries, bound with ctypes.  Pointers are device pointers; data and
 // out are contiguous, the other arrays have unit stride along the patches and
 // the given strides (in elements) along chains and targets.  `variant`,
-// `lanes` and `chunk_shift` are the plan of ops/gfstack.py::plan_stack.  The
-// launch goes on `stream` (PyTorch's current stream) and does not
+// `lanes` and `chunk_shift` are the plan of ops/gfstack.py::plan_stack;
+// `folded` is the entries of beat_gf_stack_fold_f32 for variant 3, else
+// null.  The launch goes on `stream` (PyTorch's current stream) and does not
 // synchronise.  Each returns cudaGetLastError() after the launch (0 =
 // success).
 
@@ -847,20 +1195,22 @@ extern "C" int beat_gf_stack_multilinear_f32(
     const float* data, const int32_t* didx, const int32_t* sidx, const float* slips,
     const float* rtf, const float* stf, float* out, int C, int T, int P, int D, int S, int N,
     int64_t didx_c, int64_t sidx_c, int64_t sidx_t, int64_t slips_c, int64_t rtf_c,
-    int64_t stf_c, int64_t stf_t, int variant, int lanes, int chunk_shift, void* stream) {
+    int64_t stf_c, int64_t stf_t, int variant, int lanes, int chunk_shift, const void* folded,
+    void* stream) {
     const Operands<float> a{data, didx, sidx, slips, rtf, stf, out, C, T, P, D, S, N,
                             {didx_c, sidx_c, sidx_t, slips_c, rtf_c, stf_c, stf_t}};
-    return launch<4>(a, variant, lanes, chunk_shift, (cudaStream_t)stream);
+    return launch<4>(a, variant, lanes, chunk_shift, folded, (cudaStream_t)stream);
 }
 
 // K4: as K3 without rtf and stf.
 extern "C" int beat_gf_stack_nearest_f32(
     const float* data, const int32_t* didx, const int32_t* sidx, const float* slips, float* out,
     int C, int T, int P, int D, int S, int N, int64_t didx_c, int64_t sidx_c, int64_t sidx_t,
-    int64_t slips_c, int variant, int lanes, int chunk_shift, void* stream) {
+    int64_t slips_c, int variant, int lanes, int chunk_shift, const void* folded,
+    void* stream) {
     const Operands<float> a{data, didx, sidx, slips, nullptr, nullptr, out, C, T, P, D, S, N,
                             {didx_c, sidx_c, sidx_t, slips_c, 0, 0, 0}};
-    return launch<1>(a, variant, lanes, chunk_shift, (cudaStream_t)stream);
+    return launch<1>(a, variant, lanes, chunk_shift, folded, (cudaStream_t)stream);
 }
 
 // K3 and K4 on a bf16 library (bits of torch.bfloat16); the other operands and
@@ -869,17 +1219,42 @@ extern "C" int beat_gf_stack_multilinear_bf16(
     const uint16_t* data, const int32_t* didx, const int32_t* sidx, const float* slips,
     const float* rtf, const float* stf, float* out, int C, int T, int P, int D, int S, int N,
     int64_t didx_c, int64_t sidx_c, int64_t sidx_t, int64_t slips_c, int64_t rtf_c,
-    int64_t stf_c, int64_t stf_t, int variant, int lanes, int chunk_shift, void* stream) {
+    int64_t stf_c, int64_t stf_t, int variant, int lanes, int chunk_shift, const void* folded,
+    void* stream) {
     const Operands<bf16_t> a{data, didx, sidx, slips, rtf, stf, out, C, T, P, D, S, N,
                              {didx_c, sidx_c, sidx_t, slips_c, rtf_c, stf_c, stf_t}};
-    return launch<4>(a, variant, lanes, chunk_shift, (cudaStream_t)stream);
+    return launch<4>(a, variant, lanes, chunk_shift, folded, (cudaStream_t)stream);
 }
 
 extern "C" int beat_gf_stack_nearest_bf16(
     const uint16_t* data, const int32_t* didx, const int32_t* sidx, const float* slips,
     float* out, int C, int T, int P, int D, int S, int N, int64_t didx_c, int64_t sidx_c,
-    int64_t sidx_t, int64_t slips_c, int variant, int lanes, int chunk_shift, void* stream) {
+    int64_t sidx_t, int64_t slips_c, int variant, int lanes, int chunk_shift,
+    const void* folded, void* stream) {
     const Operands<bf16_t> a{data, didx, sidx, slips, nullptr, nullptr, out, C, T, P, D, S,
                              N, {didx_c, sidx_c, sidx_t, slips_c, 0, 0, 0}};
-    return launch<1>(a, variant, lanes, chunk_shift, (cudaStream_t)stream);
+    return launch<1>(a, variant, lanes, chunk_shift, folded, (cudaStream_t)stream);
+}
+
+// The entries of K3's variant 3 (float32, shared onsets): didx, slips, rtf
+// (C,P); sidx, stf (C,1,P), their target strides unread; folded holds
+// ceil(C / CT) * CT * ceil(P / chunk) * chunk entries of 16 bytes, CT =
+// 8192 / lanes chains a tile and chunk = 1 << chunk_shift.  A build with
+// BEAT_ABLATE & 1 launches nothing (measurement builds).
+extern "C" int beat_gf_stack_fold_f32(
+    const int32_t* didx, const int32_t* sidx, const float* slips, const float* rtf,
+    const float* stf, void* folded, int C, int P, int D, int S, int64_t didx_c,
+    int64_t sidx_c, int64_t slips_c, int64_t rtf_c, int64_t stf_c, int lanes, int chunk_shift,
+    void* stream) {
+    if (C <= 0) return 0;
+    if (P <= 0 || D < 2 || S < 2 || chunk_shift < 0 || chunk_shift > 5) {
+        return (int)cudaErrorInvalidValue;
+    }
+    if (BEAT_ABLATE & 1) return 0;
+    const Operands<float> a{nullptr, didx, sidx, slips, rtf, stf, nullptr, C, 1, P, D, S, 0,
+                            {didx_c, sidx_c, 0, slips_c, rtf_c, stf_c, 0}};
+    float4* f = static_cast<float4*>(folded);
+    if (lanes == 16) return launch_fold<16>(a, f, chunk_shift, (cudaStream_t)stream);
+    if (lanes == 8) return launch_fold<8>(a, f, chunk_shift, (cudaStream_t)stream);
+    return (int)cudaErrorInvalidValue;
 }

@@ -45,11 +45,14 @@ SIGNATURES = {
     },
     "gfstack": {
         "beat_gf_stack_multilinear_f32": (_I, [_P] * 7 + [_I] * 6 + [_I64] * 7 + [_I] * 3
-                                          + [_P]),
-        "beat_gf_stack_nearest_f32": (_I, [_P] * 5 + [_I] * 6 + [_I64] * 4 + [_I] * 3 + [_P]),
+                                          + [_P, _P]),
+        "beat_gf_stack_nearest_f32": (_I, [_P] * 5 + [_I] * 6 + [_I64] * 4 + [_I] * 3
+                                      + [_P, _P]),
         "beat_gf_stack_multilinear_bf16": (_I, [_P] * 7 + [_I] * 6 + [_I64] * 7 + [_I] * 3
-                                           + [_P]),
-        "beat_gf_stack_nearest_bf16": (_I, [_P] * 5 + [_I] * 6 + [_I64] * 4 + [_I] * 3 + [_P]),
+                                           + [_P, _P]),
+        "beat_gf_stack_nearest_bf16": (_I, [_P] * 5 + [_I] * 6 + [_I64] * 4 + [_I] * 3
+                                       + [_P, _P]),
+        "beat_gf_stack_fold_f32": (_I, [_P] * 6 + [_I] * 4 + [_I64] * 5 + [_I] * 2 + [_P]),
     },
     "eikonal": {
         "beat_eikonal_f32": (_I, [_P] * 5 + [_I] * 3 + [_F] * 2 + [_I, _P]),

@@ -26,7 +26,12 @@ stack extrapolates, as the JAX package's does.
   shapes: ``tiled`` (the cell tile of a patch in shared memory, serving a
   whole chain tile), ``gather`` (rows straight from the library) or, on a
   bfloat16 library, ``mma`` (the tiled block with its sums on the tensor
-  cores).
+  cores).  On K3 with a float32 library and shared onsets ``tiled`` takes
+  the body ``tiled_fed``: the per-(chain, patch) entries are folded once a
+  call (:func:`fold_entries`, a kernel of its own) and fed with the cell
+  tiles to its blocks by bulk copies; elsewhere each block folds the
+  entries it reads.
+* :func:`fold_entries_reference` is the plain version of that fold.
 * :func:`stack_operands` hands the operands to the kernel as they come:
   ``(C, 1, P)`` onsets go with a target stride of 0, nothing is expanded
   or copied.
@@ -206,13 +211,30 @@ _MMA_THREADS, _MMA_N_TILE, _MMA_CHAINS = 512, 64, 512
 #: two blocks the three lie within 10 % and the rule is not the fastest:
 #: (2, 11, 4, 9, 64), 37 (4.1): 0.059 / 0.054 / 0.056
 _BF16_K3_REUSE = {"mma": 3.0, "tiled": 1.5}
+#: the ``tiled_fed`` body (``gf_stack_tiled_fed_kernel``): two buffers of
+#: entries and 8 barriers of 8 bytes; its tensor map's box takes at most 256
+#: cells along D and along S
+_FED_BARRIER_BYTES, _BOX_MAX = 64, 256
+
+
+def _fed_tile(D: int, S: int, lanes: int, chain_tile: int) -> tuple | None:
+    """``(patch chunk, shared memory)`` of the ``tiled_fed`` body at these
+    tiles, or None where it does not fit."""
+    if max(D, S) > _BOX_MAX:
+        return None
+    for chunk in (8, 4, 2, 1):
+        smem = (2 * D * S * 4 * lanes * 4 + 2 * chain_tile * chunk * 16
+                + _FED_BARRIER_BYTES)
+        if smem <= SMEM_PER_BLOCK:
+            return chunk, smem
+    return None
 
 
 @dataclass(frozen=True)
 class StackPlan:
     """How one K3/K4 launch is cut, chosen from the shapes alone."""
 
-    variant: str                # "tiled", "gather" or "mma"
+    variant: str                # "tiled", "tiled_fed", "gather" or "mma"
     why: str                    # the reason for the variant
     threads: int                # threads of a block
     lanes: int                  # threads along n that serve one chain (tiled; else 0)
@@ -264,10 +286,11 @@ def _mma_plan(T, P, D, S, N, C, corners, aligned, elem_bytes) -> tuple:
 @lru_cache(maxsize=256)
 def plan_stack(T: int, P: int, D: int, S: int, N: int, C: int, corners: int = 4,
                variant: str | None = None, aligned: bool = True,
-               elem_bytes: int = 4) -> StackPlan:
+               elem_bytes: int = 4, shared_onsets: bool = False) -> StackPlan:
     """The variant and tile sizes of one K3 (``corners=4``) or K4
     (``corners=1``) launch on a (T, P, D, S, N) library of
-    ``elem_bytes`` a sample (4 float32, 2 bfloat16) and C chains.
+    ``elem_bytes`` a sample (4 float32, 2 bfloat16) and C chains;
+    ``shared_onsets``: every target on the same onsets, (C, 1, P).
 
     ``tiled`` needs rows of aligned 4-sample columns (``N % 4 == 0``,
     ``aligned`` bases) and
@@ -281,8 +304,12 @@ def plan_stack(T: int, P: int, D: int, S: int, N: int, C: int, corners: int = 4,
     aligned bases and its two cell tiles within the same budget, and is
     chosen by :data:`_BF16_K3_REUSE`.
     Everything else takes
-    ``gather``.  ``variant`` forces one (``ValueError`` where
-    ``tiled`` or ``mma`` cannot run)."""
+    ``gather``.  ``tiled`` K3 on float32 with shared onsets is
+    ``tiled_fed`` (its entries folded once a call) where the fed body's
+    buffers fit; per-target onsets, K4 and bfloat16 keep ``tiled``, whose
+    blocks fold their own.  ``variant`` forces one of ``tiled`` (fed as
+    above), ``gather`` and ``mma`` (``ValueError`` where ``tiled`` or
+    ``mma`` cannot run)."""
     if variant not in (None, "tiled", "gather", "mma"):
         raise ValueError(f"unknown variant {variant!r}")
     if variant == "gather":
@@ -336,8 +363,14 @@ def plan_stack(T: int, P: int, D: int, S: int, N: int, C: int, corners: int = 4,
             raise ValueError(f"the tiled variant cannot run here: {why}")
         return _gather_plan(T, N, C, corners, why)
     lanes, chain_tile, chunk, smem = tile
+    body, threads = "tiled", _TILED_THREADS
+    fed = (_fed_tile(D, S, lanes, chain_tile)
+           if corners == 4 and elem_bytes == 4 and shared_onsets else None)
+    if fed is not None:
+        (chunk, smem), body = fed, "tiled_fed"
+        threads += 32                         # the producer warp
     return StackPlan(
-        "tiled", "asked for" if variant else "cell tiles fit and are reused", _TILED_THREADS,
+        body, "asked for" if variant else "cell tiles fit and are reused", threads,
         lanes, _CHAINS_PER_THREAD, 4 * lanes, chain_tile, chunk, 2, smem,
         4 * _CHAINS_PER_THREAD, (-(-C // chain_tile), -(-N // (4 * lanes)), T))
 
@@ -393,21 +426,83 @@ def stack_operands(didx, sidx, slips, rtf=None, stf=None) -> tuple:
 
 
 #: the C entries' ``variant`` argument
-_VARIANT_CODES = {"gather": 0, "tiled": 1, "mma": 2}
+_VARIANT_CODES = {"gather": 0, "tiled": 1, "mma": 2, "tiled_fed": 3}
+
+
+def _fold_shape(C: int, P: int, plan: StackPlan) -> tuple:
+    """(chain tiles, chunks, chain tile · chunk, 4): the folded entries of
+    every chain tile and chunk of patches, 16 bytes each."""
+    chunk = plan.patch_chunk
+    return (-(-C // plan.chain_tile), -(-P // chunk), plan.chain_tile * chunk, 4)
+
+
+def fold_entries_reference(D: int, S: int, didx, sidx, slips, rtf, stf,
+                           plan: StackPlan) -> torch.Tensor:
+    """Plain version of the fold kernel (``beat_gf_stack_fold_f32``):
+    the entries {slip·rf, slip·(1−rf), sf, bits of the first corner's row
+    offset ((d−1)·S + (s−1))·n_tile} of every (chain, patch), operands as
+    :func:`stack_batched` takes them with shared (C, 1, P) onsets, float
+    for float as the kernel computes them.  Laid out as
+    :func:`_fold_shape`: chain tile, chunk of patches, then entry (cc, pp)
+    of the chunk at cc · chunk + (pp XOR (cc mod chunk)); zero past the
+    chains and the patches."""
+    C, P = didx.shape
+    tiles, chunks, _, _ = _fold_shape(C, P, plan)
+    ct, chunk = plan.chain_tile, plan.patch_chunk
+    d = didx.long().clamp(1, D - 1)
+    s = sidx[:, 0].long().clamp(1, S - 1)
+    code = (((d - 1) * S + (s - 1)) * plan.n_tile).to(torch.int32).view(torch.float32)
+    e = torch.stack([slips * rtf, slips * (1 - rtf), stf[:, 0], code], -1)   # (C, P, 4)
+    full = e.new_zeros((tiles * ct, chunks * chunk, 4))
+    full[:C, :P] = e
+    full = full.reshape(tiles, ct, chunks, chunk, 4).permute(0, 2, 1, 3, 4)
+    # position q of chain cc's row holds its patch q XOR (cc mod chunk)
+    swz = (torch.arange(chunk, device=e.device)[None, :]
+           ^ (torch.arange(ct, device=e.device)[:, None] % chunk))
+    full = full.gather(3, swz[None, None, :, :, None].expand(tiles, chunks, ct, chunk, 4))
+    return full.reshape(tiles, chunks, ct * chunk, 4).contiguous()
+
+
+def fold_entries(D: int, S: int, didx, sidx, slips, rtf, stf, plan: StackPlan) -> torch.Tensor:
+    """The fold kernel's entries (:func:`fold_entries_reference`) of K3
+    with shared onsets, for the ``tiled_fed`` launch of ``plan``: one
+    launch of ``beat_gf_stack_fold_f32`` on CUDA tensors (or a raise), the
+    plain version on CPU tensors."""
+    if didx.device.type == "cpu":
+        return fold_entries_reference(D, S, didx, sidx, slips, rtf, stf, plan)
+    return _launch_fold(D, S, *stack_operands(didx, sidx, slips, rtf, stf), plan)
+
+
+def _launch_fold(D, S, tensors, strides, plan: StackPlan) -> torch.Tensor:
+    """The fold kernel's launch on the operands as :func:`stack_operands`
+    hands them, on the current stream."""
+    lib, _ = load("gfstack")
+    C, P = tensors[0].shape
+    device = tensors[0].device
+    folded = torch.empty(_fold_shape(C, P, plan), dtype=torch.float32, device=device)
+    rc = launch(device, lib.beat_gf_stack_fold_f32, *(x.data_ptr() for x in tensors),
+                folded.data_ptr(), C, P, D, S, strides[0], strides[1], strides[3], strides[4],
+                strides[5], plan.lanes, plan.chunk_shift)
+    if rc != 0:
+        raise RuntimeError(f"GF stack fold launch failed: cudaError {rc}")
+    return folded
 
 
 def _launch(data, didx, sidx, slips, rtf, stf, plan: StackPlan) -> torch.Tensor:
-    """One K3 or K4 launch on checked operands, on the current stream."""
+    """One K3 or K4 launch on checked operands, on the current stream;
+    for ``tiled_fed`` the fold's launch before it.  The folded entries are
+    freed on return, stream-ordered."""
     lib, _ = load("gfstack")
     T, P, D, S, N = data.shape
     C = didx.shape[0]
     tensors, strides = stack_operands(didx, sidx, slips, rtf, stf)
+    folded = _launch_fold(D, S, tensors, strides, plan) if plan.variant == "tiled_fed" else None
     out = torch.empty((C, T, N), dtype=torch.float32, device=data.device)
     multilinear, nearest = _ENTRIES[data.dtype]
     entry = getattr(lib, nearest if rtf is None else multilinear)
     rc = launch(data.device, entry, data.data_ptr(), *(x.data_ptr() for x in tensors),
                 out.data_ptr(), C, T, P, D, S, N, *strides, _VARIANT_CODES[plan.variant],
-                plan.lanes, plan.chunk_shift)
+                plan.lanes, plan.chunk_shift, None if folded is None else folded.data_ptr())
     if rc != 0:
         raise RuntimeError(f"GF stack kernel launch failed ({plan.variant}): cudaError {rc}")
     return out
@@ -437,9 +532,10 @@ def stack_batched(data: torch.Tensor, didx: torch.Tensor, sidx: torch.Tensor,
     rtf, stf : floor-cell weights, (C, P) and shaped like ``sidx``.
     Indices are clamped to the grid; the weights are used as given.
     variant : ``None`` lets :func:`plan_stack` choose the kernel variant
-        from the shapes; ``"tiled"``, ``"gather"`` or (bfloat16 libraries)
-        ``"mma"`` asks for one (``tiled`` and ``gather`` are equal bit for
-        bit; ``mma`` sums in another order, deterministically).
+        from the shapes; ``"tiled"`` (``tiled_fed`` where :func:`plan_stack`
+        feeds it), ``"gather"`` or (bfloat16 libraries) ``"mma"`` asks for
+        one (``tiled``, ``tiled_fed`` and ``gather`` are equal bit for bit;
+        ``mma`` sums in another order, deterministically).
 
     Returns (C, T, N) float32 (float64 for a float64 library on the CPU).
     CPU tensors take the plain version; CUDA tensors launch the kernel,
@@ -454,6 +550,7 @@ def stack_batched(data: torch.Tensor, didx: torch.Tensor, sidx: torch.Tensor,
     T, P, D, S, N = data.shape
     plan = plan_stack(T, P, D, S, N, didx.shape[0], corners=1 if rtf is None else 4,
                       variant=variant, aligned=data.data_ptr() % 16 == 0,
-                      elem_bytes=data.element_size())
+                      elem_bytes=data.element_size(),
+                      shared_onsets=sidx.shape[1] == 1 and (stf is None or stf.shape[1] == 1))
     with _span(data, plan.variant):
         return _launch(data, didx, sidx, slips, rtf, stf, plan)

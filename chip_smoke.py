@@ -76,7 +76,8 @@ SMC on the first and a post-seismic geodetic SMC on the last.
     (|llk| + |llk0|), llk0 being the likelihood's residual-free part (the
     llk is the difference of llk0 and the whitened misfit and passes
     through 0, so a bar on |llk| alone is ill-posed); its time, the
-    eikonal solve's time and kernel launches within it;
+    eikonal solve's time and kernel launches within it; each K3 launch
+    with one of the fold (the shared onsets take ``tiled_fed``);
 15a. [kernels] each kernel's wrapper against its plain version at the
     path's shapes, one launch a call (see :func:`kernel_checks`);
 15b. the runtime (slice 13): [parallel_ffi_llk] the library split by
@@ -90,7 +91,7 @@ SMC on the first and a post-seismic geodetic SMC on the last.
 16. [ffi_smc] ``Problem.sample(SMCParams(n_chains=2000, n_steps=20,
     max_stages=4, seed=1))`` as the example runs it: the stage cap ends
     it (the one expected exception); β strictly increasing, finite llks,
-    K3 launched, every onset solve on the eikonal kernel (its launches
+    K3 launched, each launch with one of the fold, every onset solve on the eikonal kernel (its launches
     counted, the plain loop never entered); the cost of the stage files;
 17. [ffi_recover] a small FFI problem (12 targets, 6 × 3 patches) sampled
     to β = 1 with each interpolation (multilinear: K3; nearest
@@ -465,6 +466,7 @@ def device_kernels(fn) -> tuple:
 ENTRIES = {"k1c": "beat_bilinear_contract_f32", "k2c": "beat_contract_corner_dot_f32",
            "k1": "beat_bilinear_rows_f32", "k2": "beat_corner_dot_f32",
            "k3": "beat_gf_stack_multilinear_f32", "k4": "beat_gf_stack_nearest_f32",
+           "k3_fold": "beat_gf_stack_fold_f32",
            "k3_bf16": "beat_gf_stack_multilinear_bf16", "k4_bf16": "beat_gf_stack_nearest_bf16",
            "k5": "beat_gather_rows_f32", "eikonal": "beat_eikonal_f32"}
 
@@ -3067,12 +3069,15 @@ def kernel_checks(dev, table_shape: tuple, n_queries: int, lib, n_dims: int, n_d
     bf16 copy, 2000 chains with onsets on and beyond the grids, in every
     variant the plan offers
     for the storage type (mma: K3 on bf16 only), the bf16 stack within
-    BF16_LOSS_MAX of the float32 one and not equal to it; K5 on the FFI
+    BF16_LOSS_MAX of the float32 one and not equal to it; float32 K3 on the
+    same chains' shared onsets, as the FFI forward hands them, the plan's
+    pick and ``tiled``: one launch of the fold and one of the stack, and
+    the fold alone equal to its plain version bit for bit; K5 on the FFI
     population's sorted resampling indexes, int64 and int32, and clipping
     ±2^40; the eikonal on the FFI fault's grid at 2000 and 5000 chains,
     equal to the plain loop bit for bit at epsilon 0 and on at least
     99 % of the chains at the path's epsilon.  Each call is one launch of
-    its entry and no other.  Raises SystemExit at a gate missed."""
+    each of its entries and no other.  Raises SystemExit at a gate missed."""
     import numpy as np
     import torch
 
@@ -3080,14 +3085,16 @@ def kernel_checks(dev, table_shape: tuple, n_queries: int, lib, n_dims: int, n_d
     from beat_tpu_torch.ops.bilgather import (bilinear_rows, bilinear_rows_reference,
                                               corner_dot, corner_rows_reference)
     from beat_tpu_torch.ops.eikonal import eikonal_rupture_times, eikonal_rupture_times_plain
-    from beat_tpu_torch.ops.gfstack import plan_stack, stack_batched, stack_batched_reference
+    from beat_tpu_torch.ops.gfstack import (fold_entries, fold_entries_reference, plan_stack,
+                                            stack_batched, stack_batched_reference)
     from beat_tpu_torch.ops.rowgather import gather_rows, gather_rows_reference
 
     gen = torch.Generator(device=dev).manual_seed(7)
     out = {}
 
-    def check(name: str, entry: str, fn, gate, mma_calls=None, **extra):
+    def check(name: str, entry, fn, gate, mma_calls=None, **extra):
         """``fn()`` counted, its result through ``gate`` (→ ok, fields);
+        ``entry``: the C entry launched once, or a tuple of them;
         ``mma_calls``: the mma variant's calls expected, if any."""
         with counting():
             got = fn()
@@ -3099,7 +3106,8 @@ def kernel_checks(dev, table_shape: tuple, n_queries: int, lib, n_dims: int, n_d
             r["mma_calls"] = counter("gfstack.mma_calls")
         say("kernels", check=name, **{k: json.dumps(v) if isinstance(v, dict) else v
                                       for k, v in r.items()})
-        if not (ok and calls == {entry: 1} and r.get("mma_calls") == mma_calls):
+        want = dict.fromkeys((entry,) if isinstance(entry, str) else entry, 1)
+        if not (ok and calls == want and r.get("mma_calls") == mma_calls):
             raise SystemExit(f"[kernels] {name}: off its plain version, or not one launch "
                              f"of {entry}: {r}")
         return got
@@ -3182,6 +3190,27 @@ def kernel_checks(dev, table_shape: tuple, n_queries: int, lib, n_dims: int, n_d
             del ref, bar
         del didx, sidx, rtf, stf, s32, got
         torch.cuda.empty_cache()
+    # float32 K3 on shared onsets: the entries folded once a call, then the stack
+    didx, rtf = lib.durations2idxs(durations, "multilinear")
+    sidx, stf = lib.starttimes2idxs(starttimes[:, :1], "multilinear")
+    wabs = (rtf.abs() + (1 - rtf).abs())[:, None, :] * (stf.abs() + (1 - stf).abs())
+    ref = stack_batched_reference(lib.data, didx, sidx, slips, rtf, stf)
+    bar = STACK_RTOL * (slips.abs()[:, None, :] * wabs).sum(-1) * lib.data.abs().max()
+    for variant in (None, "tiled"):
+        check(f"k3_f32_shared_{variant or 'plan'}", (ENTRIES["k3_fold"], ENTRIES["k3"]),
+              lambda: stack_batched(lib.data, didx, sidx, slips, rtf, stf, variant=variant),
+              worst(lambda got: (got - ref).abs().amax(-1) / bar))
+    # the fold alone on the same operands, at the plan the path takes: its
+    # entries equal the plain fold's bit for bit
+    T, P, D, S, N = lib.data.shape
+    plan = plan_stack(T, P, D, S, N, N_CHAINS, shared_onsets=True)
+    if plan.variant != "tiled_fed":
+        raise SystemExit(f"[kernels] shared onsets on float32 K3 do not take tiled_fed: {plan}")
+    ref = fold_entries_reference(D, S, didx, sidx, slips, rtf, stf, plan).view(torch.int32)
+    check("k3_fold", ENTRIES["k3_fold"],
+          lambda: fold_entries(D, S, didx, sidx, slips, rtf, stf, plan).view(torch.int32),
+          equal(ref), entries=list(ref.shape[:3]))
+    del didx, sidx, rtf, stf, ref, bar, wabs
     del data16, durations, starttimes, slips
     torch.cuda.empty_cache()
 
@@ -3770,7 +3799,7 @@ def main() -> int:
         lower, upper, size=(N_CHAINS, lower.size)), dtype=torch.float32, device=dev)
     with counting():
         llk = logp(q, data)
-    k3_launched = launched("k3")
+    k3_launched, k3_fold_launched = launched("k3"), launched("k3_fold")
     sub = torch.arange(0, N_CHAINS, max(1, N_CHAINS // FFI_PLAIN_CHAINS),
                        device=dev)[:FFI_PLAIN_CHAINS]
     lib.stack_fn = stack_batched_reference
@@ -3793,7 +3822,7 @@ def main() -> int:
     beyond = float((comp.point2starttimes(point) > 7.75).float().mean())
     say("ffi_llk", chains=N_CHAINS, dims=lower.size, plain_chains=len(sub),
         max_rel_err=f"{rel:.3e}", worst_err_over_bar=f"{worst:.3e}", k3_launches=k3_launched,
-        logp_ms=f"{ffi_logp_ms:.3f}",
+        k3_fold_launches=k3_fold_launched, logp_ms=f"{ffi_logp_ms:.3f}",
         eikonal_ms=f"{eik_ms:.3f}", eikonal_launches=eik_launches,
         eikonal_kernel_ms=f"{eik_kernel_ms:.3f}", launches=n_launches,
         kernel_ms=f"{kernel_ms:.3f}",
@@ -3802,6 +3831,9 @@ def main() -> int:
         top=json.dumps([[k[:60], round(v, 4)] for k, v in list(by_name.items())[:6]]))
     if not (worst <= 1.0 and k3_launched > 0 and torch.isfinite(llk).all()):
         raise SystemExit("FFI llk parity failed (or K3 was not launched)")
+    if k3_fold_launched != k3_launched:
+        raise SystemExit(f"FFI llk: {k3_fold_launched} folds for {k3_launched} K3 launches: "
+                         "the shared onsets did not take the fed body")
     del llk, llk_plain, point, diff
     torch.cuda.empty_cache()
 
@@ -3855,7 +3887,7 @@ def main() -> int:
             eik.eikonal_rupture_times_plain = eik_plain
         torch.cuda.synchronize()
         ffi_wall = time.perf_counter() - t0
-    ffi_launches = launched("k3")
+    ffi_launches, ffi_fold_launches = launched("k3"), launched("k3_fold")
     k5_launches["ffi_smc"] = launched("k5")
     eik_launches = launched("eikonal")
     handler = SampleStage(problem.outfolder, ordering=problem.ordering)
@@ -3867,7 +3899,8 @@ def main() -> int:
     say("ffi_smc", chains=N_CHAINS, steps=FFI_STEPS, dims=problem.ordering.size,
         wall_s=f"{ffi_wall:.2f}", stages_run=len(states), capped=capped,
         betas=json.dumps([round(x, 6) for x in betas]), finite=ffi_finite,
-        k3_launches=ffi_launches, k4_launches=launched("k4"),
+        k3_launches=ffi_launches, k3_fold_launches=ffi_fold_launches,
+        k4_launches=launched("k4"),
         k5_launches=k5_launches["ffi_smc"], eikonal_launches=eik_launches,
         eikonal_plain_solves=len(plain_solves),
         acceptance=json.dumps([round(float(a), 3) for a in states[-1]["acceptance"]]),
@@ -3881,6 +3914,9 @@ def main() -> int:
         raise SystemExit("FFI SMC: beta not strictly increasing, or non-finite llks")
     if ffi_launches == 0 or k5_launches["ffi_smc"] == 0:
         raise SystemExit("the FFI SMC run never launched K3 (or K5, its resampling gather)")
+    if ffi_fold_launches != ffi_launches:
+        raise SystemExit(f"FFI SMC: {ffi_fold_launches} folds for {ffi_launches} K3 launches: "
+                         "the shared onsets did not take the fed body")
     if eik_launches == 0 or plain_solves:
         raise SystemExit(f"[ffi_smc] {len(plain_solves)} of {eik_launches + len(plain_solves)} "
                          "onset solves took the plain loop, not the eikonal kernel")

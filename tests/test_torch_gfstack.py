@@ -12,6 +12,8 @@ on both sides, where the floor-cell weights leave [0, 1] and the stack
 extrapolates.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -27,8 +29,9 @@ from beat_tpu.ops.rowgather import gather_rows_reference as jax_gather_rows_refe
 from beat_tpu_torch.convert import seismic_gflibrary_from_numpy
 from beat_tpu_torch.ffi import stack_all_numpy
 from beat_tpu_torch.ops import gfstack as gfstack_mod
-from beat_tpu_torch.ops.gfstack import (REGISTERS_PER_SM, SMEM_PER_BLOCK, plan_stack,
-                                        stack_batched, stack_batched_reference, stack_operands)
+from beat_tpu_torch.ops.gfstack import (REGISTERS_PER_SM, SMEM_PER_BLOCK,
+                                        fold_entries_reference, plan_stack, stack_batched,
+                                        stack_batched_reference, stack_operands)
 from beat_tpu_torch.ops.rowgather import gather_rows, gather_rows_reference
 import test_torch_common  # noqa: F401  (the tests' thread policy)
 
@@ -184,7 +187,7 @@ BENCH = (8, 12, 6, 16, 256)            # tools/bench_gfstack.py
 SMALL_FFI = (12, 18, 10, 32, 96)       # the small FFI problem of chip_smoke.py
 
 
-@pytest.mark.parametrize("dims,C,corners,variant,lanes", [
+PLAN_CASES = [
     (LAQUILA, 2000, 4, "tiled", 16),
     (LAQUILA, 2000, 1, "tiled", 16),           # 1.6 reads a staged row, but a long walk
     (LAQUILA, 2001, 4, "tiled", 16),           # ragged C: a fifth chain tile of one chain
@@ -197,7 +200,10 @@ SMALL_FFI = (12, 18, 10, 32, 96)       # the small FFI problem of chip_smoke.py
     ((12, 500, 20, 32, 512), 2000, 4, "tiled", 8),     # fits only with the narrow n tile
     ((3, 50, 4, 9, 101), 2000, 4, "gather", 0),        # N % 4 != 0: rows not 16-byte aligned
     ((3, 50, 4, 9, 24), 2000, 4, "tiled", 8),          # N <= 32: the narrow n tile
-])
+]
+
+
+@pytest.mark.parametrize("dims,C,corners,variant,lanes", PLAN_CASES)
 def test_plan_stack_picks_variant_and_tiles_within_budget(dims, C, corners, variant, lanes):
     T, P, D, S, N = dims
     plan = plan_stack(T, P, D, S, N, C, corners)
@@ -226,6 +232,121 @@ def test_plan_stack_at_the_laquila_shape_is_the_design():
     assert (plan.chain_tile, plan.n_tile, plan.patch_chunk, plan.grid) == (512, 64, 8, (4, 8, 12))
     assert plan.smem_bytes == 2 * 320 * 64 * 4 + 512 * 8 * 16 == 229376
     assert plan.sum_registers == 64
+
+
+@pytest.mark.parametrize("dims,C,corners,variant,lanes", PLAN_CASES)
+def test_fed_plan_for_shared_onsets_within_budget(dims, C, corners, variant, lanes):
+    """With shared onsets, float32 ``tiled`` K3 is ``tiled_fed``: its
+    entries folded once a call and fed to its blocks by bulk copies, on the
+    same tiles, a producer warp beside the summing ones, and its two cell
+    tiles, two buffers of entries and 8 barriers within the block's shared
+    memory.  K4 and the other variants keep their plans."""
+    T, P, D, S, N = dims
+    plan = plan_stack(T, P, D, S, N, C, corners, shared_onsets=True)
+    block = plan_stack(T, P, D, S, N, C, corners)
+    assert (plan.lanes, plan.chain_tile, plan.grid) == (
+        block.lanes, block.chain_tile, block.grid)
+    if variant != "tiled" or corners != 4:
+        assert plan == block
+        return
+    assert plan.variant == "tiled_fed" and plan.threads == block.threads + 32
+    assert plan.smem_bytes == (2 * D * S * plan.n_tile * 4
+                               + 2 * plan.chain_tile * plan.patch_chunk * 16 + 8 * 8)
+    assert plan.smem_bytes <= SMEM_PER_BLOCK
+    assert (plan.threads - 32) * plan.sum_registers <= REGISTERS_PER_SM // 2
+    assert plan.patch_chunk == 8 or (
+        plan.smem_bytes + 2 * plan.chain_tile * plan.patch_chunk * 16 > SMEM_PER_BLOCK)
+
+
+@pytest.mark.parametrize("per_target,corners,elem_bytes,body,forced_body", [
+    (False, 4, 4, "tiled_fed", "tiled_fed"),    # the main path: shared onsets, float32
+    (True, 4, 4, "tiled", "tiled"),             # per-target onsets: a T-fold larger fold
+    (False, 1, 4, "tiled", "tiled"),            # K4: 8-byte entries
+    (False, 4, 2, "mma", "tiled"),              # bf16: mma, or tiled's own body
+])
+def test_plan_stack_feeds_only_shared_onsets_on_float32_k3(per_target, corners, elem_bytes,
+                                                           body, forced_body):
+    plan = plan_stack(*LAQUILA, 5000, corners, elem_bytes=elem_bytes,
+                      shared_onsets=not per_target)
+    assert plan.variant == body
+    forced = plan_stack(*LAQUILA, 5000, corners, variant="tiled", elem_bytes=elem_bytes,
+                        shared_onsets=not per_target)
+    assert forced.variant == forced_body
+
+
+def test_fed_plan_at_the_laquila_shape_is_the_design():
+    plan = plan_stack(*LAQUILA, 5000, shared_onsets=True)
+    assert (plan.variant, plan.chain_tile, plan.n_tile, plan.patch_chunk, plan.grid) == (
+        "tiled_fed", 512, 64, 4, (10, 8, 12))
+    assert plan.smem_bytes == 2 * 320 * 64 * 4 + 2 * 512 * 4 * 16 + 64 == 229440
+    # where the box of the cell tile's tensor map cannot take D or S, the
+    # blocks fold their own entries
+    assert plan_stack(2, 50, 2, 300, 64, 5000, shared_onsets=True).variant == "tiled"
+
+
+def test_fold_entries_reference_matches_a_hand_built_case():
+    """Entries {slip·rf, slip·(1−rf), sf, row code} of 3 chains × 3
+    patches, clamped and with weights outside [0, 1], in a chain tile of
+    512 and chunks of 2 patches: chain cc's patch pp at cc · 2 + (pp XOR
+    (cc mod 2)); zeros past the chains and the patches."""
+    D, S = 4, 6
+    plan = plan_stack(3, 3, D, S, 64, 3, shared_onsets=True, variant="tiled")
+    plan = dataclasses.replace(plan, patch_chunk=2)
+    didx = torch.tensor([[1, 3, 9], [0, 2, 2], [3, 1, 1]], dtype=torch.int32)
+    sidx = torch.tensor([[[1, 5, 2]], [[-4, 3, 7]], [[2, 2, 5]]], dtype=torch.int32)
+    slips = torch.tensor([[2.0, 0.5, 1.0], [1.5, 3.0, 0.25], [0.0, 1.0, 4.0]])
+    rtf = torch.tensor([[0.25, 1.5, -0.5], [0.5, 0.75, 1.0], [0.0, 0.125, 0.5]])
+    stf = torch.tensor([[[0.5, -0.25, 1.25]], [[0.0, 1.0, 0.375]], [[0.75, 2.0, -1.0]]])
+    got = fold_entries_reference(D, S, didx, sidx, slips, rtf, stf, plan)
+    assert got.shape == (1, 2, 512 * 2, 4) and got.dtype == torch.float32
+    want = torch.zeros((1, 2, 512 * 2, 4))
+    for c in range(3):
+        for p in range(3):
+            d = min(max(int(didx[c, p]), 1), D - 1)
+            s = min(max(int(sidx[c, 0, p]), 1), S - 1)
+            w, rf, sf = float(slips[c, p]), float(rtf[c, p]), float(stf[c, 0, p])
+            code = ((d - 1) * S + (s - 1)) * 64
+            row = torch.tensor([w * rf, w * (1 - rf), sf, 0.0])
+            row[3] = torch.tensor(code, dtype=torch.int32).view(torch.float32)
+            want[0, p // 2, c * 2 + ((p % 2) ^ (c % 2))] = row
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    # past the chains and the last patch: all zero
+    assert not got[0, :, 3 * 2:].any() and not got[0, 1, [1, 2, 5]].any()
+
+
+def test_fold_entries_read_as_the_fed_kernel_reads_them_give_the_stack():
+    """The layout contract between the fold and the fed body: each
+    (chain, patch)'s entry found at its swizzled slot of its chunk, its row
+    code pointing at the first corner's row of the (D·S × n tile) cell
+    tile, reproduces the plain stack on ragged chains, patches and n."""
+    lib, _ = make_libs(nt=2, npch=7, nd=4, nst=9, ns=100)
+    T, P, D, S, N = lib.data.shape
+    C = 515
+    durations, starttimes, slips = rand_chains(lib, 3, C)
+    didx, rtf = lib.durations2idxs(torch.as_tensor(durations), "multilinear")
+    sidx, stf = lib.starttimes2idxs(torch.as_tensor(starttimes[:, :1]), "multilinear")
+    slips = torch.as_tensor(slips)
+    plan = plan_stack(T, P, D, S, N, C, shared_onsets=True, variant="tiled")
+    folded = fold_entries_reference(D, S, didx, sidx, slips, rtf, stf, plan)
+    ct, chunk, nt = plan.chain_tile, plan.patch_chunk, plan.n_tile
+    cc = torch.arange(ct)
+    out = torch.zeros((C, T, N))
+    for tile in range(folded.shape[0]):
+        nc = min(ct, C - tile * ct)
+        for p in range(P):
+            e = folded[tile, p // chunk].reshape(ct, chunk, 4)[cc, (p % chunk) ^ (cc % chunk)]
+            e = e[:nc]
+            r = e[:, 3].contiguous().view(torch.int32).long() // nt
+            weights = [(e[:, 0] * e[:, 2], 0), (e[:, 0] * (1 - e[:, 2]), 1),
+                       (e[:, 1] * e[:, 2], S), (e[:, 1] * (1 - e[:, 2]), S + 1)]
+            for n0 in range(0, N, nt):
+                cells = lib.data[:, p].reshape(T, D * S, N)[:, :, n0:n0 + nt]
+                for w, offset in weights:
+                    out[tile * ct:tile * ct + nc, :, n0:n0 + nt] += (
+                        w[:, None, None] * cells[:, r + offset].transpose(0, 1))
+    ref = stack_batched_reference(lib.data, didx, sidx, slips, rtf, stf)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=XLA_RTOL,
+                               atol=XLA_ATOL_REL * float(ref.abs().max()))
 
 
 def test_plan_stack_forced_variants_and_alignment():
@@ -292,6 +413,53 @@ def test_launch_hands_the_callers_buffers_to_the_kernel(monkeypatch):
     assert args[7:13] == (C, T, P, D, S, N)
     assert args[13:20] == (P, P, 0, 40, P, P, 0)
     assert args[20:23] == (int(plan.variant == "tiled"), plan.lanes, plan.chunk_shift)
+
+
+def test_fed_launch_folds_then_stacks_on_the_callers_buffers(monkeypatch):
+    """On the main path's call with a fed plan the wrapper launches the
+    fold on the caller's operands into a scratch of the fold's shape, then
+    K3 (variant 3) on the same operands and that scratch; the output and
+    the scratch are its only allocations."""
+    calls = []
+
+    class FakeLib:
+        @staticmethod
+        def beat_gf_stack_fold_f32(*args):
+            calls.append(("fold", args))
+            return 0
+
+        @staticmethod
+        def beat_gf_stack_multilinear_f32(*args):
+            calls.append(("stack", args))
+            return 0
+
+    monkeypatch.setattr(gfstack_mod, "load", lambda name: (FakeLib, None))
+    monkeypatch.setattr(gfstack_mod, "launch", lambda device, entry, *args: entry(*args))
+    T, P, D, S, N = 3, 7, 4, 9, 16
+    C = 5
+    data = torch.rand(T, P, D, S, N)
+    q = torch.rand(C, 40)
+    didx = torch.ones((C, P), dtype=torch.int32)
+    sidx = torch.ones((C, 1, P), dtype=torch.int32)
+    rtf, stf = torch.rand(C, P), torch.rand(C, 1, P)
+    plan = plan_stack(T, P, D, S, N, C, variant="tiled", shared_onsets=True)
+    assert plan.variant == "tiled_fed"
+    seen = []
+    real_empty = torch.empty
+    monkeypatch.setattr(gfstack_mod.torch, "empty",
+                        lambda *a, **k: seen.append(real_empty(*a, **k)) or seen[-1])
+    out = gfstack_mod._launch(data, didx, sidx, q[:, 2:2 + P], rtf, stf, plan)
+    (k1, fold), (k2, stack) = calls
+    assert (k1, k2) == ("fold", "stack")
+    folded = seen[0]
+    assert tuple(folded.shape) == (1, -(-P // plan.patch_chunk),
+                                   plan.chain_tile * plan.patch_chunk, 4)
+    assert len(seen) == 2 and seen[1] is out
+    ptrs = [x.data_ptr() for x in (didx, sidx, q[:, 2:2 + P], rtf, stf)]
+    assert list(fold[:6]) == ptrs + [folded.data_ptr()]
+    assert fold[6:] == (C, P, D, S, P, P, 40, P, P, plan.lanes, plan.chunk_shift)
+    assert list(stack[:7]) == [data.data_ptr()] + ptrs + [out.data_ptr()]
+    assert stack[20:] == (3, plan.lanes, plan.chunk_shift, folded.data_ptr())
 
 
 @pytest.mark.parametrize("interpolation", INTERPOLATIONS)
@@ -391,3 +559,19 @@ class TestRowGather:
             np.testing.assert_array_equal(idx.numpy(), state["resampling_indexes"])
             np.testing.assert_array_equal(tbl.numpy(), previous.astype(np.float32))
             previous = state["population"]
+
+
+def test_bench_tool_reads_the_fold_share():
+    """``tools/bench_torch_spans.py``'s ``fold_call_share``: the stack's
+    calls whose entries the fold kernel folded once, over all its calls."""
+    from tools.bench_torch_spans import span_readings
+
+    def share(counters):
+        return span_readings({"spans": [], "counters": counters}, 0, 100,
+                             main_thread=1)["fold_call_share"]
+
+    assert share({"gfstack.calls": 4, "launches.beat_gf_stack_fold_f32": 4,
+                  "launches.beat_gf_stack_multilinear_f32": 4}) == 1.0
+    assert share({"gfstack.calls": 4, "gfstack.mma_calls": 4,
+                  "launches.beat_gf_stack_multilinear_bf16": 4}) == 0.0
+    assert share({}) is None

@@ -43,7 +43,8 @@ from beat_tpu_torch.ops.bilgather import (bilinear_contract, bilinear_contract_r
                                           bilinear_rows, bilinear_rows_reference,
                                           contract_corner_dot, contract_corner_dot_reference,
                                           corner_dot, corner_dot_reference, corner_rows_reference)
-from beat_tpu_torch.ops.gfstack import plan_stack, stack_batched, stack_batched_reference
+from beat_tpu_torch.ops.gfstack import (fold_entries, fold_entries_reference, plan_stack,
+                                        stack_batched, stack_batched_reference)
 from beat_tpu_torch.ops.rowgather import gather_rows, gather_rows_reference
 from beat_tpu_torch.optimize import laplace_approximation
 from beat_tpu_torch.samplers import value_and_grad
@@ -326,12 +327,12 @@ print(json.dumps({{"ops": ops, "launches": launches}}))
 """
 
 
-def _kernel_ops(setup: str, call: str, entry: str) -> list:
+def _kernel_ops(setup: str, call: str, *entries: str) -> list:
     """Names of the device operations one ``call`` makes, read by the
     first ``torch.profiler`` session of a fresh process (a later session
     in one process can record no device event at all).  ``setup`` makes
     the inputs; with spans on, the launcher's counters must show exactly
-    one launch of the C entry ``entry`` in the first call and no other;
+    one launch of each C entry of ``entries`` in the first call and no other;
     the profiled call runs with spans off, as the main path does (on, an
     eikonal solve also reads its iteration count from the device).  A
     profile without a device record fails: it cannot tell how many
@@ -348,7 +349,7 @@ def _kernel_ops(setup: str, call: str, entry: str) -> list:
                           text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out["launches"] == {"launches." + entry: 1}, out
+    assert out["launches"] == {"launches." + entry: 1 for entry in entries}, out
     assert out["ops"], "the profile holds no device record: the kernel count is unknown"
     return out["ops"]
 
@@ -365,7 +366,8 @@ STACK_CASES = [
     (2000, 8, 12, 6, 16, 256, None),    # the GF-stack bench shape
     (2000, 12, 500, 10, 32, 512, None),  # the L'Aquila library (3.93 GB), the FFI chains
     (2000, 12, 500, 10, 32, 512, 1),    # ... every chain on one cell: 8 a block load one row
-    (2000, 12, 500, 10, 32, 512, 8)]    # ... on eight cells, one a chain of a block
+    (2000, 12, 500, 10, 32, 512, 8),    # ... on eight cells, one a chain of a block
+    (5000, 2, 40, 10, 32, 512, None)]   # the FFI cells' chains: 10 chain tiles, the last ragged
 
 
 def _stack_id(case) -> str:
@@ -413,12 +415,50 @@ def test_k3_k4_match_plain(cuda, interpolation, variant, C, T, P, D, S, N, cells
     # both variants add the same products in the same order
     assert torch.equal(got, stack_batched(lib.data, didx, sidx, slips, rtf, stf,
                                           variant="gather"))
-    # shared onsets, (C, 1, P), are every target's onsets
-    shared = stack_batched(lib.data, didx, sidx[:, :1], slips, rtf,
-                           None if stf is None else stf[:, :1], variant=variant)
+    # shared onsets, (C, 1, P), are every target's onsets; float32 tiled K3
+    # is tiled_fed there (a launch of the fold's entry before the stack's)
+    # and equals the blocks' own fold, on the expansion, and gather bit for bit
+    with counters() as counts:
+        shared = stack_batched(lib.data, didx, sidx[:, :1], slips, rtf,
+                               None if stf is None else stf[:, :1], variant=variant)
+        torch.cuda.synchronize()
+    fed = plan_stack(T, P, D, S, N, C, 4 if rtf is not None else 1, variant=variant,
+                     shared_onsets=True).variant == "tiled_fed"
+    assert launches(counts) == {f"beat_gf_stack_{entry}_f32": 1,
+                                **({"beat_gf_stack_fold_f32": 1} if fed else {})}
     assert torch.equal(shared, stack_batched(
         lib.data, didx, sidx[:, :1].expand(C, T, P), slips, rtf,
         None if stf is None else stf[:, :1].expand(C, T, P), variant=variant))
+    assert torch.equal(shared, stack_batched(
+        lib.data, didx, sidx[:, :1], slips, rtf, None if stf is None else stf[:, :1],
+        variant="gather"))
+
+
+#: (C, P, D, S, N) of the fold's ragged shapes: chain tiles and chunks of
+#: patches cut short, the narrow n tile's tile of 1024 chains
+FOLD_CASES = [(37, 11, 4, 9, 100), (1030, 45, 3, 5, 72), (300, 20, 3, 4, 24),
+              (5000, 40, 10, 32, 512), (2001, 501, 10, 32, 512)]
+
+
+@pytest.mark.parametrize("C,P,D,S,N", FOLD_CASES, ids=lambda x: str(x))
+def test_k3_fold_matches_plain(cuda, C, P, D, S, N):
+    """The fold kernel's entries equal its plain version's bit for bit,
+    in one launch: clamped indices, weights outside [0, 1], zeros past the
+    last chain tile's chains and the last chunk's patches."""
+    gen = torch.Generator(device=cuda).manual_seed(C + P)
+    didx = torch.randint(-1, D + 2, (C, P), generator=gen, device=cuda, dtype=torch.int32)
+    sidx = torch.randint(-1, S + 2, (C, 1, P), generator=gen, device=cuda, dtype=torch.int32)
+    slips = 3 * torch.rand((C, P + 5), generator=gen, device=cuda)[:, 2:2 + P]
+    rtf = 1.5 * torch.rand((C, P), generator=gen, device=cuda) - 0.25
+    stf = 1.5 * torch.rand((C, 1, P), generator=gen, device=cuda) - 0.25
+    plan = plan_stack(2, P, D, S, N, C, variant="tiled", shared_onsets=True)
+    assert plan.variant == "tiled_fed"
+    with counters() as counts:
+        got = fold_entries(D, S, didx, sidx, slips, rtf, stf, plan)
+        torch.cuda.synchronize()
+    assert launches(counts) == {"beat_gf_stack_fold_f32": 1}
+    want = fold_entries_reference(D, S, didx, sidx, slips, rtf, stf, plan)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_k3_plan_covers_both_variants_on_the_card(cuda):
@@ -433,9 +473,10 @@ def test_k3_plan_covers_both_variants_on_the_card(cuda):
     assert chosen == {("tiled", 16), ("tiled", 8), ("gather", 0)}
 
 
-def test_k3_main_path_call_is_one_kernel_and_one_allocation(cuda):
+def test_k3_main_path_call_is_the_fold_and_the_stack_and_two_allocations(cuda):
     """int32 indices, (C, 1, P) onsets and a slice of the samples go to the
-    kernel as they are: one device operation, the output the only allocation."""
+    kernels as they are: two device operations, the fold and the stack, the
+    output and the folded entries the only allocations."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     C, T, P, D, S, N = 2000, 12, 18, 10, 32, 96
     data = torch.randn((T, P, D, S, N), generator=gen, device=cuda)
@@ -450,7 +491,11 @@ def test_k3_main_path_call_is_one_kernel_and_one_allocation(cuda):
     base = torch.cuda.memory_allocated()
     out = stack_batched(data, didx, sidx, slips, rtf, stf)
     torch.cuda.synchronize()
-    assert torch.cuda.max_memory_allocated() - base <= out.numel() * 4 + 2**21
+    plan = plan_stack(T, P, D, S, N, C, shared_onsets=True)
+    tiles, chunks = -(-C // plan.chain_tile), -(-P // plan.patch_chunk)
+    folded = tiles * plan.chain_tile * chunks * plan.patch_chunk * 16
+    assert plan.variant == "tiled_fed"
+    assert torch.cuda.max_memory_allocated() - base <= out.numel() * 4 + folded + 2**21
     ops = _kernel_ops(f"""
 from beat_tpu_torch.ops.gfstack import stack_batched
 gen = torch.Generator(device="cuda").manual_seed(0)
@@ -461,8 +506,10 @@ sidx = torch.randint(1, S, (C, 1, P), generator=gen, device="cuda", dtype=torch.
 slips = torch.rand((C, 3 * P + 4), generator=gen, device="cuda")[:, P:2 * P]
 rtf = torch.rand((C, P), generator=gen, device="cuda")
 stf = torch.rand((C, 1, P), generator=gen, device="cuda")
-""", "stack_batched(data, didx, sidx, slips, rtf, stf)", "beat_gf_stack_multilinear_f32")
-    assert len(ops) == 1 and "gf_stack" in ops[0]
+""", "stack_batched(data, didx, sidx, slips, rtf, stf)", "beat_gf_stack_fold_f32",
+                      "beat_gf_stack_multilinear_f32")
+    assert len(ops) == 2 and sorted(("gf_stack_fold" in op, "gf_stack_tiled_fed" in op)
+                                    for op in ops) == [(False, True), (True, False)]
 
 
 def test_k3_rejects_bad_input(cuda):

@@ -35,6 +35,10 @@ prints what the spans read over it:
 ``mma_call_share``        ``gfstack.mma_calls`` over ``gfstack.calls``: the
                           share of the stack's calls that ran K3's ``mma``
                           variant (None where nothing was stacked)
+``fold_call_share``       ``launches.beat_gf_stack_fold_f32`` over
+                          ``gfstack.calls``: the share of the stack's calls
+                          that ran ``tiled_fed``, its entries folded once a
+                          call (None where nothing was stacked)
 
 and the last spans-on window's stage files are judged, after every window
 has run, as the benchmark judges a run.  Spans are on through set-up in
@@ -114,6 +118,8 @@ def span_readings(snap: dict, t0_ns: int, t1_ns: int, main_thread: int) -> dict:
         "eikonal_fused_share": fused / solves if solves else None,
         "mma_call_share": (snap["counters"].get("gfstack.mma_calls", 0) / stacks
                            if stacks else None),
+        "fold_call_share": (snap["counters"].get("launches.beat_gf_stack_fold_f32", 0) / stacks
+                            if stacks else None),
         "steps_during_write": len(during), "steps_clear": len(clear),
         "stage_bytes": written, "eikonal_iterations": iterations,
     }

@@ -6,10 +6,16 @@ float32 and a bfloat16 library: every variant that can run (K3: ``tiled``,
 against the plain version and timed in turns.
 
     python3 tools/bench_torch_stack.py [--case T P D S N C ...] [--k3-only] [--ablate]
+                                       [--shared-onsets]
 
 For each case (default the L'Aquila shape of
 ``examples/laquila_scale_ffi.py`` with 2000 chains) a random float32
-library, its bfloat16 copy, and random onsets on and beyond its grids.
+library, its bfloat16 copy, and random onsets on and beyond its grids:
+per target, or with ``--shared-onsets`` every target's the same, (C, 1,
+P), as the kinematic FFI forward hands them to K3.  There float32
+``tiled`` K3 is ``tiled_fed``: its entries folded once a call and fed to
+its blocks by bulk copies; ``tiled_block`` is the ``tiled`` body, each
+block folding its own entries, timed in turns with it.
 Each variant must sit within the stack's bar, 1e-5 · Σ_p |slip| ·
 Σ_corners |w| · max|data| per (chain, target), of the plain version on
 the same library and equal itself on a second call; ``tiled`` and
@@ -23,7 +29,15 @@ No kernel profiler runs on every machine, so ``--ablate`` also times
 builds of the body the plan picks (``tiled`` or ``mma``) with parts of it
 left out (``-DBEAT_ABLATE``: the fold of the per-chain entries, the tile
 copies, the sums and, for ``mma``, the products and the ldmatrix loads),
-beside the whole build; such builds compute nothing of use.
+beside the whole build; such builds compute nothing of use.  The fed
+``tiled`` body (``tiled_fed``) is timed as the fold's launch and the
+stack's: ``no_fold`` leaves the fold's launch out (its entries stay those
+of the whole build's fold), ``no_copies`` the bulk copies after the first
+two of each kind, and ``halfway`` is the build whose variant 3 runs the
+halfway design instead (the entries folded once a call, each block's
+summing threads copying them and the cell tiles by cp.async; equal to the
+fed body bit for bit), timed against the whole build in four rounds of
+turns (whole, halfway, halfway, whole).
 """
 
 from __future__ import annotations
@@ -41,9 +55,11 @@ VARIANTS = {"k3": ("mma", "tiled", "gather"), "k4": ("tiled", "gather")}
 STACK_RTOL = 1e-5
 #: --ablate: the builds timed beside the whole one, by the body they cut
 BUILDS = {"no_fold": 1, "no_copies": 2, "sums_only": 3, "no_sums": 4, "copies_only": 5,
-          "no_mma": 8, "no_ldmatrix": 16}
+          "no_mma": 8, "no_ldmatrix": 16, "halfway": 32}
 ABLATED = {"tiled": ("no_fold", "no_copies", "sums_only", "no_sums", "copies_only"),
-           "mma": tuple(BUILDS)}
+           "mma": ("no_fold", "no_copies", "sums_only", "no_sums", "copies_only", "no_mma",
+                   "no_ldmatrix")}
+ABLATED["tiled_fed"] = ABLATED["tiled"]
 
 
 def main() -> int:
@@ -52,7 +68,7 @@ def main() -> int:
     from beat_tpu_torch.ffi import SeismicGFLibrary
     from beat_tpu_torch.kernels.build import build, launch, load
     from beat_tpu_torch.ops.gfstack import (_ENTRIES, _VARIANT_CODES, _clamp_cells,
-                                            group_cells, plan_stack, stack_batched,
+                                            _fold_shape, _launch, group_cells, plan_stack,
                                             stack_batched_reference, stack_operands)
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -63,6 +79,8 @@ def main() -> int:
     ap.add_argument("--k3-only", action="store_true", help="leave K4 out")
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--ablate", action="store_true")
+    ap.add_argument("--shared-onsets", action="store_true",
+                    help="every target on the same onsets, (C, 1, P)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("bench_torch_stack: CUDA is not available", file=sys.stderr)
@@ -103,29 +121,37 @@ def main() -> int:
         if rtf is not None:
             wabs = (rtf.abs() + (1 - rtf).abs())[:, None, :] * (stf.abs() + (1 - stf).abs())
         bar = STACK_RTOL * (slips.abs()[:, None, :] * wabs).sum(-1) * lib.data.float().abs().max()
-        plan = plan_stack(T, P, D, S, N, C, corners, elem_bytes=elem)
-        r = {"plan": plan.variant, "reuse": min(C, 512) * corners / (D * S)}
-        variants = []
+        shared = sidx.shape[1] == 1
+        plan = plan_stack(T, P, D, S, N, C, corners, elem_bytes=elem, shared_onsets=shared)
+        body = plan.variant
+        r = {"plan": body, "reuse": min(C, 512) * corners / (D * S)}
+        plans = {}
         for v in VARIANTS["k3" if corners == 4 else "k4"]:
             try:
-                plan_stack(T, P, D, S, N, C, corners, variant=v, elem_bytes=elem)
-                variants.append(v)
+                plans[v] = plan_stack(T, P, D, S, N, C, corners, variant=v, elem_bytes=elem,
+                                      shared_onsets=shared)
             except ValueError:                      # cannot run at this shape or type
                 pass
+        if "tiled" in plans and plans["tiled"].variant == "tiled_fed":
+            plans["tiled_block"] = plan_stack(T, P, D, S, N, C, corners, variant="tiled",
+                                              elem_bytes=elem)
+        variants = list(plans)
         ok, outs = True, {}
         for v in variants:
-            got = stack_batched(lib.data, didx, sidx, slips, rtf, stf, variant=v)
-            again = stack_batched(lib.data, didx, sidx, slips, rtf, stf, variant=v)
+            got = _launch(lib.data, didx, sidx, slips, rtf, stf, plans[v])
+            again = _launch(lib.data, didx, sidx, slips, rtf, stf, plans[v])
             torch.cuda.synchronize()
             r[f"{v}_worst_err_over_bar"] = float(((got - ref).abs().amax(-1) / bar).max())
             r[f"{v}_deterministic"] = bool(torch.equal(got, again))
             ok &= r[f"{v}_worst_err_over_bar"] <= 1.0 and r[f"{v}_deterministic"]
             outs[v] = got
-        if "tiled" in outs:
-            r["tiled_equals_gather"] = bool(torch.equal(outs["tiled"], outs["gather"]))
-            ok &= r["tiled_equals_gather"]
+        for v in ("tiled", "tiled_block"):
+            if v in outs:
+                r[f"{v}_equals_gather"] = bool(torch.equal(outs[v], outs["gather"]))
+                ok &= r[f"{v}_equals_gather"]
+        outs_fed = outs.get("tiled") if body == "tiled_fed" else None
         del outs, ref
-        runs = {v: (lambda v=v: stack_batched(lib.data, didx, sidx, slips, rtf, stf, variant=v))
+        runs = {v: (lambda v=v: _launch(lib.data, didx, sidx, slips, rtf, stf, plans[v]))
                 for v in variants}
         times = {v: [] for v in variants}
         for v in variants + variants[::-1]:
@@ -134,25 +160,43 @@ def main() -> int:
         r["fastest"] = min(variants, key=lambda v: r[f"{v}_ms"])
         if corners == 4:
             r["group_cells"] = group_cells(*_clamp_cells(lib.data, didx, sidx, True))
-        if args.ablate and plan.variant in ABLATED:
+        if args.ablate and body in ABLATED:
             tensors, strides = stack_operands(didx, sidx, slips, rtf, stf)
             out = torch.empty((C, T, N), device=dev)
             entry_name = _ENTRIES[lib.data.dtype][0 if corners == 4 else 1]
+            fed = body == "tiled_fed"
+            folded = torch.empty(_fold_shape(C, P, plan), device=dev) if fed else None
 
             def run(built):
-                rc = launch(dev, getattr(built, entry_name), lib.data.data_ptr(),
-                            *(x.data_ptr() for x in tensors), out.data_ptr(), C, T, P, D, S, N,
-                            *strides, _VARIANT_CODES[plan.variant], plan.lanes,
-                            plan.chunk_shift)
+                rc = 0
+                if fed:
+                    rc = launch(dev, built.beat_gf_stack_fold_f32,
+                                *(x.data_ptr() for x in tensors), folded.data_ptr(), C, P, D,
+                                S, strides[0], strides[1], strides[3], strides[4], strides[5],
+                                plan.lanes, plan.chunk_shift)
+                rc = rc or launch(dev, getattr(built, entry_name), lib.data.data_ptr(),
+                                  *(x.data_ptr() for x in tensors), out.data_ptr(), C, T, P, D,
+                                  S, N, *strides, _VARIANT_CODES[body], plan.lanes,
+                                  plan.chunk_shift, folded.data_ptr() if fed else None)
                 if rc != 0:
                     raise RuntimeError(f"launch failed: cudaError {rc}")
 
             whole, _ = load("gfstack")
-            r["ablate"] = {"body": plan.variant, "whole": ms(lambda: run(whole))}
-            for build_name in ABLATED[plan.variant]:
+            r["ablate"] = {"body": body, "whole": ms(lambda: run(whole))}
+            for build_name in ABLATED[body]:
                 ablated, _ = load("gfstack", (f"-DBEAT_ABLATE={BUILDS[build_name]}",))
                 r["ablate"][build_name] = ms(lambda: run(ablated))
             r["ablate"]["whole_again"] = ms(lambda: run(whole))
+            if fed:
+                half, _ = load("gfstack", (f"-DBEAT_ABLATE={BUILDS['halfway']}",))
+                run(half)
+                torch.cuda.synchronize()
+                r["ablate"]["halfway_equals_fed"] = bool(torch.equal(out, outs_fed))
+                turns = {"whole": [], "halfway": []}
+                for _ in range(4):
+                    for name in ("whole", "halfway", "halfway", "whole"):
+                        turns[name].append(ms(lambda: run(whole if name == "whole" else half)))
+                r["ablate"]["turns"] = turns
         return r, ok
 
     def one_case(T, P, D, S, N, C):
@@ -165,9 +209,10 @@ def main() -> int:
             return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
 
         durations = uniform((C, P), 0.2, 0.5 * D + 0.5)
-        starttimes = uniform((C, T, P), -0.5, 0.25 * S + 1.0)
+        starttimes = uniform((C, 1 if args.shared_onsets else T, P), -0.5, 0.25 * S + 1.0)
         slips = uniform((C, P), 0.0, 3.0)
-        result, ok = {"shape": [T, P, D, S, N], "chains": C}, True
+        result = {"shape": [T, P, D, S, N], "chains": C, "shared_onsets": args.shared_onsets}
+        ok = True
         kernels = (("k3", "multilinear"),) + (() if args.k3_only else (("k4", "nearest_neighbor"),))
         for dtype in (torch.float32, torch.bfloat16):
             lib = lib32 if dtype == torch.float32 else lib32.to_dtype(dtype)
